@@ -1,0 +1,1 @@
+"""Attention ops and the hand-written CUDA kernels behind them."""

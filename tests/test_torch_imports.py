@@ -1,0 +1,81 @@
+"""The port stands alone: no module of `polyaxon_tpu_torch/` nor
+`chip_smoke.py` imports JAX, its libraries or the JAX package, and every
+entry point defaults to the card and raises without one."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from polyaxon_tpu_torch import DEFAULT_DEVICE, resolve_device
+from polyaxon_tpu_torch.models import build_model
+from polyaxon_tpu_torch.models.transformer import Transformer, _make_config
+from polyaxon_tpu_torch.serving.server import ModelServer
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "polyaxon_tpu")
+SOURCES = sorted((REPO / "polyaxon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_import_walk_sees_the_package():
+    names = {p.name for p in SOURCES}
+    assert {"flash_attention.py", "transformer.py", "server.py", "chip_smoke.py"} <= names
+    assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    assert DEFAULT_DEVICE == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    cfg = _make_config(dict(dim=32, n_layers=1, n_heads=2, n_kv_heads=1,
+                            vocab_size=16, seq_len=16))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model("transformer_lm", dict(dim=32, n_layers=1, n_heads=2, vocab_size=16))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelServer(Transformer(cfg, device="cpu"))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd: Path, script: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # as on a machine without a card
+    return subprocess.run(
+        [sys.executable, str(script)], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO, REPO / "chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    proc = _run_smoke(tmp_path, alone)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,191 @@
+"""The PyTorch port's transformer against the JAX package's, on the CPU.
+
+Both sides get the same weights: the JAX module's param tree is redrawn
+from a numpy seed and carried into the port by `params_from_jax`. The
+JAX flash backend runs its Pallas kernel in interpret mode, as the JAX
+package's own tests run it; the port's flash backend runs its plain
+version on CPU tensors. Logits agree within 1e-4 (f32 on both sides; the
+difference is the order of f32 sums)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from polyaxon_tpu.models import build_model as jax_build_model
+from polyaxon_tpu.models.transformer import _make_config as jax_make_config
+from polyaxon_tpu_torch.models import build_model
+from polyaxon_tpu_torch.models.convert import params_from_jax
+from polyaxon_tpu_torch.models.transformer import Transformer, _make_config
+
+SMALL = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=256, seq_len=128)
+LOGIT_TOL = 1e-4
+
+
+def jax_lm(overrides=None, seed=0):
+    """(JAX module, params as a nested numpy dict) at the small size, with
+    every weight redrawn from `seed`: kernels N(0, 1/fan_in), LoRA B a
+    tenth of that (so alpha/r does not blow the residual stream up), norm
+    scales 1 + N(0, 0.01): no factor is a trivial zero or one."""
+    bundle = jax_build_model("transformer_lm", {**SMALL, **(overrides or {})})
+    params = bundle.module.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 8), jnp.int32), train=False
+    )["params"]
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, a):
+        if a.ndim == 1:
+            return (1.0 + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        w = rng.standard_normal(a.shape) / np.sqrt(a.shape[0])
+        if "lora_b" in jax.tree_util.keystr(path):
+            w *= 0.1
+        return w.astype(np.float32)
+
+    return bundle.module, jax.tree_util.tree_map_with_path(redraw, params)
+
+
+def torch_lm(jax_module, params_np, **overrides):
+    """The port's Transformer on the CPU holding the same weights."""
+    cfg = dataclasses.replace(
+        _make_config(dataclasses.asdict(jax_module.cfg)), **overrides
+    )
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(params_np, cfg))
+    return model.eval()
+
+
+def tokens(B=2, S=64, vocab=256, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
+
+
+def _both_logits(overrides, attention):
+    module, params = jax_lm({**overrides, "attention": attention})
+    toks = tokens()
+    ref = np.asarray(module.apply({"params": params}, jnp.asarray(toks), train=False))
+    model = torch_lm(module, params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(toks).long()).numpy()
+    return out, ref
+
+
+@pytest.mark.parametrize("attention", ["flash", "xla"])
+def test_forward_matches_jax(attention):
+    out, ref = _both_logits({}, attention)
+    assert out.shape == ref.shape == (2, 64, 256)
+    np.testing.assert_allclose(out, ref, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{"lora_rank": 4}, {"tie_embeddings": True},
+     {"lora_rank": 2, "lora_targets": ("q_proj", "down_proj")}],
+    ids=["lora", "tied", "lora-targets"],
+)
+def test_forward_variants_match_jax(overrides):
+    out, ref = _both_logits(overrides, "flash")
+    np.testing.assert_allclose(out, ref, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    if overrides.get("tie_embeddings"):
+        assert out.dtype == np.float32
+
+
+def test_features_match_jax():
+    module, params = jax_lm({"attention": "xla"})
+    toks = tokens(B=1, S=32)
+    ref = module.apply(
+        {"params": params}, jnp.asarray(toks), train=False, return_features=True
+    )
+    with torch.no_grad():
+        out = torch_lm(module, params)(torch.from_numpy(toks).long(), return_features=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize(
+    "config",
+    [
+        {"preset": "llama3-1b"},
+        {"variant": "8B", "max_len": 4096},
+        {"preset": "tiny", "lora": {"rank": 4, "alpha": 8, "targets": ["q_proj"]}},
+        {"dim": 96, "n_heads": 3, "draft": None, "dropout_rate": 0.1},
+    ],
+)
+def test_make_config_matches_jax(config):
+    """Every field the port keeps equals the reference's; the reference's
+    training-only and unported fields are not carried."""
+    ours = dataclasses.asdict(_make_config(config))
+    ref = dataclasses.asdict(jax_make_config(config))
+    assert ours == {name: ref[name] for name in ours}
+    assert not {"draft", "fused_lm_loss", "dropout_rate"} & set(ours)
+
+
+@pytest.mark.parametrize(
+    "config",
+    [{"draft": {"n_layers": 1, "dim": 48}}, {"fused_lm_loss": True}],
+    ids=["draft", "fused_lm_loss"],
+)
+def test_unported_config_keys_raise(config):
+    with pytest.raises(NotImplementedError, match=next(iter(config))):
+        _make_config({**SMALL, **config})
+
+
+def test_unknown_preset_raises():
+    with pytest.raises(ValueError, match="unknown preset"):
+        _make_config({"preset": "llama3-70b"})
+
+
+@pytest.mark.parametrize(
+    "field",
+    [{"n_experts": 4}, {"pipeline_stages": 2}, {"quant": "int8"},
+     {"adapter_slots": 2}, {"scan_layers": True}],
+    ids=lambda f: next(iter(f)),
+)
+def test_unported_config_fields_raise(field):
+    with pytest.raises(NotImplementedError, match=next(iter(field))):
+        Transformer(_make_config({**SMALL, **field}), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"pages": torch.zeros(1, 1)}, {"kv_layout": object()}, {"prefix_len": 4},
+     {"prefix_lens": torch.zeros(1)}, {"adapter_ix": torch.zeros(1)},
+     {"pos": torch.zeros(1, dtype=torch.long)}],
+    ids=["pages", "kv_layout", "prefix_len", "prefix_lens", "adapter_ix", "per-row-pos"],
+)
+def test_unported_decode_arguments_raise(kwargs):
+    model = Transformer(_make_config(SMALL), device="cpu")
+    cache = model.make_cache(1)
+    with pytest.raises(NotImplementedError):
+        model(torch.zeros(1, 1, dtype=torch.long), cache=cache, **kwargs)
+
+
+def test_pad_without_cache_raises():
+    model = Transformer(_make_config(SMALL), device="cpu")
+    with pytest.raises(ValueError, match="pad"):
+        model(torch.zeros(1, 4, dtype=torch.long), pad=torch.zeros(1))
+
+
+def test_seeded_init_is_deterministic():
+    a = build_model("transformer_lm", SMALL, device="cpu", seed=3).module
+    b = build_model("transformer_lm", SMALL, device="cpu", seed=3).module
+    c = build_model("transformer_lm", SMALL, device="cpu", seed=4).module
+    for (name, pa), pb, pc in zip(
+        a.state_dict().items(), b.state_dict().values(), c.state_dict().values()
+    ):
+        assert torch.equal(pa, pb), name
+        if name.endswith("weight"):
+            assert not torch.equal(pa, pc), name
+    assert set(a.state_dict()) == set(params_from_jax(jax_lm()[1], a.cfg))
+
+
+def test_bf16_model_keeps_f32_norm_scales():
+    model = build_model(
+        "llama", {**SMALL, "hidden_dim": 128}, device="cpu", dtype=torch.bfloat16
+    ).module
+    assert model.cfg.dim == 64  # explicit fields win over the llama preset
+    assert model.layers[0].attention.q_proj.weight.dtype == torch.bfloat16
+    assert model.final_norm.scale.dtype == torch.float32
+    with torch.no_grad():
+        out = model(torch.zeros(1, 8, dtype=torch.long))
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
