@@ -5,33 +5,49 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from the
 checkout's sources, holds each against its plain PyTorch version, then
-drives the port's main path at the full width of the `llama3-1b` preset
-(bf16, random weights from a fixed seed):
+drives the port's two main paths at the full width of the `llama3-1b`
+preset (random weights from a fixed seed): inference, then training.
 
-1. build   — nvcc the kernel sources, print the build seconds;
-2. kernel  — each kernel against its plain version at the main-path shape
-             and a few others, with the kernel's median ms, the plain
-             version's, one PyTorch library call's (a yardstick the port
-             never calls) and the card's lower bound for the same work;
-3. forward — the full-sequence forward on [1, 4096] tokens through the
-             flash kernel (one launch per layer); its bf16 logits must sit
-             as close to an f32 copy of the same weights as the bf16
-             einsum-attention path does;
-4. serve   — a ModelServer answering three POST /generate requests over
-             HTTP, each equal to a direct generate() call, and GET /healthz.
+1. build     — nvcc the kernel sources, all at once, with their ptxas
+               reports;
+2. kernel    — the forward kernel, then the backward kernels (dq, dk/dv),
+               against their plain versions at the main-path shape and a
+               few others, with each kernel's median ms, the plain
+               version's, one PyTorch library call's (a yardstick the port
+               never calls) and the card's lower bound for the same work;
+               then the whole autograd chain (forward kernel, both
+               backward kernels) against autograd through the plain
+               forward, with a cotangent on lse;
+3. forward   — the full-sequence forward on [1, 4096] tokens through the
+               flash kernel (one launch per layer); its bf16 logits must
+               sit as close to an f32 copy of the same weights as the bf16
+               einsum-attention path does;
+4. serve     — a ModelServer answering three POST /generate requests over
+               HTTP, each equal to a direct generate() call, and GET
+               /healthz;
+5. train     — `Trainer(program).run()`: 8 AdamW steps on [1, 4096]
+               synthetic_text tokens, mixed precision, remat, fused LM
+               loss, flash attention, with a profiler window over one step;
+               every loss finite, the last below the first, each kernel
+               launched the expected number of times per step;
+6. train-vs-einsum — 3 steps from the same weights with `attention:
+               flash` and `attention: xla` at [1, 2048]: per-step loss and
+               grad_norm, and the distance of the updated weights.
 
-Every phase prints one JSON line; any failed check raises and the script
-exits non-zero. The kernel counters are zeroed just before phases 3-4 and
-read just after, so `launches` counts the main path only. The last lines
-are the kernels JSON line, the card's name and power limit from
-nvidia-smi, and {"ok": true, "device": {...}}. Without CUDA, or without
-the rest of the checkout beside it, it exits non-zero and prints no result.
+Every phase prints JSON lines; any failed check raises and the script exits
+non-zero. The kernel counters are zeroed just before each main path
+(phases 3-4, then phase 5) and read just after it, so `launches` counts the
+main paths only. The last lines are the kernels JSON line, the card's name
+and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+Without CUDA, or without the rest of the checkout beside it, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,14 +56,19 @@ import urllib.request
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+ARTIFACTS = HERE / "build" / "chip_smoke"  # the train phase's profile trace
 
 # NVIDIA H100 SXM data sheet, dense: tensor-core bf16, CUDA-core f32, HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 PRESET = "llama3-1b"
 FORWARD_TOKENS = 4096
-FLASH_SOURCE = "polyaxon_tpu_torch/ops/csrc/flash_fwd.cu"
-FLASH_REPLACES = "polyaxon_tpu/ops/flash_attention.py:35"
+CSRC = "polyaxon_tpu_torch/ops/csrc"
+KERNEL_ROWS = {  # name → (source, the TPU kernel it replaces)
+    "flash_fwd": (f"{CSRC}/flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:35"),
+    "flash_dq": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:128"),
+    "flash_dkv": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:176"),
+}
 # o is held per row: max |err| over the head_dim vector of each (b, s, h)
 # over that row's max |o_ref|, so the late causal rows, whose |o| is small
 # (an average over thousands of keys), are held as tightly as the early
@@ -67,6 +88,42 @@ FORWARD_REL_FLOOR = 1e-2
 # tokens, NVIDIA H100 80GB HBM3 at 700 W), about the 0.0153 that either
 # bf16 path reads against f32; the limit leaves 1.5x room
 FORWARD_REL_VS_EINSUM = 2.5e-2
+# dq, dk and dv are held per row like o (max |err| of each (b, s, head)
+# vector over that row's max |ref|). bf16: both sides round ds (and p) to
+# bf16 at the same points from nearly the same f32 values, so those
+# roundings rarely differ; each side rounds its output to bf16 (2^-8
+# relative), so the two may sit 2^-7 apart; 2^-6 leaves 2x room. f32: sum
+# order only, 1e-4 (ds = p * (dp - delta) may cancel).
+BWD_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+# the autograd chain in f32 at the main shape, per row: sum order only
+CHAIN_TOL = 1e-4
+TRAIN_TOKENS = 4096
+TRAIN_STEPS = 8
+TRAIN_PROGRAM = {
+    "model": {"name": "transformer_lm", "config": {
+        "preset": PRESET, "attention": "flash", "fused_lm_loss": True}},
+    "data": {"name": "synthetic_text", "batchSize": 1,
+             "config": {"seq_len": TRAIN_TOKENS, "vocab_size": 128256}},
+    "optimizer": {"name": "adamw", "learningRate": 3e-4,
+                  "schedule": {"name": "cosine", "warmup_steps": 2}},
+    "train": {"steps": TRAIN_STEPS, "logEvery": 1, "precision": "mixed",
+              "remat": True, "profileStart": 1, "profileStop": 2},
+}
+# launches per training step, from the code: each layer's attention runs
+# the forward kernel once in the forward and once more when remat
+# recomputes the forward for the backward, and each backward kernel once
+PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}  # x n_layers
+EINSUM_TOKENS = 2048  # the einsum path keeps [32, S, S] scores per layer
+EINSUM_STEPS = 3
+# flash vs einsum training, both bf16, from the same weights (per-step
+# loss and grad_norm relative; the update's relative Frobenius distance):
+# limits set from one reading with 1.5x room: 3.19e-5, 5.93e-4 and 0.0458
+# (NVIDIA H100 80GB HBM3, 700 W). Both paths round to bf16 at different
+# points (flash rounds the unnormalised p before P.V, the einsum path the
+# normalised probabilities); Adam turns that noise in the smallest
+# gradients into sign flips of their updates, so the updates differ far
+# more than the losses do.
+TRAIN_VS_EINSUM = {"loss": 5e-5, "grad_norm": 9e-4, "update": 7e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -101,10 +158,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def row_rel_err(out, ref) -> float:
-    """max over rows of max |out - ref| / max |ref|; a row is the last dim."""
+    """max over rows of max |out - ref| / max |ref|; a row is the last dim.
+    A row whose max |ref| is below a thousandth of the whole tensor's (dq of
+    the first causal query is 0 up to rounding) is held against that
+    thousandth instead, so rounding noise on a vanishing row is not read as
+    a relative error of 1e24."""
     out, ref = out.float(), ref.float()
     err = (out - ref).abs().amax(-1)
-    return (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+    scale = ref.abs().amax(-1)
+    floor = max(1e-3 * scale.max().item(), 1e-30)
+    return (err / scale.clamp_min(floor)).max().item()
 
 
 def attention_bound(B, S, H, KV, D, causal, dtype) -> tuple[float, str]:
@@ -122,21 +185,31 @@ def attention_bound(B, S, H, KV, D, causal, dtype) -> tuple[float, str]:
 
 
 def phase_build() -> None:
+    """nvcc every kernel source at once (one compiler per source)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from polyaxon_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    path = _build.build("flash_fwd")
-    _build.load("flash_fwd")
-    log = path.with_name(path.name + ".log")
-    ptxas = [
-        ln.strip() for ln in log.read_text().splitlines()
-        if "Used" in ln or "spill" in ln
-    ] if log.exists() else []
-    emit({
-        "phase": "build", "kernel": "flash_fwd",
-        "seconds": time.perf_counter() - t0,
-        "library": str(path.relative_to(HERE)), "ptxas": ptxas,
-    })
+    names = sorted({Path(src).stem for src, _ in KERNEL_ROWS.values()})
+
+    def build(name):
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        return name, path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    for name, path, seconds in built:
+        _build.load(name)
+        log = path.with_name(path.name + ".log")
+        ptxas = [
+            ln.strip() for ln in log.read_text().splitlines()
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln
+        ] if log.exists() else []
+        emit({
+            "phase": "build", "source": name, "seconds": seconds,
+            "library": str(path.relative_to(HERE)), "ptxas": ptxas,
+        })
 
 
 KERNEL_CASES = [
@@ -149,6 +222,8 @@ KERNEL_CASES = [
          dtype="bfloat16", block_q=64, block_kv=256),
     dict(case="short-seq-gqa8-f32", B=3, S=48, H=8, KV=1, D=64, causal=True,
          dtype="float32", block_q=16, block_kv=48),
+    dict(case="seq-200-gqa2-bf16", B=1, S=200, H=4, KV=2, D=64, causal=False,
+         dtype="bfloat16", block_q=8, block_kv=40),
 ]
 
 
@@ -218,6 +293,165 @@ def phase_kernels() -> dict:
         del q, k, v, o, lse, o_ref, lse_ref, lib_o
         torch.cuda.empty_cache()
     return results["main"]
+
+
+def backward_bound(B, S, H, KV, D, causal, dtype) -> dict:
+    """Least time for dq and for dk/dv: operations (dq 3 products, 6 ops per
+    (query, key) pair and head dim; dk/dv 4 products, 8) over the dtype's
+    peak, or each input read and output written once over HBM rate."""
+    import torch
+
+    pairs = S * (S + 1) // 2 if causal else S * S
+    size = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_OPS[str(dtype).removeprefix("torch.")]
+    q_bytes, kv_bytes, stats = size * B * S * H * D, size * B * S * KV * D, 8 * B * H * S
+    out = {}
+    for name, ops_per, written in (
+        ("flash_dq", 6, q_bytes), ("flash_dkv", 8, 2 * kv_bytes)
+    ):
+        t_ops = ops_per * B * H * pairs * D / peak
+        t_bytes = (2 * q_bytes + 2 * kv_bytes + stats + written) / PEAK_BYTES_PER_S
+        out[name] = (
+            max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        )
+    return out
+
+
+def phase_backward_kernels() -> dict:
+    """Each case: dq, dk, dv of the kernels against the plain backward,
+    per row, with times. Returns the main case's rows by kernel name."""
+    import torch
+    from torch.nn import functional as F
+
+    from polyaxon_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for i, c in enumerate(KERNEL_CASES):
+        dtype = getattr(torch, c["dtype"])
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        B, S, H, KV, D, causal = c["B"], c["S"], c["H"], c["KV"], c["D"], c["causal"]
+        q, do = (
+            torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2)
+        )
+        k, v = (
+            torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2)
+        )
+        scale = D ** -0.5
+        with torch.no_grad():
+            o, lse = fa.flash_attention_lse(
+                q, k, v, causal=causal, block_q=c["block_q"], block_kv=c["block_kv"]
+            )
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def dq_kernel():
+            return fa.FLASH_DQ(q, k, v, do, lse, delta, causal=causal, scale=scale)
+
+        def dkv_kernel():
+            return fa.FLASH_DKV(q, k, v, do, lse, delta, causal=causal, scale=scale)
+
+        def plain():
+            return fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, do, delta, causal=causal
+            )
+
+        # yardstick only, the port never calls it: the backward of
+        # scaled_dot_product_attention (fwd+bwd minus fwd), dq and dk/dv
+        # together
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        ldo = do.transpose(1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=causal, enable_gqa=KV != H
+                )
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, enable_gqa=KV != H
+            )
+            return torch.autograd.grad(out, (lq, lk, lv), ldo)
+
+        got = (dq_kernel(), *dkv_kernel())
+        want = plain()
+        torch.cuda.synchronize()
+        tol = BWD_TOL[c["dtype"]]
+        errs = {
+            name: (row_rel_err(a, b), (a.float() - b.float()).abs().max().item())
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)
+        }
+        lib_err = {
+            name: row_rel_err(a.transpose(1, 2), b)
+            for name, a, b in zip(("dq", "dk", "dv"), lib_fwd_bwd(), want)
+        }
+        bounds = backward_bound(B, S, H, KV, D, causal, dtype)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        library_ms = cuda_ms(lib_fwd_bwd, reps=10) - cuda_ms(lib_fwd, reps=10)
+        times = {"flash_dq": cuda_ms(dq_kernel, reps=10),
+                 "flash_dkv": cuda_ms(dkv_kernel, reps=10)}
+        for name, outs in (("flash_dq", ("dq",)), ("flash_dkv", ("dk", "dv"))):
+            res = {
+                "phase": "kernel", "kernel": name, **c,
+                **{f"row_rel_err_{o}": errs[o][0] for o in outs},
+                **{f"max_abs_err_{o}": errs[o][1] for o in outs},
+                **{f"library_row_rel_err_{o}": lib_err[o] for o in outs},
+                "tol_row_rel": tol,
+                "ms": times[name],
+                "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+                "library_ms": library_ms, "library_covers": "dq, dk and dv",
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            }
+            emit(res)
+            if c["case"] == "main":
+                rows[name] = res
+        bad = {o: e[0] for o, e in errs.items() if not e[0] <= tol}
+        check(not bad, f"flash backward disagrees with its plain version on "
+                       f"{c['case']}: row-relative {bad} (tol {tol})")
+        del q, k, v, o, lse, do, delta, got, want, lq, lk, lv, ldo
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_autograd_chain() -> None:
+    """Forward kernel then both backward kernels through autograd, with
+    cotangents on o and lse, against autograd through the plain forward:
+    f32 at the main-path shape, per row."""
+    import torch
+
+    from polyaxon_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, KV, D = 1, FORWARD_TOKENS, 32, 8, 64
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    leaves = [
+        torch.randn(shape, generator=gen, device="cuda")
+        for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    ]
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    dlse = torch.randn((B, H, S), generator=gen, device="cuda")
+    before = [kern.launches for kern in fa.KERNELS]
+    grads = []
+    for fn in (fa.flash_attention_lse, fa.flash_attention_reference):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        o, lse = fn(q, k, v, causal=True)
+        torch.autograd.backward([o, lse], [do, dlse])
+        grads.append((q.grad, k.grad, v.grad))
+        del o, lse, q, k, v
+        torch.cuda.empty_cache()
+    launched = [kern.launches - n for kern, n in zip(fa.KERNELS, before)]
+    errs = {
+        name: row_rel_err(a, b) for name, a, b in zip(("dq", "dk", "dv"), *grads)
+    }
+    emit({"phase": "kernel-chain", "B": B, "S": S, "H": H, "KV": KV, "D": D,
+          "dtype": "float32", "causal": True, "lse_cotangent": True,
+          **{f"row_rel_err_{k}": v for k, v in errs.items()}, "tol_row_rel": CHAIN_TOL,
+          "launches": dict(zip((k.name for k in fa.KERNELS), launched))})
+    check(launched == [1, 1, 1], f"the autograd chain launched {launched}")
+    check(all(e <= CHAIN_TOL for e in errs.values()),
+          f"autograd chain disagrees with the plain forward's: {errs}")
+    del grads, leaves
+    torch.cuda.empty_cache()
 
 
 def phase_forward(model) -> None:
@@ -337,6 +571,174 @@ def phase_serve(model) -> None:
         server.stop()
 
 
+def _device_time_us(evt) -> float:
+    """Self device time of a profiler row; the attribute's name changed
+    across PyTorch versions."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def phase_train() -> dict:
+    """`Trainer(program).run()` at llama3-1b width; returns the launches."""
+    import torch
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+    from polyaxon_tpu_torch.telemetry import train_step_flops
+
+    torch.cuda.reset_peak_memory_stats()
+    stamps, events = [], []
+
+    def log_fn(step, metrics):
+        stamps.append((step, time.perf_counter(), metrics))
+
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        TRAIN_PROGRAM, artifacts_dir=str(ARTIFACTS), log_fn=log_fn,
+        event_fn=lambda kind, body: events.append(kind),
+    )
+    build_s = time.perf_counter() - t0
+    cfg = trainer.module.cfg
+    for kern in KERNELS:  # the training path starts here
+        kern.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    run_s = t_end - t0
+    launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    losses = [h["loss"] for h in result.history]
+    # a log point is read one step late, so consecutive reads are one step
+    # apart on the device; the first interval holds the first step's set-up
+    gaps = [b[1] - a[1] for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(gaps[1:]) if len(gaps) > 1 else float("nan")
+    # ... and the rate over all the work after the profiled step, which a
+    # slow step moves. The profiler stops with a device sync and writes its
+    # trace just before the read of the step before it, so the device is
+    # idle at that read and the steps after the profiled one all run
+    # between it and the sync after run().
+    prof_stop = TRAIN_PROGRAM["train"]["profileStop"]
+    window_steps = TRAIN_STEPS - prof_stop
+    window_s = t_end - stamps[prof_stop - 2][1]
+    window_tokens_per_s = window_steps * TRAIN_TOKENS / window_s
+    n_params = sum(p.numel() for p in trainer.module.parameters())
+    # the reference's formula takes the model's seq_len (8192) in the
+    # attention term; the run feeds TRAIN_TOKENS per sequence
+    flops = train_step_flops(n_params, cfg.n_layers, cfg.dim, cfg.seq_len, TRAIN_TOKENS)
+    flops_fed = train_step_flops(n_params, cfg.n_layers, cfg.dim, TRAIN_TOKENS, TRAIN_TOKENS)
+    expected = {k: PER_STEP[k] * cfg.n_layers * TRAIN_STEPS for k in PER_STEP}
+    emit({
+        "phase": "train", "preset": PRESET, "tokens_per_step": TRAIN_TOKENS,
+        "steps": TRAIN_STEPS, "n_params": n_params, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in result.history],
+        "learning_rates": [h["learning_rate"] for h in result.history],
+        "launches": launches, "expected_launches": expected,
+        "build_seconds": build_s, "run_seconds": run_s,
+        "median_step_seconds": step_s, "tokens_per_s": TRAIN_TOKENS / step_s,
+        "window_seconds": window_s, "window_steps": window_steps,
+        "window_tokens_per_s": window_tokens_per_s,
+        "flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_OPS["bfloat16"],
+        "mfu_vs_989_tflops_fed_seq": flops_fed / step_s / PEAK_OPS["bfloat16"],
+        "mfu_vs_989_tflops_window": (
+            flops * window_tokens_per_s / TRAIN_TOKENS / PEAK_OPS["bfloat16"]),
+        # the trainer's own per-window MFU; the first window holds set-up
+        # and the last is read right after the one before it (as in the
+        # reference), so only the windows between are steady
+        "trainer_mfu_steady": [h.get("mfu") for h in result.history[1:-1]],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "events": events,
+    })
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    check(launches == expected, f"kernel launches {launches}, expected {expected}")
+    prof = trainer.profile
+    check(prof is not None, "the profile window produced no profiler")
+    # kernel rows only: operator rows and the device ranges of annotations
+    # (Optimizer.step#...) repeat their kernels' time
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=_device_time_us, reverse=True,
+    )
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
+    emit({
+        "phase": "train-profile", "step": 1, "kernel_ms_total": busy_ms,
+        "median_step_seconds": step_s,
+        "device_idle_share_vs_median_step": 1 - busy_ms / 1e3 / step_s,
+        "top_kernels": [
+            {"name": e.key[:90], "ms": _device_time_us(e) / 1e3, "count": e.count}
+            for e in kernels[:15]
+        ],
+    })
+    del trainer, result, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_vs_einsum() -> None:
+    """3 steps from the same weights with flash and with einsum attention,
+    both bf16 at [1, 2048]: per-step loss and grad_norm, and how far the
+    two updates of the weights are apart."""
+    import torch
+
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    def program(attention):
+        return {
+            **TRAIN_PROGRAM,
+            "model": {"name": "transformer_lm", "config": {
+                **TRAIN_PROGRAM["model"]["config"], "attention": attention}},
+            "data": {**TRAIN_PROGRAM["data"], "config": {
+                **TRAIN_PROGRAM["data"]["config"], "seq_len": EINSUM_TOKENS}},
+            "train": {"steps": EINSUM_STEPS, "logEvery": 1, "precision": "mixed",
+                      "remat": True},
+        }
+
+    runs, start = {}, None
+    for attention in ("flash", "xla"):
+        trainer = Trainer(program(attention))
+        if start is None:
+            start = {k: v.detach().to("cpu", copy=True)
+                     for k, v in trainer.module.state_dict().items()}
+        else:
+            trainer.load_state_dict(start)
+        history = trainer.run().history
+        final = {k: v.detach().to("cpu", copy=True)
+                 for k, v in trainer.module.state_dict().items()}
+        runs[attention] = (history, final)
+        del trainer
+        torch.cuda.empty_cache()
+    (h_flash, p_flash), (h_ein, p_ein) = runs["flash"], runs["xla"]
+    rel = {
+        key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(h_flash, h_ein))
+        for key in ("loss", "grad_norm")
+    }
+    num = den = dist = norm = 0.0
+    for k, p0 in start.items():
+        a, b, p0 = p_flash[k].cuda(), p_ein[k].cuda(), p0.cuda()
+        num += (a - b).float().pow(2).sum().item()
+        den += (b - p0).float().pow(2).sum().item()
+        norm += b.float().pow(2).sum().item()
+    rel["update"] = math.sqrt(num / den)
+    dist = math.sqrt(num / norm)
+    emit({
+        "phase": "train-vs-einsum", "tokens": EINSUM_TOKENS, "steps": EINSUM_STEPS,
+        "loss_flash": [h["loss"] for h in h_flash],
+        "loss_einsum": [h["loss"] for h in h_ein],
+        "grad_norm_flash": [h["grad_norm"] for h in h_flash],
+        "grad_norm_einsum": [h["grad_norm"] for h in h_ein],
+        "max_rel_diff_loss": rel["loss"], "max_rel_diff_grad_norm": rel["grad_norm"],
+        "rel_frobenius_update": rel["update"], "rel_frobenius_params": dist,
+        "limits": TRAIN_VS_EINSUM,
+    })
+    bad = {k: v for k, v in rel.items() if not v <= TRAIN_VS_EINSUM[k]}
+    check(not bad, f"flash training departs from einsum training: {bad}")
+
+
 def device_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -366,10 +768,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from polyaxon_tpu_torch.models import build_model
-    from polyaxon_tpu_torch.ops.flash_attention import FLASH_FWD
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
 
     phase_build()
-    main_case = phase_kernels()
+    rows = {"flash_fwd": phase_kernels(), **phase_backward_kernels()}
+    phase_autograd_chain()
     with torch.inference_mode():
         model = build_model(
             "transformer_lm", {"preset": PRESET, "attention": "flash"},
@@ -378,18 +781,31 @@ def main() -> int:
         warm = torch.zeros((1, FORWARD_TOKENS), dtype=torch.long, device="cuda")
         model(warm)  # first-call set-up (cuBLAS handles, allocator) outside the count
         torch.cuda.synchronize()
-        FLASH_FWD.launches = 0  # the main path starts here
+        for kern in KERNELS:  # the inference path starts here
+            kern.launches = 0
         phase_forward(model)
         phase_serve(model)
-        launches = FLASH_FWD.launches  # ... and ends here
-    check(launches > 0, "the main path never launched flash_fwd")
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": launches,
-        "max_abs_err": main_case["max_abs_err_o"], "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-    }]})
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        del model, warm
+    torch.cuda.empty_cache()
+    check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
+    for name, n in phase_train().items():
+        launches[name] += n
+    phase_train_vs_einsum()
+    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    emit({"kernels": [
+        {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": rows[name].get("max_abs_err_o", max(
+                v for k, v in rows[name].items() if k.startswith("max_abs_err_")
+            )),
+            "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+            "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
+            "library_ms": rows[name]["library_ms"],
+        }
+        for name, (src, replaces) in KERNEL_ROWS.items()
+    ]})
     print(device_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,17 @@ The JAX package `polyaxon_tpu/` is the reference; this package imports
 nothing of it (nor of JAX). Module names mirror the reference so each
 counterpart is easy to find:
 
-- `ops/flash_attention.py`: flash-attention forward, a hand-written
-  Hopper kernel (`ops/csrc/flash_fwd.cu`) on CUDA tensors, the plain
-  PyTorch version on CPU tensors;
+- `ops/flash_attention.py`: flash attention with its gradient, hand-written
+  Hopper kernels (`ops/csrc/flash_fwd.cu`, `ops/csrc/flash_bwd.cu`) on
+  CUDA tensors, the plain PyTorch versions on CPU tensors;
 - `ops/attention.py`: the attention backend dispatch;
+- `ops/losses.py`, `ops/optimizers.py`: the loss registry with the fused
+  LM-head loss, and optax's optimizers and schedules;
 - `models/transformer.py`, `models/convert.py`, `models/generate.py`,
   `models/registry.py`: the flagship LM and its dense-KV-cache decode;
+- `data/`, `schemas/program.py`, `telemetry/stats.py`: the token streams,
+  the `program:` block and the throughput formulas the trainer reads;
+- `runtime/trainer.py`: `Trainer`, single-GPU training of a program;
 - `serving/server.py`: `ModelServer`, the per-request `/generate` path.
 
 Entry points run on the card (`device="cuda"`) unless told otherwise.

@@ -11,10 +11,16 @@ projections and tied embeddings. Two attention paths, as in the reference:
   or one step (S == 1) at the scalar write position `pos`, with optional
   left-pad widths `pad`, attending the grouped cache by einsum.
 
+Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
+after the attention and after the MLP of each block, as the reference
+applies it), drawn from the `dropout_generator` handed to `forward`.
+`fused_lm_loss` / `fused_loss_chunk` are read by the model bundle's fused
+loss (`models/registry.py`), with `forward(return_features=True)`.
+
 Config fields this port does not serve yet raise NotImplementedError
 instead of being ignored: n_experts, pipeline_stages, quant,
-adapter_slots, scan_layers, the config keys draft and fused_lm_loss, and
-the paged / per-row / shared-prefix decode arguments.
+adapter_slots, scan_layers, the config key draft, and the paged / per-row
+/ shared-prefix decode arguments.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class TransformerConfig:
     seq_len: int = 512
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    dropout_rate: float = 0.0
     attention: str = "auto"  # auto | xla | flash (ring | ulysses: not ported)
     attention_block: int = 512  # kv block size handed to the flash backend
     lora_rank: int = 0
@@ -54,6 +61,10 @@ class TransformerConfig:
     scan_layers: bool = False  # not ported: must stay False
     n_experts: int = 0  # not ported: must stay 0
     pipeline_stages: int = 0  # not ported: must stay <= 1
+    # fuse the lm head into the loss (ops/losses.fused_linear_masked_lm):
+    # the [B,S,V] logits never exist
+    fused_lm_loss: bool = False
+    fused_loss_chunk: int = 8192
 
     @property
     def head_dim(self) -> int:
@@ -246,19 +257,38 @@ class FeedForward(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+def dropout(x, rate: float, generator=None):
+    """flax nn.Dropout in training: keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate). The mask comes from
+    `generator` (torch's default one when None); its draws differ from
+    jax.random's by construction."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, **factory):
         super().__init__()
+        self.cfg = cfg
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
         self.attention = Attention(cfg, **factory)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
         self.mlp = FeedForward(cfg, **factory)
 
-    def forward(self, x, cos, sin, *, cache=None, pos: int = 0, pad=None):
-        x = x + self.attention(
+    def forward(self, x, cos, sin, *, cache=None, pos: int = 0, pad=None,
+                generator=None):
+        rate = self.cfg.dropout_rate if self.training else 0.0
+        h = self.attention(
             self.attention_norm(x), cos, sin, cache=cache, pos=pos, pad=pad
         )
-        return x + self.mlp(self.mlp_norm(x))
+        if rate:
+            h = dropout(h, rate, generator)
+        x = x + h
+        h = self.mlp(self.mlp_norm(x))
+        if rate:
+            h = dropout(h, rate, generator)
+        return x + h
 
 
 class Transformer(nn.Module):
@@ -346,13 +376,17 @@ class Transformer(nn.Module):
         prefix_len: int = 0,
         prefix_lens=None,
         adapter_ix=None,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
         """tokens [B, S] → logits [B, S, vocab] (f32 with tied embeddings,
-        the model dtype otherwise).
+        the model dtype otherwise), or the final-norm features [B, S, dim]
+        with `return_features`.
 
         cache=None: the full-sequence forward. cache=make_cache(B): the
         dense-cache decode writing slots [pos, pos + S) in place; `pad` [B]
-        gives left-pad widths of a left-padded prompt batch."""
+        gives left-pad widths of a left-padded prompt batch. In training
+        mode dropout draws from `dropout_generator` (on the model's
+        device)."""
         unported = {
             "pages": pages is not None,
             "kv_layout": kv_layout is not None,
@@ -383,6 +417,7 @@ class Transformer(nn.Module):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
                 cache=None if cache is None else cache[i], pos=pos, pad=pad,
+                generator=dropout_generator,
             )
         x = self.final_norm(x)
         if return_features:
@@ -410,16 +445,14 @@ PRESETS: dict[str, dict] = {
 def _make_config(config: dict) -> TransformerConfig:
     """Polyaxonfile model config → TransformerConfig, with the reference's
     aliases: variant → preset, max_len → seq_len, lora: {rank, alpha,
-    targets} → lora_* fields. The reference's speculative `draft` model and
-    fused LM loss are not ported and raise NotImplementedError when set;
-    other keys outside TransformerConfig are dropped, as the reference
-    drops them."""
+    targets} → lora_* fields. The reference's speculative `draft` model is
+    not ported and raises NotImplementedError when set; other keys outside
+    TransformerConfig are dropped, as the reference drops them."""
     config = dict(config)
-    refused = [key for key in ("draft", "fused_lm_loss") if config.get(key)]
-    if refused:
+    if config.get("draft"):
         raise NotImplementedError(
-            f"model config keys {refused} (speculative draft model, fused LM "
-            "loss) are not ported to PyTorch yet (see ROADMAP.md)"
+            "model config key 'draft' (speculative draft model) is not "
+            "ported to PyTorch yet (see ROADMAP.md)"
         )
     variant = config.pop("variant", None)
     if variant is not None:

@@ -14,6 +14,7 @@ import torch
 from polyaxon_tpu_torch import DEFAULT_DEVICE, resolve_device
 from polyaxon_tpu_torch.models import build_model
 from polyaxon_tpu_torch.models.transformer import Transformer, _make_config
+from polyaxon_tpu_torch.runtime import Trainer
 from polyaxon_tpu_torch.serving.server import ModelServer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,7 +39,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_walk_sees_the_package():
     names = {p.name for p in SOURCES}
-    assert {"flash_attention.py", "transformer.py", "server.py", "chip_smoke.py"} <= names
+    assert {"flash_attention.py", "transformer.py", "server.py", "chip_smoke.py",
+            "losses.py", "optimizers.py", "trainer.py", "program.py",
+            "synthetic.py", "stats.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -55,6 +58,14 @@ def test_default_device_is_the_card(monkeypatch):
         build_model("transformer_lm", dict(dim=32, n_layers=1, n_heads=2, vocab_size=16))
     with pytest.raises(RuntimeError, match="cuda"):
         ModelServer(Transformer(cfg, device="cpu"))
+    program = {
+        "model": {"name": "transformer_lm", "config": dict(
+            dim=32, n_layers=1, n_heads=2, vocab_size=16, seq_len=16)},
+        "data": {"name": "synthetic_text", "config": {"seq_len": 16, "vocab_size": 16}},
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(program)
+    assert Trainer(program, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -71,10 +71,105 @@ def test_flash_fwd_reads_strided_inputs(cuda_device):
     assert (o - ref).abs().max().item() < 1e-4
 
 
-def test_flash_fwd_refuses_grad(cuda_device):
-    q = torch.randn(1, 64, 2, 32, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, q.detach(), q.detach())
+def test_flash_grad_flows_through_the_kernels(cuda_device):
+    """Autograd through flash_attention_lse launches the forward kernel once
+    and each backward kernel once, and its gradients (with cotangents on o
+    and lse) equal autograd through the plain forward (f32, 1e-4 of each
+    row: sum order only)."""
+    B, S, H, KV, D = 2, 256, 8, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    leaves = [
+        torch.randn(shape, generator=gen, device=cuda_device)
+        for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    ]
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda_device)
+    dlse = torch.randn(B, H, S, generator=gen, device=cuda_device)
+    before = [kern.launches for kern in fa.KERNELS]
+    grads = []
+    for fn in (fa.flash_attention_lse, fa.flash_attention_reference):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        o, lse = fn(q, k, v)
+        torch.autograd.backward([o, lse], [do, dlse])
+        grads.append([q.grad, k.grad, v.grad])
+    assert [kern.launches for kern in fa.KERNELS] == [n + 1 for n in before]
+    for ours, want in zip(*grads):
+        assert _row_rel(ours, want) < 1e-4
+
+
+def _row_rel(out, ref):
+    """max over rows (the last dim) of max |out - ref| / max |ref|, a row's
+    max |ref| floored at a thousandth of the tensor's (dq of the first
+    causal query is 0 up to rounding)."""
+    out, ref = out.float(), ref.float()
+    scale = ref.abs().amax(-1)
+    floor = max(1e-3 * scale.max().item(), 1e-30)
+    return ((out - ref).abs().amax(-1) / scale.clamp_min(floor)).max().item()
+
+
+def _bwd_inputs(B, S, H, KV, D, causal, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=device).to(dtype)
+        for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    )
+    do = torch.randn((B, S, H, D), generator=gen, device=device).to(dtype)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_lse(q, k, v, causal=causal, block_q=8, block_kv=8)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, o, lse, do, delta
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,dtype", KERNEL_CASES)
+def test_flash_bwd_matches_plain_version(cuda_device, B, S, H, KV, D, causal, dtype):
+    """dq, dk and dv held per row against flash_attention_bwd_reference.
+    bf16: within 2^-6 of the row. Both sides round ds (and p) to bf16 at
+    the same points from nearly the same f32 values, so those roundings
+    rarely differ; each side rounds its output to bf16 (2^-8 relative), so
+    the two may sit 2^-7 apart, and 2^-6 leaves 2x room. f32: 1e-4 of the
+    row (sum order only; ds = p * (dp - delta) can cancel)."""
+    q, k, v, o, lse, do, delta = _bwd_inputs(B, S, H, KV, D, causal, dtype, cuda_device)
+    before = (fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+    dq = fa.FLASH_DQ(q, k, v, do, lse, delta, causal=causal, scale=D ** -0.5)
+    dk, dv = fa.FLASH_DKV(q, k, v, do, lse, delta, causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_DQ.launches, fa.FLASH_DKV.launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, delta, causal=causal)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for ours, ref in zip((dq, dk, dv), want):
+        assert ours.dtype == dtype and ours.shape == ref.shape
+        assert _row_rel(ours, ref) < tol
+
+
+def test_flash_bwd_reads_strided_do(cuda_device):
+    """dO as a view with non-contiguous heads is read by stride, and the
+    kernels' results do not depend on the layout."""
+    B, S, H, KV, D = 2, 256, 4, 2, 64
+    q, k, v, o, lse, do, delta = _bwd_inputs(B, S, H, KV, D, True, torch.float32, cuda_device)
+    wide = torch.zeros(B, S, 2 * H, D, device=cuda_device)
+    wide[:, :, ::2] = do
+    strided = wide[:, :, ::2]
+    assert not strided.is_contiguous() and strided.stride(-1) == 1
+    got = (fa.FLASH_DQ(q, k, v, strided, lse, delta, causal=True, scale=D ** -0.5),
+           *fa.FLASH_DKV(q, k, v, strided, lse, delta, causal=True, scale=D ** -0.5))
+    dense = (fa.FLASH_DQ(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5),
+             *fa.FLASH_DKV(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5))
+    for a, b in zip(got, dense):
+        assert torch.equal(a, b)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, delta)
+    for a, b in zip(got, want):
+        assert _row_rel(a, b) < 1e-4
+
+
+def test_flash_bwd_is_deterministic(cuda_device):
+    """No atomics: two runs give the same bits."""
+    q, k, v, o, lse, do, delta = _bwd_inputs(1, 512, 8, 2, 64, True, torch.bfloat16, cuda_device)
+    runs = [
+        (fa.FLASH_DQ(q, k, v, do, lse, delta, causal=True, scale=0.125),
+         *fa.FLASH_DKV(q, k, v, do, lse, delta, causal=True, scale=0.125))
+        for _ in range(2)
+    ]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_fwd_refuses_unsupported_inputs(cuda_device):
@@ -84,6 +179,13 @@ def test_flash_fwd_refuses_unsupported_inputs(cuda_device):
     h = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention(h, h, h)
+    f = torch.randn(1, 64, 2, 64, device=cuda_device)
+    lse = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.FLASH_DQ(f, f, f, f.bfloat16(), lse, lse, causal=True, scale=0.1)
+    q48 = torch.randn(1, 64, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.FLASH_DKV(q48, q48, q48, q48, lse, lse, causal=True, scale=0.1)
 
 
 def test_model_forward_launches_once_per_layer(cuda_device):
@@ -98,3 +200,30 @@ def test_model_forward_launches_once_per_layer(cuda_device):
         out, want = model(tokens).float(), ref(tokens).float()
     assert fa.FLASH_FWD.launches == before + 3
     assert ((out - want).norm() / want.norm()).item() < 2e-2
+
+
+def test_training_step_launches_dq_and_dkv_once_per_layer(cuda_device):
+    """One optimizer step of a 3-layer model under `attention: flash`: the
+    forward kernel once per layer (no remat) and each backward kernel once
+    per layer; the step moves the loss like the einsum path's step."""
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    def program(attention):
+        return {
+            "model": {"name": "transformer_lm", "config": dict(
+                dim=128, n_layers=3, n_heads=4, n_kv_heads=2, vocab_size=512,
+                seq_len=256, attention=attention)},
+            "data": {"name": "synthetic_text", "batchSize": 2,
+                     "config": {"seq_len": 256, "vocab_size": 512}},
+            "train": {"steps": 2, "logEvery": 1, "precision": "mixed"},
+        }
+
+    flash = Trainer(program("flash"))
+    ref = Trainer(program("xla"))
+    ref.load_state_dict(flash.module.state_dict())
+    before = [kern.launches for kern in fa.KERNELS]
+    got = flash.run().history
+    assert [kern.launches - n for kern, n in zip(fa.KERNELS, before)] == [6, 6, 6]
+    want = ref.run().history
+    for a, b in zip(got, want):
+        assert abs(a["loss"] - b["loss"]) < 2e-2 * abs(b["loss"])

@@ -112,22 +112,33 @@ def test_features_match_jax():
     ],
 )
 def test_make_config_matches_jax(config):
-    """Every field the port keeps equals the reference's; the reference's
-    training-only and unported fields are not carried."""
+    """Every field the port keeps equals the reference's, the training
+    fields (dropout, fused loss) included; the unported draft model and the
+    MoE/pipeline tuning fields are not carried."""
     ours = dataclasses.asdict(_make_config(config))
     ref = dataclasses.asdict(jax_make_config(config))
     assert ours == {name: ref[name] for name in ours}
-    assert not {"draft", "fused_lm_loss", "dropout_rate"} & set(ours)
+    assert {"dropout_rate", "fused_lm_loss", "fused_loss_chunk"} <= set(ours)
+    assert not {"draft", "capacity_factor", "pipeline_microbatches"} & set(ours)
 
 
 @pytest.mark.parametrize(
     "config",
-    [{"draft": {"n_layers": 1, "dim": 48}}, {"fused_lm_loss": True}],
+    [{"draft": {"n_layers": 1, "dim": 48}},
+     {"fused_lm_loss": True, "fused_loss_chunk": 100}],
     ids=["draft", "fused_lm_loss"],
 )
 def test_unported_config_keys_raise(config):
-    with pytest.raises(NotImplementedError, match=next(iter(config))):
-        _make_config({**SMALL, **config})
+    """The speculative draft model is still refused; the fused LM loss is
+    ported now and carried as the reference carries it."""
+    if "draft" in config:
+        with pytest.raises(NotImplementedError, match="draft"):
+            _make_config({**SMALL, **config})
+        return
+    ours = _make_config({**SMALL, **config})
+    ref = jax_make_config({**SMALL, **config})
+    assert (ours.fused_lm_loss, ours.fused_loss_chunk) == (True, 100)
+    assert (ref.fused_lm_loss, ref.fused_loss_chunk) == (True, 100)
 
 
 def test_unknown_preset_raises():
@@ -189,3 +200,61 @@ def test_bf16_model_keeps_f32_norm_scales():
     with torch.no_grad():
         out = model(torch.zeros(1, 8, dtype=torch.long))
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+
+
+def _dropout_model(rate):
+    cfg = dict(SMALL, dropout_rate=rate, attention="xla")
+    return build_model("transformer_lm", cfg, device="cpu", seed=5).module
+
+
+def test_dropout_rate_zero_is_no_dropout():
+    model = _dropout_model(0.0)
+    toks = torch.from_numpy(tokens()).long()
+    with torch.no_grad():
+        want = model.eval()(toks)
+        got = model.train()(toks, dropout_generator=torch.Generator().manual_seed(1))
+    assert torch.equal(got, want)
+
+
+def test_dropout_eval_mode_is_the_identity():
+    """In eval mode dropout does nothing, so the output equals the same
+    weights with dropout_rate 0 — and the reference's eval output."""
+    module, params = jax_lm({"dropout_rate": 0.5, "attention": "xla"})
+    toks = tokens()
+    ref = module.apply({"params": params}, jnp.asarray(toks), train=False)
+    model = torch_lm(module, params)
+    assert model.cfg.dropout_rate == 0.5
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_zeroes_rate_and_rescales_the_rest(rate):
+    """flax's rule: keep with probability 1 - rate, scale kept elements by
+    1 / (1 - rate). The zeroed share is within 5 sigma of `rate`."""
+    from polyaxon_tpu_torch.models.transformer import dropout
+
+    x = torch.full((64, 1024), 3.0)
+    out = dropout(x, rate, torch.Generator().manual_seed(0))
+    dropped = (out == 0).float().mean().item()
+    sigma = (rate * (1 - rate) / x.numel()) ** 0.5
+    assert abs(dropped - rate) < 5 * sigma
+    kept = out[out != 0]
+    assert torch.equal(kept, torch.full_like(kept, 3.0) / (1 - rate))
+
+
+def test_dropout_mask_follows_the_generator_seed():
+    """The same seed (the trainer keys it by seed and step) gives the same
+    mask; another seed another one; training mode differs from eval."""
+    model = _dropout_model(0.3).train()
+    toks = torch.from_numpy(tokens()).long()
+
+    def run(seed):
+        with torch.no_grad():
+            return model(toks, dropout_generator=torch.Generator().manual_seed(seed))
+
+    assert torch.equal(run(7), run(7))
+    assert not torch.equal(run(7), run(8))
+    with torch.no_grad():
+        assert not torch.equal(run(7), model.eval()(toks))
