@@ -9,12 +9,16 @@ drives the port's two main paths at the full width of the `llama3-1b`
 preset (random weights from a fixed seed): inference, then training.
 
 1. build     — nvcc the kernel sources, all at once, with their ptxas
-               reports;
+               reports; then the SASS of the backward library
+               (`cuobjdump --dump-sass`): the HGMMA (wgmma) instructions of
+               each kernel instance, which every bf16 instance must have;
 2. kernel    — the forward kernel, then the backward kernels (dq, dk/dv),
                against their plain versions at the main-path shape and a
                few others, with each kernel's median ms, the plain
                version's, one PyTorch library call's (a yardstick the port
-               never calls) and the card's lower bound for the same work;
+               never calls) and the card's lower bound for the same work,
+               and for the backward kernels the TFLOP/s of their causal
+               work;
                then the whole autograd chain (forward kernel, both
                backward kernels) against autograd through the plain
                forward, with a cotangent on lse;
@@ -48,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +69,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PRESET = "llama3-1b"
 FORWARD_TOKENS = 4096
 CSRC = "polyaxon_tpu_torch/ops/csrc"
+# the bf16 backward instances, which must run their products as wgmma
+# (HGMMA in the SASS): dq and dk/dv at each head dim
+WGMMA_INSTANCES = [
+    f"{kernel}<{d}>" for kernel in ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
+    for d in (32, 64, 128)
+]
 KERNEL_ROWS = {  # name → (source, the TPU kernel it replaces)
     "flash_fwd": (f"{CSRC}/flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:35"),
     "flash_dq": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:128"),
@@ -139,21 +150,26 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
+    """Device time of one call: CUDA events around `reps` calls issued back
+    to back, over `reps`; the median of `rounds` such runs. The host
+    enqueues ahead of the device, so a call's launch overhead is hidden
+    wherever its device work outlasts it (events around a single call
+    count the host's gap before the launch as device time)."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -184,8 +200,32 @@ def attention_bound(B, S, H, KV, D, causal, dtype) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def hgmma_counts(library: Path) -> dict[str, int]:
+    """HGMMA (wgmma) instructions in each flash kernel instance of a built
+    library, from the CUDA toolkit's `cuobjdump --dump-sass`."""
+    from polyaxon_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "--dump-sass", str(library)],
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = re.search(r"(flash_d(?:q|kv)(?:_wgmma)?_kernel)I(f)?Li(\d+)E", line)
+            name = (f"{m.group(1)}<{'float, ' if m.group(2) else ''}{m.group(3)}>"
+                    if m else line.split("Function : ")[1].strip())
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
-    """nvcc every kernel source at once (one compiler per source)."""
+    """nvcc every kernel source at once (one compiler per source); then
+    the SASS of the backward library must hold HGMMA in every bf16
+    instance."""
     from concurrent.futures import ThreadPoolExecutor
 
     from polyaxon_tpu_torch.ops import _build
@@ -210,6 +250,11 @@ def phase_build() -> None:
             "phase": "build", "source": name, "seconds": seconds,
             "library": str(path.relative_to(HERE)), "ptxas": ptxas,
         })
+        if name == "flash_bwd":
+            counts = hgmma_counts(path)
+            emit({"phase": "build-sass", "source": name, "hgmma": counts})
+            missing = [k for k in WGMMA_INSTANCES if not counts.get(k)]
+            check(not missing, f"no HGMMA in the SASS of {missing}")
 
 
 KERNEL_CASES = [
@@ -223,6 +268,12 @@ KERNEL_CASES = [
     dict(case="short-seq-gqa8-f32", B=3, S=48, H=8, KV=1, D=64, causal=True,
          dtype="float32", block_q=16, block_kv=48),
     dict(case="seq-200-gqa2-bf16", B=1, S=200, H=4, KV=2, D=64, causal=False,
+         dtype="bfloat16", block_q=8, block_kv=40),
+    # the head width of an 8B-class Llama (D=128), causal GQA
+    dict(case="d128-causal-gqa4-bf16", B=1, S=2048, H=32, KV=8, D=128, causal=True,
+         dtype="bfloat16", block_q=128, block_kv=128),
+    # ragged S (200 is no multiple of the 64-row tiles), causal, GQA 2
+    dict(case="seq-200-causal-gqa2-bf16", B=1, S=200, H=4, KV=2, D=64, causal=True,
          dtype="bfloat16", block_q=8, block_kv=40),
 ]
 
@@ -298,7 +349,8 @@ def phase_kernels() -> dict:
 def backward_bound(B, S, H, KV, D, causal, dtype) -> dict:
     """Least time for dq and for dk/dv: operations (dq 3 products, 6 ops per
     (query, key) pair and head dim; dk/dv 4 products, 8) over the dtype's
-    peak, or each input read and output written once over HBM rate."""
+    peak, or each input read and output written once over HBM rate.
+    name → (bound ms, what bounds it, operations)."""
     import torch
 
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -309,10 +361,11 @@ def backward_bound(B, S, H, KV, D, causal, dtype) -> dict:
     for name, ops_per, written in (
         ("flash_dq", 6, q_bytes), ("flash_dkv", 8, 2 * kv_bytes)
     ):
-        t_ops = ops_per * B * H * pairs * D / peak
+        ops = ops_per * B * H * pairs * D
+        t_ops = ops / peak
         t_bytes = (2 * q_bytes + 2 * kv_bytes + stats + written) / PEAK_BYTES_PER_S
         out[name] = (
-            max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+            max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops
         )
     return out
 
@@ -402,6 +455,8 @@ def phase_backward_kernels() -> dict:
                 "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
                 "library_ms": library_ms, "library_covers": "dq, dk and dv",
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "x_bound": times[name] / bounds[name][0],
+                "tflops": bounds[name][2] / times[name] / 1e9,
             }
             emit(res)
             if c["case"] == "main":
@@ -673,6 +728,12 @@ def phase_train() -> dict:
             {"name": e.key[:90], "ms": _device_time_us(e) / 1e3, "count": e.count}
             for e in kernels[:15]
         ],
+        # the port's own kernels, wherever they rank
+        "flash_kernels": {
+            re.search(r"flash_\w+", e.key).group(0): {
+                "ms": _device_time_us(e) / 1e3, "count": e.count}
+            for e in kernels if re.search(r"flash_\w+_kernel", e.key)
+        },
     })
     del trainer, result, prof
     torch.cuda.empty_cache()

@@ -2,8 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface, so `nvcc` compiles it in
 seconds into `build/torch_kernels/lib<name>-<hash>.so` at the repository
-root (listed in `.gitignore`). The hash covers the source and the flags, so
-an edited source builds anew. A failed build raises; nothing falls back.
+root (listed in `.gitignore`). The hash covers the source, every file under
+`csrc/` that it includes (`#include "..."`, followed transitively) and the
+flags, so an edited source or header builds anew. CUTLASS's include path is
+added only for a source that includes CuTe or CUTLASS headers. A failed
+build raises; nothing falls back.
 
     from polyaxon_tpu_torch.ops._build import load
     lib = load("flash_fwd")
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CUTLASS_INCLUDE = "/usr/local/cutlass/include"
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+_CUTLASS_INCLUDE = re.compile(r"^\s*#\s*include\s*<(?:cute|cutlass)/", re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -49,16 +56,43 @@ def nvcc_path() -> str:
     )
 
 
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and the files under csrc/ it includes with quotes,
+    transitively, sorted by path."""
+    root = CSRC.resolve()
+    found: set[Path] = set()
+    todo = [root / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.add(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_relative_to(root) and dep.is_file():
+                todo.append(dep)
+    return sorted(found)
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """NVCC_FLAGS, plus CUTLASS's include path where a source uses it."""
+    if any(_CUTLASS_INCLUDE.search(p.read_text()) for p in sources(name)):
+        return (*NVCC_FLAGS, "-I", CUTLASS_INCLUDE)
+    return NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.relative_to(CSRC.resolve()).as_posix().encode() + b"\0")
+        digest.update(path.read_bytes())
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless this exact source is already built.
+    """Compile csrc/<name>.cu unless this exact source (with its headers)
+    is already built.
     The compiler's register/shared-memory report (-Xptxas -v) is kept
     beside the library as `<lib>.log`."""
     out = library_path(name)
@@ -66,7 +100,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -1,0 +1,231 @@
+// Hopper (sm_90a) building blocks for the port's tensor-core kernels:
+// asynchronous copies into shared memory, the swizzled tile layout that
+// wgmma's matrix descriptors read, and wgmma.mma_async itself.
+//
+// Tiles: a [64][D] bf16 tile lives in shared memory in the canonical layout
+// of wgmma's swizzled modes. D is cut into panels of PW columns (PW = 64 for
+// D >= 64: 128-byte rows and the 128-byte swizzle; PW = 32 for D = 32:
+// 64-byte rows and the 64-byte swizzle). A panel holds the tile's 64 rows,
+// one after another, and each 16-byte chunk of a row sits at its column
+// chunk XOR-ed with the row's bits (address bits [4,7) ^= bits [7,10) for
+// 128 bytes, [4,6) ^= [7,9) for 64), so the eight rows of a core matrix fall
+// on distinct banks. Panels start on 1024-byte boundaries, so the
+// descriptors' base offset is 0.
+//
+// The same tile serves both operand orders:
+// - K-major (the tile's columns are the product's K): rows are M or N, a
+//   k-slice of 16 columns starts 32 bytes further into the 128/64-byte row
+//   (the hardware applies the swizzle to the final address), SBO = 8 rows;
+// - MN-major (the tile's rows are K, its columns N; the transpose bit): a
+//   k-slice of 16 rows starts 16 rows further down, SBO = 8 rows, LBO = one
+//   panel (the next PW columns of N).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, asynchronous; `bytes` = 0 writes zeros (rows
+// past the sequence) and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// 4 bytes global → shared, asynchronous, zero-filled like cp_async16
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight, then
+// make the copies visible to wgmma's (async-proxy) reads of shared memory;
+// a block barrier must follow before other threads' copies are read
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that owns them (fence before the wgmma_fence and
+// after the wgmma_wait), and from reusing A-fragment registers before the
+// wgmma that reads them has been waited for (fence after the wgmma_wait)
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// two f32 → one register of two bf16 (round to nearest even, as torch's
+// .to(bfloat16)); `lo` is the lower column
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma shared-memory matrix descriptor
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+template <int D> struct SwizzledTile {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static constexpr int PW = D >= 64 ? 64 : 32;  // panel width, elements
+  static constexpr int ROW_BYTES = PW * 2;      // the swizzle width
+  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = 64 * D * 2;
+  static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // 128B : 64B swizzle
+  static constexpr uint32_t SWIZZLE = D >= 64 ? 0x70 : 0x30;
+
+  // byte offset of the 16-byte chunk holding (row r, columns c..c+7)
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    const uint32_t off = (c / PW) * PANEL_BYTES + r * ROW_BYTES + (c % PW) * 2;
+    return off ^ ((off >> 3) & SWIZZLE);
+  }
+
+  // k-slice kk (columns 16kk..16kk+15) as a K-major operand
+  static __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+    const uint32_t addr = tile + (kk * 16 / PW) * PANEL_BYTES + (kk * 16 % PW) * 2;
+    return gmma_desc(addr, 16, 8 * ROW_BYTES, LAYOUT);
+  }
+
+  // k-slice kk (rows 16kk..16kk+15) as an MN-major operand (N = D)
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+    return gmma_desc(tile + kk * 16 * ROW_BYTES, PANEL_BYTES, 8 * ROW_BYTES, LAYOUT);
+  }
+
+  // rows [r0, r0 + 64) of a [S, D] bf16 slice with row stride `ld`
+  // (elements, 16-byte aligned rows) into the tile, asynchronously, by the
+  // block's `nthreads` threads; rows past S are zero-filled
+  static __device__ __forceinline__ void load(uint32_t tile, const __nv_bfloat16* src,
+                                              long long ld, int r0, int S, int tid,
+                                              int nthreads) {
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll 4
+    for (int i = tid; i < 64 * CPR; i += nthreads) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const bool live = r0 + r < S;
+      cp_async16(tile + offset(r, c), live ? src + (r0 + r) * ld + c : src, live ? 16 : 0);
+    }
+  }
+};
+
+// The products. Operands: "+f" accumulators (N/2 per thread: register
+// 4j + e holds row 16*warp + lane/4 + 8*(e/2), column 8j + 2*(lane%4) +
+// e%2), descriptors, and scale_d (0: D = A.B, 1: D += A.B).
+
+// D[64][64] (+)= A[64][16] . B[16][64], A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N> struct WgmmaRsTransB;
+
+// D[64][32] += A[64][16] . B[16][32], A from registers (the accumulator
+// layout, packed to bf16 pairs), B from shared memory MN-major (trans-b)
+template <> struct WgmmaRsTransB<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// D[64][64] += A[64][16] . B[16][64], A from registers (the accumulator
+// layout, packed to bf16 pairs), B from shared memory MN-major (trans-b)
+template <> struct WgmmaRsTransB<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// D[64][128] += A[64][16] . B[16][128], A from registers (the accumulator
+// layout, packed to bf16 pairs), B from shared memory MN-major (trans-b)
+template <> struct WgmmaRsTransB<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+}  // namespace hopper

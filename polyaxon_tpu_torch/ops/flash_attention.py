@@ -6,8 +6,9 @@ the same validation:
 
 - on CUDA tensors `flash_attention` / `flash_attention_lse` launch the
   forward kernel in `csrc/flash_fwd.cu`, and their gradients the backward
-  kernels in `csrc/flash_bwd.cu` (dq, then dk/dv), built at first use by
-  `_build.py`, or raise; nothing falls back to another implementation;
+  kernels in `csrc/flash_bwd.cu` (dq, then dk/dv: bf16 on the tensor cores
+  with wgmma, f32 on the CUDA cores), built at first use by `_build.py`,
+  or raise; nothing falls back to another implementation;
 - on CPU tensors they run `flash_attention_reference` and
   `flash_attention_bwd_reference`, the plain PyTorch versions of the same
   functions, through the same `torch.autograd.Function`s. The tests hold
@@ -17,7 +18,8 @@ the same validation:
 `block_q`/`block_kv` are the TPU kernels' tile sizes. They are validated
 exactly as the reference validates them, so callers see the same errors;
 the CUDA kernels tile by 64 x 64 for the SM, which changes only the order
-of f32 sums, not the function.
+of f32 sums, not the function. The bf16 backward kernels read q, k, v and
+dO by stride but need 16-byte aligned rows; the wrapper raises otherwise.
 """
 
 from __future__ import annotations
@@ -167,6 +169,22 @@ def _check_kernel_inputs(q, k, v, *rest):
         raise ValueError("flash kernel needs a contiguous last (head) dim")
 
 
+def _check_rows_aligned(**tensors):
+    """The bf16 backward kernels copy each row of q, k, v and dO into shared
+    memory 16 bytes at a time (cp.async), so every row must start on a
+    16-byte boundary: the data pointer and the batch, row and head strides.
+    Raises rather than copying to an aligned layout."""
+    for name, t in tensors.items():
+        size = t.element_size()
+        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(s * size % 16 for s in strides):
+            raise ValueError(
+                f"flash backward (bf16) needs 16-byte aligned rows: {name} has "
+                f"data_ptr % 16 = {t.data_ptr() % 16} and strides {t.stride()} "
+                f"of {size}-byte elements"
+            )
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -218,6 +236,8 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
     B, S, H, D = q.shape
     if do.shape != q.shape:
         raise ValueError(f"dO must be {tuple(q.shape)}; got {tuple(do.shape)}")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v, dO=do)
     if -(-S // _TILE) > 65535:
         raise ValueError(f"seq len {S} exceeds the kernel grid limit")
     stats = []
@@ -233,7 +253,8 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
 
 
 class FlashDqKernel(_CudaKernel):
-    """`polyaxon_flash_dq` (csrc/flash_bwd.cu): the `_dq_kernel` port."""
+    """`polyaxon_flash_dq` (csrc/flash_bwd.cu): the `_dq_kernel` port
+    (`flash_dq_wgmma_kernel` for bf16, `flash_dq_kernel` for f32)."""
 
     name = "flash_dq"
     lib = "flash_bwd"
@@ -253,7 +274,8 @@ class FlashDqKernel(_CudaKernel):
 
 
 class FlashDkvKernel(_CudaKernel):
-    """`polyaxon_flash_dkv` (csrc/flash_bwd.cu): the `_dkv_kernel` port."""
+    """`polyaxon_flash_dkv` (csrc/flash_bwd.cu): the `_dkv_kernel` port
+    (`flash_dkv_wgmma_kernel` for bf16, `flash_dkv_kernel` for f32)."""
 
     name = "flash_dkv"
     lib = "flash_bwd"

@@ -165,3 +165,33 @@ def test_bf16_backward_rounds_like_the_tpu_kernels():
     assert dq.dtype == torch.bfloat16
     assert torch.equal(dq, rounded)
     assert not torch.equal(dq, unrounded)
+
+
+def _misaligned(name, B=1, S=64, H=4, KV=2, D=64):
+    """bf16 backward inputs with one tensor's rows off the 16-byte grid: a
+    row stride 4 elements (8 bytes) longer than the row, or a start 2 bytes
+    into its storage. The kernels' copies read 16 bytes at a time."""
+    shapes = {"q": (B, S, H, D), "k": (B, S, KV, D), "v": (B, S, KV, D), "dO": (B, S, H, D)}
+    ts = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    b, s, h, d = shapes[name.split(":")[0]]
+    if name.endswith(":stride"):
+        wide = torch.zeros(b, s, h * d + 4, dtype=torch.bfloat16)
+        ts[name.split(":")[0]] = wide[..., : h * d].view(b, s, h, d)
+    else:
+        flat = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+        ts[name.split(":")[0]] = flat[1:].view(b, s, h, d)
+    lse = torch.zeros(B, H, S)
+    return ts["q"], ts["k"], ts["v"], ts["dO"], lse, lse
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("name", ["q:stride", "k:stride", "v:offset", "dO:stride", "dO:offset"])
+def test_bf16_kernel_wrappers_refuse_misaligned_rows(kernel, name):
+    """The wrappers raise on a row that is not 16-byte aligned before any
+    launch, and never copy to an aligned layout in silence."""
+    q, k, v, do, lse, delta = _misaligned(name)
+    wrapper = fa.FLASH_DQ if kernel == "dq" else fa.FLASH_DKV
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="16-byte aligned rows: " + name.split(":")[0]):
+        wrapper(q, k, v, do, lse, delta, causal=True, scale=0.125)
+    assert wrapper.launches == before

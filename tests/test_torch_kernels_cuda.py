@@ -28,6 +28,10 @@ KERNEL_CASES = [
     (1, 1024, 8, 2, 32, True, torch.bfloat16),
     (2, 48, 4, 1, 64, True, torch.float32),
     (1, 200, 2, 2, 64, False, torch.bfloat16),
+    # the head width of an 8B-class Llama, causal GQA
+    (1, 2048, 32, 8, 128, True, torch.bfloat16),
+    # ragged S (not a multiple of the 64-row tiles), causal, GQA 2
+    (1, 200, 4, 2, 64, True, torch.bfloat16),
 ]
 
 
@@ -160,6 +164,28 @@ def test_flash_bwd_reads_strided_do(cuda_device):
         assert _row_rel(a, b) < 1e-4
 
 
+def test_flash_bwd_bf16_reads_strided_inputs(cuda_device):
+    """The wgmma kernels copy q, k and v as views of one fused projection and
+    dO with non-contiguous heads by stride (rows 16-byte aligned) and give
+    the same bits as on contiguous copies."""
+    B, S, H, KV, D = 2, 320, 4, 2, 64
+    q, k, v, o, lse, do, delta = _bwd_inputs(B, S, H, KV, D, True, torch.bfloat16, cuda_device)
+    qkv = torch.cat([t.reshape(B, S, -1) for t in (q, k, v)], dim=-1)
+    views = (qkv[..., : H * D].view(B, S, H, D),
+             qkv[..., H * D:(H + KV) * D].view(B, S, KV, D),
+             qkv[..., (H + KV) * D:].view(B, S, KV, D))
+    wide = torch.zeros(B, S, 2 * H, D, dtype=torch.bfloat16, device=cuda_device)
+    wide[:, :, 1::2] = do
+    strided = wide[:, :, 1::2]
+    assert not views[0].is_contiguous() and not strided.is_contiguous()
+    got = (fa.FLASH_DQ(*views, strided, lse, delta, causal=True, scale=D ** -0.5),
+           *fa.FLASH_DKV(*views, strided, lse, delta, causal=True, scale=D ** -0.5))
+    dense = (fa.FLASH_DQ(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5),
+             *fa.FLASH_DKV(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5))
+    for a, b in zip(got, dense):
+        assert torch.equal(a, b)
+
+
 def test_flash_bwd_is_deterministic(cuda_device):
     """No atomics: two runs give the same bits."""
     q, k, v, o, lse, do, delta = _bwd_inputs(1, 512, 8, 2, 64, True, torch.bfloat16, cuda_device)
@@ -170,6 +196,26 @@ def test_flash_bwd_is_deterministic(cuda_device):
     ]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_flash_bwd_refuses_misaligned_rows(cuda_device):
+    """The bf16 kernels copy rows 16 bytes at a time: a row stride of
+    D + 4 elements (8 bytes off the grid) raises before any launch; the same
+    values in an aligned layout run."""
+    B, S, H, KV, D = 1, 128, 4, 2, 64
+    q, k, v, o, lse, do, delta = _bwd_inputs(B, S, H, KV, D, True, torch.bfloat16, cuda_device)
+    wide = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16, device=cuda_device)
+    wide[..., :D] = do
+    skewed = wide[..., :D]
+    assert skewed.stride(-1) == 1 and skewed.stride(2) * 2 % 16 == 8
+    before = (fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+    for kernel in (fa.FLASH_DQ, fa.FLASH_DKV):
+        with pytest.raises(ValueError, match="16-byte aligned rows: dO"):
+            kernel(q, k, v, skewed, lse, delta, causal=True, scale=D ** -0.5)
+    assert (fa.FLASH_DQ.launches, fa.FLASH_DKV.launches) == before
+    dq = fa.FLASH_DQ(q, k, v, skewed.contiguous(), lse, delta, causal=True, scale=D ** -0.5)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, delta)
+    assert _row_rel(dq, want[0]) < 2.0 ** -6
 
 
 def test_flash_fwd_refuses_unsupported_inputs(cuda_device):
