@@ -400,8 +400,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-constexpr int WG = 128;  // threads of the bf16 kernels: one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
+using hopper::LOG2E;
+using hopper::WG;  // threads of the bf16 kernels: one warpgroup
 
 template <int D>
 constexpr size_t dq_wgmma_smem_bytes() {
@@ -687,23 +687,7 @@ flash_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-// The shared-memory opt-in above 48 KB, set once per device for each kernel
-// instance (one bit per device ordinal), not on every launch.
-template <typename K>
-cudaError_t opt_in_smem(K kernel, size_t bytes,
-                        std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
-  done.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
-}
+using hopper::opt_in_smem;
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;

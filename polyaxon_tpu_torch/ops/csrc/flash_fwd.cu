@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), scalar-FMA first version.
+// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores
+// (wgmma), f32 on the CUDA cores (scalar FMA).
 //
 // Replaces: polyaxon_tpu/ops/flash_attention.py::_fwd_kernel (launched by
 // _fwd through pl.pallas_call). It computes the same function:
@@ -9,24 +10,65 @@
 // before P.V, and outputs o plus lse = m + log(max(l, 1e-30)).
 //
 // What bounds it: at the main-path shape (B=1, S=4096, H=32, KV=8, D=64,
-// bf16, causal) the work is 4*B*H*S^2*D/2 = 68.7 GFLOP against 42 MB of
+// bf16, causal) the work is 4*B*H*pairs*D = 68.7 GFLOP against 42 MB of
 // inputs and outputs, about 1600 operations per byte, far above the
-// card's ~295 bf16 operations per byte: the kernel is compute-bound.
+// card's ~295 bf16 operations per byte: the kernel is compute-bound, 0.069
+// ms at the tensor cores' 989 TFLOP/s against ~1 ms at the CUDA cores' 67
+// TFLOP/s f32. Beside the products, every score takes one exp2 on the
+// SMs' special-function units (16 a clock per SM): at D = 64 a 64 x 64
+// tile's 4096 exponentials take as many clocks as its two products on the
+// tensor cores, so the softmax is not free either.
 //
-// What the design does about it: the O(S^2) score matrix never leaves the
-// SM, so device memory is touched once per q tile for Q/O and once per
-// (q tile, kv tile) for K/V (served mostly from L2 since the 4 heads of a
-// GQA group and all q tiles of a head read the same K/V). Fully masked kv
-// tiles are never loaded. Inside the block the two products are register
-// tiled (each thread owns a 4x4 score tile and a 4x(D/16) output tile),
-// so every shared-memory word read feeds 4 FMAs. It still runs on the
-// CUDA cores in f32, not on the tensor cores; moving both products onto
-// mma/wgmma is the next step for speed.
+// What the bf16 design does about it (flash_fwd_wgmma_kernel): one
+// warpgroup (128 threads) per block owns a 64-row q tile and loops over the
+// live 64-key tiles, running both products as wgmma.mma_async with bf16
+// operands and f32 accumulators:
+// - S = Q.K^T with A and B from shared memory, both K-major;
+// - the online softmax in the accumulator registers: scores scaled into the
+//   log2 domain (log2(e) folded into the scale, so p = exp2(x - m)), the row
+//   max reduced over the 4 lanes that share a row, alpha = exp2(m_old -
+//   m_new) rescaling l and the output accumulator, l summed from the f32 p
+//   before rounding (each lane keeps its own columns' share; the 4 shares
+//   are added once, at the end);
+// - O += P.V with p rounded to bf16 (the reference's p.astype(v.dtype)) in
+//   registers: the f32 fragment of S, packed in bf16 pairs, is wgmma's A
+//   fragment, so P never touches shared memory; V is the MN-major B operand.
+// Operands are staged as bf16 in the swizzled layout wgmma's descriptors
+// read (hopper_wgmma.cuh: 128-byte swizzle for D = 64 and 128, 64-byte for
+// 32) by cp.async with zero-fill past S: Q once, K and V through a ring of
+// two stages, so the next kv tile loads while wgmma runs on this one. No
+// scalar product touches bf16 data. Only diagonal and ragged (past S)
+// tiles pay for the masks.
 //
-// Work split: one thread block owns one (batch*head, 64-row q tile); the
-// TPU grid's sequential kv dimension is the loop inside the block.
+// Budget per warpgroup (ptxas -v for sm_90a, see `<lib>.log` beside the
+// built library; bytes of dynamic shared memory from the code): Q plus two
+// stages of K and V, 5 x 64 x D x 2 bytes + 1 KB for alignment: 21, 41
+// and 81 KB for D = 32, 64, 128; accumulators S (32 f32) and O (D / 2) per
+// thread, P packed in 16 registers. ptxas -v reports 79 / 127 / 167
+// registers per thread for D = 32 / 64 / 128 and no spills, so 6, 4 and 2
+// blocks fit on an SM (registers bound the first two, shared memory the
+// third). chip_smoke.py prints the report of every build.
+//
+// Issuing the next tile's Q.K^T with this tile's P.V, so that the softmax
+// runs while P.V is on the tensor cores (FA3's overlap inside one
+// warpgroup), was measured slower on an H100 (PERF.md): P lives across the
+// loop, 158 registers at D = 64 leave 3 blocks per SM instead of 4, and
+// capping it at 4 blocks only brings it back to this kernel's time.
+//
+// f32 inputs keep the scalar-FMA kernel (flash_fwd_kernel): 64 x 64 tiles
+// staged as f32 in shared memory, each thread a 4 x 4 register tile of the
+// score matrix, P through shared memory. It serves f32 programs and the f32
+// gradient checks; the dispatch below is by dtype, and neither path stands
+// in for the other.
+//
+// Work split: one block owns one (batch*head, 64-row q tile); the TPU
+// grid's sequential kv dimension is the loop inside the block. The bf16
+// kernel issues the q tiles with the most causal work first; fully masked
+// causal kv tiles are never loaded. No atomics: repeated runs give the
+// same bits.
 // Layout: q [B,S,H,D] and k/v [B,S,KV,D] are read by stride (last dim
-// contiguous), so no transposed copy is made; o is written [B,S,H,D]
+// contiguous; the bf16 kernel needs 16-byte aligned rows, which the wrapper
+// checks), so no transposed copy is made; o is written [B,S,H,D]
 // contiguous and lse [B,H,S] f32.
 
 #include <cuda_bf16.h>
@@ -34,6 +76,8 @@
 #include <math.h>
 
 #include <atomic>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -45,17 +89,19 @@ constexpr int CPT = BKV / 16; // keys per thread
 constexpr int PP = BKV + 1;   // padded row of the P tile
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's causal mask value
 
+using hopper::LN2;
+using hopper::LOG2E;
+using hopper::opt_in_smem;
+using hopper::WG;
+using bf16 = __nv_bfloat16;
+
+// The scalar kernel is instantiated for float only (bf16 runs on the wgmma
+// kernel); the conversions keep their dtype-generic form.
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -208,65 +254,210 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int S, int H, int KV,
-                   long long sq_b, long long sq_s, long long sq_h,
-                   long long sk_b, long long sk_s, long long sk_h,
-                   long long sv_b, long long sv_s, long long sv_h,
-                   float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  // the shared-memory opt-in is set once per device for each instance, not
-  // on every launch (one bit per device ordinal)
-  static std::atomic<unsigned long long> smem_set{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (!(smem_set.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set.fetch_or(bit, std::memory_order_release);
-  }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, H / KV, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
-      scale, causal);
-  return cudaGetLastError();
+template <int D>
+constexpr size_t wgmma_smem_bytes() {
+  // Q, then two stages of K and V, bf16 [64][D]; 1 KB to align
+  return 5 * hopper::SwizzledTile<D>::BYTES + 1024;
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, void* lse, int B, int S, int H, int KV,
+// The forward for bf16 on the tensor cores: one warpgroup per (b*h, 64-row
+// q tile), looping over the live kv tiles.
+template <int D>
+__global__ void __launch_bounds__(WG)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int group,
                        long long sq_b, long long sq_s, long long sq_h,
                        long long sk_b, long long sk_s, long long sk_h,
                        long long sv_b, long long sv_s, long long sv_h,
-                       float scale, int causal, cudaStream_t stream) {
-#define POLYAXON_FLASH_CASE(DIM)                                              \
-  case DIM:                                                                  \
-    return launch<T, DIM>(q, k, v, o, lse, B, S, H, KV, sq_b, sq_s, sq_h,    \
-                          sk_b, sk_s, sk_h, sv_b, sv_s, sv_h, scale, causal, \
-                          stream);
-  switch (D) {
-    POLYAXON_FLASH_CASE(32)
-    POLYAXON_FLASH_CASE(64)
-    POLYAXON_FLASH_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
+                       float scale, int causal) {
+  using Tile = hopper::SwizzledTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  // stage s: K at base + (1 + 2s) * BYTES, V right after it
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / group;
+  const bf16* kb = k + b * sk_b + kvh * sk_h;
+  const bf16* vb = v + b * sv_b + kvh * sv_h;
+
+  // causal: kv tiles starting past the q tile's last row are fully masked
+  const int n_kv = ((causal ? min(S, q0 + BQ) : S) + BKV - 1) / BKV;
+  Tile::load(sQ, q + b * sq_b + h * sq_h, sq_s, q0, S, tid, WG);
+  for (int it = 0; it < 2; ++it) {  // the ring's first two kv tiles
+    if (it < n_kv) {
+      const uint32_t sK = base + (1 + 2 * it) * Tile::BYTES;
+      Tile::load(sK, kb, sk_s, it * BKV, S, tid, WG);
+      Tile::load(sK + Tile::BYTES, vb, sv_s, it * BKV, S, tid, WG);
+    }
+    hopper::cp_async_commit();
   }
-#undef POLYAXON_FLASH_CASE
+
+  // this thread's accumulator rows: 16 * warp + lane / 4 and 8 below it;
+  // m is the running max in the log2 domain, l this lane's share of the sum
+  const int row_a = q0 + 16 * warp + (lane >> 2);
+  const float scale_log2 = scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = it * BKV;
+    const uint32_t sK = base + (1 + 2 * (it & 1)) * Tile::BYTES, sV = sK + Tile::BYTES;
+    hopper::cp_async_wait<1>();  // this tile has landed; the next may be in flight
+    __syncthreads();
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n64k16_ss(s, Tile::k_major(sQ, kk), Tile::k_major(sK, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // scores in the log2 domain; masked (no mass): the causal future
+    // (-1e30 in the reference, exp -> 0) and keys past the sequence.
+    // Register i holds row row_a + 8 * ((i >> 1) & 1), column
+    // k0 + 8 * (i >> 2) + 2 * t + (i & 1).
+    const bool edge = (causal && k0 + BKV - 1 > q0) || k0 + BKV > S;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int x = (i >> 1) & 1;
+      float val = s[i] * scale_log2;
+      if (edge) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if ((causal && col > row_a + 8 * x) || col >= S) val = -INFINITY;
+      }
+      s[i] = val;
+      mx[x] = fmaxf(mx[x], val);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      // the 4 lanes sharing a row differ in lane bits 0-1
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+      const float m_new = fmaxf(m[x], mx[x]);
+      alpha[x] = exp2f(m[x] - m_new);
+      m[x] = m_new;
+    }
+
+    // p = exp2(x - m), summed in f32 into l, then rounded to bf16 (v's
+    // dtype) in the A fragment layout: register i/2 packs elements i, i+1
+    uint32_t p[16];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int x = (i >> 1) & 1;
+      const float p0 = exp2f(s[i] - m[x]), p1 = exp2f(s[i + 1] - m[x]);
+      rs[x] += p0 + p1;
+      p[i / 2] = hopper::pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) l[x] = alpha[x] * l[x] + rs[x];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    hopper::fence_regs(p);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      hopper::WgmmaRsTransB<D>::run(acc, p + 4 * kk, Tile::mn_major(sV, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(p);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (it + 2 < n_kv) {
+      Tile::load(sK, kb, sk_s, k0 + 2 * BKV, S, tid, WG);
+      Tile::load(sV, vb, sv_s, k0 + 2 * BKV, S, tid, WG);
+    }
+    hopper::cp_async_commit();
+  }
+
+  // o = acc / max(l, 1e-30) with l summed over the row's 4 lanes; lse in
+  // natural log, m converted from the log2 domain
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    l[x] = fmaxf(l[x], 1e-30f);
+    const int row = row_a + 8 * x;
+    if (t == 0 && row < S) lse[(long long)bh * S + row] = m[x] * LN2 + logf(l[x]);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int x = (i >> 1) & 1;
+    const int row = row_a + 8 * x;
+    if (row < S) {
+      bf16* out = o + (((long long)b * S + row) * H + h) * D + 8 * (i >> 2) + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(out) =
+          __floats2bfloat162_rn(acc[i] / l[x], acc[i + 1] / l[x]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int B, S, H, KV;
+  long long sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_scalar(const Args& a) {
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kernel = flash_fwd_kernel<float, D>;
+  const size_t smem = smem_bytes<D>();
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.S, a.H, a.H / a.KV, a.sq_b, a.sq_s, a.sq_h,
+      a.sk_b, a.sk_s, a.sk_h, a.sv_b, a.sv_s, a.sv_h, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const Args& a) {
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  const size_t smem = wgmma_smem_bytes<D>();
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
+  kernel<<<grid, WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.lse), a.S, a.H, a.H / a.KV, a.sq_b, a.sq_s, a.sq_h,
+      a.sk_b, a.sk_s, a.sk_h, a.sv_b, a.sv_s, a.sv_h, a.scale, a.causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
-// of q, k and v must be contiguous. Returns cudaGetLastError() after the
-// launch (0 on success).
+// dtype: 0 = float32 (the scalar-FMA kernel), 1 = bfloat16 (the wgmma
+// kernel). Strides are in elements; the last dim of q, k and v must be
+// contiguous. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int polyaxon_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int S, int H, int KV, int D,
@@ -274,15 +465,18 @@ extern "C" int polyaxon_flash_fwd(
     long long sk_b, long long sk_s, long long sk_h,
     long long sv_b, long long sv_s, long long sv_h,
     float scale, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)dispatch_d<float>(D, q, k, v, o, lse, B, S, H, KV, sq_b, sq_s,
-                                  sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
-                                  scale, causal, st);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, S, H, KV,
-                                          sq_b, sq_s, sq_h, sk_b, sk_s, sk_h,
-                                          sv_b, sv_s, sv_h, scale, causal, st);
+  const Args a{q, k, v, o, lse, B, S, H, KV,
+               sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+#define POLYAXON_FLASH_FWD_CASE(DIM)                              \
+  if (D == DIM) return (int)(dtype == 0 ? launch_scalar<DIM>(a) \
+                                        : launch_wgmma<DIM>(a));
+  if (dtype == 0 || dtype == 1) {
+    POLYAXON_FLASH_FWD_CASE(32)
+    POLYAXON_FLASH_FWD_CASE(64)
+    POLYAXON_FLASH_FWD_CASE(128)
+  }
+#undef POLYAXON_FLASH_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }

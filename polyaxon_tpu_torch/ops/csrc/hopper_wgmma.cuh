@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// asynchronous copies into shared memory, the swizzled tile layout that
-// wgmma's matrix descriptors read, and wgmma.mma_async itself.
+// Hopper (sm_90a) building blocks for the port's tensor-core kernels
+// (flash_fwd.cu, flash_bwd.cu): asynchronous copies into shared memory, the
+// swizzled tile layout that wgmma's matrix descriptors read,
+// wgmma.mma_async itself, and the shared-memory opt-in of a launch.
 //
 // Tiles: a [64][D] bf16 tile lives in shared memory in the canonical layout
 // of wgmma's swizzled modes. D is cut into panels of PW columns (PW = 64 for
@@ -23,9 +24,32 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hopper {
+
+constexpr int WG = 128;  // threads of one warpgroup: the wgmma kernels' block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The shared-memory opt-in above 48 KB, set once per device for each kernel
+// instance (one bit per device ordinal), not on every launch.
+template <typename K>
+cudaError_t opt_in_smem(K kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -6,9 +6,10 @@ the same validation:
 
 - on CUDA tensors `flash_attention` / `flash_attention_lse` launch the
   forward kernel in `csrc/flash_fwd.cu`, and their gradients the backward
-  kernels in `csrc/flash_bwd.cu` (dq, then dk/dv: bf16 on the tensor cores
-  with wgmma, f32 on the CUDA cores), built at first use by `_build.py`,
-  or raise; nothing falls back to another implementation;
+  kernels in `csrc/flash_bwd.cu` (dq, then dk/dv), built at first use by
+  `_build.py`, or raise; nothing falls back to another implementation. In
+  both directions bf16 runs on the tensor cores (wgmma) and f32 on the
+  CUDA cores (scalar FMA);
 - on CPU tensors they run `flash_attention_reference` and
   `flash_attention_bwd_reference`, the plain PyTorch versions of the same
   functions, through the same `torch.autograd.Function`s. The tests hold
@@ -18,8 +19,9 @@ the same validation:
 `block_q`/`block_kv` are the TPU kernels' tile sizes. They are validated
 exactly as the reference validates them, so callers see the same errors;
 the CUDA kernels tile by 64 x 64 for the SM, which changes only the order
-of f32 sums, not the function. The bf16 backward kernels read q, k, v and
-dO by stride but need 16-byte aligned rows; the wrapper raises otherwise.
+of f32 sums, not the function. The bf16 kernels, forward and backward,
+read q, k, v (and dO) by stride but need 16-byte aligned rows; the wrappers
+raise otherwise.
 """
 
 from __future__ import annotations
@@ -169,17 +171,18 @@ def _check_kernel_inputs(q, k, v, *rest):
         raise ValueError("flash kernel needs a contiguous last (head) dim")
 
 
-def _check_rows_aligned(**tensors):
-    """The bf16 backward kernels copy each row of q, k, v and dO into shared
-    memory 16 bytes at a time (cp.async), so every row must start on a
-    16-byte boundary: the data pointer and the batch, row and head strides.
-    Raises rather than copying to an aligned layout."""
+def _check_rows_aligned(kernel: str, **tensors):
+    """The bf16 kernels (forward and backward) copy each row of q, k, v and
+    dO into shared memory 16 bytes at a time (cp.async), so every row must
+    start on a 16-byte boundary: the data pointer and the batch, row and
+    head strides. Raises, naming the kernel, rather than copying to an
+    aligned layout."""
     for name, t in tensors.items():
         size = t.element_size()
         strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
         if t.data_ptr() % 16 or any(s * size % 16 for s in strides):
             raise ValueError(
-                f"flash backward (bf16) needs 16-byte aligned rows: {name} has "
+                f"{kernel} (bf16) needs 16-byte aligned rows: {name} has "
                 f"data_ptr % 16 = {t.data_ptr() % 16} and strides {t.stride()} "
                 f"of {size}-byte elements"
             )
@@ -190,7 +193,9 @@ def _stream(t) -> int:
 
 
 class FlashFwdKernel(_CudaKernel):
-    """`polyaxon_flash_fwd` (csrc/flash_fwd.cu): (q, k, v) → (o, lse)."""
+    """`polyaxon_flash_fwd` (csrc/flash_fwd.cu): (q, k, v) → (o, lse); the
+    `_fwd_kernel` port (`flash_fwd_wgmma_kernel` for bf16,
+    `flash_fwd_kernel` for f32)."""
 
     name = "flash_fwd"
     lib = "flash_fwd"
@@ -206,8 +211,12 @@ class FlashFwdKernel(_CudaKernel):
         """q [B,S,H,D], k/v [B,S,KV,D] on one CUDA device → (o, lse)."""
         _check_kernel_inputs(q, k, v)
         B, S, H, D = q.shape
-        if B * H > 65535:
-            raise ValueError(f"B*H = {B * H} exceeds the kernel grid limit 65535")
+        if q.dtype == torch.bfloat16:
+            _check_rows_aligned(self.name, q=q, k=k, v=v)
+        if B * H > 65535 or -(-S // _TILE) > 65535:
+            raise ValueError(
+                f"B*H = {B * H} or seq len {S} exceeds the kernel grid limit"
+            )
         o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
@@ -237,7 +246,7 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
     if do.shape != q.shape:
         raise ValueError(f"dO must be {tuple(q.shape)}; got {tuple(do.shape)}")
     if q.dtype == torch.bfloat16:
-        _check_rows_aligned(q=q, k=k, v=v, dO=do)
+        _check_rows_aligned("flash backward", q=q, k=k, v=v, dO=do)
     if -(-S // _TILE) > 65535:
         raise ValueError(f"seq len {S} exceeds the kernel grid limit")
     stats = []

@@ -51,4 +51,5 @@ def test_the_port_sources_include_their_header():
     names = [p.name for p in _build.sources("flash_bwd")]
     assert names == ["flash_bwd.cu", "hopper_wgmma.cuh"]
     assert _build.nvcc_flags("flash_bwd") == _build.NVCC_FLAGS
-    assert [p.name for p in _build.sources("flash_fwd")] == ["flash_fwd.cu"]
+    assert [p.name for p in _build.sources("flash_fwd")] == ["flash_fwd.cu", "hopper_wgmma.cuh"]
+    assert _build.nvcc_flags("flash_fwd") == _build.NVCC_FLAGS

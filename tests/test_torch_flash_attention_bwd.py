@@ -1,4 +1,5 @@
-"""The port's flash-attention backward against the JAX package's.
+"""The port's flash-attention backward against the JAX package's, and the
+alignment checks of the bf16 kernel wrappers (forward and backward).
 
 On the CPU the port's autograd Functions run the plain forward and the
 plain backward (`flash_attention_bwd_reference`); the JAX package runs its
@@ -168,7 +169,7 @@ def test_bf16_backward_rounds_like_the_tpu_kernels():
 
 
 def _misaligned(name, B=1, S=64, H=4, KV=2, D=64):
-    """bf16 backward inputs with one tensor's rows off the 16-byte grid: a
+    """bf16 kernel inputs with one tensor's rows off the 16-byte grid: a
     row stride 4 elements (8 bytes) longer than the row, or a start 2 bytes
     into its storage. The kernels' copies read 16 bytes at a time."""
     shapes = {"q": (B, S, H, D), "k": (B, S, KV, D), "v": (B, S, KV, D), "dO": (B, S, H, D)}
@@ -195,3 +196,14 @@ def test_bf16_kernel_wrappers_refuse_misaligned_rows(kernel, name):
     with pytest.raises(ValueError, match="16-byte aligned rows: " + name.split(":")[0]):
         wrapper(q, k, v, do, lse, delta, causal=True, scale=0.125)
     assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", [f"{t}:{how}" for t in "qkv" for how in ("stride", "offset")])
+def test_bf16_forward_wrapper_refuses_misaligned_rows(name):
+    """The bf16 forward copies q, k and v by rows of 16 bytes too: its
+    wrapper raises, naming the kernel and the tensor, before any launch."""
+    q, k, v, _, _, _ = _misaligned(name)
+    before = fa.FLASH_FWD.launches
+    with pytest.raises(ValueError, match="flash_fwd .* 16-byte aligned rows: " + name[0]):
+        fa.FLASH_FWD(q, k, v, causal=True, scale=0.125)
+    assert fa.FLASH_FWD.launches == before

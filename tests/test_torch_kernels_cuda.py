@@ -75,6 +75,60 @@ def test_flash_fwd_reads_strided_inputs(cuda_device):
     assert (o - ref).abs().max().item() < 1e-4
 
 
+def _bf16_qkv(B, S, H, KV, D, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [
+        torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    ]
+
+
+def test_flash_fwd_bf16_reads_strided_inputs(cuda_device):
+    """The wgmma forward copies q/k/v as views of one fused bf16 projection
+    (non-contiguous heads, rows 16-byte aligned) by stride and gives the
+    same bits as on contiguous copies."""
+    B, S, H, KV, D = 2, 320, 4, 2, 64
+    q, k, v = _bf16_qkv(B, S, H, KV, D, cuda_device)
+    qkv = torch.cat([t.reshape(B, S, -1) for t in (q, k, v)], dim=-1)
+    views = (qkv[..., : H * D].view(B, S, H, D),
+             qkv[..., H * D:(H + KV) * D].view(B, S, KV, D),
+             qkv[..., (H + KV) * D:].view(B, S, KV, D))
+    assert not views[0].is_contiguous()
+    with torch.no_grad():
+        got = fa.flash_attention_lse(*views, block_q=64, block_kv=64)
+        dense = fa.flash_attention_lse(q, k, v, block_q=64, block_kv=64)
+    for a, b in zip(got, dense):
+        assert torch.equal(a, b)
+
+
+def test_flash_fwd_is_deterministic(cuda_device):
+    """No atomics: two launches give the same bits."""
+    q, k, v = _bf16_qkv(1, 1024, 8, 2, 64, cuda_device)
+    runs = [fa.FLASH_FWD(q, k, v, causal=True, scale=0.125) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_fwd_refuses_misaligned_rows(cuda_device):
+    """The bf16 forward copies rows 16 bytes at a time: a row stride of
+    D + 4 elements (8 bytes off the grid) raises before any launch; the same
+    values in an aligned layout run."""
+    B, S, H, KV, D = 1, 128, 4, 2, 64
+    q, k, v = _bf16_qkv(B, S, H, KV, D, cuda_device)
+    wide = torch.zeros(B, S, KV, D + 4, dtype=torch.bfloat16, device=cuda_device)
+    wide[..., :D] = k
+    skewed = wide[..., :D]
+    assert skewed.stride(-1) == 1 and skewed.stride(2) * 2 % 16 == 8
+    before = fa.FLASH_FWD.launches
+    with pytest.raises(ValueError, match="16-byte aligned rows: k"):
+        fa.FLASH_FWD(q, skewed, v, causal=True, scale=D ** -0.5)
+    assert fa.FLASH_FWD.launches == before
+    o, lse = fa.FLASH_FWD(q, skewed.contiguous(), v, causal=True, scale=D ** -0.5)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    assert _row_rel(o, o_ref) < 2.0 ** -6
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
 def test_flash_grad_flows_through_the_kernels(cuda_device):
     """Autograd through flash_attention_lse launches the forward kernel once
     and each backward kernel once, and its gradients (with cotangents on o
