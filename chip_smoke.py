@@ -38,12 +38,34 @@ preset (random weights from a fixed seed): inference, then training.
                flash` and `attention: xla` at [1, 2048]: per-step loss and
                grad_norm distances (step 0 from the same weights moves with
                attention's rounding alone), and the distance of the updated
-               weights.
+               weights;
+7. train-resume — checkpoints (the train program without its profile
+               window, 4 steps, keep 1, under build/chip_smoke/resume/):
+               trainer P is sent a real SIGTERM at step 3 and must raise
+               Preempted(3) with step 3 saved; trainer R resumes
+               (`resume: true`) from P's state bit for bit (a sum of each
+               tensor's integer view) and the schedule at 3 and trains
+               step 3; with a local and a durable tier, trainer Q restores
+               after the durable copy is corrupted and must fall back to
+               the local copy. At full size P saves at its boundary, 3, on
+               both tiers; at 2 layers (one tier) P saves 2 and flushes 3,
+               and R saves 4 once, the final save a no-op (RESUME_CASES:
+               the disk writes stay under ~40 GB). Prints the bytes per
+               checkpoint, the stall of each boundary save, the background
+               write and upload seconds, the restore seconds, the step
+               spans, the snapshot's device time and the peak memory;
+8. train-rules — the remat policies `nothing`, `dots` and
+               `dots_no_batch`, 4 steps each at full size (median step
+               seconds, peak memory, the flash launches per layer and step);
+               then lamb, lion, adafactor, rmsprop and adagrad (and adamw
+               beside them) for 3 steps each at the preset's width with 2
+               layers: every loss finite, each rule's state bytes,
+               adafactor's far under adamw's.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then phase 5) and read just after it, so `launches` counts the
-main paths only. The last lines are the kernels JSON line, the card's name
+(phases 3-4, then phases 5, 7 and 8) and read just after it, so `launches`
+counts the main paths only. The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
 non-zero and prints no result.
@@ -63,7 +85,7 @@ import urllib.request
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-ARTIFACTS = HERE / "build" / "chip_smoke"  # the train phase's profile trace
+ARTIFACTS = HERE / "build" / "chip_smoke"  # profile trace, checkpoints (git-ignored)
 
 # NVIDIA H100 SXM data sheet, dense: tensor-core bf16, CUDA-core f32, HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -139,6 +161,8 @@ EINSUM_STEPS = 3
 # gradients into sign flips of their updates, so the updates differ far
 # more than the losses do.
 TRAIN_VS_EINSUM = {"loss": 5e-5, "grad_norm": 9e-4, "update": 7e-2}
+PRESET_LAYERS, PRESET_PARAMS = 16, 1_498_482_688  # llama3-1b's depth and size
+RULES_STEPS = 4  # steps of each remat policy
 
 
 class SmokeFailure(RuntimeError):
@@ -814,6 +838,326 @@ def phase_train_vs_einsum() -> None:
     bad = {k: v for k, v in rel.items() if not v <= TRAIN_VS_EINSUM[k]}
     check(not bad, f"flash training departs from einsum training: {bad}")
 
+def _state_tensors(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _state_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _state_tensors(v)]
+    return []
+
+
+def fingerprint(trainer) -> list[int]:
+    """Bit-exact summary of a trainer's state: for each tensor of its
+    checkpoint (weights, Adam's mu and nu) the sum of its integer view,
+    then the optimizer's count and the step."""
+    import torch
+
+    state = trainer.checkpoint_state()
+    ints = {4: torch.int32, 2: torch.int16}
+    sums = torch.stack([
+        t.view(ints[t.element_size()]).sum(dtype=torch.int64)
+        for t in _state_tensors(state)
+    ])
+    return sums.tolist() + [state["optimizer"]["count"], state["step"]]
+
+
+def resume_program(every, model=None, local=None) -> dict:
+    """TRAIN_PROGRAM without its profile window: 4 steps, a save every
+    `every` steps (none when None), the newest one kept; `model` overrides
+    the model's config (depth, vocabulary)."""
+    train = {k: v for k, v in TRAIN_PROGRAM["train"].items()
+             if k not in ("profileStart", "profileStop")}
+    train["steps"] = 4
+    if every:
+        train.update(checkpointEvery=every, checkpointKeep=1)
+    if local:
+        train["checkpointLocalDir"] = str(local)
+    data = TRAIN_PROGRAM["data"]
+    if model and "vocab_size" in model:
+        data = {**data, "config": {**data["config"], "vocab_size": model["vocab_size"]}}
+    return {**TRAIN_PROGRAM, "data": data, "model": {"name": "transformer_lm", "config": {
+        **TRAIN_PROGRAM["model"]["config"], **(model or {})}}, "train": train}
+
+
+def _hist(name: str) -> dict:
+    """A process-global histogram's summary (zeros before its first use)."""
+    from polyaxon_tpu_torch.telemetry import get_registry
+
+    metric = {m.name: m for m in get_registry().metrics()}.get(name)
+    return metric.summary() if metric else {"count": 0, "sum": 0.0, "max": None}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {"count": after["count"] - before["count"], "sum": after["sum"] - before["sum"]}
+
+
+def run_resume(case: dict) -> dict:
+    """Trainer P, sent a real SIGTERM at the head of step 3 (a save every
+    `p_every`), must raise Preempted(3) with step 3 saved; trainer R
+    (`resume: true`, a save every `r_every` or none) must start from P's
+    state bit for bit and the schedule at 3, and train step 3 (and save 4
+    once, the final save a no-op); with two tiers, trainer Q restores after
+    the durable copy of the newest step is corrupted and must fall back to
+    the local copy. Returns what it measured; a failed check raises."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.chaos import Fault, FaultPlan, active, corrupt_checkpoint
+    from polyaxon_tpu_torch.retry import Preempted
+    from polyaxon_tpu_torch.runtime import Trainer, preemption
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+    from polyaxon_tpu_torch.telemetry import get_registry
+
+    root = ARTIFACTS / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    durable = root / "ckpt"
+    local = root / "ckpt_local" if case["two_tier"] else None
+    check(preemption.install(), "the SIGTERM handler needs the main thread")
+    preemption.clear()
+    writes = get_registry().counter("checkpoint.tier_writes")
+    hists = ("trainer.checkpoint_stall_ms", "checkpoint.write_seconds",
+             "checkpoint.host_copy_seconds", "checkpoint.upload_seconds")
+    out = {**case}
+    torch.cuda.reset_peak_memory_stats()
+
+    def spans(trainer) -> list:
+        return [{"name": r["name"], "step": r["attrs"].get("step"), "seconds": r["dur_s"]}
+                for r in trainer.tracer.recent(100) if r["name"] in ("step", "checkpoint")]
+
+    def measured(trainer, before, base_writes) -> dict:
+        after = {h: _hist(h) for h in hists}
+        return {"spans": spans(trainer), "tier_writes": writes.value - base_writes,
+                "restore_seconds": [x["dur_s"] for x in trainer.tracer.recent(100)
+                                    if x["name"] == "restore"],
+                **{h: _delta(before[h], after[h]) for h in hists}}
+
+    # --- P: preempted by a real SIGTERM at the head of step 3
+    before, base_writes = {h: _hist(h) for h in hists}, writes.value
+    events_p = []
+    p = Trainer(resume_program(case["p_every"], case["model"], local),
+                checkpoint_dir=str(durable),
+                event_fn=lambda kind, body: events_p.append((kind, body)))
+    try:
+        with active(FaultPlan([Fault("trainer.step", "sigterm", step=3)])):
+            p.run()
+    except Preempted as e:
+        check(e.step == 3, f"P was preempted with step {e.step}, expected 3")
+    else:
+        raise SmokeFailure("P ran to its end: the SIGTERM at step 3 was not seen")
+    preemption.clear()
+    torch.cuda.synchronize()
+    check([b for k, b in events_p if k == "preempted"] == [{"step": 3, "resume_step": 3}],
+          f"P's events: {events_p}")
+    tiers = {"durable": ck.all_steps(str(durable))}
+    if local:
+        tiers["local"] = ck.all_steps(str(local))
+    check(all(steps == [3] for steps in tiers.values()), f"P left steps {tiers}")
+    out["p"] = {"events": events_p, **measured(p, before, base_writes)}
+    fp_p = fingerprint(p)
+    out["bytes_per_checkpoint"] = (durable / "3" / ck.STATE_FILE).stat().st_size
+    tensors = _state_tensors(p.checkpoint_state())
+    out["state_tensor_bytes"] = sum(t.numel() * t.element_size() for t in tensors)
+    # what the snapshot costs the device: one clone of every state tensor
+    out["snapshot_device_ms"] = cuda_ms(lambda: [t.clone() for t in tensors], reps=1,
+                                        warmup=1, rounds=3)
+    # ... and the host, once the allocator holds the clones' blocks from an
+    # earlier snapshot (a boundary save after the first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot = [t.clone() for t in _state_tensors(p.checkpoint_state())]
+    out["snapshot_host_ms_cached"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    del tensors, snapshot, p
+    torch.cuda.empty_cache()
+
+    # --- R: resumed; right after its restore its state is P's, bit for bit
+    before, base_writes = {h: _hist(h) for h in hists}, writes.value
+    events_r, lrs, fp_r = [], [], []
+    r = None
+
+    def on_event(kind, body):
+        events_r.append((kind, body))
+        if kind == "resumed":
+            fp_r.append(fingerprint(r))
+
+    program = resume_program(case["r_every"], case["model"], local)
+    r = Trainer({**program, "train": {**program["train"], "resume": True}},
+                checkpoint_dir=str(durable), event_fn=on_event,
+                log_fn=lambda step, m: lrs.append((step, m["learning_rate"], m["loss"])))
+    r.run()
+    torch.cuda.synchronize()
+    check([b for k, b in events_r if k == "resumed"] == [{"step": 3, "tier": "durable"}],
+          f"R's events: {events_r}")
+    check(fp_r == [fp_p], "R's restored state differs from P's")
+    want_lr = float(np.float32(r.sched(3)))
+    check(len(lrs) == 1 and lrs[0][:2] == (4, want_lr) and want_lr != r.sched(0),
+          f"R's first learning_rate {lrs}, expected sched(3) = {want_lr}")
+    check(math.isfinite(lrs[0][2]), f"R's loss {lrs[0][2]}")
+    out["r"] = {"events": events_r, "learning_rates": lrs, **measured(r, before, base_writes)}
+    newest = 3
+    if case["r_every"]:
+        newest = 4
+        n_tiers = 2 if local else 1
+        check(out["r"]["tier_writes"] == n_tiers,
+              f"R wrote {out['r']['tier_writes']} step copies, expected {n_tiers}: "
+              "one save of step 4, the final one a no-op")
+        check(ck.all_steps(str(durable)) == [4], "R's save of step 4 is missing")
+    del r
+    torch.cuda.empty_cache()
+
+    # --- Q: the durable copy of the newest step corrupted; the local copy
+    if local:
+        corrupt_checkpoint(str(durable), step=newest)
+        events_q = []
+        q = Trainer({**program, "train": {**program["train"], "resume": True}},
+                    checkpoint_dir=str(durable),
+                    event_fn=lambda kind, body: events_q.append((kind, body)))
+        step = q.restore()
+        check(step == newest and [b for k, b in events_q if k == "checkpoint_fallback"] == [{
+            "corrupt_steps": [newest], "corrupt_copies": [["durable", newest]],
+            "restored_step": newest}], f"Q restored {step}; events {events_q}")
+        check([b for k, b in events_q if k == "resumed"] == [{"step": newest, "tier": "local"}],
+              f"Q's events: {events_q}")
+        check((durable / f"{newest}.corrupt").is_dir(),
+              "the corrupt durable copy was not quarantined")
+        out["q"] = {"events": events_q, "restore_seconds": [
+            x["dur_s"] for x in q.tracer.recent(100) if x["name"] == "restore"]}
+        del q
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ck.close_all()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# The resume runs, sized so the script writes ~42 GB to disk in all: a GPU
+# host may cap what one run writes to its disk (deleted files included).
+# At full size (17.98 GB a checkpoint) two copies are written: P's boundary
+# save of step 3 on the local tier and its upload. The flushed save after a
+# boundary (P saving 2, then 3 at the SIGTERM) and R's save of 4 with the
+# final no-op run at the preset's width with 2 layers and an 8192-token
+# vocabulary (1.86 GB a checkpoint, three writes), on one tier.
+RESUME_CASES = [
+    {"size": "full", "model": None, "two_tier": True, "p_every": 3, "r_every": None},
+    {"size": "2 layers, vocab 8192", "model": {"n_layers": 2, "vocab_size": 8192},
+     "two_tier": False, "p_every": 2, "r_every": 2},
+]
+
+
+def phase_train_resume() -> dict:
+    """Checkpoints, preemption and resume (RESUME_CASES); returns the kernel
+    launches of the trainers' steps."""
+    import shutil
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ARTIFACTS).free
+    ckpt_bytes = 12 * PRESET_PARAMS  # f32 masters, mu and nu
+    # the full-size case holds a local and a durable copy at once
+    check(free > 2.2 * ckpt_bytes, f"{free / 1e9:.1f} GB free; train-resume needs "
+                                   f"{2.2 * ckpt_bytes / 1e9:.1f}")
+    for kern in KERNELS:  # the training path starts here
+        kern.launches = 0
+    results = [run_resume(case) for case in RESUME_CASES]
+    launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    # P trains steps 0-2 and R step 3 in each case
+    layer_steps = sum(4 * ((c["model"] or {}).get("n_layers") or PRESET_LAYERS)
+                      for c in RESUME_CASES)
+    expected = {k: PER_STEP[k] * layer_steps for k in PER_STEP}
+    emit({"phase": "train-resume", "preset": PRESET, "disk_free_bytes": free,
+          "runs": results, "launches": launches, "expected_launches": expected})
+    check(launches == expected, f"kernel launches {launches}, expected {expected}")
+    return launches
+
+
+def phase_train_rules() -> dict:
+    """The remat policies at full size, then the five ported optimizers
+    (and adamw) at 2 layers; returns the kernel launches."""
+    import torch
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    base = resume_program(None)
+    launches = {kern.name: 0 for kern in KERNELS}
+    policies = {}
+    for policy in ("nothing", "dots", "dots_no_batch"):
+        train = {k: v for k, v in base["train"].items() if k != "remat"}
+        losses = []
+        trainer = Trainer({**base, "train": {**train, "steps": RULES_STEPS,
+                                             "rematPolicy": policy}},
+                          log_fn=lambda step, m: losses.append(m["loss"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in KERNELS:
+            kern.launches = 0
+        trainer.run()
+        torch.cuda.synchronize()
+        run_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got = {kern.name: kern.launches for kern in KERNELS}
+        # the peak of a forward and backward alone (the optimizer step's
+        # temporaries set the run's peak): what the policy keeps saved
+        batch = trainer._to_device(next(trainer.data.iterator))
+        for prm in trainer.module.parameters():
+            prm.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        trainer._loss(batch, 0).backward()
+        torch.cuda.synchronize()
+        fwd_bwd_gb = (torch.cuda.max_memory_allocated() - resting) / 1e9
+        del batch
+        n_layers = trainer.module.cfg.n_layers
+        # each step span reads the step before's loss, so after the first
+        # (set-up) a span is one step of the device
+        spans = [r["dur_s"] for r in trainer.tracer.recent(100) if r["name"] == "step"]
+        policies[policy] = {
+            "median_step_seconds": statistics.median(spans[1:]),
+            "step_spans": spans, "losses": losses,
+            "peak_mem_gb": run_peak_gb, "fwd_bwd_peak_above_resting_gb": fwd_bwd_gb,
+            "launches_per_layer_step": {k: v / (n_layers * RULES_STEPS) for k, v in got.items()},
+        }
+        for k, v in got.items():
+            launches[k] += v
+        check(got == {k: PER_STEP[k] * n_layers * RULES_STEPS for k in PER_STEP},
+              f"{policy}: kernel launches {got}")
+        check(all(math.isfinite(x) for x in losses), f"{policy}: non-finite loss")
+        del trainer
+        torch.cuda.empty_cache()
+    optimizers = {}
+    for name in ("adamw", "lamb", "lion", "adafactor", "rmsprop", "adagrad"):
+        model = {**base["model"]["config"], "n_layers": 2}
+        trainer = Trainer({**base, "model": {"name": "transformer_lm", "config": model},
+                           "optimizer": {**base["optimizer"], "name": name},
+                           "train": {**base["train"], "steps": 3}})
+        for kern in KERNELS:
+            kern.launches = 0
+        history = trainer.run().history
+        for kern in KERNELS:
+            launches[kern.name] += kern.launches
+        state = [t for s in trainer.optimizer.state.values() for t in s.values()
+                 if isinstance(t, torch.Tensor)]
+        optimizers[name] = {
+            "losses": [h["loss"] for h in history],
+            "state_bytes": sum(t.numel() * t.element_size() for t in state),
+        }
+        check(len(history) == 3 and all(math.isfinite(h["loss"]) for h in history),
+              f"{name}: losses {optimizers[name]['losses']}")
+        del trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "train-rules", "preset": PRESET, "steps": RULES_STEPS,
+          "remat": policies, "optimizers_2_layers": optimizers})
+    check(optimizers["adafactor"]["state_bytes"] < 0.01 * optimizers["adamw"]["state_bytes"],
+          "adafactor's factored state is not far under adamw's")
+    return launches
+
 
 def device_line() -> str:
     proc = subprocess.run(
@@ -868,6 +1212,9 @@ def main() -> int:
     for name, n in phase_train().items():
         launches[name] += n
     phase_train_vs_einsum()
+    for phase in (phase_train_resume, phase_train_rules):
+        for name, n in phase().items():
+            launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     emit({"kernels": [
         {

@@ -15,6 +15,12 @@ counterpart is easy to find:
 - `data/`, `schemas/program.py`, `telemetry/stats.py`: the token streams,
   the `program:` block and the throughput formulas the trainer reads;
 - `runtime/trainer.py`: `Trainer`, single-GPU training of a program;
+  `runtime/checkpoint.py` its checkpoints (two tiers, quarantine),
+  `runtime/preemption.py` SIGTERM as a preemption notice;
+- `telemetry/registry.py`, `telemetry/spans.py`, `tracking/monitors.py`,
+  `chaos/`, `retry.py`: the trainer's metrics, spans, device memory gauges,
+  fault injection and failure classes (own copies of stdlib modules of the
+  reference);
 - `serving/server.py`: `ModelServer`, the per-request `/generate` path.
 
 Entry points run on the card (`device="cuda"`) unless told otherwise.

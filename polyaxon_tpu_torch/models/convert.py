@@ -1,4 +1,5 @@
-"""The JAX package's parameter tree → this port's `state_dict`.
+"""The JAX package's parameter tree and optax optimizer state → this port's
+`state_dict` and optimizer state.
 
 `params_np` is the tree `Transformer.init` builds in the reference, as a
 nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
@@ -13,44 +14,152 @@ nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
 Flax Dense kernels are [in, out] and nn.Linear weights [out, in], so each
 kernel is transposed (the inverse of `models/convert_hf.py` there). The
 LoRA factors keep the reference's orientation in `LoRADense`.
+
+`opt_state_from_jax` puts optax's state (numpy leaves in optax's tree) into
+the port's optimizer, so a JAX run's optimizer state continues here.
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
 import torch
 
+from ..ops.optimizers import Adafactor, _factored_dims
+
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+# optax's per-parameter state fields, by the names of its state NamedTuples
+_MOMENTS = ("mu", "nu", "trace", "ema", "sum_of_squares", "v_row", "v_col", "v")
+
+# port parameter name → (path in the reference's tree, transposed?)
+Layout = dict[str, tuple[tuple[str, ...], bool]]
 
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _dense(sd: dict, prefix: str, node: dict) -> None:
-    sd[f"{prefix}.weight"] = _tensor(node["kernel"]).T.contiguous()
-    for name in ("lora_a", "lora_b"):
-        if name in node:
-            sd[f"{prefix}.{name}"] = _tensor(node[name])
+def _at(tree, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _unwrap(params_np: dict) -> dict:
+    return params_np.get("params", params_np)
+
+
+def transformer_layout(params_np: dict, cfg) -> Layout:
+    """Where each of `Transformer(cfg)`'s parameters sits in the reference's
+    tree (optionally wrapped as {"params": ...})."""
+    p = _unwrap(params_np)
+    layout: Layout = {"embed.weight": (("embed", "embedding"), False)}
+
+    def dense(prefix: str, path: tuple[str, ...]) -> None:
+        layout[f"{prefix}.weight"] = ((*path, "kernel"), True)
+        for name in ("lora_a", "lora_b"):
+            if name in _at(p, path):
+                layout[f"{prefix}.{name}"] = ((*path, name), False)
+
+    for i in range(cfg.n_layers):
+        pre, layer = f"layers.{i}", f"layer_{i}"
+        for name in _ATTN:
+            dense(f"{pre}.attention.{name}", (layer, "attention", name))
+        for name in _MLP:
+            dense(f"{pre}.mlp.{name}", (layer, "mlp", name))
+        for norm in ("attention_norm", "mlp_norm"):
+            layout[f"{pre}.{norm}.scale"] = ((layer, norm, "scale"), False)
+    layout["final_norm.scale"] = (("final_norm", "scale"), False)
+    if not cfg.tie_embeddings:
+        layout["lm_head.weight"] = (("lm_head", "kernel"), True)
+    return layout
 
 
 def params_from_jax(params_np: dict, cfg) -> dict[str, torch.Tensor]:
     """Nested numpy param dict (optionally wrapped as {"params": ...}) →
     float32 CPU state_dict for `Transformer(cfg)`; `load_state_dict` casts
     it to the model's dtype and device."""
-    p = params_np.get("params", params_np)
-    sd: dict[str, torch.Tensor] = {"embed.weight": _tensor(p["embed"]["embedding"])}
-    for i in range(cfg.n_layers):
-        layer = p[f"layer_{i}"]
-        pre = f"layers.{i}"
-        for name in _ATTN:
-            _dense(sd, f"{pre}.attention.{name}", layer["attention"][name])
-        for name in _MLP:
-            _dense(sd, f"{pre}.mlp.{name}", layer["mlp"][name])
-        for norm in ("attention_norm", "mlp_norm"):
-            sd[f"{pre}.{norm}.scale"] = _tensor(layer[norm]["scale"])
-    sd["final_norm.scale"] = _tensor(p["final_norm"]["scale"])
-    if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = _tensor(p["lm_head"]["kernel"]).T.contiguous()
-    return sd
+    p = _unwrap(params_np)
+    out = {}
+    for name, (path, transposed) in transformer_layout(p, cfg).items():
+        t = _tensor(_at(p, path))
+        out[name] = t.T.contiguous() if transposed else t
+    return out
+
+
+def _collect(node, counts: set, moments: dict) -> None:
+    """Walk optax's state tree (NamedTuples, or their dict form): `count`
+    leaves into `counts`, the per-parameter trees by field name."""
+    fields = node._asdict() if hasattr(node, "_asdict") else None
+    if fields is None and isinstance(node, dict) and any(
+        k == "count" or k in _MOMENTS for k in node
+    ):
+        fields = node
+    if fields is not None:
+        for key, value in fields.items():
+            if key == "count":
+                counts.add(int(np.asarray(value)))
+            elif key in _MOMENTS:
+                if key in moments:
+                    raise ValueError(f"optax state holds two {key!r} trees")
+                moments[key] = value
+            else:
+                _collect(value, counts, moments)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _collect(value, counts, moments)
+    elif isinstance(node, dict):
+        for value in node.values():
+            _collect(value, counts, moments)
+
+
+def _adafactor_source(field: str, p: torch.Tensor, group) -> str:
+    """The optax field holding a transposed 2-D parameter's `field`: each
+    factor is named by the axis it runs along, and transposing swaps which
+    axis is which for a square matrix (the dims are chosen by size)."""
+    port_d1, port_d0 = Adafactor.dims(p, group)
+    jax_d1, _ = _factored_dims(tuple(reversed(p.shape)), group["factored"],
+                               group["min_dim_size_to_factor"])
+    along = 1 - (port_d1 if field == "v_row" else port_d0)  # the same axis, in JAX's order
+    return "v_row" if jax_d1 == along else "v_col"
+
+
+def opt_state_from_jax(
+    opt_state_np: Any, optimizer, params: dict[str, torch.Tensor], layout: Layout
+) -> None:
+    """Load optax's state into `optimizer` (a rule of `ops/optimizers.py`)
+    in place: its `count`, and each parameter's moments (`mu`, `nu`,
+    `trace`, `ema`, `sum_of_squares`, adafactor's `v_row`/`v_col`/`v`),
+    matched by field name. `params` names the optimizer's parameters
+    (e.g. `dict(module.named_parameters())`) and `layout` says where each
+    sits in the reference's tree and whether it is transposed
+    (`transformer_layout`). Raises on a missing leaf or a shape mismatch."""
+    counts: set[int] = set()
+    moments: dict[str, Any] = {}
+    _collect(opt_state_np, counts, moments)
+    if len(counts) != 1:
+        raise ValueError(f"optax state holds counts {sorted(counts)}, expected one")
+    groups = {id(p): g for g in optimizer.param_groups for p in g["params"]}
+    with torch.no_grad():
+        for name, (path, transposed) in layout.items():
+            p = params[name]
+            if id(p) not in groups:
+                continue  # not trained (a frozen parameter)
+            state = optimizer.state[p]
+            for field, dst in state.items():
+                source = field
+                if transposed and field in ("v_row", "v_col"):
+                    source = _adafactor_source(field, p, groups[id(p)])
+                if source not in moments:
+                    raise KeyError(f"optax state has no {source!r} tree for {name}")
+                src = torch.from_numpy(np.array(_at(moments[source], path), copy=True))
+                if transposed and src.ndim == 2:
+                    src = src.T
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(
+                        f"{name}.{field}: optax {tuple(src.shape)}, port {tuple(dst.shape)}"
+                    )
+                dst.copy_(src)
+    optimizer.count = counts.pop()

@@ -16,8 +16,9 @@ for step:
   `max / norm` only when `norm >= max`, with no epsilon (unlike
   `torch.nn.utils.clip_grad_norm_`).
 
-Schedules are plain functions `step -> learning rate`. lamb, lion,
-adafactor, rmsprop and adagrad are not ported yet (ROADMAP.md).
+Schedules are plain functions `step -> learning rate`. All eight of the
+reference's rules are here: sgd, adam, adamw, lamb, lion, adafactor,
+rmsprop and adagrad, each with optax 0.2.6's defaults.
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
-
-_UNPORTED = ("lamb", "lion", "adafactor", "rmsprop", "adagrad")
-
 
 # ------------------------------------------------------------------ schedules
 def _constant(value: float) -> Schedule:
@@ -154,13 +152,33 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
 class _OptaxRule(torch.optim.Optimizer):
     """Base of the ported rules: one learning-rate schedule over all
     groups, read at the count of updates made so far, and optional global
-    clipping of the group's gradients first."""
+    clipping of the group's gradients first.
+
+    The state of every parameter is made when the optimizer is built, as
+    optax's `init` makes it, so a checkpoint restore has tensors to copy
+    into. `count` (optax's `count` leaves: the updates made so far) is
+    carried by `state_dict` and `load_state_dict`."""
 
     def __init__(self, params, schedule: Schedule, grad_clip_norm, **defaults):
         super().__init__(params, defaults)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
         self.count = 0
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._init_state(p, self.state[p], group)
+
+    def _init_state(self, p, state, group) -> None:
+        pass
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
 
     @torch.no_grad()
     def step(self):
@@ -172,7 +190,7 @@ class _OptaxRule(torch.optim.Optimizer):
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is not None:
-                    self._update(p, p.grad, self.state[p], group, lr)
+                    self._update(p, p.grad.to(p.dtype), self.state[p], group, lr)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -180,6 +198,11 @@ def _bias_correction(decay: float, count: int) -> float:
     `bias_correction` takes it: at small counts 1 - b2 ** t cancels, so
     one ulp of the power is ~1e-5 of the correction."""
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def _ema_(moment: torch.Tensor, value: torch.Tensor, decay: float) -> torch.Tensor:
+    """optax's `update_moment` in place: (1 - decay) * value + decay * moment."""
+    return moment.mul_(decay).add_(value, alpha=1 - decay)
 
 
 class Adam(_OptaxRule):
@@ -193,23 +216,200 @@ class Adam(_OptaxRule):
             b1=b1, b2=b2, eps=eps, eps_root=eps_root, weight_decay=weight_decay,
         )
 
-    def _update(self, p, g, state, group, lr):
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+
+    def _direction(self, p, g, state, group) -> torch.Tensor:
+        """scale_by_adam, then add_decayed_weights."""
         b1, b2 = group["b1"], group["b2"]
-        if not state:
-            state["t"] = 0
-            state["mu"] = torch.zeros_like(p)
-            state["nu"] = torch.zeros_like(p)
-        state["t"] += 1
-        t = state["t"]
-        mu, nu = state["mu"], state["nu"]
-        g = g.to(p.dtype)
-        mu.mul_(b1).add_(g, alpha=1 - b1)
-        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-        c1, c2 = _bias_correction(b1, t), _bias_correction(b2, t)
+        mu, nu = _ema_(state["mu"], g, b1), state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+        c1, c2 = _bias_correction(b1, self.count), _bias_correction(b2, self.count)
         update = (mu / c1) / (torch.sqrt(nu / c2 + group["eps_root"]) + group["eps"])
         if group["weight_decay"]:
             update = update + group["weight_decay"] * p
+        return update
+
+    def _update(self, p, g, state, group, lr):
+        p.add_(self._direction(p, g, state, group) * -lr)
+
+
+class Lamb(Adam):
+    """optax.lamb: Adam's direction (eps 1e-6) plus decayed weights, scaled
+    per parameter by the trust ratio ||p|| / ||update||, which is 1 where
+    either norm is zero."""
+
+    def __init__(self, params, schedule, *, b1=0.9, b2=0.999, eps=1e-6,
+                 eps_root=0.0, weight_decay=0.0, grad_clip_norm=None):
+        super().__init__(params, schedule, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                         weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
+
+    def _update(self, p, g, state, group, lr):
+        update = self._direction(p, g, state, group)
+        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(update)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+        p.add_(update * ratio * -lr)
+
+
+class Lion(_OptaxRule):
+    """optax.lion: sign((1 - b1) g + b1 mu), mu then updated with b2, plus
+    decayed weights (default 1e-3)."""
+
+    def __init__(self, params, schedule, *, b1=0.9, b2=0.99, weight_decay=1e-3,
+                 grad_clip_norm=None):
+        super().__init__(params, schedule, grad_clip_norm, b1=b1, b2=b2,
+                         weight_decay=weight_decay)
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group, lr):
+        b1 = group["b1"]
+        update = torch.sign((1.0 - b1) * g + b1 * state["mu"])
+        _ema_(state["mu"], g, group["b2"])
+        if group["weight_decay"]:
+            update = update + group["weight_decay"] * p
         p.add_(update * -lr)
+
+
+def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
+    """optax's `_factored_dims`: (second largest, largest) axis when the
+    second largest is at least `min_dim_size_to_factor`, else None."""
+    if not factored or len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(_OptaxRule):
+    """optax.adafactor: the second moment of a parameter whose two largest
+    dims are >= `min_dim_size_to_factor` is kept as a row and a column
+    mean (`v_row` over the largest dim, `v_col` over the second largest),
+    else in full (`v`); decay 1 - (t + 1) ** -decay_rate; the update
+    clipped to RMS `clipping_threshold`, times the learning rate, times the
+    parameter's RMS (at least 1e-3); optional momentum (an EMA, not
+    debiased) and weight decay (not scaled by the learning rate). The
+    factored estimate v_row ⊗ v_col / mean(v_row) is the same for a matrix
+    and its transpose."""
+
+    def __init__(self, params, schedule, *, min_dim_size_to_factor=128, decay_rate=0.8,
+                 decay_offset=0, multiply_by_parameter_scale=True, clipping_threshold=1.0,
+                 momentum=None, weight_decay_rate=None, eps=1e-30, factored=True,
+                 grad_clip_norm=None):
+        super().__init__(
+            params, schedule, grad_clip_norm,
+            min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
+            decay_offset=decay_offset,
+            multiply_by_parameter_scale=multiply_by_parameter_scale,
+            clipping_threshold=clipping_threshold, momentum=momentum,
+            weight_decay_rate=weight_decay_rate, eps=eps, factored=factored,
+        )
+
+    @staticmethod
+    def dims(p, group):
+        return _factored_dims(tuple(p.shape), group["factored"], group["min_dim_size_to_factor"])
+
+    def _init_state(self, p, state, group):
+        dims = self.dims(p, group)
+        if dims is None:
+            state["v"] = torch.zeros_like(p)
+        else:
+            for name, dropped in zip(("v_row", "v_col"), reversed(dims)):
+                shape = [n for i, n in enumerate(p.shape) if i != dropped]
+                state[name] = p.new_zeros(shape)
+        if group["momentum"] is not None:
+            state["ema"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group, lr):
+        t = np.float32(self.count - group["decay_offset"])  # optax: its count + 1
+        decay = float(np.float32(1) - t ** np.float32(-group["decay_rate"]))
+        grad_sqr = g * g + group["eps"]
+        dims = self.dims(p, group)
+        if dims is None:
+            v = state["v"].mul_(decay).add_(grad_sqr, alpha=1 - decay)
+            update = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = state["v_row"].mul_(decay).add_(grad_sqr.mean(dim=d0), alpha=1 - decay)
+            v_col = state["v_col"].mul_(decay).add_(grad_sqr.mean(dim=d1), alpha=1 - decay)
+            row_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+            row_factor = (v_row / row_mean) ** -0.5
+            update = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        if group["clipping_threshold"] is not None:
+            rms = torch.sqrt(torch.mean(update * update))
+            update = update / torch.clamp(rms / group["clipping_threshold"], min=1.0)
+        update = update * lr
+        if group["multiply_by_parameter_scale"]:
+            p_rms = torch.sqrt(torch.mean(p * p))
+            update = update * torch.where(p_rms <= 1e-3, 1e-3, p_rms)
+        if group["momentum"] is not None:
+            update = _ema_(state["ema"], update, group["momentum"])
+        if group["weight_decay_rate"] is not None:
+            update = update + group["weight_decay_rate"] * p
+        p.sub_(update)
+
+
+class RMSProp(_OptaxRule):
+    """optax.rmsprop: nu starts at `initial_scale`; the scaling is
+    1 / sqrt(nu + eps) with `eps_in_sqrt` (the default), else
+    1 / (sqrt(nu) + eps); `centered` subtracts the squared first moment;
+    `bias_correction` divides the moments by 1 - decay ** t; momentum (a
+    trace, optionally Nesterov) runs after the learning rate."""
+
+    def __init__(self, params, schedule, *, decay=0.9, eps=1e-8, initial_scale=0.0,
+                 eps_in_sqrt=True, centered=False, momentum=None, nesterov=False,
+                 bias_correction=False, grad_clip_norm=None):
+        super().__init__(
+            params, schedule, grad_clip_norm, decay=decay, eps=eps,
+            initial_scale=initial_scale, eps_in_sqrt=eps_in_sqrt, centered=centered,
+            momentum=momentum, nesterov=nesterov, bias_correction=bias_correction,
+        )
+
+    def _init_state(self, p, state, group):
+        state["nu"] = torch.full_like(p, group["initial_scale"])
+        if group["centered"]:
+            state["mu"] = torch.zeros_like(p)
+        if group["momentum"] is not None:
+            state["trace"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group, lr):
+        decay, eps = group["decay"], group["eps"]
+        nu = state["nu"].mul_(decay).addcmul_(g, g, value=1 - decay)
+        mu = _ema_(state["mu"], g, decay) if group["centered"] else None
+        if group["bias_correction"]:
+            c = _bias_correction(decay, self.count)
+            nu = nu / c
+            mu = mu / c if mu is not None else None
+        if mu is not None:
+            nu = nu - mu * mu
+        scaling = torch.rsqrt(nu + eps) if group["eps_in_sqrt"] else 1 / (torch.sqrt(nu) + eps)
+        update = scaling * g * -lr
+        m = group["momentum"]
+        if m is not None:
+            trace = state["trace"].mul_(m).add_(update)
+            update = update + m * trace if group["nesterov"] else trace
+        p.add_(update)
+
+
+class Adagrad(_OptaxRule):
+    """optax.adagrad: the sum of squares starts at
+    `initial_accumulator_value` (0.1); the update is g / sqrt(sum + eps)
+    (eps 1e-7), 0 where the sum is 0."""
+
+    def __init__(self, params, schedule, *, initial_accumulator_value=0.1, eps=1e-7,
+                 grad_clip_norm=None):
+        super().__init__(params, schedule, grad_clip_norm,
+                         initial_accumulator_value=initial_accumulator_value, eps=eps)
+
+    def _init_state(self, p, state, group):
+        state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+
+    def _update(self, p, g, state, group, lr):
+        sos = state["sum_of_squares"].addcmul_(g, g)
+        inv = torch.where(sos > 0, torch.rsqrt(sos + group["eps"]), 0.0)
+        p.add_(inv * g * -lr)
 
 
 class SGD(_OptaxRule):
@@ -222,12 +422,13 @@ class SGD(_OptaxRule):
             params, schedule, grad_clip_norm, momentum=momentum, nesterov=nesterov
         )
 
+    def _init_state(self, p, state, group):
+        if group["momentum"]:
+            state["trace"] = torch.zeros_like(p)
+
     def _update(self, p, g, state, group, lr):
-        g = g.to(p.dtype)
         m = group["momentum"]
         if m:
-            if not state:
-                state["trace"] = torch.zeros_like(p)
             trace = state["trace"].mul_(m).add_(g)
             g = g + m * trace if group["nesterov"] else trace
         p.add_(g * -lr)
@@ -241,6 +442,11 @@ _OPTIMIZERS: dict[str, Callable[..., _OptaxRule]] = {
     "sgd": SGD,
     "adam": Adam,
     "adamw": _adamw,
+    "lamb": Lamb,
+    "lion": Lion,
+    "adafactor": Adafactor,
+    "rmsprop": RMSProp,
+    "adagrad": Adagrad,
 }
 
 
@@ -254,13 +460,8 @@ def build_optimizer(
 ) -> tuple[torch.optim.Optimizer, Schedule]:
     """(optimizer over `params`, its schedule). `config` holds the rule's
     keyword arguments (optax's names) and `grad_clip_norm`."""
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to PyTorch yet (see ROADMAP.md)"
-        )
     if name not in _OPTIMIZERS:
-        known = sorted((*_OPTIMIZERS, *_UNPORTED))
-        raise ValueError(f"unknown optimizer {name!r}; one of {known}")
+        raise ValueError(f"unknown optimizer {name!r}; one of {sorted(_OPTIMIZERS)}")
     config = dict(config or {})
     grad_clip = config.pop("grad_clip_norm", None)
     sched = build_schedule(float(learning_rate), schedule, total_steps)

@@ -17,11 +17,19 @@ the same step function, metrics and loop:
 - `grad_accum`: the batch splits into microbatches whose gradients add up
   on the masters before one update; a count that does not divide the
   batch is raised to the next one that does (`grad_accum_adjusted` event).
-- `remat` / `remat_policy: nothing`: `torch.utils.checkpoint` (non
-  reentrant) over the whole model apply, so the backward recomputes the
-  forward. Dropout draws from a generator made inside the recomputed
-  function from a seed keyed by (seed, step, microbatch), so the recompute
-  draws the same mask.
+- `remat` / `remat_policy`: `torch.utils.checkpoint` (non reentrant) over
+  the whole model apply, so the backward recomputes the forward. `nothing`
+  (and plain `remat`) saves nothing; `dots` and `dots_no_batch` save the
+  outputs of the matrix products by selective activation checkpointing,
+  as `jax.checkpoint_policies.checkpoint_dots` and
+  `checkpoint_dots_with_no_batch_dims` do: `aten.mm`/`aten.addmm` for
+  both (the projections have no batch dims), `aten.bmm`/`aten.baddbmm`
+  too for `dots` (the einsum attention's scores and values). The flash
+  kernels are called through ctypes, which the dispatcher never sees, so
+  they are always recomputed, as a `pallas_call` is in the reference.
+  Dropout draws from a generator made inside the recomputed function from
+  a seed keyed by (seed, step, microbatch), so the recompute draws the
+  same mask.
 - the fused loss (`ModelBundle.fused_loss`): the module returns features
   and the loss computes the lm head in vocab chunks.
 - metrics `loss`, `learning_rate` (the schedule at the step before the
@@ -35,23 +43,39 @@ the same step function, metrics and loop:
 - `profile_start` / `profile_stop`: a `torch.profiler` window written as a
   Chrome trace to `<artifacts_dir>/profile/trace.json`; the profiler is
   kept on `Trainer.profile`.
+- operations hooks, as the reference's `run()`: per step the span tree
+  `step` ⊃ `data_wait` + `compute` (and `checkpoint` at a boundary), in
+  `<artifacts_dir>/telemetry/spans.jsonl` unless `observability.trace` is
+  false; the histograms `trainer.step_seconds`, `trainer.data_wait_seconds`
+  and `trainer.compute_seconds`, the counter `trainer.steps`, the gauges
+  `train.<metric>` and the device memory gauges in the trainer's registry
+  (`observability.histogramBuckets` sets its buckets), and
+  `trainer.checkpoint_stall_ms` in the process-global one; the chaos point
+  `trainer.step`; the preemption flag read at the head of each step.
+- checkpoints (`runtime/checkpoint.py`) with a `checkpoint_dir`: a save
+  every `checkpoint_every` steps and one at the end, on the local tier
+  first when `local_checkpoint_dir` / `train.checkpointLocalDir` is set,
+  `checkpoint_keep` steps kept. A save holds the step, the master weights
+  and the optimizer's state with its `count`. With `resume`, `run()`
+  restores the newest intact step first. The data stream then starts
+  over, as the reference's does: a resumed run trains steps k.. on the
+  stream's batches 0..; the schedule, Adam's count and the dropout seeds
+  (keyed by the step) continue.
 
 `donate_state` is accepted and has nothing to do: PyTorch updates the
 weights and optimizer state in place. Not in this slice, each raising
-NotImplementedError (see ROADMAP.md): checkpoints (`checkpoint_every`,
-`checkpoint_keep`, `checkpoint_local_dir`, `resume`, a `checkpoint_dir`),
-mesh axes, the `dots` / `dots_no_batch` remat policies, and a program
-without `data` (the reference then trains on its image dataset
-`synthetic`, which the port does not have).
+NotImplementedError (see ROADMAP.md): mesh axes, and a program without
+`data` (the reference then trains on its image dataset `synthetic`, which
+the port does not have).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import re
 import threading
-import time
 from pathlib import Path
 from typing import Any, Callable, Optional, Union
 
@@ -59,16 +83,26 @@ import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
+from ..chaos.injector import inject
 from ..data import build_data
 from ..device import resolve_device
 from ..models import build_model
 from ..ops.losses import build_loss
 from ..ops.optimizers import build_optimizer, global_norm
-from ..schemas.program import V1Program, V1TrainSpec
+from ..retry import Preempted
+from ..schemas.program import V1Program, V1TrainSpec, to_camel
+from ..telemetry import MetricsRegistry, SpanTracer, get_registry, now, train_step_flops
 from ..telemetry import mfu as _mfu_of
-from ..telemetry import train_step_flops
+from ..tracking.monitors import device_metrics
+from . import preemption
+from .checkpoint import CheckpointTiers
 
 _DTYPES = {"float32": torch.float32, "mixed": torch.bfloat16, "bfloat16": torch.bfloat16}
 
@@ -76,6 +110,30 @@ _DTYPES = {"float32": torch.float32, "mixed": torch.bfloat16, "bfloat16": torch.
 def param_dtype_for(precision: str) -> torch.dtype:
     """Master-weight dtype for a train.precision setting."""
     return torch.bfloat16 if precision == "bfloat16" else torch.float32
+
+
+# the matrix products each policy saves (the rest is recomputed)
+_SAVED_PRODUCTS = {
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def remat_context_fn(policy: Optional[str]):
+    """`context_fn` for `torch.utils.checkpoint` under a remat policy: a
+    selective-checkpoint policy that saves the outputs of the policy's
+    matrix products; for `nothing` and no policy, torch's default, which
+    saves nothing."""
+    if policy not in _SAVED_PRODUCTS:
+        return noop_context_fn
+    saved = {getattr(torch.ops.aten, name).default for name in _SAVED_PRODUCTS[policy]}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def step_seed(seed: int, *keys: int) -> int:
@@ -112,7 +170,9 @@ class Trainer:
         log_fn: Optional[Callable[[int, dict], None]] = None,
         event_fn: Optional[Callable[[str, dict], None]] = None,
         checkpoint_dir: Optional[str] = None,
+        local_checkpoint_dir: Optional[str] = None,
         artifacts_dir: Optional[str] = None,
+        registry: Optional[MetricsRegistry] = None,
     ):
         program = V1Program.from_dict(program)
         self.program = program
@@ -122,24 +182,35 @@ class Trainer:
             "a program without data (the reference's image dataset "
             "'synthetic')": program.data is None,
             "mesh_axes (multi-GPU parallelism)": bool(mesh_axes),
-            "checkpoint_dir": checkpoint_dir is not None,
-            "train.checkpoint_every": tspec.checkpoint_every is not None,
-            "train.checkpoint_keep": tspec.checkpoint_keep is not None,
-            "train.checkpoint_local_dir": tspec.checkpoint_local_dir is not None,
-            "train.resume": bool(tspec.resume),
-            f"train.remat_policy={tspec.remat_policy}": tspec.remat_policy
-            in ("dots", "dots_no_batch"),
         }
         bad = [name for name, hit in unported.items() if hit]
         if bad:
             raise NotImplementedError(
-                f"{bad} are not ported to PyTorch yet (checkpoints are the next "
-                "slice; see ROADMAP.md)"
+                f"{bad} are not ported to PyTorch yet (see ROADMAP.md)"
             )
+        if tspec.checkpoint_every and not checkpoint_dir:
+            raise ValueError("train.checkpointEvery needs a checkpoint_dir to save into")
         self.device = resolve_device(device)
         self.artifacts_dir = artifacts_dir
         self.log_fn = log_fn or (lambda step, m: None)
         self.event_fn = event_fn
+        self.checkpoint_dir = checkpoint_dir
+        self.local_checkpoint_dir = local_checkpoint_dir or tspec.checkpoint_local_dir
+        self._tiers = None
+        # one metrics pipeline: every number the trainer reports goes
+        # through this registry (and on to the caller through _emit)
+        obs = program.observability or {}
+
+        def obs_field(name, default=None):
+            return obs.get(name, obs.get(to_camel(name), default))
+
+        self.telemetry = registry or MetricsRegistry(
+            default_buckets=obs_field("histogram_buckets")
+        )
+        self.tracer = SpanTracer(
+            path=str(Path(artifacts_dir) / "telemetry" / "spans.jsonl")
+            if artifacts_dir and obs_field("trace", True) else None
+        )
         self.compute_dtype = _DTYPES[tspec.precision]
         self.param_dtype = param_dtype_for(tspec.precision)
 
@@ -182,6 +253,7 @@ class Trainer:
                 "override or disable fused_lm_loss"
             )
         self.remat = bool(tspec.remat) or tspec.remat_policy is not None
+        self._remat_context = remat_context_fn(tspec.remat_policy)
 
         grad_accum = int(tspec.grad_accum) if tspec.grad_accum else 1
         if grad_accum < 1:
@@ -222,7 +294,10 @@ class Trainer:
     def _loss(self, batch, seed: int):
         params = self._compute_params()
         if self.remat:
-            out = checkpoint(self._apply, params, batch["inputs"], seed, use_reentrant=False)
+            out = checkpoint(
+                self._apply, params, batch["inputs"], seed,
+                use_reentrant=False, context_fn=self._remat_context,
+            )
         else:
             out = self._apply(params, batch["inputs"], seed)
         if self.fused_loss is not None:  # `out` carries features
@@ -289,13 +364,17 @@ class Trainer:
     def run(self) -> TrainResult:
         tspec = self.tspec
         log_every = max(1, int(tspec.log_every))
+        ckpt_every = int(tspec.checkpoint_every) if tspec.checkpoint_every else 0
+        if self.checkpoint_dir and tspec.resume:
+            self.restore()
         history: list[dict] = []
         pending: Optional[tuple[int, dict]] = None
         start_step = self.step
         n_steps = self.steps - start_step
 
         # prefetch: host batch prep and the copy to the device run on a
-        # producer thread, ahead of the step
+        # producer thread, ahead of the step. A fresh stream: a resumed run
+        # trains on the stream's first batches again, as the reference does
         feed: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
         it = self.data.iterator
@@ -324,44 +403,75 @@ class Trainer:
         prof_stop = int(tspec.profile_stop) if tspec.profile_stop is not None else None
 
         self._init_throughput_facts()
-        t0 = time.perf_counter()
+        step_hist = self.telemetry.histogram("trainer.step_seconds", help="Per-step walltime")
+        wait_hist = self.telemetry.histogram(
+            "trainer.data_wait_seconds", help="Per-step time blocked on the input pipeline"
+        )
+        busy_hist = self.telemetry.histogram(
+            "trainer.compute_seconds", help="Per-step walltime minus data wait"
+        )
+        steps_ctr = self.telemetry.counter("trainer.steps", help="Training steps completed")
+        # process-global, as in the reference: what a boundary save costs
+        # the step loop (the snapshot; the write runs in the background)
+        stall_hist = get_registry().histogram(
+            "trainer.checkpoint_stall_ms",
+            buckets=(0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0, 5000.0),
+            help="Step-loop stall per boundary save (async write), ms",
+        )
+        t0 = now()
         self._win = {"t0": t0, "steps": 0, "wait": 0.0, "busy": 0.0}
         try:
             for step in range(start_step, self.steps):
-                if prof_start is not None and step == prof_start and self.artifacts_dir:
-                    self._start_profiler()
-                t_wait = time.perf_counter()
-                batch = feed.get()
-                t_busy = time.perf_counter()
-                if isinstance(batch, BaseException):
-                    raise batch
-                metrics = self.train_step(batch)
-                if self._profiling and prof_stop is not None and step + 1 >= prof_stop:
-                    self._stop_profiler()
-                if (step + 1) % log_every == 0 or step + 1 == self.steps:
-                    # flush the previous log point first: one log point of
-                    # pipelining, so reading it never stalls the device
-                    if pending is not None:
-                        self._emit(history, *pending)
-                    pending = (step + 1, metrics)
-                if eval_every and ((step + 1) % eval_every == 0 or step + 1 == self.steps):
-                    eval_metrics = self._evaluate(eval_steps)
-                    if pending is not None:
-                        self._emit(history, *pending)
-                        pending = None
-                    self._emit(history, step + 1, eval_metrics)
-                t_end = time.perf_counter()
+                # data_wait + compute cover the step body, so their
+                # durations add up to the step span's
+                with self.tracer.span("step", step=step) as step_span:
+                    inject("trainer.step", step=step)
+                    if preemption.requested():
+                        self._preempt_exit(step, start_step)
+                    if prof_start is not None and step == prof_start and self.artifacts_dir:
+                        self._start_profiler()
+                    with self.tracer.span("data_wait") as wait_span:
+                        batch = feed.get()
+                    if isinstance(batch, BaseException):
+                        raise batch
+                    with self.tracer.span("compute") as busy_span:
+                        metrics = self.train_step(batch)
+                        if self._profiling and prof_stop is not None and step + 1 >= prof_stop:
+                            self._stop_profiler()
+                        if (step + 1) % log_every == 0 or step + 1 == self.steps:
+                            # flush the previous log point first: one log
+                            # point of pipelining, so reading it never
+                            # stalls the device
+                            if pending is not None:
+                                self._emit(history, *pending)
+                            pending = (step + 1, metrics)
+                        if eval_every and ((step + 1) % eval_every == 0 or step + 1 == self.steps):
+                            eval_metrics = self._evaluate(eval_steps)
+                            if pending is not None:
+                                self._emit(history, *pending)
+                                pending = None
+                            self._emit(history, step + 1, eval_metrics)
+                    if ckpt_every and (step + 1) % ckpt_every == 0:
+                        with self.tracer.span("checkpoint", step=step + 1) as ckpt_span:
+                            self.save(step + 1)
+                        stall_hist.observe(ckpt_span.dur_s * 1000.0)
+                step_hist.observe(step_span.dur_s)
+                wait_hist.observe(wait_span.dur_s)
+                busy_hist.observe(busy_span.dur_s)
+                steps_ctr.inc()
                 self._win["steps"] += 1
-                self._win["wait"] += t_busy - t_wait
-                self._win["busy"] += t_end - t_busy
+                self._win["wait"] += wait_span.dur_s
+                self._win["busy"] += busy_span.dur_s
             self._stop_profiler()
             if pending is not None:
                 self._emit(history, *pending)
         finally:
             stop.set()
             producer.join(timeout=10)
-        elapsed = time.perf_counter() - t0
+        elapsed = now() - t0
         sps = n_steps / elapsed if elapsed > 0 else 0.0
+        if ckpt_every:
+            self.save(self.steps, wait=True)  # a no-op when the last boundary saved it
         final = dict(history[-1]) if history else {}
         final["steps_per_sec"] = sps
         final["examples_per_sec"] = sps * self.data.batch_size
@@ -403,6 +513,7 @@ class Trainer:
         self._profiler = profile(activities=activities)
         self._profiler.__enter__()
         self._profiling = True
+        self.tracer.event("profiler.start", path=str(Path(self.artifacts_dir) / "profile"))
 
     def _stop_profiler(self):
         """Idempotent close of the capture window: waits for the device,
@@ -417,6 +528,7 @@ class Trainer:
         trace_dir = Path(self.artifacts_dir) / "profile"
         trace_dir.mkdir(parents=True, exist_ok=True)
         self._profiler.export_chrome_trace(str(trace_dir / "trace.json"))
+        self.tracer.event("profiler.stop", path=str(trace_dir))
         self._event(
             "artifact",
             {"kind": "profile", "path": "profile", "abs_path": str(trace_dir)},
@@ -444,7 +556,7 @@ class Trainer:
         peak bf16 FLOP/s, and the share of the loop's time spent waiting
         for the input pipeline. Resets the window."""
         w = self._win
-        dt = time.perf_counter() - w["t0"]
+        dt = now() - w["t0"]
         if not w["steps"] or dt <= 0:
             return {}
         out = {}
@@ -460,21 +572,89 @@ class Trainer:
             )
             if mfu is not None:
                 out["mfu"] = mfu
-        self._win = {"t0": time.perf_counter(), "steps": 0, "wait": 0.0, "busy": 0.0}
+        self._win = {"t0": now(), "steps": 0, "wait": 0.0, "busy": 0.0}
         return out
 
     def _emit(self, history, step, metrics):
         vals = {k: float(v) for k, v in metrics.items()}
         vals.update(self._drain_window())
+        for k, v in vals.items():
+            self.telemetry.gauge(f"train.{k}").set(v)
+        for k, v in device_metrics().items():
+            self.telemetry.gauge(k).set(v)
         history.append({"step": step, **vals})
         self.log_fn(step, vals)
 
     def _event(self, kind: str, body: dict):
-        """Lifecycle events to the caller's sink; advisory — a sink fault
-        never fails training."""
+        """Lifecycle events (preempted, resumed, checkpoint_fallback, ...) to
+        the caller's sink; advisory — a sink fault never fails training."""
         if self.event_fn is None:
             return
         try:
             self.event_fn(kind, body)
         except Exception:  # noqa: BLE001
             pass
+
+    def _preempt_exit(self, step: int, start_step: int):
+        """SIGTERM landed: flush a checkpoint of the `step` steps done and
+        raise `Preempted`, so the restart resumes warm instead of counting
+        a failure. The saved step is the resume point. When the newest
+        save is already that step, its write and upload still in flight
+        are waited for (the reference raises without waiting), so the
+        resume point is on disk before the process goes."""
+        saved = None
+        if self.checkpoint_dir:
+            tiers = self._checkpoint_tiers()
+            saved = tiers.latest_step()
+            if step > start_step and (saved or 0) < step:
+                self.save(step, wait=True)
+                saved = step
+            else:
+                tiers.wait()
+        self._event("preempted", {"step": step, "resume_step": int(saved or 0)})
+        raise Preempted(f"SIGTERM preemption notice at step {step}", step=saved)
+
+    # -------------------------------------------------------------- ckpt
+    def _checkpoint_tiers(self):
+        if self._tiers is None and self.checkpoint_dir:
+            keep = int(self.tspec.checkpoint_keep) if self.tspec.checkpoint_keep else None
+            self._tiers = CheckpointTiers(
+                self.checkpoint_dir, local=self.local_checkpoint_dir, keep=keep
+            )
+        return self._tiers
+
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint holds, as references to the live tensors: the
+        step, the master weights, and the optimizer's state with its
+        `count`."""
+        return {
+            "step": self.step,
+            "model": self.module.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+        }
+
+    def save(self, step: int, wait: bool = False) -> bool:
+        """Save the state as `step` (asynchronous unless `wait`); False when
+        `step` is not newer than the newest saved step."""
+        return self._checkpoint_tiers().save(step, self.checkpoint_state(), wait=wait)
+
+    def restore(self) -> int:
+        """Load the newest intact step across both tiers (the durable copy
+        preferred, the local one as fallback, corrupt copies quarantined
+        per tier) into the weights and optimizer state in place. Returns
+        the restored step, 0 when there is none."""
+        with self.tracer.span("restore"):
+            restored, step, corrupt, tier = self._checkpoint_tiers().restore_latest_intact(
+                self.checkpoint_state()
+            )
+        if corrupt:
+            self._event("checkpoint_fallback", {
+                "corrupt_steps": sorted({s for _t, s in corrupt}),
+                "corrupt_copies": [[t, s] for t, s in corrupt],
+                "restored_step": step,
+            })
+        if step > 0:
+            self.step = int(restored["step"])
+            self.optimizer.count = int(restored["optimizer"]["count"])
+            self._event("resumed", {"step": step, "tier": tier})
+        return step

@@ -41,7 +41,9 @@ def test_import_walk_sees_the_package():
     names = {p.name for p in SOURCES}
     assert {"flash_attention.py", "transformer.py", "server.py", "chip_smoke.py",
             "losses.py", "optimizers.py", "trainer.py", "program.py",
-            "synthetic.py", "stats.py"} <= names
+            "synthetic.py", "stats.py", "checkpoint.py", "preemption.py",
+            "injector.py", "plan.py", "registry.py", "spans.py", "monitors.py",
+            "retry.py", "convert.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 

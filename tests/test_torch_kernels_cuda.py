@@ -327,3 +327,42 @@ def test_training_step_launches_dq_and_dkv_once_per_layer(cuda_device):
     want = ref.run().history
     for a, b in zip(got, want):
         assert abs(a["loss"] - b["loss"]) < 2e-2 * abs(b["loss"])
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A 3-layer flash trainer saves at its boundary (device snapshot,
+    background write); a second trainer resumed from it holds the same
+    weights, Adam moments, count and step bit for bit, on the card, and
+    trains on from there."""
+    from polyaxon_tpu_torch.runtime import Trainer
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+
+    def program(steps, **train):
+        return {
+            "model": {"name": "transformer_lm", "config": dict(
+                dim=128, n_layers=3, n_heads=4, n_kv_heads=2, vocab_size=512,
+                seq_len=256, attention="flash")},
+            "data": {"name": "synthetic_text", "batchSize": 2,
+                     "config": {"seq_len": 256, "vocab_size": 512}},
+            "optimizer": {"name": "adamw", "learningRate": 1e-3,
+                          "schedule": {"name": "cosine", "warmup_steps": 1}},
+            "train": {"steps": steps, "logEvery": 1, "precision": "mixed",
+                      "remat": True, "checkpointEvery": 2, **train},
+        }
+
+    first = Trainer(program(2), checkpoint_dir=str(tmp_path))
+    first.run()
+    again = Trainer(program(3, resume=True), checkpoint_dir=str(tmp_path))
+    assert again.restore() == 2
+    want, got = first.checkpoint_state(), again.checkpoint_state()
+    assert got["step"] == want["step"] == 2
+    assert got["optimizer"]["count"] == want["optimizer"]["count"] == 2
+    for name, t in want["model"].items():
+        assert got["model"][name].is_cuda and torch.equal(got["model"][name], t), name
+    for i, state in want["optimizer"]["state"].items():
+        for k, t in state.items():
+            assert torch.equal(got["optimizer"]["state"][i][k], t), (i, k)
+    history = again.run().history
+    assert [h["step"] for h in history] == [3]
+    assert torch.isfinite(torch.tensor(history[0]["loss"]))
+    ck.close_all()

@@ -227,17 +227,6 @@ def test_grad_accum_adjusts_to_a_divisor():
     })]
 
 
-@pytest.mark.parametrize(
-    "train,match",
-    [({"checkpointEvery": 2}, "checkpoint_every"), ({"resume": True}, "resume"),
-     ({"rematPolicy": "dots"}, "remat_policy"), ({"checkpointKeep": 2}, "checkpoint_keep")],
-    ids=["checkpoint_every", "resume", "remat-dots", "checkpoint_keep"],
-)
-def test_unported_train_fields_raise(train, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(program(train=train), device="cpu")
-
-
 def test_program_without_data_raises():
     """The reference falls back to its image dataset `synthetic`, which the
     port does not have."""
