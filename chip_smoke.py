@@ -26,9 +26,28 @@ preset (random weights from a fixed seed): inference, then training.
                flash kernel (one launch per layer); its bf16 logits must
                sit as close to an f32 copy of the same weights as the bf16
                einsum-attention path does;
-4. serve     — a ModelServer answering three POST /generate requests over
-               HTTP, each equal to a direct generate() call, and GET
-               /healthz;
+4. serve     — a ModelServer on the per-request path (`batching: false`)
+               answering three POST /generate requests over HTTP, each
+               equal to a direct generate() call, and GET /healthz;
+4b. serve-batched — the batched paths on the same model: three server
+               configs (`dense`: the coalescer over bucketed dense groups;
+               `paged`: the paged KV pool of 2048 x 128-token pages with the
+               prefix cache; `step`: the pool with chunked prefill and the
+               continuous-batching step scheduler) under one traffic — two
+               waves of 8 concurrent greedy requests of 64 new tokens,
+               prompts of 128-2048 tokens, 8 of them behind one shared
+               1024-token prefix — then one non-streamed and one streamed
+               request (SSE) and, on dense and paged, one sampled request.
+               Every row is held against the direct generate() of that row
+               (a divergence passes only at a bf16 near-tie: the reference
+               path's top-2 gap under 2^-6 of its top logit), the stream
+               against the non-streamed tokens, the sampled pair dense
+               against paged; no KV page may leak, the paged configs must
+               hit the prefix cache and the step scheduler must run mixed
+               steps. Prints TTFT, decode tokens/s, step ms and the pool per
+               config; then one decode step at B=8 and a 2112-slot frontier,
+               dense and paged, timed and under torch.profiler (top device
+               ops, the device's idle share);
 5. train     — `Trainer(program).run()`: 8 AdamW steps on [1, 4096]
                synthetic_text tokens, mixed precision, remat, fused LM
                loss, flash attention, with a profiler window over one step;
@@ -64,8 +83,9 @@ preset (random weights from a fixed seed): inference, then training.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then phases 5, 7 and 8) and read just after it, so `launches`
-counts the main paths only. The last lines are the kernels JSON line, the card's name
+(phases 3-4, then 4b, then phases 5, 7 and 8) and read just after it, so
+`launches` counts the main paths only (4b launches none: decode attends by
+einsum, as the reference's does). The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
 non-zero and prints no result.
@@ -163,6 +183,32 @@ EINSUM_STEPS = 3
 TRAIN_VS_EINSUM = {"loss": 5e-5, "grad_norm": 9e-4, "update": 7e-2}
 PRESET_LAYERS, PRESET_PARAMS = 16, 1_498_482_688  # llama3-1b's depth and size
 RULES_STEPS = 4  # steps of each remat policy
+# serve-batched: three server configs on the full model under one traffic,
+# two waves of 8 concurrent greedy requests of SERVE_NEW tokens, 8 of the
+# 16 prompts behind one shared SERVE_PREFIX-token system prefix
+SERVE_NEW = 64
+SERVE_PREFIX = 1024
+SERVE_PROMPT_LENS = (128, 2048)
+SERVE_SEED = 3
+SERVE_BASE = {"max_batch": 8, "max_wait_ms": 50.0}
+SERVE_CONFIGS = {
+    "dense": {"batching": True},
+    "paged": {"kv_pool_pages": 2048, "kv_page_tokens": 128, "prefix_cache": True},
+    # 8 decode rows plus one 256-token prefill slice, with room
+    "step": {"kv_pool_pages": 2048, "kv_page_tokens": 128, "prefix_cache": True,
+             "chunked_prefill": True, "prefill_chunk_tokens": 256,
+             "max_step_tokens": 2304},
+}
+# 16 layers x (k, v) x 8 kv heads x 64 x 2 bytes = 32 KiB a token, x 2048
+# pages of 128 tokens = 8 GiB
+SERVE_POOL_BYTES = PRESET_LAYERS * 2 * 8 * 64 * 2 * 2048 * 128
+SAMPLED_ON = ("dense", "paged")
+SAMPLED_BODY = {"tokens": [list(range(1000, 1300))], "maxNewTokens": SERVE_NEW,
+                "temperature": 0.8, "topK": 50, "seed": 7}
+# a greedy divergence passes only where the reference path's top-2 logit
+# gap is under this share of its top logit (a bf16 near-tie)
+NEAR_TIE = 2.0 ** -6
+PROFILE_BATCH, PROFILE_SLOTS = 8, 2112  # the decode step that is profiled
 
 
 class SmokeFailure(RuntimeError):
@@ -636,7 +682,9 @@ def phase_serve(model) -> None:
     from polyaxon_tpu_torch.serving.batching import ServingConfig
     from polyaxon_tpu_torch.serving.server import ModelServer
 
-    server = ModelServer(model, None, ServingConfig(max_batch=1), model_name=PRESET)
+    server = ModelServer(
+        model, None, ServingConfig(batching=False, max_batch=1), model_name=PRESET
+    )
     port = server.start("127.0.0.1", 0)
     url = f"http://127.0.0.1:{port}"
     try:
@@ -658,6 +706,282 @@ def phase_serve(model) -> None:
             check(len(out[0]) == plen + 16, "wrong response length")
     finally:
         server.stop()
+
+
+def _post_all(url: str, bodies: list) -> list:
+    """POST every body at once, one thread each; the answers in order. A
+    failed request raises here, not inside its thread."""
+    import threading
+
+    out: list = [None] * len(bodies)
+
+    def one(i):
+        try:
+            out[i] = _http(url + "/generate", bodies[i])
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    for i, o in enumerate(out):
+        if not isinstance(o, dict):
+            raise SmokeFailure(f"request {i} failed: {o!r}")
+    return out
+
+
+def _sse(url: str, body: dict) -> list:
+    """POST /generate?stream=1 and parse every `data:` frame."""
+    req = urllib.request.Request(
+        url + "/generate?stream=1", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"stream answered {resp.status}")
+        raw = resp.read().decode()
+    return [json.loads(f[len("data: "):]) for f in raw.split("\n\n") if f]
+
+
+def serve_traffic(vocab: int) -> list:
+    """Two waves of 8 prompts of SERVE_PROMPT_LENS tokens from a seeded
+    generator; in each wave 4 start with the shared SERVE_PREFIX-token
+    system prefix, so the second wave's find it in the prefix cache."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    def length(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=gen))
+
+    lo, hi = SERVE_PROMPT_LENS
+    prefix = toks(SERVE_PREFIX)
+    shared = [prefix + toks(length(lo, hi - SERVE_PREFIX)) for _ in range(8)]
+    other = [toks(length(lo, hi)) for _ in range(8)]
+    return [shared[:4] + other[:4], shared[4:] + other[4:]]
+
+
+def next_token_gap(model, tokens: list, sample=None) -> float:
+    """The reference path's top-2 gap at the token after `tokens`, over its
+    top logit: (top1 - top2) / |top1| of the dense-cache prefill's last
+    logits — or, for a sampled row (`sample` = (temperature, top_k, seed,
+    generation index)), of the same logits with that row's Gumbel noise."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import _gumbel, _top_k_mask
+
+    x = torch.tensor([tokens], device=model.device)
+    logits = model(x, cache=model.make_cache(1), pos=0)[0, -1].float()
+    if sample is not None:
+        temperature, top_k, seed, g = sample
+        logits = _top_k_mask((logits / temperature)[None], top_k)[0]
+        logits = logits + _gumbel(logits.shape, seed, g, logits.device)
+    top = torch.topk(logits, 2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def compare_rows(model, got: list, ref: list, prompt_len: int, sample=None):
+    """None when `got` equals `ref`; else the first differing generated
+    position and the reference path's top-2 gap there. On bf16 another
+    batch shape may take other GEMM kernels, so a divergence passes only at
+    a near-tie: a gap under NEAR_TIE of the top logit."""
+    if got == ref:
+        return None
+    j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b) - prompt_len
+    check(j >= 0, "a response changed its prompt")
+    if sample is not None:
+        sample = (*sample, j)
+    gap = next_token_gap(model, ref[:prompt_len + j], sample)
+    check(gap < NEAR_TIE, f"divergence at generated token {j} with top-2 gap "
+          f"{gap} (>= {NEAR_TIE}): not a near-tie")
+    return {"position": j, "gap": gap}
+
+
+def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
+    """One server config under the traffic: the two waves of concurrent
+    greedy requests, then a non-streamed and a streamed request of one
+    shared-prefix prompt, then (dense, paged) the sampled request."""
+    import torch
+
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    torch.cuda.reset_peak_memory_stats()
+    config = ServingConfig(**SERVE_BASE, **SERVE_CONFIGS[name])
+    server = ModelServer(model, None, config, model_name=PRESET, device=model.device)
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    try:
+        t0 = time.perf_counter()
+        answers = []
+        for wave in waves:
+            answers += _post_all(url, [
+                {"tokens": [p], "maxNewTokens": SERVE_NEW} for p in wave
+            ])
+        wall = time.perf_counter() - t0
+        stats = _http(url + "/statsz")
+        body = {"tokens": [waves[1][0]], "maxNewTokens": SERVE_NEW}
+        whole = _http(url + "/generate", body)["tokens"][0]
+        events = _sse(url, body)
+        sampled = None
+        if name in SAMPLED_ON:
+            sampled = _http(url + "/generate", SAMPLED_BODY)["tokens"][0]
+        final = _http(url + "/statsz")
+    finally:
+        server.stop()
+    prompts = [p for wave in waves for p in wave]
+    divergences = []
+    for i, (p, a) in enumerate(zip(prompts, answers)):
+        row = a["tokens"][0]
+        check(len(row) == len(p) + SERVE_NEW,
+              f"{name}: response {i} has {len(row)} tokens, not {len(p) + SERVE_NEW}")
+        d = compare_rows(model, row, reference[i], len(p))
+        if d is not None:
+            divergences.append({"row": i, **d})
+    streamed = [t for ev in events if "tokens" in ev for t in ev["tokens"]]
+    check(events[-1].get("done") is True, f"{name}: the stream did not end with done")
+    check(body["tokens"][0] + streamed == whole,
+          f"{name}: streamed chunks differ from the non-streamed tokens")
+    after = server.stats()  # after the drain in stop()
+    kv = after["kv"]
+    if kv["enabled"]:
+        check(kv["active_rows"] == 0 and kv["pages_reserved"] == 0,
+              f"{name}: rows still hold pages after the traffic: {kv}")
+        check(kv["pages_used"] == 1 + kv["prefix"]["held_pages"],
+              f"{name}: pages leaked: {kv['pages_used']} used, scratch + "
+              f"{kv['prefix']['held_pages']} held by the prefix cache")
+        check(kv["kv_pool_bytes"] == SERVE_POOL_BYTES,
+              f"{name}: pool of {kv['kv_pool_bytes']} bytes, not {SERVE_POOL_BYTES}")
+        check(kv["prefix"]["hits"] >= 1, f"{name}: no prefix-cache hit")
+    chunked = final["chunked"]
+    if chunked["enabled"]:
+        check(chunked["steps"] > chunked["prefill_only_steps"],
+              f"{name}: the scheduler ran no mixed step: {chunked}")
+    generated = SERVE_NEW * len(prompts)
+    line = {
+        "phase": "serve-batched", "config": name, "device": device_line(),
+        "requests": len(prompts), "waves": len(waves), "new_tokens": SERVE_NEW,
+        "prompt_lens": [len(p) for p in prompts],
+        "wall_seconds": wall, "decode_tokens_per_s": generated / wall,
+        "ttft_ms_p50": stats["ttft_ms"]["p50"], "ttft_ms_p95": stats["ttft_ms"]["p95"],
+        "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+        "latency_ms_p50": stats["latency_ms"]["p50"],
+        "mean_batch_occupancy": stats["mean_batch_occupancy"],
+        "rows_diverged": len(divergences), "divergences": divergences,
+        "stream_chunks": sum(1 for ev in events if "tokens" in ev),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if kv["enabled"]:
+        line.update({
+            "kv_pool_bytes": kv["kv_pool_bytes"], "pages_hwm": kv["pages_hwm"],
+            "pages_total": kv["pages_total"], "rows_admitted_hwm": kv["active_rows_hwm"],
+            "dense_equivalent_rows": kv["dense_equivalent_rows"],
+            "prefix_hits": kv["prefix"]["hits"], "prefix_misses": kv["prefix"]["misses"],
+        })
+    if chunked["enabled"]:
+        line.update({k: chunked[k] for k in ("steps", "prefill_only_steps", "prefill_chunks")})
+        line["step_tokens_p50"] = chunked["step_tokens"]["p50"]
+    emit(line)
+    return {"sampled": sampled}
+
+
+def profile_decode_step(model) -> None:
+    """One decode step at B=PROFILE_BATCH, each row's frontier at slot
+    PROFILE_SLOTS - 1, through the dense cache (whose window is the whole
+    seq_len) and through the paged pool (a PROFILE_SLOTS-slot table rounded
+    up to pages): its median time (CUDA events around back-to-back steps,
+    so host gaps count), then one step under torch.profiler — the top
+    device ops and the device's idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+
+    B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, model.device
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, model.cfg.vocab_size, (B, 1), generator=gen).to(dev)
+    pad = torch.zeros(B, dtype=torch.long, device=dev)
+    layout = PagedKVLayout(128, 1 + B * -(-S // 128))
+    n_pages = layout.pages_for(S)
+    tables = 1 + torch.arange(B * n_pages, device=dev).reshape(B, n_pages)
+    caches = {"dense": model.make_cache(B), "paged": make_paged_cache(model, layout)}
+    steps = {
+        "dense": lambda: model(tok, cache=caches["dense"], pos=S - 1, pad=pad),
+        "paged": lambda: model(tok, cache=caches["paged"], pos=S - 1, pad=pad,
+                               pages=tables, kv_layout=layout),
+    }
+    for name, fn in steps.items():
+        ms = cuda_ms(fn, reps=10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = sorted(
+            (e for e in prof.key_averages()
+             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)),
+            key=_device_time_us, reverse=True,
+        )
+        busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
+        host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)
+        emit({
+            "phase": "serve-profile", "path": name, "batch": B, "window_slots": (
+                model.cfg.seq_len if name == "dense" else n_pages * layout.page_tokens),
+            "frontier": S, "device": device_line(),
+            "step_ms_median": ms, "profiled_step_wall_ms": wall_ms,
+            "kernel_ms_total": busy_ms if kernels else "not measured",
+            "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [
+                {"name": e.key[:90], "ms": _device_time_us(e) / 1e3, "count": e.count}
+                for e in kernels[:12]
+            ],
+            # where the host's time goes: operators and CUDA runtime calls
+            "top_host_ops": [
+                {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                 "count": e.count}
+                for e in host[:10]
+            ],
+        })
+    del caches
+    torch.cuda.empty_cache()
+
+
+def phase_serve_batched(model) -> None:
+    """The batched serving paths on the full-size model: the dense, paged
+    and step configs under the same traffic, each row held against the
+    port's direct generate(); then one decode step profiled."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import generate
+
+    waves = serve_traffic(model.cfg.vocab_size)
+    prompts = [p for wave in waves for p in wave]
+    t0 = time.perf_counter()
+    reference = [
+        generate(model, torch.tensor([p]), max_new_tokens=SERVE_NEW)[0].tolist()
+        for p in prompts
+    ]
+    emit({"phase": "serve-batched-reference", "rows": len(prompts),
+          "seconds": time.perf_counter() - t0})
+    sampled = {}
+    for name in SERVE_CONFIGS:
+        sampled[name] = run_serve_config(model, name, waves, reference)["sampled"]
+        torch.cuda.empty_cache()
+    a, b = (sampled[n] for n in SAMPLED_ON)
+    body = SAMPLED_BODY
+    d = compare_rows(model, b, a, len(body["tokens"][0]),
+                     sample=(body["temperature"], body["topK"], body["seed"]))
+    emit({"phase": "serve-batched-sampled", "configs": list(SAMPLED_ON),
+          "equal": a == b, "divergence": d})
+    profile_decode_step(model)
 
 
 def _device_time_us(evt) -> float:
@@ -1170,6 +1494,8 @@ def device_line() -> str:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one GPU",
               file=sys.stderr)
@@ -1206,6 +1532,15 @@ def main() -> int:
         phase_forward(model)
         phase_serve(model)
         launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        for kern in KERNELS:  # the batched serving path starts here
+            kern.launches = 0
+        phase_serve_batched(model)
+        served = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        # decode and paged prefill attend by einsum (as the reference's
+        # XLA decode does): no kernel of the port lies on this path
+        emit({"phase": "serve-batched-launches", "launches": served})
+        for name, n in served.items():
+            launches[name] += n
         del model, warm
     torch.cuda.empty_cache()
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
@@ -1216,6 +1551,7 @@ def main() -> int:
         for name, n in phase().items():
             launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,17 +1,27 @@
-"""Autoregressive generation with a dense per-layer KV cache (counterpart
-of `polyaxon_tpu/models/generate.py::generate`).
+"""Autoregressive generation through the KV cache, counterpart of
+`polyaxon_tpu/models/generate.py`.
 
-One batched prefill forward over the whole prompt fills every layer's
-cache and samples the first new token; then one cached decode step per
-further token. The cache is allocated up front, [B, seq_len, n_kv, hd] per
-layer (no creation pass), and written in place. The reference is
-functional (each step returns a new cache pytree); the tokens are the same.
+`generate`: one batched prefill forward over the whole prompt fills every
+layer's dense cache and samples the first new token; then one cached
+decode step per further token. The cache is allocated up front,
+[B, seq_len, n_kv, hd] per layer (no creation pass), and written in place.
+The reference is functional (each step returns a new cache pytree); the
+tokens are the same.
+
+The paged functions run the same decode through one pool of page-sized
+blocks shared by every request (`make_paged_cache`), addressed through
+per-row page tables: `paged_prefill` then `paged_decode_chunk` (a coalesced
+group), `paged_prefill_chunk` (one slice of a chunked prefill) and
+`paged_step` (one continuous-batching step at per-row frontiers). They
+update the pool in place where the reference donates it to its compiled
+programs; the reference's `jit_*` factories have no counterpart.
 
 Sampling: temperature 0 is greedy (argmax, first index on ties) and gives
 the reference's tokens exactly. With temperature > 0 the noise comes from
 a torch.Generator keyed like the reference's jax.random streams — a scalar
 seed by (seed, absolute position), per-row seeds by (row seed, generation
-index) — so a row's tokens do not depend on its batch or padding. The
+index) — so a row's tokens do not depend on its batch, its padding or
+the path that decodes it (dense bucketed, paged, chunked or stepped). The
 draws themselves differ from jax.random's by construction.
 """
 
@@ -19,7 +29,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+from .kv_pages import PagedKVLayout
+from .transformer import _per_row
 
 
 def _top_k_mask(logits, top_k: Optional[int]):
@@ -49,17 +63,27 @@ def _sample(logits, seed: int, index: int, temperature: float, top_k: Optional[i
     return torch.argmax(logits + _gumbel(logits.shape, seed, index, logits.device), dim=-1)
 
 
-def _sample_rows(logits, seeds, index: int, temperature: float, top_k: Optional[int]):
-    """Per-row streams: row b draws from (seeds[b], index), so coalescing
-    rows into one batch never correlates or changes their samples."""
+def _sample_rows(logits, seeds, index, temperature: float, top_k: Optional[int]):
+    """Per-row streams: row b draws from (seeds[b], index[b]) — `index` is
+    one generation index for the batch or one per row — so coalescing rows
+    into one batch never correlates or changes their samples."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     logits = _top_k_mask(logits / temperature, top_k)
     V = logits.shape[-1]
+    seeds = [int(s) for s in seeds]
+    index = [int(i) for i in index] if _per_row(index) else [int(index)] * len(seeds)
     noise = torch.stack(
-        [_gumbel((V,), int(s), index, logits.device) for s in seeds]
+        [_gumbel((V,), s, g, logits.device) for s, g in zip(seeds, index)]
     )
     return torch.argmax(logits + noise, dim=-1)
+
+
+def _host_ints(x) -> list:
+    """A [B] per-row argument (tensor, array or list) as Python ints."""
+    if torch.is_tensor(x):
+        x = x.tolist()
+    return [int(v) for v in np.asarray(x).reshape(-1)]
 
 
 @torch.inference_mode()
@@ -129,3 +153,138 @@ def generate(
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
         buf[:, t + 1] = nxt
     return buf
+
+
+# --------------------------------------------------------------- paged decode
+# Determinism contract (the reference's, `generate.py:200-204`): for the
+# same per-row seeds and pads a row's tokens equal the dense bucketed
+# `generate` path's — same rope positions (slot - pad), same masked softmax
+# (dead slots score -1e30 and weigh exactly 0), same per-generation-index
+# sample streams.
+
+
+def make_paged_cache(module, layout: PagedKVLayout) -> list:
+    """The zeroed pool: per layer (k, v), each [pool_pages, page_tokens,
+    n_kv_heads, head_dim] in the model's dtype on its device. Batch-size
+    independent, so one pool serves every group shape. Zeros, not empty
+    memory: scratch-page slots are masked to -1e30 in the scores, but a NaN
+    there would still reach probs @ V."""
+    if layout.kv_quant != "none":
+        raise NotImplementedError("the int8 KV pool is not ported yet (see ROADMAP.md)")
+    cfg = module.cfg
+    shape = (layout.pool_pages, layout.page_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return [
+        (
+            torch.zeros(shape, dtype=module.dtype, device=module.device),
+            torch.zeros(shape, dtype=module.dtype, device=module.device),
+        )
+        for _ in range(cfg.n_layers)
+    ]
+
+
+def _as_long(x, device):
+    return torch.as_tensor(x, dtype=torch.long, device=device)
+
+
+@torch.inference_mode()
+def paged_prefill(
+    module, cache, prompt, *, pad, pages, kv_layout: PagedKVLayout,
+    prefix_len: int, temperature: float, top_k: Optional[int], seeds,
+) -> torch.Tensor:
+    """Prefill `prompt` [B, S] (LEFT-padded suffixes when a shared prefix of
+    `prefix_len` tokens is already in the pool) through the page tables,
+    starting at slot `prefix_len`, and sample the first new token per row
+    (generation index 0). Returns first_tokens [B]."""
+    dev = module.device
+    logits = module(
+        _as_long(prompt, dev), cache=cache, pad=_as_long(pad, dev),
+        pages=_as_long(pages, dev), pos=int(prefix_len), kv_layout=kv_layout,
+        prefix_len=int(prefix_len),
+    )
+    return _sample_rows(logits[:, -1].float(), _host_ints(seeds), 0, temperature, top_k)
+
+
+@torch.inference_mode()
+def paged_decode_chunk(
+    module, cache, tok, done, *, steps: int, pos: int, start_g: int, pad,
+    pages, kv_layout: PagedKVLayout, prefix_len: int, temperature: float,
+    top_k: Optional[int], eos_id: Optional[int], seeds,
+) -> tuple:
+    """Run `steps` cached decode steps through the page tables.
+
+    `tok` [B] is the previously sampled (not yet fed) token, written at slot
+    `pos`; `start_g` is the generation index of the FIRST token this chunk
+    samples; `done` [B] carries the eos latch between chunks. Returns
+    (toks [B, steps], done): done latches when a GENERATED eos is fed, later
+    samples are pinned to eos, as in `generate`."""
+    dev = module.device
+    pad, pages = _as_long(pad, dev), _as_long(pages, dev)
+    seeds = _host_ints(seeds)
+    tok = _as_long(tok, dev)
+    done = torch.as_tensor(done, dtype=torch.bool, device=dev)
+    out = []
+    for i in range(int(steps)):
+        logits = module(
+            tok[:, None], cache=cache, pad=pad, pages=pages, pos=int(pos) + i,
+            kv_layout=kv_layout, prefix_len=int(prefix_len),
+        )
+        nxt = _sample_rows(logits[:, -1].float(), seeds, int(start_g) + i,
+                           temperature, top_k)
+        if eos_id is not None:
+            done = done | (tok == eos_id)
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+        out.append(nxt)
+        tok = nxt
+    return torch.stack(out, dim=1), done
+
+
+@torch.inference_mode()
+def paged_prefill_chunk(
+    module, cache, chunk, *, pad, pages, kv_layout: PagedKVLayout,
+    prefix_lens, pos: int, temperature: float = 0.0,
+    top_k: Optional[int] = None, seeds=None, final: bool = False,
+):
+    """Write one prefill slice `chunk` [B, C] (columns [pos - prefix, ...) of
+    each row's LEFT-padded suffix) into slots [pos, pos + C). A non-final
+    slice only fills the KV (the LM head is skipped through
+    `return_features`) and returns None; the final slice samples the first
+    new token per row at generation index 0 — the same query, so the same
+    token, as one-shot `paged_prefill` — and returns it [B]."""
+    dev = module.device
+    kwargs = dict(
+        cache=cache, pad=_as_long(pad, dev), pages=_as_long(pages, dev),
+        pos=int(pos), kv_layout=kv_layout, prefix_lens=_as_long(prefix_lens, dev),
+    )
+    chunk = _as_long(chunk, dev)
+    if not final:
+        module(chunk, return_features=True, **kwargs)
+        return None
+    logits = module(chunk, **kwargs)
+    return _sample_rows(logits[:, -1].float(), _host_ints(seeds), 0, temperature, top_k)
+
+
+@torch.inference_mode()
+def paged_step(
+    module, cache, tok, done, *, pad, prefix_lens, pages,
+    kv_layout: PagedKVLayout, pos, g, seeds, temperature: float,
+    top_k: Optional[int], eos_id: Optional[int],
+) -> tuple:
+    """ONE decode step of a continuous batch: feed `tok` [B] at per-row
+    frontiers `pos` [B] and sample each row's next token at its own
+    generation index `g` [B]. The math of one iteration of
+    `paged_decode_chunk` with pos, g and the prefix width per row, so rows
+    of different ages and prefixes share the step. Returns (nxt [B], done)."""
+    dev = module.device
+    tok = _as_long(tok, dev)
+    logits = module(
+        tok[:, None], cache=cache, pad=_as_long(pad, dev),
+        pages=_as_long(pages, dev), pos=np.asarray(_host_ints(pos)),
+        kv_layout=kv_layout, prefix_lens=_as_long(prefix_lens, dev),
+    )
+    nxt = _sample_rows(logits[:, -1].float(), _host_ints(seeds), _host_ints(g),
+                       temperature, top_k)
+    done = torch.as_tensor(done, dtype=torch.bool, device=dev)
+    if eos_id is not None:
+        done = done | (tok == eos_id)
+        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+    return nxt, done

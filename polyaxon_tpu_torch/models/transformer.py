@@ -7,9 +7,16 @@ projections and tied embeddings. Two attention paths, as in the reference:
 - the full-sequence forward (`cache=None`): rope at positions 0..S-1, then
   `ops.attention.dot_product_attention` with the config's backend (the
   flash kernel on the card under `attention: flash`, or `auto` past 2048);
-- the dense-KV-cache decode (`cache=` from `make_cache`): prefill (S > 1)
-  or one step (S == 1) at the scalar write position `pos`, with optional
-  left-pad widths `pad`, attending the grouped cache by einsum.
+- the KV-cache decode: prefill (S > 1) or one step (S == 1) writing slots
+  [pos, pos + S) in place and attending the grouped cache by einsum, with
+  scores in f32. The cache is either dense (`make_cache`: [B, seq_len]
+  slots per row; `pos` a scalar, or per row [B] with `pad`) or the paged
+  pool (`models.generate.make_paged_cache`: [pool_pages, page_tokens]
+  slots shared by all rows, addressed through the page tables `pages`
+  [B, n_pages]). Left-pad widths `pad` [B] mask a left-padded batch; a
+  shared prefix of `prefix_len` slots (or per row, `prefix_lens` [B]) sits
+  before each row's pad. The decode's index and mask plan is made once
+  per forward (`_decode_plan`) and shared by every layer.
 
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
@@ -19,8 +26,8 @@ loss (`models/registry.py`), with `forward(return_features=True)`.
 
 Config fields this port does not serve yet raise NotImplementedError
 instead of being ignored: n_experts, pipeline_stages, quant,
-adapter_slots, scan_layers, the config key draft, and the paged / per-row
-/ shared-prefix decode arguments.
+adapter_slots, scan_layers, the config key draft, and the decode argument
+adapter_ix.
 """
 
 from __future__ import annotations
@@ -169,6 +176,36 @@ def _proj(cfg: TransformerConfig, name: str, in_f: int, out_f: int, **factory):
     return nn.Linear(in_f, out_f, bias=False, **factory)
 
 
+def _per_row(pos) -> bool:
+    """True for per-row write frontiers ([B] tensor or array), False for
+    one scalar position."""
+    return getattr(pos, "ndim", 0) >= 1 or isinstance(pos, (list, tuple))
+
+
+@dataclasses.dataclass
+class _DecodePlan:
+    """Where one decode forward writes and what each query may read: built
+    once per forward by `Transformer._decode_plan`, shared by every layer.
+
+    `offset` (scalar write position, no pad) or `positions` [B, S] give the
+    rope positions. The write goes to `cache[:, offset:offset + S]` (dense,
+    scalar pos) or to the rows `write` of the cache flattened to slots
+    ([pool_pages * page_tokens] or [B * seq_len], one index per kept
+    (b, s) in row-major order), restricted to the [B * S] mask `keep` when
+    some slots fall past the cache or the row's table (those are dropped).
+    `pages` [B, n_pages] gathers a row's window out of the pool; `win`
+    slots are read, and `mask` [B or 1, 1, S, win] says which are live."""
+
+    S: int
+    win: int
+    mask: torch.Tensor
+    offset: Optional[int] = None
+    positions: Optional[torch.Tensor] = None
+    write: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+    pages: Optional[torch.Tensor] = None
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, **factory):
         super().__init__()
@@ -179,7 +216,7 @@ class Attention(nn.Module):
         self.v_proj = _proj(cfg, "v_proj", cfg.dim, nkv * hd, **factory)
         self.o_proj = _proj(cfg, "o_proj", nh * hd, cfg.dim, **factory)
 
-    def forward(self, x, cos, sin, *, cache=None, pos: int = 0, pad=None):
+    def forward(self, x, cos, sin, *, cache=None, plan: Optional[_DecodePlan] = None):
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -187,7 +224,7 @@ class Attention(nn.Module):
         k = self.k_proj(x).view(B, S, nkv, hd)
         v = self.v_proj(x).view(B, S, nkv, hd)
         if cache is not None:
-            return self.o_proj(self._decode(q, k, v, cos, sin, cache, pos, pad))
+            return self.o_proj(self._decode(q, k, v, cos, sin, cache, plan))
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # GQA expansion is the dispatch's concern (flash reads grouped kv)
@@ -197,49 +234,52 @@ class Attention(nn.Module):
         )
         return self.o_proj(out.reshape(B, S, nh * hd))
 
-    def _decode(self, q, k, v, cos, sin, cache, pos, pad):
-        """Dense-cache prefill (S > 1) or step (S == 1) writing slots
-        [pos, pos + S). Slot s of row b holds its true position s - pad[b];
-        query i attends slots <= pos + i that are not left padding."""
-        cfg = self.cfg
+    def _decode(self, q, k, v, cos, sin, cache, plan: _DecodePlan):
+        """Prefill (S > 1) or step (S == 1): rope, write this call's K/V
+        into the cache in place, then attend the plan's window. Slot s of
+        row b holds its true position s - pad[b]."""
         B, S, nh, hd = q.shape
-        nkv = cfg.n_kv_heads
-        cache_k, cache_v = cache
-        win = cache_k.shape[1]
-        if pos + S > win:
-            raise ValueError(
-                f"decode writes slots [{pos}, {pos + S}) past the cache of {win}"
-            )
-        slots = pos + torch.arange(S, device=q.device)
-        if pad is None:
-            q = apply_rope(q, cos, sin, offset=pos)
-            k = apply_rope(k, cos, sin, offset=pos)
+        nkv = self.cfg.n_kv_heads
+        if plan.positions is None:
+            q = apply_rope(q, cos, sin, offset=plan.offset)
+            k = apply_rope(k, cos, sin, offset=plan.offset)
         else:
-            # pad slots clamp to 0: their K/V never attend, only the table
-            # index must stay in range
-            positions = (slots[None, :] - pad[:, None]).clamp_min(0)
-            q = apply_rope_at(q, cos, sin, positions)
-            k = apply_rope_at(k, cos, sin, positions)
-        # written in place: the reference is functional (dynamic_update_slice
-        # returns a new cache); here the preallocated cache is updated where
-        # it lies, so a decode step allocates no second copy
-        cache_k[:, pos:pos + S] = k
-        cache_v[:, pos:pos + S] = v
+            q = apply_rope_at(q, cos, sin, plan.positions)
+            k = apply_rope_at(k, cos, sin, plan.positions)
+        cache_k, cache_v = cache
+        # written in place: the reference is functional (it returns a new
+        # cache, or donates the pool into its compiled program); here the
+        # preallocated cache or pool is updated where it lies
+        if plan.write is None:
+            pos = plan.offset
+            cache_k[:, pos:pos + S] = k
+            cache_v[:, pos:pos + S] = v
+            k_all, v_all = cache_k, cache_v
+        else:
+            k_rows, v_rows = k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd)
+            if plan.keep is not None:  # slots past the table or the cache are dropped
+                k_rows, v_rows = k_rows[plan.keep], v_rows[plan.keep]
+            cache_k.view(-1, nkv, hd).index_copy_(0, plan.write, k_rows)
+            cache_v.view(-1, nkv, hd).index_copy_(0, plan.write, v_rows)
+            if plan.pages is None:
+                k_all, v_all = cache_k, cache_v
+            else:
+                # the row's whole window out of the pool; unallocated tail
+                # entries alias the scratch page, masked dead below
+                rows = plan.pages.reshape(-1)
+                k_all = cache_k.index_select(0, rows).view(B, plan.win, nkv, hd)
+                v_all = cache_v.index_select(0, rows).view(B, plan.win, nkv, hd)
         # scores straight against the grouped cache; head h = kv * G + g
         G = nh // nkv
         scores = torch.einsum(
             "bqkgd,bskd->bkgqs",
             q.reshape(B, S, nkv, G, hd).float(),
-            cache_k.float(),
-        ).reshape(B, nh, S, win) / math.sqrt(hd)
-        ar = torch.arange(win, device=q.device)
-        mask = (ar[None, :] <= slots[:, None])[None, None]  # [1, 1, S, win]
-        if pad is not None:
-            mask = mask & (ar[None, :] >= pad[:, None])[:, None, None, :]
-        scores = scores.masked_fill(~mask, -1e30)
+            k_all.float(),
+        ).reshape(B, nh, S, plan.win) / math.sqrt(hd)
+        scores.masked_fill_(~plan.mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum(
-            "bkgqs,bskd->bqkgd", probs.reshape(B, nkv, G, S, win), cache_v
+            "bkgqs,bskd->bqkgd", probs.reshape(B, nkv, G, S, plan.win), v_all
         )
         return out.reshape(B, S, nh * hd)
 
@@ -276,12 +316,9 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
         self.mlp = FeedForward(cfg, **factory)
 
-    def forward(self, x, cos, sin, *, cache=None, pos: int = 0, pad=None,
-                generator=None):
+    def forward(self, x, cos, sin, *, cache=None, plan=None, generator=None):
         rate = self.cfg.dropout_rate if self.training else 0.0
-        h = self.attention(
-            self.attention_norm(x), cos, sin, cache=cache, pos=pos, pad=pad
-        )
+        h = self.attention(self.attention_norm(x), cos, sin, cache=cache, plan=plan)
         if rate:
             h = dropout(h, rate, generator)
         x = x + h
@@ -382,41 +419,49 @@ class Transformer(nn.Module):
         the model dtype otherwise), or the final-norm features [B, S, dim]
         with `return_features`.
 
-        cache=None: the full-sequence forward. cache=make_cache(B): the
-        dense-cache decode writing slots [pos, pos + S) in place; `pad` [B]
-        gives left-pad widths of a left-padded prompt batch. In training
-        mode dropout draws from `dropout_generator` (on the model's
-        device)."""
-        unported = {
-            "pages": pages is not None,
-            "kv_layout": kv_layout is not None,
-            "prefix_len": bool(prefix_len),
-            "prefix_lens": prefix_lens is not None,
-            "adapter_ix": adapter_ix is not None,
-            "per-row pos": torch.is_tensor(pos) and pos.ndim > 0,
-        }
-        bad = [name for name, hit in unported.items() if hit]
-        if bad:
+        cache=None: the full-sequence forward. Otherwise the KV-cache
+        decode writing slots [pos, pos + S) in place:
+        - cache=make_cache(B): the dense cache; `pos` an int, or [B] per-row
+          write frontiers (with `pad`);
+        - cache=make_paged_cache(module, layout) with `pages` [B, n_pages]
+          (and `kv_layout`, the pool's PagedKVLayout): the paged pool; `pos`
+          an int or [B].
+        `pad` [B] gives left-pad widths; with a shared prefix, `prefix_len`
+        (or per row `prefix_lens` [B]) slots before the pad are live for
+        every query. In training mode dropout draws from
+        `dropout_generator` (on the model's device)."""
+        if adapter_ix is not None:
             raise NotImplementedError(
-                f"decode arguments {bad} (paged KV, shared prefixes, tenant "
-                "adapters, speculative per-row frontiers) are not ported yet "
-                "(see ROADMAP.md)"
+                "decode argument adapter_ix (multi-tenant LoRA slots) is not "
+                "ported yet (see ROADMAP.md)"
             )
-        if pad is not None and cache is None:
-            raise ValueError(
-                "pad (left-pad widths) only applies to the KV-cache decode path"
-            )
+        if cache is None:
+            misplaced = {
+                "pad": pad is not None, "pages": pages is not None,
+                "kv_layout": kv_layout is not None,
+                "prefix_len": bool(prefix_len),
+                "prefix_lens": prefix_lens is not None,
+                "per-row pos": _per_row(pos),
+            }
+            bad = [name for name, hit in misplaced.items() if hit]
+            if bad:
+                raise ValueError(
+                    f"{bad} (pad: left-pad widths, and the paged / per-row "
+                    "arguments) only apply to the KV-cache decode path"
+                )
         S = tokens.shape[1]
         if cache is None and S > self.cfg.seq_len:
             raise ValueError(f"sequence {S} exceeds the model's seq_len {self.cfg.seq_len}")
-        pos = int(pos)
-        if pad is not None:
-            pad = torch.as_tensor(pad, dtype=torch.long, device=self.device)
+        plan = None
+        if cache is not None:
+            plan = self._decode_plan(
+                S, cache, pos, pad, pages, kv_layout, prefix_len, prefix_lens
+            )
         x = self.embed(tokens.to(self.device))
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
-                cache=None if cache is None else cache[i], pos=pos, pad=pad,
+                cache=None if cache is None else cache[i], plan=plan,
                 generator=dropout_generator,
             )
         x = self.final_norm(x)
@@ -425,6 +470,103 @@ class Transformer(nn.Module):
         if self.lm_head is None:
             return F.linear(x.float(), self.embed.weight.float())
         return self.lm_head(x)
+
+    def _decode_plan(self, S, cache, pos, pad, pages, kv_layout, prefix_len,
+                     prefix_lens) -> _DecodePlan:
+        """The write indices, rope positions and attention mask of one
+        decode forward, from the reference's slot grid
+        (`polyaxon_tpu/models/transformer.py:366-521`).
+
+        Where the reference drops out-of-range writes (`mode="drop"` and a
+        fill page id past the pool), torch's indexing would raise instead,
+        so those slots are masked out of the write (`keep`), never clamped
+        onto a live page. The dense window is the whole cache, as in the
+        reference: a query whose every slot is masked (a left-pad query)
+        then averages the same slots on both sides."""
+        dev = self.device
+        paged = pages is not None
+        if paged != (kv_layout is not None):
+            raise ValueError("pages and kv_layout go together (the paged pool)")
+        if paged and kv_layout.kv_quant != "none":
+            raise NotImplementedError(
+                "the int8 KV pool is not ported yet (see ROADMAP.md)"
+            )
+        shape = tuple(cache[0][0].shape)
+        if paged:
+            if shape[:2] != (kv_layout.pool_pages, kv_layout.page_tokens):
+                raise ValueError(
+                    f"pages need the pool of {kv_layout} (models.generate."
+                    f"make_paged_cache); got a cache of {shape}"
+                )
+            pages = torch.as_tensor(pages, dtype=torch.long, device=dev)
+        else:
+            if shape[1] != self.cfg.seq_len:
+                raise ValueError(
+                    f"a dense decode needs the cache of make_cache; got {shape}"
+                )
+            if prefix_len or prefix_lens is not None:
+                raise ValueError("prefix_len / prefix_lens need the paged pool (pages)")
+        if pad is not None:
+            pad = torch.as_tensor(pad, dtype=torch.long, device=dev)
+        per_row = _per_row(pos)
+        if per_row:
+            if pad is None:
+                raise ValueError("per-row pos needs pad (bucketed-row decode)")
+            if torch.is_tensor(pos):
+                hi = int(pos.max()) + S
+                pos_t = pos.to(device=dev, dtype=torch.long)
+            else:
+                pos_np = np.asarray(pos, dtype=np.int64).reshape(-1)
+                hi = int(pos_np.max()) + S
+                pos_t = torch.from_numpy(pos_np).to(dev)
+            row_slots = pos_t[:, None] + torch.arange(S, device=dev)[None, :]
+        else:
+            pos = int(pos)
+            hi = pos + S
+            row_slots = pos + torch.arange(S, device=dev)[None, :]  # [1, S]
+        B = pages.shape[0] if paged else shape[0]
+        positions = None if pad is None else (row_slots - pad[:, None]).clamp_min(0)
+        offset = None if per_row else pos
+        if paged:
+            pt, n_pages = kv_layout.page_tokens, pages.shape[1]
+            win = n_pages * pt
+            slots = row_slots.expand(B, S)
+            page_ix = slots // pt
+            keep = None if hi <= win else page_ix < n_pages
+            write = torch.gather(pages, 1, page_ix.clamp(max=n_pages - 1)) * pt + slots % pt
+        elif per_row:
+            win = self.cfg.seq_len
+            keep = None if hi <= win else row_slots < win
+            write = torch.arange(B, device=dev)[:, None] * win + row_slots.clamp(max=win - 1)
+        else:
+            if hi > self.cfg.seq_len:
+                raise ValueError(
+                    f"decode writes slots [{pos}, {hi}) past the cache of {self.cfg.seq_len}"
+                )
+            win, keep, write = self.cfg.seq_len, None, None
+        if write is not None:
+            write = write.reshape(-1)
+            if keep is not None:
+                keep = keep.reshape(-1)
+                write = write[keep]
+        ar = torch.arange(win, device=dev)
+        mask = ar[None, None, :] <= row_slots[:, :, None]  # [B | 1, S, win]
+        if pad is not None:
+            if prefix_lens is not None:
+                # per-row prefix boundary: [prefix | dead pad | own tokens]
+                pl = torch.as_tensor(prefix_lens, dtype=torch.long, device=dev)[:, None]
+                valid = (ar[None, :] < pl) | (ar[None, :] >= pl + pad[:, None])
+            elif prefix_len:
+                valid = (ar[None, :] < prefix_len) | (
+                    ar[None, :] >= prefix_len + pad[:, None]
+                )
+            else:  # left-pad slots are dead for every query of that row
+                valid = ar[None, :] >= pad[:, None]
+            mask = mask & valid[:, None, :]
+        return _DecodePlan(
+            S=S, win=win, mask=mask[:, None], offset=offset, positions=positions,
+            write=write, keep=keep, pages=pages if paged else None,
+        )
 
 
 PRESETS: dict[str, dict] = {

@@ -18,7 +18,12 @@ for step:
 
 Schedules are plain functions `step -> learning rate`. All eight of the
 reference's rules are here: sgd, adam, adamw, lamb, lion, adafactor,
-rmsprop and adagrad, each with optax 0.2.6's defaults.
+rmsprop and adagrad, each with optax 0.2.6's defaults and options, among
+them `nesterov` (adam, adamw) and the moment dtypes (`mu_dtype` of adam,
+adamw and lion, sgd's `accumulator_dtype`, adafactor's `dtype_momentum`,
+given as a torch dtype or a name such as "bfloat16"). The `mask` and
+`weight_decay_mask` options, callables or pytrees with no YAML form, are
+refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -179,6 +184,16 @@ class _OptaxRule(torch.optim.Optimizer):
         count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
         self.count = count
+        # torch casts loaded state to its parameter's dtype; a moment kept
+        # in another dtype (mu_dtype and the like) goes back to it
+        for group in self.param_groups:
+            for p in group["params"]:
+                fresh: dict = {}
+                self._init_state(p, fresh, group)
+                state = self.state[p]
+                for k, v in fresh.items():
+                    if k in state and state[k].dtype != v.dtype:
+                        state[k] = state[k].to(v.dtype)
 
     @torch.no_grad()
     def step(self):
@@ -205,27 +220,86 @@ def _ema_(moment: torch.Tensor, value: torch.Tensor, decay: float) -> torch.Tens
     return moment.mul_(decay).add_(value, alpha=1 - decay)
 
 
+_DTYPES = {
+    "bfloat16": torch.bfloat16, "float16": torch.float16,
+    "float32": torch.float32, "float64": torch.float64,
+}
+
+
+def _dtype(spec) -> Optional[torch.dtype]:
+    """A moment dtype option (None, a torch dtype, or a name optax accepts
+    such as "bfloat16" or "float32") → torch dtype or None."""
+    if spec is None or isinstance(spec, torch.dtype):
+        return spec
+    name = str(spec).removeprefix("jnp.").removeprefix("torch.")
+    if name not in _DTYPES:
+        raise ValueError(f"unknown moment dtype {spec!r}; one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _weak_mul(scalar: float, t: torch.Tensor) -> torch.Tensor:
+    """scalar * t as jax computes it: the Python scalar takes t's dtype
+    first, so a bf16 moment is scaled by bf16(scalar)."""
+    return t * torch.tensor(scalar, dtype=t.dtype, device=t.device)
+
+
+def _moment(stored: torch.Tensor, value: torch.Tensor, decay: float) -> torch.Tensor:
+    """optax's `update_moment` with the stored moment in its own dtype:
+    (1 - decay) * value + decay * stored, in value's dtype, not cast back
+    (optax updates with the uncast moment and casts only what it keeps).
+    In place when the dtypes agree."""
+    if stored.dtype == value.dtype:
+        return _ema_(stored, value, decay)
+    return (1 - decay) * value + _weak_mul(decay, stored)
+
+
+def _keep(state: dict, name: str, value: torch.Tensor) -> None:
+    """Store a moment in its state dtype (a no-op after an in-place update)."""
+    if state[name] is not value:
+        state[name].copy_(value)
+
+
+def _refuse_mask(rule: str, **masks) -> None:
+    given = [k for k, v in masks.items() if v is not None]
+    if given:
+        raise NotImplementedError(
+            f"{rule} options {given} (callables or pytrees of booleans, with "
+            "no YAML form) are not ported to PyTorch yet (see ROADMAP.md)"
+        )
+
+
 class Adam(_OptaxRule):
     """optax.adam / optax.adamw (decoupled weight decay added to the update
     before the learning rate, as `add_decayed_weights` does)."""
 
     def __init__(self, params, schedule, *, b1=0.9, b2=0.999, eps=1e-8,
-                 eps_root=0.0, weight_decay=0.0, grad_clip_norm=None):
+                 eps_root=0.0, weight_decay=0.0, mu_dtype=None, nesterov=False,
+                 grad_clip_norm=None):
         super().__init__(
             params, schedule, grad_clip_norm,
             b1=b1, b2=b2, eps=eps, eps_root=eps_root, weight_decay=weight_decay,
+            mu_dtype=_dtype(mu_dtype), nesterov=bool(nesterov),
         )
 
     def _init_state(self, p, state, group):
-        state["mu"] = torch.zeros_like(p)
+        state["mu"] = torch.zeros_like(p, dtype=group.get("mu_dtype"))
         state["nu"] = torch.zeros_like(p)
 
     def _direction(self, p, g, state, group) -> torch.Tensor:
-        """scale_by_adam, then add_decayed_weights."""
+        """scale_by_adam (Nesterov's form when asked), then
+        add_decayed_weights. The update uses the moment before it is cast
+        to `mu_dtype` for keeping, as optax's does."""
         b1, b2 = group["b1"], group["b2"]
-        mu, nu = _ema_(state["mu"], g, b1), state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+        mu = _moment(state["mu"], g, b1)
+        nu = state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
         c1, c2 = _bias_correction(b1, self.count), _bias_correction(b2, self.count)
-        update = (mu / c1) / (torch.sqrt(nu / c2 + group["eps_root"]) + group["eps"])
+        if group.get("nesterov"):
+            mu_hat = (b1 * (mu / _bias_correction(b1, self.count + 1))
+                      + (1 - b1) * (g / c1))
+        else:
+            mu_hat = mu / c1
+        update = mu_hat / (torch.sqrt(nu / c2 + group["eps_root"]) + group["eps"])
+        _keep(state, "mu", mu)
         if group["weight_decay"]:
             update = update + group["weight_decay"] * p
         return update
@@ -240,7 +314,8 @@ class Lamb(Adam):
     either norm is zero."""
 
     def __init__(self, params, schedule, *, b1=0.9, b2=0.999, eps=1e-6,
-                 eps_root=0.0, weight_decay=0.0, grad_clip_norm=None):
+                 eps_root=0.0, weight_decay=0.0, mask=None, grad_clip_norm=None):
+        _refuse_mask("lamb", mask=mask)
         super().__init__(params, schedule, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
                          weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
 
@@ -256,17 +331,18 @@ class Lion(_OptaxRule):
     decayed weights (default 1e-3)."""
 
     def __init__(self, params, schedule, *, b1=0.9, b2=0.99, weight_decay=1e-3,
-                 grad_clip_norm=None):
+                 mu_dtype=None, mask=None, grad_clip_norm=None):
+        _refuse_mask("lion", mask=mask)
         super().__init__(params, schedule, grad_clip_norm, b1=b1, b2=b2,
-                         weight_decay=weight_decay)
+                         weight_decay=weight_decay, mu_dtype=_dtype(mu_dtype))
 
     def _init_state(self, p, state, group):
-        state["mu"] = torch.zeros_like(p)
+        state["mu"] = torch.zeros_like(p, dtype=group.get("mu_dtype"))
 
     def _update(self, p, g, state, group, lr):
         b1 = group["b1"]
-        update = torch.sign((1.0 - b1) * g + b1 * state["mu"])
-        _ema_(state["mu"], g, group["b2"])
+        update = torch.sign((1.0 - b1) * g + _weak_mul(b1, state["mu"]))
+        _keep(state, "mu", _moment(state["mu"], g, group["b2"]))
         if group["weight_decay"]:
             update = update + group["weight_decay"] * p
         p.add_(update * -lr)
@@ -297,7 +373,9 @@ class Adafactor(_OptaxRule):
     def __init__(self, params, schedule, *, min_dim_size_to_factor=128, decay_rate=0.8,
                  decay_offset=0, multiply_by_parameter_scale=True, clipping_threshold=1.0,
                  momentum=None, weight_decay_rate=None, eps=1e-30, factored=True,
+                 dtype_momentum="float32", weight_decay_mask=None,
                  grad_clip_norm=None):
+        _refuse_mask("adafactor", weight_decay_mask=weight_decay_mask)
         super().__init__(
             params, schedule, grad_clip_norm,
             min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
@@ -305,6 +383,7 @@ class Adafactor(_OptaxRule):
             multiply_by_parameter_scale=multiply_by_parameter_scale,
             clipping_threshold=clipping_threshold, momentum=momentum,
             weight_decay_rate=weight_decay_rate, eps=eps, factored=factored,
+            dtype_momentum=_dtype(dtype_momentum),
         )
 
     @staticmethod
@@ -320,7 +399,9 @@ class Adafactor(_OptaxRule):
                 shape = [n for i, n in enumerate(p.shape) if i != dropped]
                 state[name] = p.new_zeros(shape)
         if group["momentum"] is not None:
-            state["ema"] = torch.zeros_like(p)
+            # optax's ema keeps its accumulator in dtype_momentum (f32 by
+            # default), whatever the parameter's dtype
+            state["ema"] = torch.zeros_like(p, dtype=group.get("dtype_momentum"))
 
     def _update(self, p, g, state, group, lr):
         t = np.float32(self.count - group["decay_offset"])  # optax: its count + 1
@@ -345,7 +426,8 @@ class Adafactor(_OptaxRule):
             p_rms = torch.sqrt(torch.mean(p * p))
             update = update * torch.where(p_rms <= 1e-3, 1e-3, p_rms)
         if group["momentum"] is not None:
-            update = _ema_(state["ema"], update, group["momentum"])
+            update = _moment(state["ema"], update, group["momentum"])
+            _keep(state, "ema", update)
         if group["weight_decay_rate"] is not None:
             update = update + group["weight_decay_rate"] * p
         p.sub_(update)
@@ -417,24 +499,31 @@ class SGD(_OptaxRule):
     optax writes it."""
 
     def __init__(self, params, schedule, *, momentum=None, nesterov=False,
-                 grad_clip_norm=None):
+                 accumulator_dtype=None, grad_clip_norm=None):
         super().__init__(
-            params, schedule, grad_clip_norm, momentum=momentum, nesterov=nesterov
+            params, schedule, grad_clip_norm, momentum=momentum, nesterov=nesterov,
+            accumulator_dtype=_dtype(accumulator_dtype),
         )
 
     def _init_state(self, p, state, group):
         if group["momentum"]:
-            state["trace"] = torch.zeros_like(p)
+            state["trace"] = torch.zeros_like(p, dtype=group.get("accumulator_dtype"))
 
     def _update(self, p, g, state, group, lr):
         m = group["momentum"]
         if m:
-            trace = state["trace"].mul_(m).add_(g)
+            stored = state["trace"]
+            if stored.dtype == g.dtype:
+                trace = stored.mul_(m).add_(g)
+            else:  # optax's trace: g + decay * t, kept in the accumulator dtype
+                trace = g + _weak_mul(m, stored)
+                stored.copy_(trace)
             g = g + m * trace if group["nesterov"] else trace
         p.add_(g * -lr)
 
 
-def _adamw(params, schedule, *, weight_decay=1e-4, **kw):
+def _adamw(params, schedule, *, weight_decay=1e-4, mask=None, **kw):
+    _refuse_mask("adamw", mask=mask)
     return Adam(params, schedule, weight_decay=weight_decay, **kw)
 
 

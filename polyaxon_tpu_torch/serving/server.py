@@ -1,22 +1,64 @@
-"""HTTP model server, per-request path (counterpart of
-`polyaxon_tpu/serving/server.py::ModelServer` with batching off).
+"""HTTP model server, counterpart of `polyaxon_tpu/serving/server.py::
+ModelServer` for the flagship LM on one card.
 
     server = ModelServer(module, state_dict_or_jax_params, device="cuda")
     port = server.start("127.0.0.1", 0)
-    # GET /healthz; POST /generate {"tokens": [[...]], "maxNewTokens": 16}
+    # POST /generate {"tokens": [[...]], "maxNewTokens": 16}
     server.stop()
 
-Each POST /generate is validated (400 on a bad body), then decoded inline
-through `models.generate.generate` with the request's scalar seed, one
-request at a time under a lock. Coalescing, bucketing, paged KV, beams,
-speculation, tenancy and checkpoint restore are later slices (ROADMAP.md).
+Endpoints:
+  GET  /healthz  → {"status": "ok", "model": ..., "step": N}
+  GET  /readyz   → 200 {"ready": true} while accepting, 503 while draining
+  GET  /statsz   → occupancy, latency and TTFT percentiles, resilience
+                   counters, the KV pool and the step scheduler (JSON)
+  GET  /metricsz → Prometheus text, rendered from the same registry
+  GET  /kvz      → the prefix-cache chain hashes this replica holds
+  POST /generate → {"tokens": [[...]]}; body {"tokens": [[int]],
+       "maxNewTokens", "temperature", "topK", "eosId", "seed",
+       "deadlineMs"}. 400 validation; 503 + Retry-After shed (queue full,
+       breaker open, expired at admission, KV pages exhausted, draining);
+       504 deadline exceeded while queued.
+  POST /generate?stream=1 → Server-Sent Events: {"row": i, "tokens": [...]}
+       per decoded chunk (generated tokens only), then {"row": i, "done":
+       true} per row, then {"done": true}. Incremental on the paged pool;
+       otherwise each row arrives as one terminal chunk. A client that goes
+       away mid-stream has its rows cancelled and their pages released.
+
+Paths, chosen by `ServingConfig`:
+  * `batching=False`: one request at a time, the exact shape, the scalar
+    seed (`models.generate.generate`);
+  * `batching=True` (the default): HTTP handler threads only produce; one
+    decode worker coalesces same-`GroupKey` rows (prompts left-padded to
+    a bucket ladder, per-row seeds seed + i) into one batched `generate`
+    (`_execute_group`);
+  * `kv_pool_pages`: the same groups through the paged pool with a
+    content-addressed prefix cache (`_execute_group_paged`), streamed in
+    `stream_chunk_tokens` chunks;
+  * `chunked_prefill` on the paged pool: the continuous-batching step
+    scheduler (`serving/steps.py`) over `_StepEngine`.
+Every row draws its samples from (its seed, its generation index), so all
+batched paths give a row the same tokens. Device work runs on the decode
+worker thread (or the caller's, for `generate`) under the server's lock.
+
+Unlike the reference, rows are not padded up to a power-of-two batch: an
+eager PyTorch program has no compiled shapes to share, so dummy rows would
+only cost work. Groups decode until their longest row is done, not to the
+end of the new-token bucket.
+
+Not ported yet (ROADMAP.md), refused by name: `numBeams > 1` (400),
+speculation, int8, tenants and adapters (ServingConfig raises),
+`/kv_import`, `/tracez`, `/sloz` and `/queryz` (501) and `from_run`.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import queue as _queue
+import secrets
 import threading
+import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -24,10 +66,40 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..chaos.injector import inject
 from ..device import resolve_device
 from ..models.convert import params_from_jax
-from ..models.generate import generate
-from .batching import ServingConfig, ServingError
+from ..models.generate import (
+    generate,
+    paged_decode_chunk,
+    paged_prefill,
+    paged_prefill_chunk,
+    paged_step,
+)
+from ..telemetry import MetricsRegistry, now as _now
+from .batching import (
+    CircuitBreaker,
+    DeadlineExceededError,
+    DecodeCoalescer,
+    GroupKey,
+    PendingRequest,
+    ServerClosingError,
+    ServingConfig,
+    ServingError,
+    ShedError,
+    choose_buckets,
+)
+from .kv import KVCacheManager
+from .steps import RowStep, StepScheduler
+
+UNPORTED_ROUTES = ("/kv_import", "/tracez", "/sloz", "/queryz")
+
+
+class _Httpd(ThreadingHTTPServer):
+    # socketserver's default accept backlog is 5: an overload burst would
+    # get TCP resets before the shed logic ever sees it
+    request_queue_size = 128
+    daemon_threads = True
 
 
 def _int(body: dict, key: str, default):
@@ -38,6 +110,23 @@ def _int(body: dict, key: str, default):
         return int(raw)
     except (TypeError, ValueError):
         raise ServingError(f"{key} must be an integer, got {raw!r}")
+
+
+def _float(body: dict, key: str, default):
+    raw = body.get(key, default)
+    if raw is None:
+        return None
+    try:
+        value = float(raw)
+    except (TypeError, ValueError):
+        raise ServingError(f"{key} must be a number, got {raw!r}")
+    if not math.isfinite(value):
+        raise ServingError(f"{key} must be finite")
+    return value
+
+
+def _new_request_id() -> str:
+    return secrets.token_hex(8)
 
 
 class ModelServer:
@@ -65,10 +154,221 @@ class ModelServer:
         self.module = module
         self.model_name = model_name
         self.step = step
-        self._lock = threading.Lock()
+        self._draining = False
+        # ONE metrics pipeline: /statsz and /metricsz both render from it
+        self.telemetry = MetricsRegistry()
+        t = self.telemetry
+        self._m_requests = t.counter("serving.requests", help="Generation rows served")
+        self._m_batches = t.counter("serving.batches", help="Decode batches dispatched")
+        self._m_latency = t.histogram(
+            "serving.request_seconds", help="End-to-end request latency, seconds"
+        )
+        self._m_queue_wait = t.histogram(
+            "serving.queue_wait_seconds",
+            help="Submit-to-dispatch wait in the coalescer queue, seconds",
+        )
+        self._m_occupancy = t.histogram(
+            "serving.batch_occupancy", buckets=(1, 2, 4, 8, 16, 32, 64),
+            help="Rows per dispatched decode batch",
+        )
+        self._m_shed = t.counter(
+            "serving.shed",
+            help="Requests shed at admission (queue full / breaker open / "
+            "expired / draining / KV pages)",
+        )
+        self._m_deadline = t.counter(
+            "serving.deadline_exceeded",
+            help="Requests that missed their deadline (shed at admission or "
+            "dropped before dispatch)",
+        )
+        self._m_worker_restarts = t.counter(
+            "serving.worker_restarts", help="Decode worker watchdog restarts"
+        )
+        self._m_breaker = t.gauge(
+            "serving.breaker_state",
+            help="Decode circuit breaker: 0 closed, 1 open, 2 half-open",
+        )
+        self._m_breaker.set(0)
+        self._m_ready = t.gauge(
+            "serving.ready", help="Readiness (/readyz): 1 accepting, 0 draining"
+        )
+        self._m_ready.set(0)
+        self._m_queue_depth = t.gauge(
+            "serving.queue_depth",
+            help="Unfinished requests admitted to the coalescer queue",
+        )
+        self._m_queue_depth.set(0)
+        self._m_kv_total = t.gauge(
+            "serving.kv_pages_total",
+            help="KV page pool capacity (0 = dense per-group caches)",
+        )
+        self._m_kv_total.set(0)
+        self._m_kv_used = t.gauge(
+            "serving.kv_pages_used",
+            help="KV pages currently allocated (incl. scratch + prefix cache)",
+        )
+        self._m_kv_used.set(0)
+        self._m_kv_prefix_held = t.gauge(
+            "serving.kv_pages_prefix_held",
+            help="Distinct KV pages held only on behalf of the prefix cache",
+        )
+        self._m_kv_prefix_held.set(0)
+        self._m_prefix_hits = t.counter(
+            "serving.prefix_cache_hits",
+            help="Requests whose prompt prefix was served from cached KV",
+        )
+        self._m_prefix_misses = t.counter(
+            "serving.prefix_cache_misses",
+            help="Requests that found no cached KV prefix",
+        )
+        self._m_ttft = t.histogram(
+            "serving.ttft_ms",
+            buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000),
+            help="Time to first token, milliseconds (admission → first "
+            "sampled token; whole-decode on the dense path)",
+        )
+        self._m_decode_step = t.histogram(
+            "serving.decode_step_ms",
+            buckets=(1, 2, 5, 10, 15, 20, 25, 30, 40, 50, 75, 100, 250, 1000),
+            help="Wall time of one batched decode step on the paged paths, "
+            "milliseconds (a chunk's time over its steps)",
+        )
+        self._m_prefill_chunks = t.counter(
+            "serving.prefill_chunks",
+            help="Prefill slices executed by the step scheduler",
+        )
+        self._m_step_tokens = t.histogram(
+            "serving.step_tokens", buckets=(8, 16, 32, 64, 128, 256, 512, 1024),
+            help="Tokens touched per device step (all decode rows plus at "
+            "most one prefill slice; bounded by maxStepTokens)",
+        )
+        self._m_prefill_queue = t.gauge(
+            "serving.prefill_queue_depth",
+            help="Rows admitted but not yet past prefill, refreshed at scrape",
+        )
+        self._m_prefill_queue.set(0)
+        self._m_http = t.counter(
+            "serving.http_requests", help="HTTP /generate attempts (any outcome)"
+        )
+        self._m_http_err = t.counter(
+            "serving.http_errors", help="HTTP /generate 5xx-class failures"
+        )
+        self._m_client_disconnects = t.counter(
+            "serving.client_disconnects",
+            help="Streamed /generate requests whose client vanished mid-stream",
+        )
+        self._prompt_ladder, self._new_ladder = self.config.ladders(int(module.cfg.seq_len))
+        self._group_seq = itertools.count(1)
+        # live streamed requests by request id, so a broken pipe in the
+        # HTTP layer can cancel the right rows
+        self._stream_rows: dict = {}
+        self._lock = threading.Lock()  # device work: one caller at a time
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._kv: Optional[KVCacheManager] = None
+        if self.config.batching and self.config.kv_pool_pages:
+            self._kv = KVCacheManager(
+                module,
+                pool_pages=int(self.config.kv_pool_pages),
+                page_tokens=int(self.config.kv_page_tokens),
+                prefix_cache=bool(self.config.prefix_cache),
+                observer=self._kv_observe,
+            )
+            self._m_kv_total.set(self._kv.pool.n_pages)
+            self._m_kv_used.set(self._kv.pool.used)
+        self._coalescer: Optional[DecodeCoalescer] = None
+        if self.config.batching:
+            self._coalescer = self._make_coalescer()
 
+    @classmethod
+    def from_run(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "ModelServer.from_run (restoring a run's checkpoint by its uid) is "
+            "not ported yet (see ROADMAP.md)"
+        )
+
+    # ---------------------------------------------------------- coalescer
+    def _make_coalescer(self) -> DecodeCoalescer:
+        breaker = CircuitBreaker(
+            threshold=self.config.breaker_threshold,
+            cooldown_s=self.config.breaker_cooldown_s,
+            on_change=self._m_breaker.set,
+        )
+        if self.config.chunked_prefill and self._kv is not None:
+            # only meaningful on the paged path: page tables are what let a
+            # half-prefilled row persist across steps
+            return StepScheduler(
+                self._dispatch_group,
+                _StepEngine(self),
+                prefill_chunk_tokens=self.config.prefill_chunk_tokens,
+                max_step_tokens=self.config.max_step_tokens,
+                max_batch=self.config.max_batch,
+                max_wait_ms=self.config.max_wait_ms,
+                max_queue=self.config.max_queue,
+                breaker=breaker,
+                observer=self._observe,
+            )
+        return DecodeCoalescer(
+            self._dispatch_group,
+            max_batch=self.config.max_batch,
+            max_wait_ms=self.config.max_wait_ms,
+            max_queue=self.config.max_queue,
+            breaker=breaker,
+            observer=self._observe,
+        )
+
+    def _observe(self, event: str, **ctx) -> None:
+        """Coalescer → registry bridge: every resilience event lands on
+        /metricsz (and /statsz) through the one telemetry pipeline."""
+        if event == "shed":
+            self._m_shed.inc()
+            reason = ctx.get("reason", "overload")
+            self.telemetry.counter(
+                f"serving.shed.{reason}", help=f"Requests shed at admission: {reason}"
+            ).inc()
+            if reason == "deadline":
+                self._m_deadline.inc()
+        elif event == "deadline_dropped":
+            self._m_deadline.inc()
+        elif event == "worker_restart":
+            self._m_worker_restarts.inc()
+        elif event == "decode_error":
+            self.telemetry.counter(
+                "serving.decode_errors", help="Decode batch failures"
+            ).inc()
+        elif event == "step":
+            self._m_step_tokens.observe(float(ctx.get("tokens", 0)))
+            rows = int(ctx.get("rows", 0))
+            if rows:
+                self._m_occupancy.observe(rows)
+            self._m_batches.inc()
+
+    def _kv_observe(self, event: str, **ctx) -> None:
+        """KVCacheManager → registry bridge."""
+        if event == "kv_pages":
+            self._m_kv_used.set(ctx["used"])
+            self._m_kv_prefix_held.set(ctx.get("prefix_held", 0))
+        elif event == "prefix_hit":
+            self._m_prefix_hits.inc()
+        elif event == "prefix_miss":
+            self._m_prefix_misses.inc()
+        elif event == "prefix_evict":
+            self.telemetry.counter(
+                "serving.prefix_cache_evictions",
+                help="Prefix-cache entries LRU-evicted to admit new requests",
+            ).inc()
+        elif event == "shed":
+            self._observe("shed", **ctx)
+
+    def _observe_queue_wait(self, r: PendingRequest) -> None:
+        # same clock as PendingRequest.enqueued_at
+        self._m_queue_wait.observe(max(0.0, time.monotonic() - r.enqueued_at))
+
+    @property
+    def requests_served(self) -> int:
+        return int(self._m_requests.value)
+
+    # ---------------------------------------------------------- admission
     def _validate(self, body: dict) -> dict:
         if not isinstance(body, dict):
             raise ServingError("body must be a JSON object")
@@ -101,17 +401,29 @@ class ModelServer:
                 f"prompt ({arr.shape[1]}) + maxNewTokens ({max_new}) exceeds "
                 f"the model's seq_len {cfg.seq_len}"
             )
-        try:
-            temperature = float(body.get("temperature", 0.0))
-        except (TypeError, ValueError):
-            raise ServingError("temperature must be a number")
-        if not math.isfinite(temperature):
-            raise ServingError("temperature must be finite")
+        temperature = _float(body, "temperature", 0.0)
         eos = _int(body, "eosId", None)
         if eos is not None and not 0 <= eos < cfg.vocab_size:
             raise ServingError(f"eosId must be in [0, {cfg.vocab_size})")
         if _int(body, "numBeams", 1) != 1:
-            raise ServingError("numBeams > 1 is not served by this port yet")
+            raise ServingError(
+                "numBeams > 1 (beam search) is not served by this port yet "
+                "(see ROADMAP.md)"
+            )
+        # deadline: body deadlineMs wins, then the config default; absolute
+        # monotonic time from here on
+        deadline_ms = _float(body, "deadlineMs", self.config.default_deadline_ms)
+        deadline = None
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                raise ServingError(f"deadlineMs must be > 0, got {deadline_ms}")
+            deadline = time.monotonic() + deadline_ms / 1e3
+        tenant = str(body.get("tenant") or "").strip()
+        if tenant and tenant != "default":
+            raise ServingError(
+                f"unknown tenant {tenant!r}: tenants are not ported yet "
+                "(see ROADMAP.md)"
+            )
         return {
             "arr": arr,
             "max_new": max_new,
@@ -119,76 +431,592 @@ class ModelServer:
             "top_k": _int(body, "topK", None),
             "eos_id": eos,
             "seed": _int(body, "seed", 0),
+            "deadline": deadline,
         }
 
-    def generate(self, body: dict) -> dict:
-        """Validate, then decode the whole request: {"tokens": [[int]]}."""
-        req = self._validate(body)
+    def _make_requests(self, req: dict, rid: Optional[str] = None) -> list:
+        """One PendingRequest PER ROW — rows of a multi-row body may land in
+        different buckets and coalesce with different peers. Row i samples
+        from seed + i, so identical rows still diverge."""
+        seq_len = int(self.module.cfg.seq_len)
+        out = []
+        try:
+            for i, row in enumerate(req["arr"]):
+                tokens = [int(t) for t in row]
+                plan = None
+                if self._kv is not None:
+                    # paged admission: prefix lookup + suffix bucketing +
+                    # page reservation (may shed with reason "kv_pages")
+                    plan = self._kv.plan_row(
+                        tokens, req["max_new"], self._prompt_ladder,
+                        self._new_ladder, seq_len,
+                    )
+                    pb, nb, L = plan.suffix_bucket, plan.new_bucket, plan.prefix_len
+                else:
+                    pb, nb = choose_buckets(
+                        len(tokens), req["max_new"], self._prompt_ladder,
+                        self._new_ladder, seq_len,
+                    )
+                    L = 0
+                key = GroupKey(
+                    prompt_bucket=pb, new_bucket=nb,
+                    temperature=req["temperature"], top_k=req["top_k"],
+                    eos_id=req["eos_id"], prefix_len=L,
+                )
+                r = PendingRequest(
+                    tokens=tokens, prompt_len=len(tokens), max_new=req["max_new"],
+                    seed=req["seed"] + i, key=key, deadline=req["deadline"],
+                    kv_plan=plan, t0=_now(), request_id=rid, row=i,
+                )
+                if plan is not None:
+                    # on ANY terminal path the row's pages, reservation and
+                    # prefix refs return to the pool (finish() and release()
+                    # are both idempotent)
+                    r.on_finish = self._release_row
+                out.append(r)
+        except ServingError:
+            # row k failed admission: rows 0..k-1 already hold reservations
+            for r in out:
+                self._release_row(r)
+            raise
+        return out
+
+    def _release_row(self, r: PendingRequest) -> None:
+        if r.kv_plan is not None and self._kv is not None:
+            self._kv.release(r.kv_plan)
+
+    # ------------------------------------------------------------ compute
+    def _execute_group(self, batch: list):
+        """Dense bucketed path: ONE coalesced group (same GroupKey) through
+        `generate` with left-padded prompts, `prompt_lengths` and per-row
+        seeds; rows scatter back truncated to what each asked for."""
+        key = batch[0].key
+        n = len(batch)
+        # chaos points: "sleep" on serving.slow injects decode latency,
+        # "raise" on serving.decode fails the batch (breaker material)
+        inject("serving.slow", rows=n)
+        inject("serving.decode", rows=n)
+        for r in batch:
+            self._observe_queue_wait(r)
+        self._m_occupancy.observe(n)
+        self._m_batches.inc()
+        P = key.prompt_bucket
+        arr = np.zeros((n, P), np.int64)
+        lengths = np.zeros((n,), np.int64)
+        for i, r in enumerate(batch):
+            arr[i, P - r.prompt_len:] = r.tokens
+            lengths[i] = r.prompt_len
+        new = max(r.max_new for r in batch)
         with self._lock:
             out = generate(
-                self.module,
-                torch.from_numpy(req["arr"]),
-                max_new_tokens=req["max_new"],
-                temperature=req["temperature"],
-                top_k=req["top_k"],
-                eos_id=req["eos_id"],
-                seed=req["seed"],
-            )
-        return {"tokens": out.cpu().tolist()}
+                self.module, torch.from_numpy(arr), max_new_tokens=new,
+                temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
+                seed=[r.seed for r in batch], prompt_lengths=torch.from_numpy(lengths),
+            ).cpu().numpy()
+        tnow = _now()
+        for i, r in enumerate(batch):
+            pad = P - r.prompt_len
+            # no incremental emission here: TTFT is the whole decode
+            self._m_ttft.observe((tnow - r.t0) * 1e3)
+            r.first_token_at = tnow
+            r.finish(result=out[i, pad:pad + r.prompt_len + r.max_new].tolist())
+        self._m_requests.inc(n)
 
+    @staticmethod
+    def _emit(r: PendingRequest, toks) -> None:
+        if len(toks) and r.on_tokens is not None:
+            try:
+                r.on_tokens([int(t) for t in toks])
+            except Exception:  # noqa: BLE001 — a dead client stays local
+                pass
+
+    def _execute_group_paged(self, batch: list):
+        """Paged decode for one coalesced group: prefill the suffixes
+        through the page tables (a shared prefix is already in the pool),
+        then decode in `stream_chunk_tokens` chunks, streaming each chunk's
+        tokens out. Tokens equal the dense bucketed path's; the pool is one
+        fixed allocation instead of per-group worst-case caches, and the
+        first token leaves after prefill, not after the whole decode."""
+        kv = self._kv
+        key = batch[0].key
+        n = len(batch)
+        inject("serving.slow", rows=n)
+        inject("serving.decode", rows=n)
+        for r in batch:
+            self._observe_queue_wait(r)
+        self._m_occupancy.observe(n)
+        self._m_batches.inc()
+        L, pb, nb = key.prefix_len, key.prompt_bucket, key.new_bucket
+        n_pages = kv.layout.pages_for(L + pb + nb - 1)
+        plans = [r.kv_plan for r in batch]
+        arr = np.zeros((n, pb), np.int64)
+        pads = np.zeros((n,), np.int64)
+        seeds = [r.seed for r in batch]
+        for i, r in enumerate(batch):
+            sfx = r.tokens[L:]
+            arr[i, pb - len(sfx):] = sfx
+            pads[i] = pb - len(sfx)
+        common = dict(kv_layout=kv.layout, prefix_len=L, temperature=key.temperature,
+                      top_k=key.top_k, seeds=seeds)
+        kv.ensure_pages(plans, upto_slot=L + pb)
+        tables = kv.tables(plans, n, n_pages)
+        with self._lock:
+            tok = paged_prefill(self.module, kv.cache, arr, pad=pads, pages=tables,
+                                **common)
+            first = tok.cpu().tolist()
+        tnow = _now()
+        gen = [[t] for t in first]
+        for i, r in enumerate(batch):
+            r.first_token_at = tnow
+            self._m_ttft.observe((tnow - r.t0) * 1e3)
+            self._emit(r, [first[i]])
+        done = torch.zeros(n, dtype=torch.bool, device=tok.device)
+        pos, g = L + pb, 1
+        remaining = max(r.max_new for r in batch) - 1
+        chunk_cap = max(1, int(self.config.stream_chunk_tokens))
+        early_eos = False
+        while remaining > 0:
+            steps = min(chunk_cap, remaining)
+            kv.ensure_pages(plans, upto_slot=pos + steps)
+            tables = kv.tables(plans, n, n_pages)
+            t0 = _now()
+            with self._lock:
+                toks, done = paged_decode_chunk(
+                    self.module, kv.cache, tok, done, steps=steps, pos=pos,
+                    start_g=g, pad=pads, pages=tables, eos_id=key.eos_id, **common,
+                )
+                toks_host = toks.cpu().tolist()
+                all_done = key.eos_id is not None and bool(done.all())
+            self._m_decode_step.observe((_now() - t0) * 1e3 / steps)
+            for i, r in enumerate(batch):
+                fresh = toks_host[i][: max(0, r.max_new - len(gen[i]))]
+                gen[i].extend(fresh)
+                self._emit(r, fresh)
+            tok = toks[:, -1]
+            pos, g, remaining = pos + steps, g + steps, remaining - steps
+            if all_done:
+                # every row latched eos: the remaining samples are pinned
+                # to eos_id — emit them host-side
+                early_eos = True
+                break
+            if all(r.cancelled for r in batch):
+                # every client vanished mid-stream: stop decoding rows
+                # nobody will read (finish() below releases their pages)
+                break
+        if early_eos:
+            for i, r in enumerate(batch):
+                fill = [int(key.eos_id)] * (r.max_new - len(gen[i]))
+                gen[i].extend(fill)
+                self._emit(r, fill)
+        # index each row's page-aligned prompt prefix BEFORE finish()
+        # releases the pages — the next request with this prefix skips it
+        try:
+            with self._lock:
+                kv.harvest([(r.tokens, r.kv_plan, int(pads[i])) for i, r in enumerate(batch)])
+        except Exception:  # noqa: BLE001 — cache warmth must not fail rows
+            traceback.print_exc()
+        for i, r in enumerate(batch):
+            r.finish(result=list(r.tokens) + gen[i][: r.max_new])
+        self._m_requests.inc(n)
+
+    def _dispatch_group(self, batch: list):
+        if self._kv is not None and batch[0].kv_plan is not None:
+            self._execute_group_paged(batch)
+        else:
+            self._execute_group(batch)
+
+    def generate(self, body: dict) -> dict:
+        """Synchronous single-caller path (also the test surface): validate,
+        then run inline — bucketed and coalesced when batching is on (paged
+        with a pool), the per-request exact shape otherwise."""
+        req = self._validate(body)
+        if not self.config.batching:
+            with self._lock:
+                out = generate(
+                    self.module, torch.from_numpy(req["arr"]),
+                    max_new_tokens=req["max_new"], temperature=req["temperature"],
+                    top_k=req["top_k"], eos_id=req["eos_id"], seed=req["seed"],
+                )
+            self._m_requests.inc(req["arr"].shape[0])
+            return {"tokens": out.cpu().tolist()}
+        rows = self._make_requests(req)
+        by_key: dict = {}
+        for r in rows:
+            by_key.setdefault(r.key, []).append(r)
+        try:
+            for group in by_key.values():
+                self._dispatch_group(group)
+        except BaseException as e:
+            for r in rows:  # rows not finished give their pages back
+                r.finish(error=e)
+            raise
+        return {"tokens": [r.result for r in rows]}
+
+    def handle_request(self, body: dict, request_id: Optional[str] = None) -> dict:
+        """HTTP-path entry: producer side of the coalescer (the synchronous
+        path when batching is off or the server is not started). End-to-end
+        latency lands in the request-seconds histogram either way."""
+        t0 = _now()
+        try:
+            return self._handle_request(body, request_id)
+        finally:
+            self._m_latency.observe(_now() - t0)
+
+    def _check_open(self) -> None:
+        if self._draining:
+            self._observe("shed", reason="draining")
+            raise ServerClosingError("server draining: admission closed", reason="draining")
+
+    def _submit(self, rows: list) -> None:
+        """Submit every row; on a shed, release the unsubmitted rows' pages
+        NOW, wait out the admitted ones (results discarded, their pages come
+        back through on_finish) and re-raise — the client retries the body."""
+        submitted = []
+        try:
+            for r in rows:
+                r.submitted_t = _now()
+                self._coalescer.submit(r)
+                submitted.append(r)
+        except ShedError:
+            for r in rows:
+                if r not in submitted:
+                    self._release_row(r)
+            for r in submitted:
+                r.done.wait(self.config.request_timeout_s)
+            raise
+
+    def _handle_request(self, body: dict, rid: Optional[str] = None) -> dict:
+        self._check_open()
+        req = self._validate(body)
+        if self._coalescer is None or self._coalescer._thread is None:
+            # synchronous path: decode starts immediately, so the only
+            # deadline that can already be lost is the admission one
+            if req["deadline"] is not None and time.monotonic() >= req["deadline"]:
+                self._observe("shed", reason="deadline")
+                raise ShedError("deadline already expired at admission", reason="deadline")
+            return self.generate(body)
+        rows = self._make_requests(req, rid)
+        self._submit(rows)
+        timeout = self.config.request_timeout_s
+        for r in rows:
+            if not r.done.wait(timeout):
+                raise TimeoutError(f"decode did not complete within {timeout:.0f}s")
+        for r in rows:
+            if r.error is not None:
+                raise r.error
+        return {"tokens": [r.result for r in rows]}
+
+    # ----------------------------------------------------------- streaming
+    def stream_request(self, body: dict, request_id: Optional[str] = None):
+        """Streaming producer path (`POST /generate?stream=1`): yields one
+        event dict per decoded chunk — `{"row": i, "tokens": [...]}` with
+        newly generated tokens (prompt + concatenated chunks equals the
+        non-streamed row), then `{"row": i, "done": true}` (or `{"row": i,
+        "error": msg}`) per row, then `{"done": true}`. Admission errors
+        (400/503/504) raise before the first event, so the HTTP layer can
+        still set a status code; later failures become in-band events."""
+        t0 = _now()
+        try:
+            yield from self._stream_request(body, request_id)
+        finally:
+            self._m_latency.observe(_now() - t0)
+
+    def _stream_request(self, body: dict, rid: Optional[str] = None):
+        self._check_open()
+        req = self._validate(body)
+        if self._kv is None or self._coalescer is None or self._coalescer._thread is None:
+            # no incremental decode on this path: one terminal chunk per row
+            # (same event shape, no partial delivery)
+            out = self._handle_request(body, rid)
+            for i, row in enumerate(out["tokens"]):
+                yield {"row": i, "tokens": row[len(req["arr"][i]):]}
+                yield {"row": i, "done": True}
+            yield {"done": True}
+            return
+        rows = self._make_requests(req, rid)
+        events: _queue.Queue = _queue.Queue()
+        for i, r in enumerate(rows):
+            r.on_tokens = lambda toks, i=i: events.put({"row": i, "tokens": toks})
+            release = r.on_finish
+
+            def _finished(req_row, i=i, release=release):
+                if release is not None:
+                    release(req_row)
+                events.put(
+                    {"row": i, "done": True} if req_row.error is None
+                    else {"row": i, "error": str(req_row.error)}
+                )
+
+            r.on_finish = _finished
+        if rid is not None:
+            self._stream_rows[rid] = rows
+        try:
+            self._submit(rows)
+            pending = len(rows)
+            while pending:
+                try:
+                    ev = events.get(timeout=self.config.request_timeout_s)
+                except _queue.Empty:
+                    raise TimeoutError(
+                        f"decode did not complete within "
+                        f"{self.config.request_timeout_s:.0f}s"
+                    ) from None
+                if "done" in ev or "error" in ev:
+                    pending -= 1
+                yield ev
+            yield {"done": True}
+        finally:
+            if rid is not None:
+                self._stream_rows.pop(rid, None)
+
+    def cancel_stream(self, rid: str) -> int:
+        """Cancel a live streamed request's unfinished rows — called by the
+        HTTP layer on a broken pipe. The coalescer or step scheduler notice
+        the flag at their next sweep and evict the rows; `on_finish`
+        releases their KV pages. Returns the number of rows cancelled."""
+        rows = self._stream_rows.get(rid)
+        if not rows:
+            return 0
+        n = 0
+        for r in rows:
+            if not r.done.is_set():
+                r.cancel()
+                n += 1
+        if n:
+            self._m_client_disconnects.inc()
+        return n
+
+    # --------------------------------------------------------- readiness
+    def readiness(self) -> tuple:
+        """(ready, reason) for /readyz; lands on the serving.ready gauge."""
+        if self._httpd is None or self._draining:
+            ready, reason = False, "draining" if self._draining else "stopped"
+        else:
+            ready, reason = True, "ok"
+        self._m_ready.set(1 if ready else 0)
+        return ready, reason
+
+    def kv_heads(self) -> dict:
+        """GET /kvz: the prefix chain hashes this replica holds, keyed by
+        the pool's page size."""
+        if self._kv is None or self._kv.prefix is None:
+            return {"enabled": False, "pageTokens": 0, "heads": [], "role": "both"}
+        with self._kv._lock:
+            heads = self._kv.prefix.heads()
+        return {"enabled": True, "pageTokens": self._kv.layout.page_tokens,
+                "heads": heads, "role": "both"}
+
+    @staticmethod
+    def _pct(summary: dict, scale: float = 1.0) -> dict:
+        return {
+            k: round(summary[k] * scale, 3) if summary[k] is not None else None
+            for k in ("p50", "p95", "p99", "mean")
+        }
+
+    def stats(self) -> dict:
+        batches = rows = 0
+        resilience = {}
+        c = self._coalescer
+        if c is not None:
+            batches, rows = c.batches_run, c.rows_run
+            resilience = {
+                "queue_depth": c.depth,
+                "max_queue": c.max_queue,
+                "shed": int(self._m_shed.value),
+                "deadline_exceeded": int(self._m_deadline.value),
+                "worker_restarts": c.worker_restarts,
+                "breaker": c.breaker.state if c.breaker else "disabled",
+                "draining": self._draining,
+            }
+        ttft = self._pct(self._m_ttft.summary())
+        kv = {"enabled": False}
+        if self._kv is not None:
+            kv = {"enabled": True, **self._kv.stats(), "ttft_ms": ttft}
+        chunked = {"enabled": False}
+        if isinstance(c, StepScheduler):
+            chunked = {
+                "enabled": True,
+                "prefill_chunk_tokens": int(self.config.prefill_chunk_tokens),
+                "max_step_tokens": int(self.config.max_step_tokens),
+                "steps": c.steps_run,
+                "prefill_only_steps": c.prefill_only_steps,
+                "classic_forced_steps": c.classic_forced_steps,
+                "prefill_chunks": int(self._m_prefill_chunks.value),
+                "prefill_queue_depth": c.prefill_queue_depth,
+                "evicted_midflight": c.evicted_midflight,
+                "step_tokens": self._pct(self._m_step_tokens.summary()),
+            }
+        return {
+            "kv": kv,
+            "chunked": chunked,
+            **resilience,
+            "batching": bool(self.config.batching),
+            "requests": self.requests_served,
+            "batches": batches,
+            "mean_batch_occupancy": round(rows / batches, 3) if batches else None,
+            "latency_ms": self._pct(self._m_latency.summary(), 1e3),
+            "queue_wait_ms": self._pct(self._m_queue_wait.summary(), 1e3),
+            "ttft_ms": ttft,
+            "decode_step_ms": self._pct(self._m_decode_step.summary()),
+            "prompt_buckets": list(self._prompt_ladder),
+            "max_new_buckets": list(self._new_ladder),
+            "max_batch": self.config.max_batch,
+            "max_wait_ms": self.config.max_wait_ms,
+        }
+
+    # ------------------------------------------------------------ http
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Serve in a background thread; returns the bound port."""
         server = self
+        if self._coalescer is not None:
+            self._coalescer.start()
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *a):  # quiet
                 pass
 
-            def _send(self, code: int, payload: dict):
-                data = json.dumps(payload).encode()
+            def _send(self, code: int, payload: dict, headers: dict = None,
+                      rid: str = None):
+                if rid is not None:
+                    payload = {**payload, "requestId": rid}
+                    headers = {**(headers or {}), "X-Request-Id": rid}
+                self._send_raw(code, json.dumps(payload).encode(),
+                               "application/json", headers)
+
+            def _send_raw(self, code: int, data: bytes, ctype: str, headers=None):
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
+            def _unported(self, path: str):
+                self._send(501, {
+                    "error": f"{path} is not ported to PyTorch yet (see ROADMAP.md)",
+                    "reason": "not_ported",
+                })
+
             def do_GET(self):
-                if self.path.partition("?")[0] == "/healthz":
-                    self._send(
-                        200,
-                        {"status": "ok", "model": server.model_name, "step": server.step},
-                    )
+                path = self.path.partition("?")[0]
+                if path == "/healthz":
+                    self._send(200, {"status": "ok", "model": server.model_name,
+                                     "step": server.step})
+                elif path == "/readyz":
+                    ready, reason = server.readiness()
+                    self._send(200 if ready else 503,
+                               {"ready": ready, "reason": reason, "role": "both"})
+                elif path == "/statsz":
+                    self._send(200, server.stats())
+                elif path == "/metricsz":
+                    # scrape-time refresh of the queue gauges
+                    if server._coalescer is not None:
+                        server._m_queue_depth.set(server._coalescer.depth)
+                        pq = getattr(server._coalescer, "prefill_queue_depth", None)
+                        if pq is not None:
+                            server._m_prefill_queue.set(pq)
+                    self._send_raw(200, server.telemetry.render_prometheus().encode(),
+                                   "text/plain; version=0.0.4")
+                elif path == "/kvz":
+                    self._send(200, server.kv_heads())
+                elif path in UNPORTED_ROUTES:
+                    self._unported(path)
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
 
+            def _stream(self, body, rid):
+                """SSE response: one `data: <json>` frame per event. The
+                first event is pulled BEFORE the headers go out, so
+                admission failures still map to real status codes;
+                mid-stream failures become an in-band error frame."""
+                gen = server.stream_request(body, request_id=rid)
+                first = next(gen)  # admission errors raise here
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-store")
+                self.send_header("Connection", "close")
+                self.send_header("X-Request-Id", rid)
+                self.end_headers()
+                try:
+                    for ev in itertools.chain((first,), gen):
+                        ev = {**ev, "requestId": rid}
+                        self.wfile.write(b"data: " + json.dumps(ev).encode() + b"\n\n")
+                        self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    # the client went away mid-stream: cancel its rows so
+                    # the scheduler evicts them and their pages come back
+                    server.cancel_stream(rid)
+                except Exception as e:  # noqa: BLE001 — in-band, then close
+                    try:
+                        self.wfile.write(b"data: " + json.dumps(
+                            {"error": str(e), "requestId": rid}).encode() + b"\n\n")
+                    except OSError:
+                        pass
+                finally:
+                    gen.close()
+
             def do_POST(self):
-                if self.path.partition("?")[0] != "/generate":
+                path, _, query = self.path.partition("?")
+                if path in UNPORTED_ROUTES:
+                    self._unported(path)
+                    return
+                if path != "/generate":
                     self._send(404, {"error": f"no route {self.path}"})
                     return
+                rid = (self.headers.get("X-Request-Id") or "").strip()[:128] or _new_request_id()
+                want_stream = "stream=1" in query.split("&")
+                server._m_http.inc()
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     try:
                         body = json.loads(self.rfile.read(n) or b"{}")
                     except json.JSONDecodeError as e:
                         raise ServingError(f"body is not JSON: {e}")
-                    self._send(200, server.generate(body))
+                    if want_stream and server.config.stream:
+                        self._stream(body, rid)
+                    else:
+                        self._send(200, server.handle_request(body, request_id=rid), rid=rid)
+                except ShedError as e:
+                    # shed at admission: never queued, safe to retry later
+                    server._m_http_err.inc()
+                    self._send(503, {"error": str(e), "reason": e.reason},
+                               headers={"Retry-After": str(max(1, int(round(e.retry_after_s))))},
+                               rid=rid)
+                except DeadlineExceededError as e:
+                    server._m_http_err.inc()
+                    self._send(504, {"error": str(e), "reason": "deadline_exceeded"}, rid=rid)
                 except ServingError as e:
-                    self._send(400, {"error": str(e), "reason": "invalid_request"})
+                    self._send(400, {"error": str(e), "reason": "invalid_request"}, rid=rid)
+                except TimeoutError as e:
+                    server._m_http_err.inc()
+                    self._send(504, {"error": str(e), "reason": "timeout"}, rid=rid)
                 except Exception as e:  # noqa: BLE001 — report, keep serving
                     traceback.print_exc()
-                    self._send(
-                        500,
-                        {"error": f"{type(e).__name__}: {e}", "reason": "internal"},
-                    )
+                    server._m_http_err.inc()
+                    self._send(500, {"error": f"{type(e).__name__}: {e}",
+                                     "reason": "internal"}, rid=rid)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _Httpd((host, port), Handler)
+        self._draining = False
+        self._m_ready.set(1)
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
         return self._httpd.server_address[1]
 
-    def stop(self) -> None:
-        """Stop the HTTP server and join its thread."""
+    def stop(self, drain_grace_s: Optional[float] = None) -> None:
+        """Graceful drain, then shutdown: close admission (new requests shed
+        with a terminal 503), let the decode worker flush queued and
+        in-flight work for up to the drain budget (config.drain_grace_s
+        unless overridden) while the HTTP server still answers, fail what
+        remains fast, then stop the HTTP server."""
+        grace = self.config.drain_grace_s if drain_grace_s is None else drain_grace_s
+        self._draining = True
+        self._m_ready.set(0)
+        if self._coalescer is not None:
+            self._coalescer.stop(drain_s=grace)
+            # a restarted server gets a fresh worker (and breaker)
+            self._coalescer = self._make_coalescer()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -196,3 +1024,168 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        self._draining = False  # a restarted server admits again
+
+
+class _StepEngine:
+    """`serving.steps.StepEngine` over the paged decode functions.
+
+    Per-row state (suffix array, write frontier, sampling cursor, stream
+    buffer) lives on `req.step` — the RowStep the scheduler reads plus
+    engine-private fields — so a watchdog restart carries nothing over.
+    Chunk slices feed the same left-padded suffix layout as one-shot
+    prefill, the final slice samples generation index 0, and decode steps
+    sample (seed, g) exactly like `paged_decode_chunk`, so a row's tokens
+    equal the classic group path's."""
+
+    def __init__(self, server: ModelServer):
+        self._s = server
+
+    def supports(self, r: PendingRequest) -> bool:
+        return self._s._kv is not None and r.kv_plan is not None
+
+    def begin(self, r: PendingRequest) -> None:
+        s = self._s
+        key = r.key
+        st = RowStep(phase="prefill", cost=1)
+        L, pb, nb = key.prefix_len, key.prompt_bucket, key.new_bucket
+        sfx = r.tokens[L:]
+        st.arr = np.zeros((1, pb), np.int64)
+        if sfx:
+            st.arr[0, pb - len(sfx):] = sfx
+        st.pad = pb - len(sfx)
+        st.L, st.pb, st.nb = L, pb, nb
+        st.n_pages = s._kv.layout.pages_for(L + pb + nb - 1)
+        st.chunk_w = min(max(1, int(s.config.prefill_chunk_tokens)), pb)
+        st.off = 0
+        st.next_chunk = min(st.chunk_w, pb)
+        st.gen = None
+        st.buf = []
+        s._observe_queue_wait(r)
+        r.step = st
+
+    def prefill_chunk(self, r: PendingRequest) -> int:
+        s = self._s
+        kv = s._kv
+        st = r.step
+        key = r.key
+        width = min(st.chunk_w, st.pb - st.off)
+        final = st.off + width >= st.pb
+        # chaos point: a fault here lands BETWEEN prefill chunks — the row
+        # fails with its page table half-built and on_finish returns it all
+        inject("serving.prefill_chunk", row=r.row, off=st.off)
+        kv.ensure_pages([r.kv_plan], upto_slot=st.L + st.off + width)
+        table = kv.tables([r.kv_plan], 1, st.n_pages)
+        with s._lock:
+            first = paged_prefill_chunk(
+                s.module, kv.cache, st.arr[:, st.off:st.off + width], pad=[st.pad],
+                pages=table, kv_layout=kv.layout, prefix_lens=[st.L],
+                pos=st.L + st.off, temperature=key.temperature, top_k=key.top_k,
+                seeds=[r.seed], final=final,
+            )
+            first = None if first is None else int(first[0])
+        st.off += width
+        s._m_prefill_chunks.inc()
+        if not final:
+            st.next_chunk = min(st.chunk_w, st.pb - st.off)
+            return width
+        # the prefill boundary: the first sampled token leaves NOW — TTFT
+        # does not wait for co-resident prompts
+        tnow = _now()
+        r.first_token_at = tnow
+        s._m_ttft.observe((tnow - r.t0) * 1e3)
+        st.gen = [first]
+        self._emit(r, [first])
+        if key.eos_id is not None and first == key.eos_id:
+            # everything after a generated eos is pinned: finish host-side
+            fill = [int(key.eos_id)] * (r.max_new - 1)
+            st.gen.extend(fill)
+            self._emit(r, fill)
+            self._finish_row(r)
+        elif r.max_new <= 1:
+            self._finish_row(r)
+        else:
+            st.tok, st.done = first, False
+            st.pos = st.L + st.pb
+            st.g = 1
+            st.phase = "decode"
+        return width
+
+    def lanes(self, rows: list) -> list:
+        """Rows of one sampling signature share a step; lanes split at
+        max_batch."""
+        groups: dict = {}
+        for r in rows:
+            k = r.key
+            groups.setdefault((k.temperature, k.top_k, k.eos_id), []).append(r)
+        mb = max(1, int(self._s.config.max_batch))
+        return [g[i:i + mb] for g in groups.values() for i in range(0, len(g), mb)]
+
+    def decode(self, lane: list) -> int:
+        return self._decode_plain(lane)
+
+    _emit = staticmethod(ModelServer._emit)
+
+    def _finish_row(self, r: PendingRequest) -> None:
+        s = self._s
+        st = r.step
+        st.phase = "done"
+        try:
+            with s._lock:
+                s._kv.harvest([(r.tokens, r.kv_plan, int(st.pad))])
+        except Exception:  # noqa: BLE001 — cache warmth must not fail rows
+            traceback.print_exc()
+        r.finish(result=list(r.tokens) + st.gen[: r.max_new])
+        s._m_requests.inc(1)
+
+    def _decode_plain(self, lane: list) -> int:
+        s = self._s
+        kv = s._kv
+        key0 = lane[0].key
+        n = len(lane)
+        inject("serving.slow", rows=n)
+        inject("serving.decode", rows=n)
+        # rows of different page counts share the step at the widest
+        # table; reads past a row's own span are masked dead
+        width = max(r.step.n_pages for r in lane)
+        plans = [r.kv_plan for r in lane]
+        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + 1)
+        tables = kv.tables(plans, n, width)
+        t0 = _now()
+        with s._lock:
+            nxt, done = paged_step(
+                s.module, kv.cache, [r.step.tok for r in lane],
+                [r.step.done for r in lane], pad=[r.step.pad for r in lane],
+                prefix_lens=[r.step.L for r in lane], pages=tables,
+                kv_layout=kv.layout, pos=[r.step.pos for r in lane],
+                g=[r.step.g for r in lane], seeds=[r.seed for r in lane],
+                temperature=key0.temperature, top_k=key0.top_k, eos_id=key0.eos_id,
+            )
+            nxt, done = nxt.cpu().tolist(), done.cpu().tolist()
+        s._m_decode_step.observe((_now() - t0) * 1e3)
+        chunk_cap = max(1, int(s.config.stream_chunk_tokens))
+        for i, r in enumerate(lane):
+            st = r.step
+            t = int(nxt[i])
+            st.gen.append(t)
+            st.buf.append(t)
+            st.tok, st.done = t, bool(done[i])
+            st.pos += 1
+            st.g += 1
+            if key0.eos_id is not None and t == key0.eos_id:
+                fill = [int(key0.eos_id)] * (r.max_new - len(st.gen))
+                st.gen.extend(fill)
+                st.buf.extend(fill)
+                self._emit(r, st.buf)
+                st.buf = []
+                self._finish_row(r)
+            elif len(st.gen) >= r.max_new:
+                self._emit(r, st.buf)
+                st.buf = []
+                self._finish_row(r)
+            elif len(st.buf) >= chunk_cap:
+                # one event per stream_chunk_tokens decoded tokens, the
+                # classic chunk loop's cadence
+                self._emit(r, st.buf)
+                st.buf = []
+        return n

@@ -43,7 +43,8 @@ def test_import_walk_sees_the_package():
             "losses.py", "optimizers.py", "trainer.py", "program.py",
             "synthetic.py", "stats.py", "checkpoint.py", "preemption.py",
             "injector.py", "plan.py", "registry.py", "spans.py", "monitors.py",
-            "retry.py", "convert.py"} <= names
+            "retry.py", "convert.py", "kv_pages.py", "kv.py", "steps.py",
+            "batching.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 

@@ -112,6 +112,18 @@ CASES = {
         "centered": True, "momentum": 0.9, "nesterov": True}),
     "adagrad": ("adagrad", None),
     "adagrad-zero-start": ("adagrad", {"initial_accumulator_value": 0.0, "eps": 1e-5}),
+    # Nesterov's Adam and the moment dtypes, by the names a Polyaxonfile
+    # gives them (optax takes the strings as they are)
+    "adam-nesterov": ("adam", {"nesterov": True}),
+    "adam-mu-bf16": ("adam", {"mu_dtype": "bfloat16"}),
+    "adamw-nesterov-mu-bf16": ("adamw", {"nesterov": True, "mu_dtype": "bfloat16",
+                                         "weight_decay": 0.1}),
+    "lion-mu-bf16": ("lion", {"mu_dtype": "bfloat16"}),
+    "sgd-momentum-bf16": ("sgd", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}),
+    "sgd-nesterov-bf16": ("sgd", {"momentum": 0.9, "nesterov": True,
+                                  "accumulator_dtype": "bfloat16"}),
+    "adafactor-momentum-bf16": ("adafactor", {
+        "min_dim_size_to_factor": 3, "momentum": 0.9, "dtype_momentum": "bfloat16"}),
 }
 
 
@@ -125,6 +137,32 @@ def test_updates_match_optax(case):
         assert np.isfinite(ours[k].numpy()).all()
         np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=1e-7)
         assert not np.allclose(ours[k].numpy(), start[k])
+
+
+@pytest.mark.parametrize("name,key", [
+    ("adamw", "mask"), ("lamb", "mask"), ("lion", "mask"),
+    ("adafactor", "weight_decay_mask"),
+])
+def test_masks_are_refused_by_name(name, key):
+    """optax takes a callable or a pytree here; neither has a YAML form, and
+    the port says so instead of failing with a bare TypeError."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        opt.build_optimizer([torch.zeros(3)], name, 0.1, {key: lambda p: p})
+
+
+def test_moment_dtypes_are_kept_through_a_checkpoint():
+    """The stored moment stays in its dtype, also after load_state_dict
+    (torch would cast it to the parameter's dtype)."""
+    p = torch.ones(4)
+    optimizer, _ = opt.build_optimizer([p], "adamw", 0.1, {"mu_dtype": "bfloat16"})
+    p.grad = torch.full((4,), 0.5)
+    optimizer.step()
+    state = optimizer.state_dict()
+    again, _ = opt.build_optimizer([p], "adamw", 0.1, {"mu_dtype": "bfloat16"})
+    again.load_state_dict(state)
+    assert again.state[p]["mu"].dtype == torch.bfloat16
+    assert again.state[p]["nu"].dtype == torch.float32
+    assert again.count == 1
 
 
 def test_adamw_default_weight_decay_is_optax_s():

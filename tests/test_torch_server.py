@@ -58,12 +58,14 @@ def test_generate_over_http_equals_direct_generate(served):
     assert out["tokens"] == direct.tolist()
     ref = jax_generate(module, params, jnp.asarray(prompt), max_new_tokens=5)
     assert out["tokens"] == np.asarray(ref).tolist()
+    # the batched path (the default) gives row i the per-row stream of
+    # seed + i, as the reference's coalescer does
     sampled = {**body, "temperature": 0.8, "topK": 20, "seed": 4, "eosId": 3}
     code, out = _call(url + "/generate", sampled)
     assert code == 200
     assert out["tokens"] == generate(
         server.module, torch.from_numpy(prompt), max_new_tokens=5,
-        temperature=0.8, top_k=20, seed=4, eos_id=3,
+        temperature=0.8, top_k=20, seed=[4, 5], eos_id=3,
     ).tolist()
 
 

@@ -158,16 +158,23 @@ def test_unported_config_fields_raise(field):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [{"pages": torch.zeros(1, 1)}, {"kv_layout": object()}, {"prefix_len": 4},
-     {"prefix_lens": torch.zeros(1)}, {"adapter_ix": torch.zeros(1)},
-     {"pos": torch.zeros(1, dtype=torch.long)}],
+    "kwargs,error",
+    [({"pages": torch.zeros(1, 1)}, ValueError),
+     ({"kv_layout": object()}, ValueError),
+     ({"prefix_len": 4}, ValueError),
+     ({"prefix_lens": torch.zeros(1)}, ValueError),
+     ({"adapter_ix": torch.zeros(1)}, NotImplementedError),
+     ({"pos": torch.zeros(1, dtype=torch.long)}, ValueError)],
     ids=["pages", "kv_layout", "prefix_len", "prefix_lens", "adapter_ix", "per-row-pos"],
 )
-def test_unported_decode_arguments_raise(kwargs):
+def test_unported_decode_arguments_raise(kwargs, error):
+    """adapter_ix is still unported. The paged and per-row arguments are
+    ported, and raise where they are misused on the dense cache: pages
+    without the pool's layout (or a layout without pages), a shared prefix
+    without the paged pool, per-row frontiers without pad widths."""
     model = Transformer(_make_config(SMALL), device="cpu")
     cache = model.make_cache(1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         model(torch.zeros(1, 1, dtype=torch.long), cache=cache, **kwargs)
 
 
