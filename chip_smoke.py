@@ -19,9 +19,13 @@ preset (random weights from a fixed seed): inference, then training.
                version's, one PyTorch library call's (a yardstick the port
                never calls) and the card's lower bound for the same work,
                and the TFLOP/s of each kernel's (causal) work;
-               then the whole autograd chain (forward kernel, both
-               backward kernels) against autograd through the plain
-               forward, with a cotangent on lse;
+               then int8_matmul at llama3-1b's four projection shapes for
+               M = 1, 8 (decode) and 2048 (prefill), bf16 and f32, its
+               weights cycled past the L2 as a decode step finds them, with
+               torch.matmul on the bf16 weights as the yardstick; then the
+               whole autograd chain (forward kernel, both backward
+               kernels) against autograd through the plain forward, with a
+               cotangent on lse;
 3. forward   — the full-sequence forward on [1, 4096] tokens through the
                flash kernel (one launch per layer); its bf16 logits must
                sit as close to an f32 copy of the same weights as the bf16
@@ -48,6 +52,26 @@ preset (random weights from a fixed seed): inference, then training.
                config; then one decode step at B=8 and a 2112-slot frontier,
                dense and paged, timed and under torch.profiler (top device
                ops, the device's idle share);
+4c. serve-fast — the same traffic on the step config three more times:
+               `spec` (n-gram speculation, 4 drafts a window), `draft` (+
+               the half-depth draft model by layer truncation and the
+               adaptive controller of K), `int8` (int8 weights quantized
+               on load, through int8_matmul, and the int8 paged pool).
+               spec and draft rows are held against the step config's
+               rows (the near-tie rule), spec's sampled row against
+               dense's, and drafts must have been proposed; the int8 pool
+               is exactly its formula's 4,563,402,752 bytes; no page
+               leaks and the prefix cache hits; the stream equals the
+               non-streamed tokens. Two numBeams 4 requests (one with an
+               eos) on the spec server equal the port's direct
+               beam_search, numBeams 1 the greedy row. Prints TTFT,
+               decode tokens/s, step ms, tokens per step and accept rate
+               per config, the decode weight bytes before and after
+               quantization, then profiles an int8 decode step and a
+               verify window at B=8, frontier 2112. After the kernel
+               counts are read: int8 against bf16 teacher-forced on 2048
+               tokens, the argmax agreeing at >= 0.75 of the positions
+               past a near-tie;
 5. train     — `Trainer(program).run()`: 8 AdamW steps on [1, 4096]
                synthetic_text tokens, mixed precision, remat, fused LM
                loss, flash attention, with a profiler window over one step;
@@ -83,9 +107,10 @@ preset (random weights from a fixed seed): inference, then training.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then 4b, then phases 5, 7 and 8) and read just after it, so
-`launches` counts the main paths only (4b launches none: decode attends by
-einsum, as the reference's does). The last lines are the kernels JSON line, the card's name
+(phases 3-4, then 4b, then 4c, then phases 5, 7 and 8) and read just
+after it, so `launches` counts the main paths only (4b launches none:
+decode attends by einsum, as the reference's does; 4c launches
+int8_matmul for every projection of the int8 config). The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
 non-zero and prints no result.
@@ -94,6 +119,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -125,6 +151,8 @@ KERNEL_ROWS = {  # name → (source, the TPU kernel it replaces)
     "flash_fwd": (f"{CSRC}/flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:35"),
     "flash_dq": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:128"),
     "flash_dkv": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:176"),
+    # no Pallas kernel there: XLA's mixed int8 x bf16 dot_general of Int8Dense
+    "int8_matmul": (f"{CSRC}/int8_matmul.cu", "polyaxon_tpu/models/quant.py:85"),
 }
 # o is held per row: max |err| over the head_dim vector of each (b, s, h)
 # over that row's max |o_ref|, so the late causal rows, whose |o| is small
@@ -209,6 +237,36 @@ SAMPLED_BODY = {"tokens": [list(range(1000, 1300))], "maxNewTokens": SERVE_NEW,
 # gap is under this share of its top logit (a bf16 near-tie)
 NEAR_TIE = 2.0 ** -6
 PROFILE_BATCH, PROFILE_SLOTS = 8, 2112  # the decode step that is profiled
+# int8_matmul: llama3-1b's projections (K, N) — q/o, k/v, gate/up, down —
+# at decode rows (1, 8) and a prefill slab (2048), bf16 and f32. Held per
+# row against the plain version: bf16 within 2^-7 (each side rounds the f32
+# sum to bf16 once, up to 2^-8 relative each), f32 within 1e-5 (sum order)
+INT8_SHAPES = {"q_o": (2048, 2048), "k_v": (2048, 512), "gate_up": (2048, 8192),
+               "down": (8192, 2048)}
+INT8_ROWS = (1, 8, 2048)
+INT8_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+INT8_DECODE_M = 8  # the main-path row of the kernels line: one decode step
+INT8_PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}  # launches a layer
+INT8_COLD_BYTES = 160 << 20  # weight copies cycled per timing: past the 50 MB L2
+# serve-fast: the step config with speculation (n-gram drafts, K = 4), with
+# the "auto" draft model (half depth by layer truncation) and the adaptive
+# controller, and with int8 weights and the int8 pool; the same traffic
+FAST_CONFIGS = {
+    "spec": {**SERVE_CONFIGS["step"], "speculate": True, "draft_tokens": 4},
+    "draft": {**SERVE_CONFIGS["step"], "speculate": True, "draft_tokens": 4,
+              "draft_model": (), "adaptive_draft": True},
+    "int8": {**SERVE_CONFIGS["step"], "quantize": True, "kv_quant": "int8"},
+}
+SAMPLED_FAST = "spec"  # the sampled request, held against dense's
+# 2 (k, v) x 16 layers x 2048 x 128 slots x 8 kv heads x (64 payload bytes
+# + a 4-byte f32 scale)
+INT8_POOL_BYTES = 2 * PRESET_LAYERS * 2048 * 128 * 8 * (64 + 4)
+BEAM_PROMPT, BEAMS = 300, 4
+# int8 vs bf16 teacher-forced on one prompt: the argmax agrees at >= 0.75 of
+# the positions whose bf16 top-2 gap is >= NEAR_TIE of the top logit (the
+# reference's own floor, tests/test_generate.py:346-347)
+INT8_AGREE = 0.75
+INT8_TF_TOKENS = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -244,6 +302,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Device time of one call without the host's cost of launching it:
+    `reps` calls captured in one CUDA graph, replayed between CUDA events,
+    over `reps`; the median of `rounds` replays. For kernels shorter than
+    the host's dispatch of a call (decode's int8 projections run a few
+    microseconds), where `cuda_ms` reads the host."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -589,6 +681,95 @@ def phase_autograd_chain() -> None:
     torch.cuda.empty_cache()
 
 
+def int8_bound(M, K, N, dtype) -> tuple[float, str]:
+    """Least time for y = (x . wq^T) * scale: x, wq, scale read once and y
+    written once over the HBM rate, against 2MNK operations at the peak of
+    x's dtype (the products run in bf16 on the tensor cores, or in f32 on
+    the CUDA cores). → (ms, what bounds it)."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = M * K * size + N * K + 4 * N + M * N * size
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * M * N * K / PEAK_OPS[dtype]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_int8_kernel() -> dict:
+    """int8_matmul against its plain version at llama3-1b's four projection
+    shapes for M in INT8_ROWS, bf16 and f32. Times cycle through enough
+    copies of the weights to leave the L2 cold, as a decode step finds
+    them (every layer's projections are read once a step), and are device
+    times (`graph_ms`); `host_ms` is the same call dispatched from Python
+    back to back (`cuda_ms`), which is what an eager decode step pays. The
+    library yardstick is torch.matmul on the unquantized bf16 weight (twice
+    the bytes), which the port never calls. Returns the kernels-line row:
+    one decode step's seven projections of one layer at M = INT8_DECODE_M."""
+    import torch
+
+    from polyaxon_tpu_torch.models.quant import quantize_kernel
+    from polyaxon_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    row = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0}
+    for shape, (K, N) in INT8_SHAPES.items():
+        for M in INT8_ROWS:
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                gen = torch.Generator(device="cuda").manual_seed(K + N + M)
+                w = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+                wq, scale = quantize_kernel(w)
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+                y = int8_matmul(x, wq, scale)
+                ref = int8_matmul_reference(x, wq, scale)
+                torch.cuda.synchronize()
+                rel = row_rel_err(y, ref)
+                err = (y.float() - ref.float()).abs().max().item()
+                # cold weights: copies past the L2, one per call in turn
+                copies = max(1, -(-INT8_COLD_BYTES // (N * K)))
+                wqs = [wq.clone() for _ in range(copies)]
+                wbf = [(wq.float() * scale[:, None]).to(torch.bfloat16)
+                       for _ in range(max(1, -(-INT8_COLD_BYTES // (2 * N * K))))]
+                xb = x.to(torch.bfloat16)
+                it = {"k": 0, "l": 0}
+
+                def kernel():
+                    it["k"] = (it["k"] + 1) % copies
+                    return int8_matmul(x, wqs[it["k"]], scale)
+
+                def library():
+                    it["l"] = (it["l"] + 1) % len(wbf)
+                    return torch.matmul(xb, wbf[it["l"]].T)
+
+                ms = graph_ms(kernel, reps=max(20, 2 * copies))
+                host_ms = cuda_ms(kernel, reps=max(20, 2 * copies))
+                plain_ms = graph_ms(lambda: int8_matmul_reference(x, wq, scale), reps=5)
+                lib_ms = graph_ms(library, reps=max(20, 2 * len(wbf)))
+                bound_ms, bound_by = int8_bound(M, K, N, dt)
+                res = {
+                    "phase": "kernel", "kernel": "int8_matmul", "shape": shape,
+                    "M": M, "K": K, "N": N, "dtype": dt, "row_rel_err": rel,
+                    "max_abs_err": err, "tol_row_rel": INT8_TOL[dt], "ms": ms,
+                    "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "x_bound": ms / bound_ms,
+                    "gb_per_s": (N * K + M * K * dtype.itemsize) / ms / 1e6,
+                    "cold_weight_copies": copies,
+                }
+                emit(res)
+                check(rel <= INT8_TOL[dt], f"int8_matmul disagrees with its plain version "
+                      f"at {shape} M={M} {dt}: row-relative {rel} (tol {INT8_TOL[dt]})")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                if M == INT8_DECODE_M and dt == "bfloat16":
+                    n = INT8_PER_LAYER[shape]
+                    for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms"):
+                        row[k] += n * res[k]
+                del wqs, wbf, w, wq, x, y, ref
+                torch.cuda.empty_cache()
+    row["bound_by"] = "bytes"
+    emit({"phase": "kernel-int8-decode-layer", "M": INT8_DECODE_M, "launches": 7,
+          **{k: row[k] for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
+          "x_bound": row["ms"] / row["bound_ms"], "device": device_line()})
+    return row
+
+
 def phase_forward(model) -> None:
     """Full-sequence forward through the flash kernel, held against the
     same weights on the einsum attention path."""
@@ -784,36 +965,50 @@ def next_token_gap(model, tokens: list, sample=None) -> float:
     return float((top[0] - top[1]) / top[0].abs())
 
 
-def compare_rows(model, got: list, ref: list, prompt_len: int, sample=None):
+def compare_rows(model, got: list, ref: list, prompt_len: int, sample=None,
+                 gaps=None):
     """None when `got` equals `ref`; else the first differing generated
-    position and the reference path's top-2 gap there. On bf16 another
-    batch shape may take other GEMM kernels, so a divergence passes only at
-    a near-tie: a gap under NEAR_TIE of the top logit."""
+    position and the reference path's top-2 gap there (from `gaps`, one per
+    generated token, where the reference recorded them; else recomputed
+    by next_token_gap). On bf16 another batch shape may take other GEMM
+    kernels, so a divergence passes only at a near-tie: a gap under
+    NEAR_TIE of the top logit."""
     if got == ref:
         return None
     j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b) - prompt_len
     check(j >= 0, "a response changed its prompt")
     if sample is not None:
         sample = (*sample, j)
-    gap = next_token_gap(model, ref[:prompt_len + j], sample)
+    gap = gaps[j] if gaps is not None else next_token_gap(model, ref[:prompt_len + j], sample)
     check(gap < NEAR_TIE, f"divergence at generated token {j} with top-2 gap "
           f"{gap} (>= {NEAR_TIE}): not a near-tie")
     return {"position": j, "gap": gap}
 
 
-def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
+def run_serve_config(model, name: str, waves: list, reference: list, *,
+                     config: dict = None, phase: str = "serve-batched",
+                     sampled: bool = None, pool_bytes: int = None,
+                     extra=None) -> dict:
     """One server config under the traffic: the two waves of concurrent
-    greedy requests, then a non-streamed and a streamed request of one
-    shared-prefix prompt, then (dense, paged) the sampled request."""
+    greedy requests (each row held against `reference`'s, unless it is
+    None: the int8 server's rows are held after the kernel counts are read,
+    by check_int8_rows), then a non-streamed and a streamed request of one
+    shared-prefix prompt, then (dense, paged, or when `sampled`) the
+    sampled request; `extra(url)` runs last, on the
+    live server. The pool is gated twice: /statsz's bytes (the formula
+    admission budgets with) and the bytes of the live pool tensors. Returns
+    the answers, the sampled row, the final /statsz, extra's result and
+    the server (stopped)."""
     import torch
 
     from polyaxon_tpu_torch.serving.batching import ServingConfig
     from polyaxon_tpu_torch.serving.server import ModelServer
 
     torch.cuda.reset_peak_memory_stats()
-    config = ServingConfig(**SERVE_BASE, **SERVE_CONFIGS[name])
+    config = ServingConfig(**SERVE_BASE, **(config or SERVE_CONFIGS[name]))
     server = ModelServer(model, None, config, model_name=PRESET, device=model.device)
     url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    extra_out = None
     try:
         t0 = time.perf_counter()
         answers = []
@@ -822,14 +1017,21 @@ def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
                 {"tokens": [p], "maxNewTokens": SERVE_NEW} for p in wave
             ])
         wall = time.perf_counter() - t0
+        steps = server._m_decode_step.summary()["count"]  # the waves' steps
         stats = _http(url + "/statsz")
         body = {"tokens": [waves[1][0]], "maxNewTokens": SERVE_NEW}
         whole = _http(url + "/generate", body)["tokens"][0]
         events = _sse(url, body)
-        sampled = None
-        if name in SAMPLED_ON:
-            sampled = _http(url + "/generate", SAMPLED_BODY)["tokens"][0]
+        sampled_row = None
+        if name in SAMPLED_ON if sampled is None else sampled:
+            sampled_row = _http(url + "/generate", SAMPLED_BODY)["tokens"][0]
         final = _http(url + "/statsz")
+        if extra is not None:
+            extra_out = extra(url)
+        live_pool_bytes = None
+        if server._kv is not None:
+            live_pool_bytes = sum(t.numel() * t.element_size()
+                                  for layer in server._kv.cache for t in layer)
     finally:
         server.stop()
     prompts = [p for wave in waves for p in wave]
@@ -838,6 +1040,8 @@ def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
         row = a["tokens"][0]
         check(len(row) == len(p) + SERVE_NEW,
               f"{name}: response {i} has {len(row)} tokens, not {len(p) + SERVE_NEW}")
+        if reference is None:
+            continue
         d = compare_rows(model, row, reference[i], len(p))
         if d is not None:
             divergences.append({"row": i, **d})
@@ -853,30 +1057,43 @@ def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
         check(kv["pages_used"] == 1 + kv["prefix"]["held_pages"],
               f"{name}: pages leaked: {kv['pages_used']} used, scratch + "
               f"{kv['prefix']['held_pages']} held by the prefix cache")
-        check(kv["kv_pool_bytes"] == SERVE_POOL_BYTES,
-              f"{name}: pool of {kv['kv_pool_bytes']} bytes, not {SERVE_POOL_BYTES}")
+        pool_bytes = SERVE_POOL_BYTES if pool_bytes is None else pool_bytes
+        check(kv["kv_pool_bytes"] == pool_bytes,
+              f"{name}: /statsz gives a pool of {kv['kv_pool_bytes']} bytes, not {pool_bytes}")
+        check(live_pool_bytes == pool_bytes,
+              f"{name}: the pool tensors hold {live_pool_bytes} bytes, not {pool_bytes}")
         check(kv["prefix"]["hits"] >= 1, f"{name}: no prefix-cache hit")
     chunked = final["chunked"]
     if chunked["enabled"]:
         check(chunked["steps"] > chunked["prefill_only_steps"],
               f"{name}: the scheduler ran no mixed step: {chunked}")
     generated = SERVE_NEW * len(prompts)
+    spec = stats["speculation"]
     line = {
-        "phase": "serve-batched", "config": name, "device": device_line(),
+        "phase": phase, "config": name, "device": device_line(),
         "requests": len(prompts), "waves": len(waves), "new_tokens": SERVE_NEW,
         "prompt_lens": [len(p) for p in prompts],
         "wall_seconds": wall, "decode_tokens_per_s": generated / wall,
         "ttft_ms_p50": stats["ttft_ms"]["p50"], "ttft_ms_p95": stats["ttft_ms"]["p95"],
         "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+        # decode tokens (after each row's first) over the decode steps or
+        # verify windows run (the paged group path times chunks instead)
+        "decode_steps": steps,
+        "tokens_per_step": (generated - len(prompts)) / steps if steps else None,
+        "accept_rate": spec["accept_rate"], "proposed": spec["proposed"],
+        "accepted": spec["accepted"], "effective_k": spec["effective_k"],
         "latency_ms_p50": stats["latency_ms"]["p50"],
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
-        "rows_diverged": len(divergences), "divergences": divergences,
+        # None: held later (the int8 rows, check_int8_rows)
+        "rows_diverged": None if reference is None else len(divergences),
+        "divergences": divergences,
         "stream_chunks": sum(1 for ev in events if "tokens" in ev),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if kv["enabled"]:
         line.update({
-            "kv_pool_bytes": kv["kv_pool_bytes"], "pages_hwm": kv["pages_hwm"],
+            "kv_pool_bytes": kv["kv_pool_bytes"], "live_pool_bytes": live_pool_bytes,
+            "pages_hwm": kv["pages_hwm"],
             "pages_total": kv["pages_total"], "rows_admitted_hwm": kv["active_rows_hwm"],
             "dense_equivalent_rows": kv["dense_equivalent_rows"],
             "prefix_hits": kv["prefix"]["hits"], "prefix_misses": kv["prefix"]["misses"],
@@ -885,7 +1102,8 @@ def run_serve_config(model, name: str, waves: list, reference: dict) -> dict:
         line.update({k: chunked[k] for k in ("steps", "prefill_only_steps", "prefill_chunks")})
         line["step_tokens_p50"] = chunked["step_tokens"]["p50"]
     emit(line)
-    return {"sampled": sampled}
+    return {"sampled": sampled_row, "answers": [a["tokens"][0] for a in answers],
+            "stats": final, "extra": extra_out, "server": server}
 
 
 def profile_decode_step(model) -> None:
@@ -896,7 +1114,6 @@ def profile_decode_step(model) -> None:
     so host gaps count), then one step under torch.profiler — the top
     device ops and the device's idle share of the step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from polyaxon_tpu_torch.models.generate import make_paged_cache
     from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
@@ -915,46 +1132,64 @@ def profile_decode_step(model) -> None:
                                pages=tables, kv_layout=layout),
     }
     for name, fn in steps.items():
-        ms = cuda_ms(fn, reps=10)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = sorted(
-            (e for e in prof.key_averages()
-             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)),
-            key=_device_time_us, reverse=True,
-        )
-        busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
-        host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                      reverse=True)
-        emit({
+        profile_step(fn, {
             "phase": "serve-profile", "path": name, "batch": B, "window_slots": (
                 model.cfg.seq_len if name == "dense" else n_pages * layout.page_tokens),
-            "frontier": S, "device": device_line(),
-            "step_ms_median": ms, "profiled_step_wall_ms": wall_ms,
-            "kernel_ms_total": busy_ms if kernels else "not measured",
-            "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_kernels": [
-                {"name": e.key[:90], "ms": _device_time_us(e) / 1e3, "count": e.count}
-                for e in kernels[:12]
-            ],
-            # where the host's time goes: operators and CUDA runtime calls
-            "top_host_ops": [
-                {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                 "count": e.count}
-                for e in host[:10]
-            ],
+            "frontier": S,
         })
     del caches
     torch.cuda.empty_cache()
 
 
-def phase_serve_batched(model) -> None:
+def profile_step(fn, fields: dict) -> dict:
+    """`fn` (one decode step or verify window): its median time (CUDA events
+    around back-to-back calls, so host gaps count), then one call under
+    torch.profiler — the top device ops, the device's idle share and the
+    int8 kernel's device time. Emits `fields` with the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cuda_ms(fn, reps=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=_device_time_us, reverse=True,
+    )
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
+    int8 = [e for e in kernels if "int8_" in e.key]
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    line = {
+        **fields, "device": device_line(),
+        "step_ms_median": ms, "profiled_step_wall_ms": wall_ms,
+        "kernel_ms_total": busy_ms if kernels else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
+        "kernel_launches": sum(e.count for e in kernels),
+        "int8_kernel_ms": sum(_device_time_us(e) for e in int8) / 1e3 if kernels
+        else "not measured",
+        "int8_kernel_launches": sum(e.count for e in int8),
+        "top_kernels": [
+            {"name": e.key[:90], "ms": _device_time_us(e) / 1e3, "count": e.count}
+            for e in kernels[:12]
+        ],
+        # where the host's time goes: operators and CUDA runtime calls
+        "top_host_ops": [
+            {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+             "count": e.count}
+            for e in host[:10]
+        ],
+    }
+    emit(line)
+    return line
+
+
+def phase_serve_batched(model) -> dict:
     """The batched serving paths on the full-size model: the dense, paged
     and step configs under the same traffic, each row held against the
     port's direct generate(); then one decode step profiled."""
@@ -971,9 +1206,12 @@ def phase_serve_batched(model) -> None:
     ]
     emit({"phase": "serve-batched-reference", "rows": len(prompts),
           "seconds": time.perf_counter() - t0})
-    sampled = {}
+    sampled, answers = {}, {}
     for name in SERVE_CONFIGS:
-        sampled[name] = run_serve_config(model, name, waves, reference)["sampled"]
+        out = run_serve_config(model, name, waves, reference)
+        sampled[name], answers[name] = out["sampled"], out["answers"]
+        del out
+        gc.collect()
         torch.cuda.empty_cache()
     a, b = (sampled[n] for n in SAMPLED_ON)
     body = SAMPLED_BODY
@@ -982,6 +1220,234 @@ def phase_serve_batched(model) -> None:
     emit({"phase": "serve-batched-sampled", "configs": list(SAMPLED_ON),
           "equal": a == b, "divergence": d})
     profile_decode_step(model)
+    return {"waves": waves, "step": answers["step"], "sampled": sampled["dense"]}
+
+
+def beam_requests(url: str, prompt: list) -> dict:
+    """Two numBeams requests on the live server (the per-request path): one
+    without eos, and one whose eos is a token the first beam emits; then
+    numBeams 1, which is the greedy batched path."""
+    plain = {"tokens": [prompt], "maxNewTokens": SERVE_NEW, "numBeams": BEAMS}
+    first = _http(url + "/generate", plain)["tokens"][0]
+    eos = first[len(prompt) + SERVE_NEW // 4]
+    with_eos = {**plain, "eosId": eos, "lengthPenalty": 1.2}
+    second = _http(url + "/generate", with_eos)["tokens"][0]
+    one = _http(url + "/generate", {**plain, "numBeams": 1})["tokens"][0]
+    return {"bodies": [plain, with_eos], "beams": [first, second], "one": one}
+
+
+def check_beams(model, out: dict) -> dict:
+    """Each beam response equals the port's direct beam_search of the same
+    prompt on the card; numBeams 1 equals greedy (up to a bf16 near-tie)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import beam_search, generate
+
+    t0 = time.perf_counter()
+    for body, got in zip(out["bodies"], out["beams"]):
+        direct = beam_search(
+            model, torch.tensor(body["tokens"]), max_new_tokens=body["maxNewTokens"],
+            num_beams=body["numBeams"], eos_id=body.get("eosId"),
+            length_penalty=body.get("lengthPenalty", 1.0),
+        )[0].tolist()
+        check(got == direct, f"numBeams {body['numBeams']} (eos {body.get('eosId')}) "
+              "differs from the direct beam_search")
+    prompt = out["bodies"][0]["tokens"]
+    greedy = generate(model, torch.tensor(prompt), max_new_tokens=SERVE_NEW)[0].tolist()
+    d = compare_rows(model, out["one"], greedy, len(prompt[0]))
+    line = {"phase": "serve-fast-beams", "num_beams": BEAMS, "prompt_len": len(prompt[0]),
+            "new_tokens": SERVE_NEW, "eos_id": out["bodies"][1]["eosId"],
+            "beams_equal_direct": True, "one_beam_divergence": d,
+            "direct_seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def int8_pool_rows(qmodel, prompts: list) -> tuple:
+    """The int8 server's rows by the direct path: each prompt greedy through
+    the int8 module on an int8 paged pool of its own (one-shot prefill,
+    then one step a token at B=1), so the quantize-on-write, the scale
+    scatter, the page gather and the dequantize meet the served rows'
+    chunked prefill, prefix-cache harvest and batched steps. Returns the
+    rows and, per row, each generated token's top-2 gap over the top
+    logit (the near-tie rule reads them)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+
+    pt = SERVE_CONFIGS["step"]["kv_page_tokens"]
+    n_pages = -(-(max(len(p) for p in prompts) + SERVE_NEW) // pt)
+    layout = PagedKVLayout(pt, 1 + n_pages, kv_quant="int8")
+    cache = make_paged_cache(qmodel, layout)  # each prompt overwrites its slots
+    dev = qmodel.device
+    table = torch.arange(1, 1 + n_pages, device=dev)[None]
+    pad = torch.zeros(1, dtype=torch.long, device=dev)
+    rows, gaps = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            x = torch.tensor([p], device=dev)
+            row, gap = list(p), []
+            for j in range(SERVE_NEW):
+                logits = qmodel(x, cache=cache, pad=pad, pages=table, pos=len(row) - x.shape[1],
+                                kv_layout=layout)[0, -1].float()
+                top = torch.topk(logits, 2).values
+                gap.append(float((top[0] - top[1]) / top[0].abs()))
+                row.append(int(logits.argmax()))
+                x = torch.tensor([[row[-1]]], device=dev)
+            rows.append(row)
+            gaps.append(gap)
+    del cache
+    return rows, gaps
+
+
+def int8_teacher_forced(model, qmodel) -> dict:
+    """One INT8_TF_TOKENS-token prompt through the bf16 module and its int8
+    quantization (full-sequence forward, the same weights): the int8 argmax
+    agrees with the bf16 argmax at >= INT8_AGREE of the positions whose bf16
+    top-2 gap is >= NEAR_TIE of the top logit; the max row-relative logit
+    error is printed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randint(0, model.cfg.vocab_size, (1, INT8_TF_TOKENS), generator=gen).to(model.device)
+    ref = model(x)[0].float()
+    top = torch.topk(ref, 2, dim=-1).values
+    confident = (top[:, 0] - top[:, 1]) >= NEAR_TIE * top[:, 0].abs()
+    check(bool(confident.any()), "no position of the bf16 forward is past a near-tie")
+    got = qmodel(x)[0].float()
+    agree = (got.argmax(-1) == ref.argmax(-1))[confident].float().mean().item()
+    rel = row_rel_err(got, ref)
+    line = {"phase": "serve-fast-int8-tokens", "tokens": INT8_TF_TOKENS,
+            "confident_positions": int(confident.sum()), "argmax_agree": agree,
+            "agree_floor": INT8_AGREE, "max_row_rel_logit_err": rel,
+            "argmax_agree_all": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+    emit(line)
+    check(agree >= INT8_AGREE, f"int8 argmax agrees with bf16 at {agree} of the confident "
+          f"positions (floor {INT8_AGREE})")
+    return line
+
+
+def profile_fast_step(model, qmodel) -> None:
+    """One decode step of the int8 module on the int8 pool and one verify
+    window of K = 4 drafts (B x 5 tokens) of the bf16 module on the bf16
+    pool, both at B=PROFILE_BATCH and frontier PROFILE_SLOTS, as
+    profile_decode_step profiles the plain step."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+    from polyaxon_tpu_torch.models.spec_decode import spec_verify_paged
+
+    B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, model.device
+    K = FAST_CONFIGS["spec"]["draft_tokens"]
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, model.cfg.vocab_size, (B, 1), generator=gen).to(dev)
+    fed = torch.randint(0, model.cfg.vocab_size, (B, K + 1), generator=gen).numpy()
+    pad = torch.zeros(B, dtype=torch.long, device=dev)
+    pages = 1 + B * -(-(S + K) // 128)
+    int8_layout = PagedKVLayout(128, pages, kv_quant="int8")
+    layout = PagedKVLayout(128, pages)
+    n_pages = layout.pages_for(S + K)
+    tables = 1 + torch.arange(B * n_pages, device=dev).reshape(B, n_pages)
+    int8_pool = make_paged_cache(qmodel, int8_layout)
+    pool = make_paged_cache(model, layout)
+    zeros = np.zeros(B, np.int64)
+    steps = {
+        "int8": lambda: qmodel(tok, cache=int8_pool, pos=S - 1, pad=pad, pages=tables,
+                               kv_layout=int8_layout),
+        "spec": lambda: spec_verify_paged(
+            model, pool, fed, np.zeros(B, bool), zeros, tables.cpu().numpy(), zeros,
+            np.full(B, S - 1), np.ones(B, np.int64), kv_layout=layout,
+            temperature=0.0, top_k=None, eos_id=None),
+    }
+    for name, fn in steps.items():
+        profile_step(fn, {
+            "phase": "serve-fast-profile", "path": name, "batch": B,
+            "window_tokens": 1 if name == "int8" else K + 1, "frontier": S,
+            "window_slots": n_pages * layout.page_tokens,
+        })
+    del int8_pool, pool
+    torch.cuda.empty_cache()
+
+
+def phase_serve_fast(model, batched: dict) -> tuple:
+    """The fast decode on the full-size model, each config under
+    serve-batched's traffic on the step path: `spec` and `draft` rows held
+    against the step config's rows (a divergence only at a bf16 near-tie of
+    the reference path), their sampled row against dense's, proposals made;
+    `int8` with the formula's pool bytes; all with no leaked page and a
+    prefix hit, the stream equal to the non-streamed tokens. Beams on the
+    spec server equal the direct beam_search. Then a decode step of each
+    kind profiled. Returns the int8 module and its served rows, for
+    check_int8_rows and the teacher-forced check (which run after the
+    kernel counts of this path are read)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.quant import decode_weight_bytes
+
+    waves, step_rows = batched["waves"], batched["step"]
+    prompts = [p for wave in waves for p in wave]
+    qmodel, lines = None, {}
+    beam_prompt = waves[0][4][:BEAM_PROMPT]
+    for name, config in FAST_CONFIGS.items():
+        out = run_serve_config(
+            model, name, waves, None if config.get("quantize") else step_rows,
+            config=config, phase="serve-fast",
+            sampled=name == SAMPLED_FAST,
+            pool_bytes=INT8_POOL_BYTES if config.get("kv_quant") == "int8"
+            else SERVE_POOL_BYTES,
+            extra=(lambda url: beam_requests(url, beam_prompt)) if name == "spec" else None,
+        )
+        spec = out["stats"]["speculation"]
+        if config.get("speculate"):
+            check(spec["proposed"] > 0, f"{name}: no draft was proposed: {spec}")
+        if name == SAMPLED_FAST:
+            body = SAMPLED_BODY
+            d = compare_rows(model, out["sampled"], batched["sampled"],
+                             len(body["tokens"][0]),
+                             sample=(body["temperature"], body["topK"], body["seed"]))
+            emit({"phase": "serve-fast-sampled", "config": name,
+                  "equal_dense": out["sampled"] == batched["sampled"], "divergence": d})
+            lines["beams"] = out["extra"]
+        if config.get("quantize"):
+            qmodel, int8_answers = out["server"].module, out["answers"]
+            emit({"phase": "serve-fast-int8-weights", "device": device_line(),
+                  "decode_weight_bytes_bf16": decode_weight_bytes(model),
+                  "decode_weight_bytes_int8": decode_weight_bytes(qmodel),
+                  "bytes_saved": out["stats"]["quant"]["bytes_saved"],
+                  "kv_pool_bytes": out["stats"]["kv"]["kv_pool_bytes"],
+                  "kv_pool_bytes_bf16": SERVE_POOL_BYTES,
+                  "rows_equal_bf16_step": sum(
+                      a == b for a, b in zip(out["answers"], step_rows)),
+                  "rows": len(prompts)})
+        if name == "draft":
+            emit({"phase": "serve-fast-adaptive", "controller": spec.get("controller"),
+                  "draft_model": spec["draft_model"]})
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_beams(model, lines["beams"])
+    profile_fast_step(model, qmodel)
+    return qmodel, int8_answers
+
+
+def check_int8_rows(qmodel, waves: list, answers: list) -> None:
+    """The int8 server's rows held against the int8 module's own rows on a
+    direct int8 pool (int8_pool_rows): equal, or diverging only at a
+    near-tie of that reference path."""
+    t0 = time.perf_counter()
+    prompts = [p for wave in waves for p in wave]
+    reference, gaps = int8_pool_rows(qmodel, prompts)
+    divergences = []
+    for i, (p, row) in enumerate(zip(prompts, answers)):
+        d = compare_rows(qmodel, row, reference[i], len(p), gaps=gaps[i])
+        if d is not None:
+            divergences.append({"row": i, **d})
+    emit({"phase": "serve-fast-int8-rows", "config": "int8", "rows": len(prompts),
+          "rows_diverged": len(divergences), "divergences": divergences,
+          "seconds": time.perf_counter() - t0})
 
 
 def _device_time_us(evt) -> float:
@@ -1483,6 +1949,16 @@ def phase_train_rules() -> dict:
     return launches
 
 
+def max_abs_err(row: dict) -> float:
+    """A kernel row's max |kernel - plain|: its own, the forward's o, or the
+    largest of the backward's outputs."""
+    if "max_abs_err" in row:
+        return row["max_abs_err"]
+    if "max_abs_err_o" in row:
+        return row["max_abs_err_o"]
+    return max(v for k, v in row.items() if k.startswith("max_abs_err_"))
+
+
 def device_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1514,10 +1990,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from polyaxon_tpu_torch.models import build_model
-    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS as FLASH_KERNELS
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
 
+    KERNELS = (*FLASH_KERNELS, INT8_MATMUL)
     phase_build()
-    rows = {"flash_fwd": phase_kernels(), **phase_backward_kernels()}
+    rows = {"flash_fwd": phase_kernels(), **phase_backward_kernels(),
+            "int8_matmul": phase_int8_kernel()}
     phase_autograd_chain()
     with torch.inference_mode():
         model = build_model(
@@ -1534,14 +2013,25 @@ def main() -> int:
         launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
         for kern in KERNELS:  # the batched serving path starts here
             kern.launches = 0
-        phase_serve_batched(model)
+        batched = phase_serve_batched(model)
         served = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
         # decode and paged prefill attend by einsum (as the reference's
         # XLA decode does): no kernel of the port lies on this path
         emit({"phase": "serve-batched-launches", "launches": served})
         for name, n in served.items():
             launches[name] += n
-        del model, warm
+        for kern in KERNELS:  # the fast decode path starts here
+            kern.launches = 0
+        qmodel, int8_answers = phase_serve_fast(model, batched)
+        fast = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        # every int8 projection of the int8 config (prefill and decode)
+        emit({"phase": "serve-fast-launches", "launches": fast})
+        check(fast["int8_matmul"] > 0, "the int8 config never launched int8_matmul")
+        for name, n in fast.items():
+            launches[name] += n
+        check_int8_rows(qmodel, batched["waves"], int8_answers)
+        int8_teacher_forced(model, qmodel)
+        del model, warm, qmodel, batched
     torch.cuda.empty_cache()
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
     for name, n in phase_train().items():
@@ -1556,9 +2046,7 @@ def main() -> int:
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": rows[name].get("max_abs_err_o", max(
-                v for k, v in rows[name].items() if k.startswith("max_abs_err_")
-            )),
+            "max_abs_err": max_abs_err(rows[name]),
             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
             "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
             "library_ms": rows[name]["library_ms"],

@@ -10,10 +10,14 @@ nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
     layer_{i}/mlp/{gate,up,down}_proj/kernel → layers.{i}.mlp.*.weight
     final_norm/scale, lm_head/kernel        → final_norm.scale, lm_head.weight
     .../lora_a, .../lora_b (lora_rank > 0)  → the same names, as they are
+    .../scale (a quantize_module tree)      → the same names, as they are
 
 Flax Dense kernels are [in, out] and nn.Linear weights [out, in], so each
 kernel is transposed (the inverse of `models/convert_hf.py` there). The
-LoRA factors keep the reference's orientation in `LoRADense`.
+LoRA factors keep the reference's orientation in `LoRADense`. A tree the
+reference's `quantize_module` made holds int8 kernels [in, out] and f32
+scales [out]: the kernels become int8 `weight` [out, in] (the same bytes,
+transposed) beside `scale`, for a module built with `quant="int8"`.
 
 `opt_state_from_jax` puts optax's state (numpy leaves in optax's tree) into
 the port's optimizer, so a JAX run's optimizer state continues here.
@@ -38,7 +42,9 @@ Layout = dict[str, tuple[tuple[str, ...], bool]]
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    """float32, or int8 for the payload of a quantized kernel."""
+    dtype = np.int8 if np.asarray(a).dtype == np.int8 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
 
 
 def _at(tree, path: tuple[str, ...]):
@@ -59,7 +65,7 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
 
     def dense(prefix: str, path: tuple[str, ...]) -> None:
         layout[f"{prefix}.weight"] = ((*path, "kernel"), True)
-        for name in ("lora_a", "lora_b"):
+        for name in ("lora_a", "lora_b", "scale"):
             if name in _at(p, path):
                 layout[f"{prefix}.{name}"] = ((*path, name), False)
 
@@ -79,8 +85,8 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
 
 def params_from_jax(params_np: dict, cfg) -> dict[str, torch.Tensor]:
     """Nested numpy param dict (optionally wrapped as {"params": ...}) →
-    float32 CPU state_dict for `Transformer(cfg)`; `load_state_dict` casts
-    it to the model's dtype and device."""
+    float32 CPU state_dict for `Transformer(cfg)` (int8 for quantized
+    kernels); `load_state_dict` casts it to the model's dtype and device."""
     p = _unwrap(params_np)
     out = {}
     for name, (path, transposed) in transformer_layout(p, cfg).items():

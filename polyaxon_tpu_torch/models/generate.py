@@ -14,7 +14,11 @@ per-row page tables: `paged_prefill` then `paged_decode_chunk` (a coalesced
 group), `paged_prefill_chunk` (one slice of a chunked prefill) and
 `paged_step` (one continuous-batching step at per-row frontiers). They
 update the pool in place where the reference donates it to its compiled
-programs; the reference's `jit_*` factories have no counterpart.
+programs; the reference's `jit_*` factories have no counterpart. The pool
+may be int8 (`kv_quant="int8"`: int8 payloads and f32 scales).
+
+`beam_search`: the reference's HF-style beam search over the dense cache,
+prefilled once per row and tiled to the beams.
 
 Sampling: temperature 0 is greedy (argmax, first index on ties) and gives
 the reference's tokens exactly. With temperature > 0 the noise comes from
@@ -165,19 +169,24 @@ def generate(
 
 def make_paged_cache(module, layout: PagedKVLayout) -> list:
     """The zeroed pool: per layer (k, v), each [pool_pages, page_tokens,
-    n_kv_heads, head_dim] in the model's dtype on its device. Batch-size
+    n_kv_heads, head_dim] in the model's dtype on its device — or, for
+    `kv_quant="int8"`, (k, v, k_scale, v_scale): int8 payloads of that shape
+    and f32 scales [pool_pages, page_tokens, n_kv_heads]. Batch-size
     independent, so one pool serves every group shape. Zeros, not empty
     memory: scratch-page slots are masked to -1e30 in the scores, but a NaN
     there would still reach probs @ V."""
-    if layout.kv_quant != "none":
-        raise NotImplementedError("the int8 KV pool is not ported yet (see ROADMAP.md)")
     cfg = module.cfg
     shape = (layout.pool_pages, layout.page_tokens, cfg.n_kv_heads, cfg.head_dim)
+    dev = module.device
+    if layout.kv_quant == "int8":
+        return [
+            tuple(torch.zeros(shape, dtype=torch.int8, device=dev) for _ in range(2))
+            + tuple(torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+                    for _ in range(2))
+            for _ in range(cfg.n_layers)
+        ]
     return [
-        (
-            torch.zeros(shape, dtype=module.dtype, device=module.device),
-            torch.zeros(shape, dtype=module.dtype, device=module.device),
-        )
+        tuple(torch.zeros(shape, dtype=module.dtype, device=dev) for _ in range(2))
         for _ in range(cfg.n_layers)
     ]
 
@@ -288,3 +297,140 @@ def paged_step(
         done = done | (tok == eos_id)
         nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
     return nxt, done
+
+
+# ----------------------------------------------------------------- beam search
+def _top_k(x, k: int):
+    """jax.lax.top_k over the last dim: the k largest, descending, ties to
+    the lower index (a stable sort; torch.topk leaves tie order open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.inference_mode()
+def beam_search(
+    module,
+    prompt,
+    *,
+    max_new_tokens: int,
+    num_beams: int = 4,
+    length_penalty: float = 1.0,
+    eos_id: Optional[int] = None,
+) -> torch.Tensor:
+    """Beam-search decode (`polyaxon_tpu/models/generate.py::beam_search`):
+    the best sequence per batch row, [B, P + max_new_tokens] int64.
+
+    One prefill per batch row, its dense cache tiled to the row's beams;
+    then each step expands every beam over the vocabulary, keeps the top
+    `num_beams` continuations and reorders the cache by each survivor's
+    parent beam (a gather on the batch dim, written back in place).
+
+    Scoring is HF-style, as in the reference: without `eos_id` beams are
+    pruned by their raw summed log-prob and `length_penalty` (dividing by
+    length ** length_penalty) applies only to the final ranking. With
+    `eos_id` each step takes the top 2·nb candidates: those ending in eos
+    move into a finished-hypothesis buffer (length-penalized, the worst
+    evicted), the best nb others stay live; the answer is the best of both
+    under the penalty, padded with eos after its eos."""
+    cfg = module.cfg
+    device = module.device
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
+    B, P = prompt.shape
+    total = P + int(max_new_tokens)
+    if total > cfg.seq_len:
+        raise ValueError(
+            f"prompt ({P}) + max_new_tokens ({max_new_tokens}) = {total} "
+            f"exceeds the model's seq_len {cfg.seq_len} (the KV cache size)"
+        )
+    nb = int(num_beams)
+    if nb < 1:
+        raise ValueError("num_beams must be >= 1")
+    if nb > cfg.vocab_size:
+        raise ValueError(f"num_beams ({nb}) cannot exceed vocab_size ({cfg.vocab_size})")
+    BN = B * nb
+    lp = float(length_penalty)
+    neg_inf = float("-inf")
+
+    # prefill ONCE per batch row, then tile the cache to the row's beams
+    cache = module.make_cache(B)
+    logits = module(prompt, cache=cache, pos=0)
+    cache = [tuple(t.repeat_interleave(nb, dim=0) for t in layer) for layer in cache]
+    first_logp = torch.log_softmax(logits[:, -1].float(), dim=-1)  # [B, V]
+    V = first_logp.shape[-1]
+    if eos_id is None:
+        scores, tok0 = _top_k(first_logp, nb)  # [B, nb]
+    else:
+        # 2·nb candidates leave >= nb live ones after eos leaves (eos is at
+        # most one candidate per parent)
+        k0 = min(2 * nb, V)
+        sc2, tok2 = _top_k(first_logp, k0)
+        is_eos0 = tok2 == eos_id
+        scores, pick0 = _top_k(torch.where(is_eos0, neg_inf, sc2), nb)
+        tok0 = torch.gather(tok2, 1, pick0)
+        fin_scores = _top_k(torch.where(is_eos0, sc2, neg_inf), min(nb, k0))[0]
+        if fin_scores.shape[1] < nb:
+            fin_scores = torch.nn.functional.pad(
+                fin_scores, (0, nb - fin_scores.shape[1]), value=neg_inf
+            )
+        fin_buf = torch.zeros((B, nb, total), dtype=torch.long, device=device)
+        fin_buf[:, :, :P] = prompt[:, None, :]
+        fin_buf[:, :, P] = eos_id
+    buf = torch.zeros((BN, total), dtype=torch.long, device=device)
+    buf[:, :P] = prompt.repeat_interleave(nb, dim=0)
+    buf[:, P] = tok0.reshape(BN)
+    rows = torch.arange(B, device=device)[:, None] * nb
+
+    def keep_live(parent, nxt, t):
+        flat = (rows + parent).reshape(BN)
+        if not torch.equal(flat, torch.arange(BN, device=device)):
+            for layer in cache:
+                for c in layer:
+                    c.copy_(c.index_select(0, flat))
+        out = buf[flat]
+        out[:, t + 1] = nxt.reshape(BN)
+        return out
+
+    for t in range(P, total - 1):  # t = position of the token being fed
+        logits = module(buf[:, t:t + 1], cache=cache, pos=t)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(B, nb, V)
+        cand = (scores[:, :, None] + logp).reshape(B, nb * V)
+        if eos_id is None:
+            scores, idx = _top_k(cand, nb)
+            buf = keep_live(idx // V, idx % V, t)
+            continue
+        k = min(2 * nb, nb * V)
+        cand_sc, idx = _top_k(cand, k)
+        parent, nxt = idx // V, idx % V
+        is_eos = nxt == eos_id
+        # candidate sequences [B, k, total]: the parent's buffer + the token
+        cand_buf = torch.gather(
+            buf.reshape(B, nb, total), 1, parent[:, :, None].expand(B, k, total)
+        ).clone()
+        cand_buf[:, :, t + 1] = nxt
+        gen_len = torch.tensor(float(t + 2 - P), dtype=torch.float32, device=device)
+        pen = torch.where(is_eos, cand_sc / gen_len ** lp, neg_inf)
+        all_sc = torch.cat([fin_scores, pen], dim=1)
+        all_buf = torch.cat([fin_buf, cand_buf], dim=1)
+        fin_scores, fidx = _top_k(all_sc, nb)
+        fin_buf = torch.gather(all_buf, 1, fidx[:, :, None].expand(B, nb, total))
+        scores, pick = _top_k(torch.where(is_eos, neg_inf, cand_sc), nb)
+        buf = keep_live(torch.gather(parent, 1, pick), torch.gather(nxt, 1, pick), t)
+
+    out = buf.reshape(B, nb, total)
+    live = scores / (float(max_new_tokens) ** lp)
+    if eos_id is None:
+        best = torch.argmax(live, dim=1)
+        return out[torch.arange(B, device=device), best]
+    # live beams (never eos-ended, full length) against the finished buffer
+    all_sc = torch.cat([live, fin_scores], dim=1)
+    all_buf = torch.cat([out, fin_buf], dim=1)
+    best = torch.argmax(all_sc, dim=1)
+    sel = all_buf[torch.arange(B, device=device), best]
+    # finished hypotheses carry stale parent tokens after their eos: pad
+    # with eos, as generate() does
+    gen = sel[:, P:]
+    seen = torch.cumsum((gen == eos_id).long(), dim=1) > 0
+    after = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=device),
+                       seen[:, :-1]], dim=1)
+    sel[:, P:] = torch.where(after, torch.full_like(gen, eos_id), gen)
+    return sel

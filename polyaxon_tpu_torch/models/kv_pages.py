@@ -73,8 +73,8 @@ class PagedKVLayout:
     """Static shape of the device pool (frozen, hashable).
 
     `kv_quant` selects the pool element type: "none" keeps the model's
-    dtype; the reference's "int8" pool (int8 payload plus one f32 scale
-    per slot and kv head) is not ported and raises NotImplementedError."""
+    dtype; "int8" holds an int8 payload plus one f32 scale per slot and kv
+    head (`models.quant.quantize_kv`)."""
 
     page_tokens: int = DEFAULT_PAGE_TOKENS
     pool_pages: int = 0
@@ -88,11 +88,6 @@ class PagedKVLayout:
         if self.kv_quant not in ("none", "int8"):
             raise ValueError(
                 f"kv_quant must be 'none' or 'int8', got {self.kv_quant!r}"
-            )
-        if self.kv_quant == "int8":
-            raise NotImplementedError(
-                "the int8 KV pool (kv_quant='int8') is not ported to PyTorch "
-                "yet (see ROADMAP.md)"
             )
 
     def pages_for(self, n_tokens: int) -> int:

@@ -16,7 +16,15 @@ projections and tied embeddings. Two attention paths, as in the reference:
   [B, n_pages]). Left-pad widths `pad` [B] mask a left-padded batch; a
   shared prefix of `prefix_len` slots (or per row, `prefix_lens` [B]) sits
   before each row's pad. The decode's index and mask plan is made once
-  per forward (`_decode_plan`) and shared by every layer.
+  per forward (`_decode_plan`) and shared by every layer. An int8 pool
+  (`kv_quant="int8"`) holds int8 payloads plus one f32 scale per (slot, kv
+  head): K/V are quantized on write (`models.quant.quantize_kv`) and
+  dequantized after the page gather, as the reference does.
+
+`quant="int8"` (set by `models.quant.quantize_module` at serving load)
+swaps every projection for `models.quant.Int8Linear` (int8 weight and
+per-output-channel scale through the int8 kernel), or `Int8LoRALinear`
+where LoRA applies.
 
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
@@ -25,9 +33,8 @@ applies it), drawn from the `dropout_generator` handed to `forward`.
 loss (`models/registry.py`), with `forward(return_features=True)`.
 
 Config fields this port does not serve yet raise NotImplementedError
-instead of being ignored: n_experts, pipeline_stages, quant,
-adapter_slots, scan_layers, the config key draft, and the decode argument
-adapter_ix.
+instead of being ignored: n_experts, pipeline_stages, adapter_slots,
+scan_layers, and the decode argument adapter_ix.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
+from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, quantize_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +70,17 @@ class TransformerConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = ()  # projection names; empty = all projections
-    quant: str = "none"  # not ported: must stay "none"
+    # weight-only int8 projections for serving ("none" | "int8"); set by
+    # models.quant.quantize_module at load, not a training config
+    quant: str = "none"
     adapter_slots: int = 0  # not ported: must stay 0
     tie_embeddings: bool = False
     scan_layers: bool = False  # not ported: must stay False
     n_experts: int = 0  # not ported: must stay 0
     pipeline_stages: int = 0  # not ported: must stay <= 1
+    # the speculative draft model's overrides of this config
+    # (models/draft.py), a sorted (key, value) tuple; () = the defaults
+    draft: tuple = ()
     # fuse the lm head into the loss (ops/losses.fused_linear_masked_lm):
     # the [B,S,V] logits never exist
     fused_lm_loss: bool = False
@@ -87,10 +100,11 @@ class TransformerConfig:
 
 def check_ported(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for config fields this slice does not serve."""
+    if cfg.quant not in ("none", "int8"):
+        raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
     refused = {
         "n_experts": cfg.n_experts > 0,
         "pipeline_stages": cfg.pipeline_stages > 1,
-        "quant": cfg.quant not in ("none", None),
         "adapter_slots": cfg.adapter_slots > 0,
         "scan_layers": bool(cfg.scan_layers),
     }
@@ -171,8 +185,12 @@ class LoRADense(nn.Linear):
 
 
 def _proj(cfg: TransformerConfig, name: str, in_f: int, out_f: int, **factory):
+    int8 = cfg.quant == "int8"
     if cfg.lora_rank > 0 and (not cfg.lora_targets or name in cfg.lora_targets):
-        return LoRADense(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, **factory)
+        lora = Int8LoRALinear if int8 else LoRADense
+        return lora(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, **factory)
+    if int8:
+        return Int8Linear(in_f, out_f, **factory)
     return nn.Linear(in_f, out_f, bias=False, **factory)
 
 
@@ -194,7 +212,8 @@ class _DecodePlan:
     (b, s) in row-major order), restricted to the [B * S] mask `keep` when
     some slots fall past the cache or the row's table (those are dropped).
     `pages` [B, n_pages] gathers a row's window out of the pool; `win`
-    slots are read, and `mask` [B or 1, 1, S, win] says which are live."""
+    slots are read, and `mask` [B or 1, 1, S, win] says which are live.
+    `kv_int8`: the pool holds int8 payloads and f32 scales."""
 
     S: int
     win: int
@@ -204,6 +223,7 @@ class _DecodePlan:
     write: Optional[torch.Tensor] = None
     keep: Optional[torch.Tensor] = None
     pages: Optional[torch.Tensor] = None
+    kv_int8: bool = False
 
 
 class Attention(nn.Module):
@@ -246,6 +266,9 @@ class Attention(nn.Module):
         else:
             q = apply_rope_at(q, cos, sin, plan.positions)
             k = apply_rope_at(k, cos, sin, plan.positions)
+        if plan.kv_int8:
+            k_all, v_all = self._int8_pool(k, v, cache, plan)
+            return self._attend(q, k_all, v_all, plan)
         cache_k, cache_v = cache
         # written in place: the reference is functional (it returns a new
         # cache, or donates the pool into its compiled program); here the
@@ -269,6 +292,36 @@ class Attention(nn.Module):
                 rows = plan.pages.reshape(-1)
                 k_all = cache_k.index_select(0, rows).view(B, plan.win, nkv, hd)
                 v_all = cache_v.index_select(0, rows).view(B, plan.win, nkv, hd)
+        return self._attend(q, k_all, v_all, plan)
+
+    def _int8_pool(self, k, v, cache, plan: _DecodePlan):
+        """The int8 pool's write and read: quantize this call's K/V per
+        (slot, kv head), write payloads and scales through the page tables,
+        then gather the rows' windows and dequantize them to k's dtype. The
+        fresh slots are read back dequantized like the history, so a slot
+        has one value whichever path wrote it."""
+        B, S, nkv, hd = k.shape
+        pool_k, pool_v, pool_ks, pool_vs = cache
+        rows = plan.pages.reshape(-1)
+        out = []
+        for x, pool, pool_s in ((k, pool_k, pool_ks), (v, pool_v, pool_vs)):
+            xq, xs = quantize_kv(x.reshape(B * S, nkv, hd))
+            if plan.keep is not None:  # slots past the table are dropped
+                xq, xs = xq[plan.keep], xs[plan.keep]
+            pool.view(-1, nkv, hd).index_copy_(0, plan.write, xq)
+            pool_s.view(-1, nkv).index_copy_(0, plan.write, xs)
+            out.append(dequantize_kv(
+                pool.index_select(0, rows).view(B, plan.win, nkv, hd),
+                pool_s.index_select(0, rows).view(B, plan.win, nkv),
+                x.dtype,
+            ))
+        return out
+
+    def _attend(self, q, k_all, v_all, plan: _DecodePlan):
+        """Masked softmax attention of q [B, S, nh, hd] over the window
+        k_all/v_all [B, win, nkv, hd], scores in f32."""
+        B, S, nh, hd = q.shape
+        nkv = self.cfg.n_kv_heads
         # scores straight against the grouped cache; head h = kv * G + g
         G = nh // nkv
         scores = torch.einsum(
@@ -487,9 +540,12 @@ class Transformer(nn.Module):
         paged = pages is not None
         if paged != (kv_layout is not None):
             raise ValueError("pages and kv_layout go together (the paged pool)")
-        if paged and kv_layout.kv_quant != "none":
-            raise NotImplementedError(
-                "the int8 KV pool is not ported yet (see ROADMAP.md)"
+        kv_int8 = paged and kv_layout.kv_quant == "int8"
+        if len(cache[0]) != (4 if kv_int8 else 2):
+            raise ValueError(
+                "an int8 pool holds (k, v, k_scale, v_scale) per layer and an "
+                "fp cache (k, v): use models.generate.make_paged_cache for the "
+                f"pool of {kv_layout}"
             )
         shape = tuple(cache[0][0].shape)
         if paged:
@@ -525,7 +581,12 @@ class Transformer(nn.Module):
             hi = pos + S
             row_slots = pos + torch.arange(S, device=dev)[None, :]  # [1, S]
         B = pages.shape[0] if paged else shape[0]
-        positions = None if pad is None else (row_slots - pad[:, None]).clamp_min(0)
+        # a verify window's rejected tail may run past the rope table near
+        # the end of the cache: those slots are dropped and their logits never
+        # committed, so their positions only need to stay in range
+        positions = None if pad is None else (
+            (row_slots - pad[:, None]).clamp(0, self.cfg.seq_len - 1)
+        )
         offset = None if per_row else pos
         if paged:
             pt, n_pages = kv_layout.page_tokens, pages.shape[1]
@@ -565,7 +626,7 @@ class Transformer(nn.Module):
             mask = mask & valid[:, None, :]
         return _DecodePlan(
             S=S, win=win, mask=mask[:, None], offset=offset, positions=positions,
-            write=write, keep=keep, pages=pages if paged else None,
+            write=write, keep=keep, pages=pages if paged else None, kv_int8=kv_int8,
         )
 
 
@@ -587,15 +648,19 @@ PRESETS: dict[str, dict] = {
 def _make_config(config: dict) -> TransformerConfig:
     """Polyaxonfile model config → TransformerConfig, with the reference's
     aliases: variant → preset, max_len → seq_len, lora: {rank, alpha,
-    targets} → lora_* fields. The reference's speculative `draft` model is
-    not ported and raises NotImplementedError when set; other keys outside
-    TransformerConfig are dropped, as the reference drops them."""
+    targets} → lora_* fields, and the `draft:` sub-config (overrides for the
+    speculative draft model) normalized to a sorted (key, value) tuple.
+    Other keys outside TransformerConfig are dropped, as the reference
+    drops them."""
     config = dict(config)
-    if config.get("draft"):
-        raise NotImplementedError(
-            "model config key 'draft' (speculative draft model) is not "
-            "ported to PyTorch yet (see ROADMAP.md)"
-        )
+    draft = config.pop("draft", None)
+    if draft:
+        if hasattr(draft, "items"):
+            draft = sorted(
+                (str(k), tuple(v) if isinstance(v, list) else v)
+                for k, v in draft.items()
+            )
+        config["draft"] = tuple(draft)
     variant = config.pop("variant", None)
     if variant is not None:
         config.setdefault("preset", f"llama3-{str(variant).lower()}")

@@ -26,7 +26,8 @@ seeded FaultPlan machinery into this path.
 
 Not ported: per-tenant admission and weighted fair queueing (the
 reference's `tenancy`), whose ServingConfig fields raise
-NotImplementedError, like those of the other unported features.
+NotImplementedError, like those of the other unported features (meshes,
+the spill tier, adapters, disaggregated roles).
 """
 
 from __future__ import annotations
@@ -161,8 +162,12 @@ class ServingConfig:
     exact shapes). With batching, `kv_pool_pages` switches the dense
     per-group caches for the paged pool (and `prefix_cache` on it), and
     `chunked_prefill` (paged only) runs the continuous-batching step
-    scheduler. Fields of features not ported yet raise NotImplementedError
-    when set to anything but their defaults (see ROADMAP.md)."""
+    scheduler. The fast decode: `speculate` (verify windows of
+    `draft_tokens` n-gram drafts, or a draft model with `draft_model`, and
+    `adaptive_draft` steering K), `quantize` (int8 weight-only projections,
+    quantized on load) and `kv_quant="int8"` (the int8 paged pool). Fields
+    of features not ported yet raise NotImplementedError when set to
+    anything but their defaults (see ROADMAP.md)."""
 
     max_batch: int = 8
     max_wait_ms: float = 5.0
@@ -182,13 +187,20 @@ class ServingConfig:
     prefix_cache: bool = True
     stream: bool = True  # expose POST /generate?stream=1
     stream_chunk_tokens: int = 8  # decode steps per emitted chunk
-    # not ported: speculative decoding, int8 weights, draft models
+    # fast decode: speculative verify windows of draft_tokens drafts (the
+    # same tokens as plain decode; sampled rows carry per-row seeds, which
+    # serving always gives) and int8 weight-only projections (quantize on
+    # load). draft_model: `draft:` overrides for a draft model, a sorted
+    # (key, value) tuple (normalize_draft_model; () = the defaults, None =
+    # the n-gram drafter); adaptive_draft: accept-rate-driven K (needs
+    # speculate); kv_quant "int8": the int8 paged pool (needs
+    # kv_pool_pages)
     speculate: bool = False
     draft_tokens: int = 4
     quantize: bool = False
     draft_model: Optional[tuple[tuple[str, object], ...]] = None
     adaptive_draft: bool = False
-    kv_quant: str = "none"  # not ported: the int8 pool
+    kv_quant: str = "none"
     # per-request span traces and their ring (/tracez) are not ported;
     # the fields are accepted and have no effect yet
     trace: bool = True
@@ -213,11 +225,6 @@ class ServingConfig:
 
     def __post_init__(self):
         unported = {
-            "speculate": self.speculate,
-            "quantize": self.quantize,
-            "draft_model": self.draft_model is not None,
-            "adaptive_draft": self.adaptive_draft,
-            "kv_quant": self.kv_quant not in (None, "none"),
             "mesh_axes": bool(self.mesh_axes),
             "spill_ram_bytes": self.spill_ram_bytes is not None,
             "spill_dir": self.spill_dir is not None,
@@ -230,15 +237,29 @@ class ServingConfig:
         bad = [name for name, hit in unported.items() if hit]
         if bad:
             raise NotImplementedError(
-                f"ServingConfig fields {bad} (speculation, int8, meshes, the "
-                "spill tier, tenants and adapters, disaggregated roles) are "
-                "not ported to PyTorch yet (see ROADMAP.md)"
+                f"ServingConfig fields {bad} (meshes, the spill tier, tenants "
+                "and adapters, disaggregated roles) are not ported to PyTorch "
+                "yet (see ROADMAP.md)"
             )
 
     def ladders(self, seq_len: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
         pl = self.prompt_buckets or bucket_ladder(min(32, seq_len), seq_len)
         nl = self.max_new_buckets or bucket_ladder(min(16, seq_len), seq_len)
         return tuple(sorted(pl)), tuple(sorted(nl))
+
+
+def normalize_draft_model(spec) -> Optional[tuple[tuple[str, object], ...]]:
+    """dict or pair-tuple of `draft:` overrides → the frozen, hashable
+    `ServingConfig.draft_model` (sorted (key, value) pairs, list values as
+    tuples). None means no draft model; an EMPTY dict or tuple means "auto"
+    (the model config's own `draft` defaults) and normalizes to (), which
+    is not None, so the server still builds a draft."""
+    if spec is None:
+        return None
+    pairs = spec.items() if hasattr(spec, "items") else spec
+    return tuple(sorted(
+        (str(k), tuple(v) if isinstance(v, list) else v) for k, v in pairs
+    ))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,10 +278,11 @@ class GroupKey:
     # paged path: rows in one group share the (L, pb, nb) shape;
     # prompt_bucket then sizes the SUFFIX (tokens beyond the cached prefix)
     prefix_len: int = 0
-    # decode mode of the reference (speculation is not ported: always off)
+    # decode mode: speculative groups run verify windows of draft_tokens + 1
+    # tokens, so groups never mix modes
     speculate: bool = False
-    draft_tokens: int = 0
-    quantize: bool = False
+    draft_tokens: int = 0  # verify window width - 1 (0 when not speculating)
+    quantize: bool = False  # server-wide, but part of the mode signature
 
 
 @dataclasses.dataclass

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..models.generate import make_paged_cache
+from ..models.quant import kv_pool_bytes
 from ..models.kv_pages import (
     PagedKVLayout,
     PagePool,
@@ -87,6 +88,7 @@ class KVCacheManager:
         pool_pages: int,
         page_tokens: int = 128,
         prefix_cache: bool = True,
+        kv_quant: str = "none",
         hash_fn=None,
         observer: Optional[Callable[..., None]] = None,
     ):
@@ -94,7 +96,11 @@ class KVCacheManager:
             raise ValueError(
                 f"kv_pool_pages must be >= 2 (1 scratch + data), got {pool_pages}"
             )
-        self.layout = PagedKVLayout(page_tokens=page_tokens, pool_pages=pool_pages)
+        # kv_quant="int8": int8 payloads plus one f32 scale per (slot, kv
+        # head) — about half the bytes of a bf16 pool at head_dim 64
+        self.layout = PagedKVLayout(
+            page_tokens=page_tokens, pool_pages=pool_pages, kv_quant=kv_quant
+        )
         self.module = module
         self.pool = PagePool(pool_pages, page_tokens)
         self.prefix: Optional[PrefixCache] = (
@@ -103,7 +109,8 @@ class KVCacheManager:
         self._observer = observer
         self._lock = threading.RLock()
         # the device pool: per layer (k, v) [pool_pages, page_tokens, nkv,
-        # hd], updated in place by the prefill, decode and harvest writes
+        # hd] (and their [pool_pages, page_tokens, nkv] scales on an int8
+        # pool), updated in place by the prefill, decode and harvest writes
         self.cache = make_paged_cache(module, self.layout)
         # the scratch page: backs unallocated table entries and dummy rows
         self.scratch = self.pool.alloc(1)[0]
@@ -268,8 +275,8 @@ class KVCacheManager:
         table_row = torch.as_tensor(np.asarray(table_row), dtype=torch.long, device=dev)
         src_pages, src_off = table_row[slots // pt], slots % pt
         dst = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
-        for pool_k, pool_v in self.cache:
-            for pool in (pool_k, pool_v):
+        for layer in self.cache:
+            for pool in layer:  # k, v (and their scales on an int8 pool)
                 vals = pool[src_pages, src_off]  # a copy: sources stay intact
                 pool[dst] = vals.reshape(len(new_ids), pt, *pool.shape[2:])
 
@@ -316,8 +323,14 @@ class KVCacheManager:
 
     # ---------------------------------------------------------------- stats
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the pool, measured off the live tensors."""
-        return int(sum(t.numel() * t.element_size() for kv in self.cache for t in kv))
+        """Device bytes of the pool (payloads and scales), by the formula
+        admission budgets with (`models.quant.kv_pool_bytes`); it equals
+        the live tensors' bytes by construction."""
+        cfg = self.module.cfg
+        return kv_pool_bytes(
+            self.layout, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+            self.cache[0][0].element_size(),
+        )
 
     def stats(self) -> dict:
         with self._lock:

@@ -15,7 +15,8 @@ Endpoints:
   GET  /kvz      → the prefix-cache chain hashes this replica holds
   POST /generate → {"tokens": [[...]]}; body {"tokens": [[int]],
        "maxNewTokens", "temperature", "topK", "eosId", "seed",
-       "deadlineMs"}. 400 validation; 503 + Retry-After shed (queue full,
+       "deadlineMs", "numBeams" (beam search when > 1), "lengthPenalty"}.
+       400 validation; 503 + Retry-After shed (queue full,
        breaker open, expired at admission, KV pages exhausted, draining);
        504 deadline exceeded while queued.
   POST /generate?stream=1 → Server-Sent Events: {"row": i, "tokens": [...]}
@@ -35,18 +36,29 @@ Paths, chosen by `ServingConfig`:
     content-addressed prefix cache (`_execute_group_paged`), streamed in
     `stream_chunk_tokens` chunks;
   * `chunked_prefill` on the paged pool: the continuous-batching step
-    scheduler (`serving/steps.py`) over `_StepEngine`.
+    scheduler (`serving/steps.py`) over `_StepEngine`;
+  * `numBeams > 1`: beam search (`models.generate.beam_search`) on the
+    request's exact shape, synchronously, on every config.
 Every row draws its samples from (its seed, its generation index), so all
 batched paths give a row the same tokens. Device work runs on the decode
 worker thread (or the caller's, for `generate`) under the server's lock.
+
+Fast decode, on each batched path: `speculate` replaces the decode loop by
+verify windows of `draft_tokens` drafts (`models/spec_decode.py`: n-gram
+drafts, or a draft model by layer truncation with `draft_model`), which
+commit the tokens plain decode would; `adaptive_draft` steers the window
+width from the accept rate (`serving/adaptive.py`), down to plain decode.
+`quantize` rebuilds the module with int8 projections at load
+(`models.quant.quantize_module`; the caller's module is left as it is) and
+`kv_quant="int8"` stores the paged pool as int8 payloads and f32 scales.
 
 Unlike the reference, rows are not padded up to a power-of-two batch: an
 eager PyTorch program has no compiled shapes to share, so dummy rows would
 only cost work. Groups decode until their longest row is done, not to the
 end of the new-token bucket.
 
-Not ported yet (ROADMAP.md), refused by name: `numBeams > 1` (400),
-speculation, int8, tenants and adapters (ServingConfig raises),
+Not ported yet (ROADMAP.md), refused by name: tenants and adapters, the
+spill tier, meshes and disaggregated roles (ServingConfig raises),
 `/kv_import`, `/tracez`, `/sloz` and `/queryz` (501) and `from_run`.
 """
 
@@ -61,6 +73,7 @@ import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -69,14 +82,24 @@ import torch
 from ..chaos.injector import inject
 from ..device import resolve_device
 from ..models.convert import params_from_jax
+from ..models.draft import ModelDrafter, build_draft
 from ..models.generate import (
+    beam_search,
     generate,
     paged_decode_chunk,
     paged_prefill,
     paged_prefill_chunk,
     paged_step,
 )
+from ..models.quant import quantize_module
+from ..models.spec_decode import (
+    NgramDrafter,
+    commit_window,
+    spec_generate,
+    spec_verify_paged,
+)
 from ..telemetry import MetricsRegistry, now as _now
+from .adaptive import AdaptiveSpecController
 from .batching import (
     CircuitBreaker,
     DeadlineExceededError,
@@ -143,6 +166,17 @@ class ModelServer:
         """`params`: None (keep the module's weights), a torch state_dict,
         or the JAX package's nested numpy param dict."""
         self.config = config or ServingConfig()
+        cfg = self.config
+        # the reference's cross-field rules: an ignored kv_quant would have an
+        # operator planning capacity on memory they do not have
+        if cfg.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got {cfg.kv_quant!r}")
+        if cfg.kv_quant != "none" and not cfg.kv_pool_pages:
+            raise ValueError("kv_quant requires the paged KV pool (set kv_pool_pages)")
+        if (cfg.adaptive_draft or cfg.draft_model is not None) and not cfg.speculate:
+            raise ValueError("draft_model/adaptive_draft require speculate=True")
+        if cfg.speculate and int(cfg.draft_tokens) < 1:
+            raise ValueError("draft_tokens must be >= 1")
         self.device = resolve_device(device)
         module = module.to(self.device).eval()
         if params is not None:
@@ -151,7 +185,24 @@ class ModelServer:
             else:
                 state = params_from_jax(params, module.cfg)
             module.load_state_dict(state)
+        # int8 quantize-on-load: a new module with int8 projections, built
+        # before anything captures the module; the fp copy is the caller's
+        self._quant_bytes_saved = 0
+        if cfg.quantize:
+            module, self._quant_bytes_saved = quantize_module(module)
         self.module = module
+        # adaptive speculation: a draft model by layer truncation of the
+        # SERVED module (after quantize, so it rides the same int8 weights)
+        # and the accept-rate controller that steers the draft width
+        self._draft_module, self._draft_derived = None, False
+        if cfg.draft_model is not None:
+            self._draft_module, self._draft_derived = build_draft(
+                module, overrides=dict(cfg.draft_model)
+            )
+        self._spec_controller: Optional[AdaptiveSpecController] = None
+        if cfg.adaptive_draft and cfg.speculate:
+            k0 = max(1, int(cfg.draft_tokens))
+            self._spec_controller = AdaptiveSpecController(k_init=k0, k_min=1, k_max=max(k0, 8))
         self.model_name = model_name
         self.step = step
         self._draining = False
@@ -257,6 +308,39 @@ class ModelServer:
             "serving.client_disconnects",
             help="Streamed /generate requests whose client vanished mid-stream",
         )
+        # fast-decode series: registered from startup (zeros when
+        # speculation and quantization are off)
+        self._m_spec_proposed = t.counter(
+            "serving.spec_proposed",
+            help="Draft tokens proposed to speculative verify windows",
+        )
+        self._m_spec_accepted = t.counter(
+            "serving.spec_accepted",
+            help="Draft tokens accepted (committed without their own forward "
+            "pass); accept rate = accepted / proposed",
+        )
+        self._m_spec_rollback = t.counter(
+            "serving.spec_rollback",
+            help="Draft tokens rejected and rolled back (their KV slots are "
+            "masked dead and rewritten by the next window)",
+        )
+        self._m_spec_truncated = t.counter(
+            "serving.spec_truncated",
+            help="Accepted drafts the remaining-budget clamp kept out of the "
+            "commit — the gap between the raw and corrected accept rates",
+        )
+        self._m_spec_effective_k = t.gauge(
+            "serving.spec_effective_k",
+            help="Current speculative draft width K (0 = speculation off or "
+            "auto-disabled; static draft_tokens without adaptiveDraft)",
+        )
+        self._m_spec_effective_k.set(int(cfg.draft_tokens) if cfg.speculate else 0)
+        self._m_quant_saved = t.gauge(
+            "serving.quant_bytes_saved",
+            help="Device bytes saved by int8 weight-only quantization (0 = "
+            "full-precision projections)",
+        )
+        self._m_quant_saved.set(self._quant_bytes_saved)
         self._prompt_ladder, self._new_ladder = self.config.ladders(int(module.cfg.seq_len))
         self._group_seq = itertools.count(1)
         # live streamed requests by request id, so a broken pipe in the
@@ -272,6 +356,7 @@ class ModelServer:
                 pool_pages=int(self.config.kv_pool_pages),
                 page_tokens=int(self.config.kv_page_tokens),
                 prefix_cache=bool(self.config.prefix_cache),
+                kv_quant=str(self.config.kv_quant or "none"),
                 observer=self._kv_observe,
             )
             self._m_kv_total.set(self._kv.pool.n_pages)
@@ -405,11 +490,12 @@ class ModelServer:
         eos = _int(body, "eosId", None)
         if eos is not None and not 0 <= eos < cfg.vocab_size:
             raise ServingError(f"eosId must be in [0, {cfg.vocab_size})")
-        if _int(body, "numBeams", 1) != 1:
-            raise ServingError(
-                "numBeams > 1 (beam search) is not served by this port yet "
-                "(see ROADMAP.md)"
-            )
+        num_beams = _int(body, "numBeams", 1)
+        # numBeams multiplies the cache and the candidate tensors: capped,
+        # or a client could ask for an out-of-memory
+        max_beams = min(32, cfg.vocab_size)
+        if not 1 <= num_beams <= max_beams:
+            raise ServingError(f"numBeams must be in [1, {max_beams}]")
         # deadline: body deadlineMs wins, then the config default; absolute
         # monotonic time from here on
         deadline_ms = _float(body, "deadlineMs", self.config.default_deadline_ms)
@@ -432,6 +518,8 @@ class ModelServer:
             "eos_id": eos,
             "seed": _int(body, "seed", 0),
             "deadline": deadline,
+            "num_beams": num_beams,
+            "length_penalty": _float(body, "lengthPenalty", 1.0),
         }
 
     def _make_requests(self, req: dict, rid: Optional[str] = None) -> list:
@@ -439,6 +527,18 @@ class ModelServer:
         different buckets and coalesce with different peers. Row i samples
         from seed + i, so identical rows still diverge."""
         seq_len = int(self.module.cfg.seq_len)
+        # decode mode: constant per server, but part of the group key so
+        # mixed-mode groups never form. With the adaptive controller the
+        # draft width (and whether the group speculates at all) is its
+        # CURRENT decision; in-flight groups keep their admitted key
+        spec_on = bool(self.config.speculate)
+        eff_k = int(self.config.draft_tokens) if spec_on else 0
+        if spec_on and self._spec_controller is not None:
+            eff_k = int(self._spec_controller.window_k())
+            spec_on = eff_k > 0
+            self._m_spec_effective_k.set(eff_k)
+        mode = dict(speculate=spec_on, draft_tokens=eff_k,
+                    quantize=bool(self.config.quantize))
         out = []
         try:
             for i, row in enumerate(req["arr"]):
@@ -461,7 +561,7 @@ class ModelServer:
                 key = GroupKey(
                     prompt_bucket=pb, new_bucket=nb,
                     temperature=req["temperature"], top_k=req["top_k"],
-                    eos_id=req["eos_id"], prefix_len=L,
+                    eos_id=req["eos_id"], prefix_len=L, **mode,
                 )
                 r = PendingRequest(
                     tokens=tokens, prompt_len=len(tokens), max_new=req["max_new"],
@@ -489,7 +589,9 @@ class ModelServer:
     def _execute_group(self, batch: list):
         """Dense bucketed path: ONE coalesced group (same GroupKey) through
         `generate` with left-padded prompts, `prompt_lengths` and per-row
-        seeds; rows scatter back truncated to what each asked for."""
+        seeds — or, for a speculative group, through `spec_generate`'s
+        verify windows (n-gram drafts, or the draft model), which gives the
+        same tokens; rows scatter back truncated to what each asked for."""
         key = batch[0].key
         n = len(batch)
         # chaos points: "sleep" on serving.slow injects decode latency,
@@ -506,13 +608,26 @@ class ModelServer:
         for i, r in enumerate(batch):
             arr[i, P - r.prompt_len:] = r.tokens
             lengths[i] = r.prompt_len
+        seeds = [r.seed for r in batch]
         new = max(r.max_new for r in batch)
+        stats: dict = {}
         with self._lock:
-            out = generate(
-                self.module, torch.from_numpy(arr), max_new_tokens=new,
-                temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
-                seed=[r.seed for r in batch], prompt_lengths=torch.from_numpy(lengths),
-            ).cpu().numpy()
+            if key.speculate:
+                drafter = None
+                if self._draft_module is not None:
+                    drafter = self._make_drafter(arr, lengths, seeds, key)
+                out = spec_generate(
+                    self.module, arr, max_new_tokens=new, draft_tokens=key.draft_tokens,
+                    temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
+                    seeds=seeds, prompt_lengths=lengths, stats=stats, drafter=drafter,
+                )
+            else:
+                out = generate(
+                    self.module, torch.from_numpy(arr), max_new_tokens=new,
+                    temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
+                    seed=seeds, prompt_lengths=torch.from_numpy(lengths),
+                )
+            out = out.cpu().numpy()
         tnow = _now()
         for i, r in enumerate(batch):
             pad = P - r.prompt_len
@@ -520,7 +635,41 @@ class ModelServer:
             self._m_ttft.observe((tnow - r.t0) * 1e3)
             r.first_token_at = tnow
             r.finish(result=out[i, pad:pad + r.prompt_len + r.max_new].tolist())
+        if key.speculate:
+            self._spec_observe(stats)
+        else:
+            self._spec_tick_plain(new)
         self._m_requests.inc(n)
+
+    # ------------------------------------------------------ speculative decode
+    def _spec_observe(self, stats: dict) -> None:
+        proposed = int(stats.get("proposed", 0))
+        accepted = int(stats.get("accepted", 0))
+        self._m_spec_proposed.inc(proposed)
+        self._m_spec_accepted.inc(accepted)
+        self._m_spec_rollback.inc(int(stats.get("rollback", 0)))
+        self._m_spec_truncated.inc(int(stats.get("truncated", 0)))
+        if self._spec_controller is not None and proposed:
+            # the controller reads the truncation-CORRECTED accepts: the
+            # committed count deflates near maxNewTokens
+            self._spec_controller.observe(
+                proposed, int(stats.get("accepted_judged", accepted)),
+                accepted_raw=accepted,
+            )
+            self._m_spec_effective_k.set(self._spec_controller.window_k())
+
+    def _spec_tick_plain(self, steps: int) -> None:
+        """Logical plain-decode progress: while the controller has
+        speculation auto-disabled, these ticks drive its re-probe."""
+        if self._spec_controller is not None and steps > 0:
+            self._spec_controller.tick_plain(int(steps))
+            self._m_spec_effective_k.set(self._spec_controller.window_k())
+
+    def _make_drafter(self, prompts, lengths, seeds, key: GroupKey) -> ModelDrafter:
+        """A batched ModelDrafter over left-padded prompts (call under the
+        lock: its constructor runs the draft prefill)."""
+        return ModelDrafter(self._draft_module, prompts, lengths, seeds=seeds,
+                            temperature=key.temperature, top_k=key.top_k)
 
     @staticmethod
     def _emit(r: PendingRequest, toks) -> None:
@@ -533,10 +682,11 @@ class ModelServer:
     def _execute_group_paged(self, batch: list):
         """Paged decode for one coalesced group: prefill the suffixes
         through the page tables (a shared prefix is already in the pool),
-        then decode in `stream_chunk_tokens` chunks, streaming each chunk's
-        tokens out. Tokens equal the dense bucketed path's; the pool is one
-        fixed allocation instead of per-group worst-case caches, and the
-        first token leaves after prefill, not after the whole decode."""
+        then decode — in `stream_chunk_tokens` chunks, or for a speculative
+        group in verify windows — streaming the tokens out. Tokens equal
+        the dense bucketed path's; the pool is one fixed allocation instead
+        of per-group worst-case caches, and the first token leaves after
+        prefill, not after the whole decode."""
         kv = self._kv
         key = batch[0].key
         n = len(batch)
@@ -551,18 +701,18 @@ class ModelServer:
         plans = [r.kv_plan for r in batch]
         arr = np.zeros((n, pb), np.int64)
         pads = np.zeros((n,), np.int64)
-        seeds = [r.seed for r in batch]
         for i, r in enumerate(batch):
             sfx = r.tokens[L:]
             arr[i, pb - len(sfx):] = sfx
             pads[i] = pb - len(sfx)
-        common = dict(kv_layout=kv.layout, prefix_len=L, temperature=key.temperature,
-                      top_k=key.top_k, seeds=seeds)
         kv.ensure_pages(plans, upto_slot=L + pb)
         tables = kv.tables(plans, n, n_pages)
         with self._lock:
-            tok = paged_prefill(self.module, kv.cache, arr, pad=pads, pages=tables,
-                                **common)
+            tok = paged_prefill(
+                self.module, kv.cache, arr, pad=pads, pages=tables, kv_layout=kv.layout,
+                prefix_len=L, temperature=key.temperature, top_k=key.top_k,
+                seeds=[r.seed for r in batch],
+            )
             first = tok.cpu().tolist()
         tnow = _now()
         gen = [[t] for t in first]
@@ -570,8 +720,31 @@ class ModelServer:
             r.first_token_at = tnow
             self._m_ttft.observe((tnow - r.t0) * 1e3)
             self._emit(r, [first[i]])
+        decode = self._paged_windows if key.speculate else self._paged_chunks
+        decode(batch, gen, tok, pads, n_pages)
+        # index each row's page-aligned prompt prefix BEFORE finish()
+        # releases the pages — the next request with this prefix skips it
+        try:
+            with self._lock:
+                kv.harvest([(r.tokens, r.kv_plan, int(pads[i])) for i, r in enumerate(batch)])
+        except Exception:  # noqa: BLE001 — cache warmth must not fail rows
+            traceback.print_exc()
+        for i, r in enumerate(batch):
+            r.finish(result=list(r.tokens) + gen[i][: r.max_new])
+        self._m_requests.inc(n)
+
+    def _paged_chunks(self, batch: list, gen: list, tok, pads, n_pages: int) -> None:
+        """The plain decode of a paged group after its prefill: chunks of
+        `stream_chunk_tokens` steps, each chunk's tokens streamed out."""
+        kv = self._kv
+        key = batch[0].key
+        n = len(batch)
+        plans = [r.kv_plan for r in batch]
+        common = dict(kv_layout=kv.layout, prefix_len=key.prefix_len,
+                      temperature=key.temperature, top_k=key.top_k,
+                      seeds=[r.seed for r in batch])
         done = torch.zeros(n, dtype=torch.bool, device=tok.device)
-        pos, g = L + pb, 1
+        pos, g = key.prefix_len + key.prompt_bucket, 1
         remaining = max(r.max_new for r in batch) - 1
         chunk_cap = max(1, int(self.config.stream_chunk_tokens))
         early_eos = False
@@ -588,6 +761,7 @@ class ModelServer:
                 toks_host = toks.cpu().tolist()
                 all_done = key.eos_id is not None and bool(done.all())
             self._m_decode_step.observe((_now() - t0) * 1e3 / steps)
+            self._spec_tick_plain(steps)
             for i, r in enumerate(batch):
                 fresh = toks_host[i][: max(0, r.max_new - len(gen[i]))]
                 gen[i].extend(fresh)
@@ -601,25 +775,118 @@ class ModelServer:
                 break
             if all(r.cancelled for r in batch):
                 # every client vanished mid-stream: stop decoding rows
-                # nobody will read (finish() below releases their pages)
+                # nobody will read (finish() then releases their pages)
                 break
         if early_eos:
             for i, r in enumerate(batch):
                 fill = [int(key.eos_id)] * (r.max_new - len(gen[i]))
                 gen[i].extend(fill)
                 self._emit(r, fill)
-        # index each row's page-aligned prompt prefix BEFORE finish()
-        # releases the pages — the next request with this prefix skips it
-        try:
+
+    def _paged_windows(self, batch: list, gen: list, tok, pads, n_pages: int) -> None:
+        """The speculative decode of a paged group after its prefill:
+        verify windows through the page tables. Rows accept different
+        lengths, so each row keeps its own write frontier and generation
+        index, and each window streams the tokens it committed."""
+        kv = self._kv
+        key = batch[0].key
+        n = len(batch)
+        K = int(key.draft_tokens)
+        L, pb = key.prefix_len, key.prompt_bucket
+        # drafters over the FULL prompt (prefix included: that is where the
+        # repetitive material usually is); a draft model keeps one batched
+        # dense cache over prefix + suffix bucket, so its frontier
+        # (base + g - 1) is the paged pos
+        drafter = None
+        if self._draft_module is not None:
+            dprompts = np.zeros((n, L + pb), np.int64)
+            dlens = np.array([len(r.tokens) for r in batch], np.int64)
+            for i, r in enumerate(batch):
+                dprompts[i, L + pb - len(r.tokens):] = r.tokens
             with self._lock:
-                kv.harvest([(r.tokens, r.kv_plan, int(pads[i])) for i, r in enumerate(batch)])
-        except Exception:  # noqa: BLE001 — cache warmth must not fail rows
-            traceback.print_exc()
-        for i, r in enumerate(batch):
-            r.finish(result=list(r.tokens) + gen[i][: r.max_new])
-        self._m_requests.inc(n)
+                drafter = self._make_drafter(dprompts, dlens, [r.seed for r in batch], key)
+        rows = [
+            SimpleNamespace(
+                tok=gen[i][0], pos=L + pb, g=1, done=False, remaining=r.max_new - 1,
+                gen=gen[i], pad=int(pads[i]), L=L,
+                drafter=None if drafter else NgramDrafter(r.tokens + [gen[i][0]]),
+            )
+            for i, r in enumerate(batch)
+        ]
+        for r, st in zip(batch, rows):
+            if key.eos_id is not None and st.tok == key.eos_id:
+                # everything after a generated eos is pinned: emit it
+                # host-side and retire the row
+                fill = [int(key.eos_id)] * st.remaining
+                st.gen.extend(fill)
+                self._emit(r, fill)
+                st.remaining = 0
+        plans = [r.kv_plan for r in batch]
+        totals = dict.fromkeys(
+            ("proposed", "accepted", "accepted_judged", "truncated", "rollback"), 0
+        )
+        while any(st.remaining > 0 for st in rows):
+            fed = np.empty((n, K + 1), np.int64)
+            fed[:, 0] = [st.tok for st in rows]
+            if drafter is not None:
+                with self._lock:
+                    fed[:, 1:] = drafter.propose(fed[:, 0], np.array([st.g for st in rows]), K)
+            for i, st in enumerate(rows):
+                if st.remaining <= 0:
+                    fed[i, 1:] = st.tok
+                elif drafter is None:
+                    fed[i, 1:] = st.drafter.propose(K)
+            kv.ensure_pages(plans, upto_slot=max(st.pos for st in rows) + K + 1)
+            delta = self._verify_window(batch, rows, fed, kv.tables(plans, n, n_pages))
+            for k in totals:
+                totals[k] += delta[k]
+            if all(r.cancelled for r in batch):
+                break  # nobody reads these rows: finish() releases their pages
+        self._spec_observe(totals)
+
+    def _verify_window(self, batch: list, rows: list, fed, tables) -> dict:
+        """One verify window of speculative rows (requests `batch`, their
+        decode states `rows`: tok, pos, g, done, remaining, gen, pad, L and
+        drafter) through the page tables: commit each row's accepted
+        tokens, advance its state, stream what it committed (an eos hit
+        pins the rest of the row to eos). Returns the window's counts."""
+        kv = self._kv
+        key = batch[0].key
+        done = [st.done for st in rows]
+        t0 = _now()
+        with self._lock:
+            targets, accept = spec_verify_paged(
+                self.module, kv.cache, fed, done, [st.pad for st in rows], tables,
+                [r.seed for r in batch], [st.pos for st in rows], [st.g for st in rows],
+                kv_layout=kv.layout, prefix_lens=[st.L for st in rows],
+                temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
+            )
+        self._m_decode_step.observe((_now() - t0) * 1e3)
+        committed, done, remaining, eos_hit, delta = commit_window(
+            fed, targets, accept, [st.remaining for st in rows], done, key.eos_id,
+        )
+        for i, (r, st) in enumerate(zip(batch, rows)):
+            toks = committed[i]
+            if len(toks):
+                st.gen.extend(int(t) for t in toks)
+                self._emit(r, toks)
+                if isinstance(st.drafter, NgramDrafter):
+                    # a ModelDrafter's frontier follows g alone
+                    st.drafter.extend(toks)
+                st.tok = int(toks[-1])
+                st.pos += len(toks)
+                st.g += len(toks)
+            st.done = bool(done[i])
+            st.remaining = int(remaining[i])
+            if eos_hit[i] and st.remaining > 0:
+                fill = [int(key.eos_id)] * st.remaining
+                st.gen.extend(fill)
+                self._emit(r, fill)
+                st.remaining = 0
+        return delta
 
     def _dispatch_group(self, batch: list):
+        key = batch[0].key
         if self._kv is not None and batch[0].kv_plan is not None:
             self._execute_group_paged(batch)
         else:
@@ -630,6 +897,17 @@ class ModelServer:
         then run inline — bucketed and coalesced when batching is on (paged
         with a pool), the per-request exact shape otherwise."""
         req = self._validate(body)
+        if req["num_beams"] > 1:
+            # beam search has no pad or per-row-seed path: the exact [B, P]
+            # shape, inline, as the reference runs it (never queued)
+            with self._lock:
+                out = beam_search(
+                    self.module, torch.from_numpy(req["arr"]),
+                    max_new_tokens=req["max_new"], num_beams=req["num_beams"],
+                    length_penalty=req["length_penalty"], eos_id=req["eos_id"],
+                )
+            self._m_requests.inc(req["arr"].shape[0])
+            return {"tokens": out.cpu().tolist()}
         if not self.config.batching:
             with self._lock:
                 out = generate(
@@ -688,7 +966,8 @@ class ModelServer:
     def _handle_request(self, body: dict, rid: Optional[str] = None) -> dict:
         self._check_open()
         req = self._validate(body)
-        if self._coalescer is None or self._coalescer._thread is None:
+        if (self._coalescer is None or self._coalescer._thread is None
+                or req["num_beams"] > 1):
             # synchronous path: decode starts immediately, so the only
             # deadline that can already be lost is the admission one
             if req["deadline"] is not None and time.monotonic() >= req["deadline"]:
@@ -724,7 +1003,8 @@ class ModelServer:
     def _stream_request(self, body: dict, rid: Optional[str] = None):
         self._check_open()
         req = self._validate(body)
-        if self._kv is None or self._coalescer is None or self._coalescer._thread is None:
+        if (self._kv is None or self._coalescer is None
+                or self._coalescer._thread is None or req["num_beams"] > 1):
             # no incremental decode on this path: one terminal chunk per row
             # (same event shape, no partial delivery)
             out = self._handle_request(body, rid)
@@ -846,8 +1126,41 @@ class ModelServer:
                 "evicted_midflight": c.evicted_midflight,
                 "step_tokens": self._pct(self._m_step_tokens.summary()),
             }
+        proposed = int(self._m_spec_proposed.value)
+        accepted = int(self._m_spec_accepted.value)
+        truncated = int(self._m_spec_truncated.value)
+        ctl = self._spec_controller
+        speculation = {
+            "enabled": bool(self.config.speculate),
+            "draft_tokens": int(self.config.draft_tokens),
+            "proposed": proposed,
+            "accepted": accepted,
+            "truncated": truncated,
+            "rollbacks": int(self._m_spec_rollback.value),
+            # the raw rate counts COMMITTED accepts; the corrected one
+            # re-credits accepts the maxNewTokens budget cut (what the
+            # adaptive controller steers on)
+            "accept_rate": round(accepted / proposed, 4) if proposed else None,
+            "accept_rate_raw": round(accepted / proposed, 4) if proposed else None,
+            "accept_rate_corrected": (
+                round((accepted + truncated) / proposed, 4) if proposed else None
+            ),
+            "adaptive": ctl is not None,
+            "effective_k": int(self._m_spec_effective_k.value),
+            "auto_disabled": bool(ctl is not None and ctl.auto_disabled),
+            "draft_model": None if self._draft_module is None else {
+                "n_layers": int(self._draft_module.cfg.n_layers),
+                "derived": bool(self._draft_derived),
+            },
+        }
+        if ctl is not None:
+            speculation["controller"] = ctl.stats()
+        quant = {"enabled": bool(self.config.quantize),
+                 "bytes_saved": int(self._quant_bytes_saved)}
         return {
             "kv": kv,
+            "speculation": speculation,
+            "quant": quant,
             "chunked": chunked,
             **resilience,
             "batching": bool(self.config.batching),
@@ -1036,7 +1349,10 @@ class _StepEngine:
     Chunk slices feed the same left-padded suffix layout as one-shot
     prefill, the final slice samples generation index 0, and decode steps
     sample (seed, g) exactly like `paged_decode_chunk`, so a row's tokens
-    equal the classic group path's."""
+    equal the classic group path's. Speculative rows run verify windows in
+    their own lanes (`_decode_spec`), each with its own drafter: lanes
+    recompose every step, so a batched draft cache could not follow a row.
+    Beam requests never reach the scheduler (`generate` runs them inline)."""
 
     def __init__(self, server: ModelServer):
         self._s = server
@@ -1047,7 +1363,9 @@ class _StepEngine:
     def begin(self, r: PendingRequest) -> None:
         s = self._s
         key = r.key
-        st = RowStep(phase="prefill", cost=1)
+        # a speculative row verifies draft_tokens + 1 tokens a step
+        st = RowStep(phase="prefill",
+                     cost=(key.draft_tokens + 1) if key.speculate else 1)
         L, pb, nb = key.prefix_len, key.prompt_bucket, key.new_bucket
         sfx = r.tokens[L:]
         st.arr = np.zeros((1, pb), np.int64)
@@ -1108,20 +1426,35 @@ class _StepEngine:
             st.tok, st.done = first, False
             st.pos = st.L + st.pb
             st.g = 1
+            if key.speculate:
+                st.remaining = r.max_new - 1
+                if s._draft_module is not None:
+                    # a B=1 draft cache over the full prompt, padded to the
+                    # row's bucketed width (its frontier is the paged pos)
+                    dP = st.L + st.pb
+                    dprompt = np.zeros((1, dP), np.int64)
+                    dprompt[0, dP - len(r.tokens):] = r.tokens
+                    with s._lock:
+                        st.drafter = s._make_drafter(dprompt, [len(r.tokens)], [r.seed], key)
+                else:
+                    st.drafter = NgramDrafter(r.tokens + [first])
             st.phase = "decode"
         return width
 
     def lanes(self, rows: list) -> list:
-        """Rows of one sampling signature share a step; lanes split at
-        max_batch."""
+        """Rows of one sampling signature share a step — speculative rows
+        of one draft width in their own lanes; lanes split at max_batch."""
         groups: dict = {}
         for r in rows:
             k = r.key
-            groups.setdefault((k.temperature, k.top_k, k.eos_id), []).append(r)
+            lane = (k.speculate, k.draft_tokens, k.temperature, k.top_k, k.eos_id)
+            groups.setdefault(lane, []).append(r)
         mb = max(1, int(self._s.config.max_batch))
         return [g[i:i + mb] for g in groups.values() for i in range(0, len(g), mb)]
 
     def decode(self, lane: list) -> int:
+        if lane[0].key.speculate:
+            return self._decode_spec(lane)
         return self._decode_plain(lane)
 
     _emit = staticmethod(ModelServer._emit)
@@ -1188,4 +1521,35 @@ class _StepEngine:
                 # classic chunk loop's cadence
                 self._emit(r, st.buf)
                 st.buf = []
+        s._spec_tick_plain(1)
         return n
+
+    def _decode_spec(self, lane: list) -> int:
+        """One verify window for a lane of speculative rows at their own
+        frontiers, generation indices and prefix widths; each window's
+        committed tokens are one streamed event."""
+        s = self._s
+        kv = s._kv
+        key0 = lane[0].key
+        n = len(lane)
+        K = int(key0.draft_tokens)
+        inject("serving.slow", rows=n)
+        inject("serving.decode", rows=n)
+        width = max(r.step.n_pages for r in lane)
+        fed = np.zeros((n, K + 1), np.int64)
+        for i, r in enumerate(lane):
+            st = r.step
+            fed[i, 0] = st.tok
+            if isinstance(st.drafter, ModelDrafter):
+                with s._lock:
+                    fed[i, 1:] = st.drafter.propose([st.tok], [st.g], K)[0]
+            else:
+                fed[i, 1:] = st.drafter.propose(K)
+        plans = [r.kv_plan for r in lane]
+        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + K + 1)
+        s._spec_observe(s._verify_window(lane, [r.step for r in lane], fed,
+                                         kv.tables(plans, n, width)))
+        for r in lane:
+            if r.step.remaining <= 0:
+                self._finish_row(r)
+        return n * (K + 1)

@@ -366,3 +366,101 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     assert [h["step"] for h in history] == [3]
     assert torch.isfinite(torch.tensor(history[0]["loss"]))
     ck.close_all()
+
+
+INT8_CASES = [
+    # M, K, N: decode rows (the weight-streaming kernel) and prefill rows
+    # (the tiled kernels), at llama3-1b's projection shapes and ragged ones
+    (1, 2048, 2048), (8, 2048, 512), (5, 8192, 2048), (8, 2048, 8192),
+    (64, 2048, 512), (300, 512, 200), (9, 48, 72), (2048, 2048, 2048),
+]
+
+
+def _int8_inputs(M, K, N, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=device).to(dtype)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device=device).to(torch.int8)
+    scale = torch.rand((N,), generator=gen, device=device) / 127 + 1e-4
+    return x, wq, scale
+
+
+def _int8_rel(out, ref):
+    """max over rows of max |err| / max |ref| of that row."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    return (err / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", INT8_CASES)
+def test_int8_matmul_matches_plain_version(cuda_device, M, K, N, dtype):
+    """Held per row against (x.float() @ wq.float().T) * scale cast to x's
+    dtype: bf16 within 2^-7 (each side rounds the f32 sum to bf16 once, up
+    to 2^-8 relative each), f32 within 1e-5 (sum order only)."""
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    x, wq, scale = _int8_inputs(M, K, N, dtype, cuda_device)
+    before = im.INT8_MATMUL.launches
+    y = im.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert im.INT8_MATMUL.launches == before + 1
+    assert y.dtype == dtype and y.shape == (M, N)
+    ref = im.int8_matmul_reference(x, wq, scale)
+    assert _int8_rel(y, ref) < (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_int8_matmul_reads_strided_activations(cuda_device):
+    """x out of a transposing reshape (not contiguous) and a leading batch
+    shape give the same y as the packed input."""
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    x, wq, scale = _int8_inputs(6, 512, 256, torch.bfloat16, cuda_device, seed=1)
+    strided = x.reshape(3, 2, 512).transpose(0, 1)  # [2, 3, 512], not contiguous
+    assert not strided.is_contiguous()
+    y = im.int8_matmul(strided, wq, scale)
+    ref = im.int8_matmul(strided.contiguous(), wq, scale)
+    assert torch.equal(y, ref) and y.shape == (2, 3, 256)
+
+
+def test_int8_model_decodes_through_the_kernel(cuda_device):
+    """A quantized 2-layer model: every projection launches the kernel (7
+    per layer and forward), and a greedy decode on the int8 paged pool
+    (prefill, then one chunk of steps) launches it on every step and gives
+    the tokens the plain versions give on the same weights."""
+    from polyaxon_tpu_torch.models.generate import (
+        make_paged_cache, paged_decode_chunk, paged_prefill,
+    )
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+    from polyaxon_tpu_torch.models.quant import quantize_module
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    model = build_model(
+        "transformer_lm", dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                               vocab_size=512, seq_len=128),
+        device="cuda", dtype=torch.float32, seed=0,
+    ).module.eval()
+    qmodel, saved = quantize_module(model)
+    assert saved > 0
+    prompt = torch.randint(0, 512, (2, 16), device=cuda_device)
+    before = im.INT8_MATMUL.launches
+    with torch.no_grad():
+        qmodel(prompt)
+    assert im.INT8_MATMUL.launches == before + 7 * 2
+    layout = PagedKVLayout(8, 1 + 2 * 3, kv_quant="int8")  # 24 slots a row
+    new = 8
+
+    def decode(module):
+        cache = make_paged_cache(module, layout)
+        assert cache[0][0].dtype == torch.int8 and cache[0][2].dtype == torch.float32
+        tables = 1 + torch.arange(6).reshape(2, 3)
+        common = dict(pad=[0, 0], pages=tables, kv_layout=layout, prefix_len=0,
+                      temperature=0.0, top_k=None, seeds=[0, 0])
+        first = paged_prefill(module, cache, prompt, **common)
+        rest, _ = paged_decode_chunk(module, cache, first, [False, False], steps=new - 1,
+                                     pos=prompt.shape[1], start_g=1, eos_id=None, **common)
+        return torch.cat([first[:, None], rest], 1).cpu()
+
+    before = im.INT8_MATMUL.launches
+    out = decode(qmodel)
+    assert im.INT8_MATMUL.launches == before + 7 * 2 * new
+    ref = decode(qmodel.to("cpu"))
+    assert torch.equal(out, ref)

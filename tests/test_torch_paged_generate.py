@@ -386,8 +386,12 @@ def test_chunked_prefill_equals_one_shot(pair):
 
 
 def test_int8_pool_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedKVLayout(8, 4, kv_quant="int8")
+    """The int8 pool is ported (tests/test_torch_quant.py holds it against
+    the reference); a pool element type the reference does not know is
+    still refused."""
+    assert PagedKVLayout(8, 4, kv_quant="int8").kv_quant == "int8"
+    with pytest.raises(ValueError, match="kv_quant"):
+        PagedKVLayout(8, 4, kv_quant="fp8")
 
 
 def test_dense_per_row_frontiers_match_jax(pair):

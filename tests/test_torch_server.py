@@ -83,7 +83,7 @@ def test_generate_over_http_equals_direct_generate(served):
         {"tokens": [[1]] * 5},
         {"tokens": [[1]], "temperature": "hot"},
         {"tokens": [[1]], "eosId": 256},
-        {"tokens": [[1]], "numBeams": 4},
+        {"tokens": [[1]], "numBeams": 0},
         [1, 2],
     ],
     ids=["empty", "no-rows", "ragged", "id-too-big", "id-negative", "zero-new",

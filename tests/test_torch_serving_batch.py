@@ -234,7 +234,10 @@ def test_full_queue_sheds_503_and_past_deadline_answers_504(lm):
 
             a = threading.Thread(target=send, args=("a", {"tokens": [prompt], "maxNewTokens": 2}))
             a.start()
-            _wait(lambda: server._coalescer.depth == 1)
+            # depth counts a from admission on: wait until the worker has
+            # also taken it out of the queue, or b could join a's batch
+            co = server._coalescer
+            _wait(lambda: co.depth == 1 and co._queue.empty() and not co._pending)
             b = threading.Thread(target=send, args=(
                 "b", {"tokens": [prompt], "maxNewTokens": 2, "deadlineMs": 1000}))
             b.start()
@@ -277,10 +280,16 @@ def test_kv_pool_exhaustion_sheds_503(lm):
 
 
 def test_unported_options_are_refused_by_name():
-    for field in ({"speculate": True}, {"kv_quant": "int8"}, {"tenants": (("a",),)},
-                  {"role": "prefill"}, {"quantize": True}):
+    """Tenants, adapters, the spill tier and disaggregated roles are still
+    refused by name; speculation, int8 weights and the int8 pool are
+    served now (tests/test_torch_serving_fast.py)."""
+    for field in ({"tenants": (("a",),)}, {"role": "prefill"}, {"adapter_slots": 2},
+                  {"spill_dir": "/nowhere"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingConfig(**field)
+    for field in ({"speculate": True}, {"kv_quant": "int8"}, {"quantize": True},
+                  {"draft_model": ()}, {"adaptive_draft": True}):
+        assert ServingConfig(**field)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelServer.from_run("uid")
 

@@ -113,13 +113,13 @@ def test_features_match_jax():
 )
 def test_make_config_matches_jax(config):
     """Every field the port keeps equals the reference's, the training
-    fields (dropout, fused loss) included; the unported draft model and the
-    MoE/pipeline tuning fields are not carried."""
+    fields (dropout, fused loss), int8 `quant` and the draft model's
+    overrides included; the MoE/pipeline tuning fields are not carried."""
     ours = dataclasses.asdict(_make_config(config))
     ref = dataclasses.asdict(jax_make_config(config))
     assert ours == {name: ref[name] for name in ours}
-    assert {"dropout_rate", "fused_lm_loss", "fused_loss_chunk"} <= set(ours)
-    assert not {"draft", "capacity_factor", "pipeline_microbatches"} & set(ours)
+    assert {"dropout_rate", "fused_lm_loss", "fused_loss_chunk", "quant", "draft"} <= set(ours)
+    assert not {"capacity_factor", "pipeline_microbatches"} & set(ours)
 
 
 @pytest.mark.parametrize(
@@ -129,11 +129,13 @@ def test_make_config_matches_jax(config):
     ids=["draft", "fused_lm_loss"],
 )
 def test_unported_config_keys_raise(config):
-    """The speculative draft model is still refused; the fused LM loss is
-    ported now and carried as the reference carries it."""
+    """Both keys are ported now and carried as the reference carries them:
+    the speculative draft model's overrides, normalized to a sorted
+    (key, value) tuple, and the fused LM loss."""
     if "draft" in config:
-        with pytest.raises(NotImplementedError, match="draft"):
-            _make_config({**SMALL, **config})
+        ours = _make_config({**SMALL, **config})
+        ref = jax_make_config({**SMALL, **config})
+        assert ours.draft == ref.draft == (("dim", 48), ("n_layers", 1))
         return
     ours = _make_config({**SMALL, **config})
     ref = jax_make_config({**SMALL, **config})
@@ -153,6 +155,17 @@ def test_unknown_preset_raises():
     ids=lambda f: next(iter(f)),
 )
 def test_unported_config_fields_raise(field):
+    """MoE, pipelines, adapter slots and scanned layers are still refused;
+    int8 `quant` is ported: it builds the int8 projections (and refuses an
+    unknown kind)."""
+    if "quant" in field:
+        from polyaxon_tpu_torch.models.quant import Int8Linear
+
+        model = Transformer(_make_config({**SMALL, **field}), device="cpu")
+        assert isinstance(model.layers[0].attention.q_proj, Int8Linear)
+        with pytest.raises(ValueError, match="quant"):
+            Transformer(_make_config({**SMALL, "quant": "int4"}), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=next(iter(field))):
         Transformer(_make_config({**SMALL, **field}), device="cpu")
 
