@@ -11,8 +11,9 @@ preset (random weights from a fixed seed): inference, then training.
 1. build     — nvcc the kernel sources, all at once, with their ptxas
                reports; then the SASS of each library (`cuobjdump
                --dump-sass`): the HGMMA (wgmma) instructions of each kernel
-               instance, which every bf16 instance must have and no f32
-               instance may;
+               instance, which every bf16 flash instance and both
+               instances of int8_matmul's prefill kernel must have and no
+               f32 instance (nor `int8_fma_kernel`) may;
 2. kernel    — the forward kernel, then the backward kernels (dq, dk/dv),
                against their plain versions at the main-path shape and a
                few others, with each kernel's median ms, the plain
@@ -20,9 +21,14 @@ preset (random weights from a fixed seed): inference, then training.
                never calls) and the card's lower bound for the same work,
                and the TFLOP/s of each kernel's (causal) work;
                then int8_matmul at llama3-1b's four projection shapes for
-               M = 1, 8 (decode) and 2048 (prefill), bf16 and f32, its
+               M = 1, 8 (decode), 256, 264 (the step scheduler's chunk,
+               and 8 decode rows + a chunk) and 2048 (prefill), bf16 and
+               f32, and bf16 at 9 and 16 rows, and the grouped q/k/v and
+               gate/up launches at the same rows, each deterministic, its
                weights cycled past the L2 as a decode step finds them, with
-               torch.matmul on the bf16 weights as the yardstick; then the
+               torch.matmul on the bf16 weights as the yardstick; one
+               layer's four launches summed at M = 8 (decode) and at 256
+               and 2048 (prefill, against cuBLAS); then the
                whole autograd chain (forward kernel, both backward
                kernels) against autograd through the plain forward, with a
                cotangent on lse;
@@ -67,8 +73,10 @@ preset (random weights from a fixed seed): inference, then training.
                beam_search, numBeams 1 the greedy row. Prints TTFT,
                decode tokens/s, step ms, tokens per step and accept rate
                per config, the decode weight bytes before and after
-               quantization, then profiles an int8 decode step and a
-               verify window at B=8, frontier 2112. After the kernel
+               quantization, then profiles an int8 decode step (which
+               must launch int8_matmul 4 times a layer: q/k/v grouped, o,
+               gate/up grouped, down) and a verify window at B=8,
+               frontier 2112. After the kernel
                counts are read: int8 against bf16 teacher-forced on 2048
                tokens, the argmax agreeing at >= 0.75 of the positions
                past a near-tie;
@@ -140,13 +148,15 @@ PRESET = "llama3-1b"
 FORWARD_TOKENS = 4096
 CSRC = "polyaxon_tpu_torch/ops/csrc"
 # the bf16 instances, which must run their products as wgmma (HGMMA in the
-# SASS): the forward, dq and dk/dv at each head dim; the f32 instances
-# (`<float, D>`) run on the CUDA cores and must hold none
+# SASS): the forward, dq and dk/dv at each head dim, and int8_matmul's
+# prefill kernel; the f32 instances (`<float, D>`, `int8_fma_kernel`) run on
+# the CUDA cores and must hold none
 WGMMA_INSTANCES = [
     f"{kernel}<{d}>"
     for kernel in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
     for d in (32, 64, 128)
-]
+] + [f"int8_wgmma_kernel<{n}>" for n in (128, 256)]
+SCALAR_INSTANCES = ["int8_fma_kernel"]
 KERNEL_ROWS = {  # name → (source, the TPU kernel it replaces)
     "flash_fwd": (f"{CSRC}/flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:35"),
     "flash_dq": (f"{CSRC}/flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:128"),
@@ -238,15 +248,23 @@ SAMPLED_BODY = {"tokens": [list(range(1000, 1300))], "maxNewTokens": SERVE_NEW,
 NEAR_TIE = 2.0 ** -6
 PROFILE_BATCH, PROFILE_SLOTS = 8, 2112  # the decode step that is profiled
 # int8_matmul: llama3-1b's projections (K, N) — q/o, k/v, gate/up, down —
-# at decode rows (1, 8) and a prefill slab (2048), bf16 and f32. Held per
-# row against the plain version: bf16 within 2^-7 (each side rounds the f32
-# sum to bf16 once, up to 2^-8 relative each), f32 within 1e-5 (sum order)
+# at decode rows (1, 8), the step scheduler's rows (256: a prefill chunk;
+# 264: 8 decode rows + a chunk) and a prefill slab (2048), bf16 and f32,
+# and bf16 at 9 and 16 rows, the first the wgmma kernel takes. Held per
+# row against the plain version: bf16 within 2^-7 (each side rounds the
+# f32 sum to bf16 once, up to 2^-8 relative each), f32 within 1e-5 (sum
+# order); two calls give the same bits
 INT8_SHAPES = {"q_o": (2048, 2048), "k_v": (2048, 512), "gate_up": (2048, 8192),
                "down": (8192, 2048)}
-INT8_ROWS = (1, 8, 2048)
+INT8_ROWS = (1, 8, 256, 264, 2048)
+INT8_SEAM_ROWS = (9, 16)
 INT8_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 INT8_DECODE_M = 8  # the main-path row of the kernels line: one decode step
-INT8_PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}  # launches a layer
+INT8_PREFILL_ROWS = (256, 2048)  # the prefill-layer lines
+# one layer's launches as the model makes them: (K, the N of each member)
+INT8_LAYER = {"qkv": (2048, (2048, 512, 512)), "o": (2048, (2048,)),
+              "gate_up": (2048, (8192, 8192)), "down": (8192, (2048,))}
+INT8_GROUPS = ("qkv", "gate_up")  # timed beside their single projections
 INT8_COLD_BYTES = 160 << 20  # weight copies cycled per timing: past the 50 MB L2
 # serve-fast: the step config with speculation (n-gram drafts, K = 4), with
 # the "auto" draft model (half depth by layer truncation) and the adaptive
@@ -368,8 +386,9 @@ def attention_bound(B, S, H, KV, D, causal, dtype) -> tuple[float, str, int]:
 
 
 def hgmma_counts(library: Path) -> dict[str, int]:
-    """HGMMA (wgmma) instructions in each flash kernel instance of a built
-    library, from the CUDA toolkit's `cuobjdump --dump-sass`."""
+    """HGMMA (wgmma) instructions in each kernel instance of a built
+    library (flash instances by template arguments, int8_matmul's kernels
+    by name), from the CUDA toolkit's `cuobjdump --dump-sass`."""
     from polyaxon_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -381,8 +400,10 @@ def hgmma_counts(library: Path) -> dict[str, int]:
     for line in sass.splitlines():
         if "Function : " in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_wgmma)?_kernel)I(f)?Li(\d+)E", line)
-            name = (f"{m.group(1)}<{'float, ' if m.group(2) else ''}{m.group(3)}>"
-                    if m else line.split("Function : ")[1].strip())
+            i8 = re.search(r"(int8_[a-z]+_kernel)(?:ILi(\d+)E)?", line)
+            name = (f"{m.group(1)}<{'float, ' if m.group(2) else ''}{m.group(3)}>" if m
+                    else i8.group(1) + (f"<{i8.group(2)}>" if i8.group(2) else "") if i8
+                    else line.split("Function : ")[1].strip())
             counts[name] = 0
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
@@ -423,7 +444,8 @@ def phase_build() -> None:
         counts.update(lib_counts)
     missing = [k for k in WGMMA_INSTANCES if not counts.get(k)]
     check(not missing, f"no HGMMA in the SASS of {missing}")
-    scalar = [k for k, n in counts.items() if "<float, " in k and n]
+    check(all(k in counts for k in SCALAR_INSTANCES), f"{SCALAR_INSTANCES} not in the SASS")
+    scalar = [k for k, n in counts.items() if ("<float, " in k or k in SCALAR_INSTANCES) and n]
     check(not scalar, f"HGMMA in the SASS of the f32 instances {scalar}")
 
 
@@ -681,93 +703,148 @@ def phase_autograd_chain() -> None:
     torch.cuda.empty_cache()
 
 
-def int8_bound(M, K, N, dtype) -> tuple[float, str]:
-    """Least time for y = (x . wq^T) * scale: x, wq, scale read once and y
-    written once over the HBM rate, against 2MNK operations at the peak of
-    x's dtype (the products run in bf16 on the tensor cores, or in f32 on
-    the CUDA cores). → (ms, what bounds it)."""
+def int8_bound(M, K, Ns, dtype) -> tuple[float, str]:
+    """Least time for one launch of y_i = (x . wq_i^T) * scale_i over the
+    members' widths Ns: x read once for the whole group, each wq_i and
+    scale_i read once and each y_i written once over the HBM rate, against
+    2MK sum(Ns) operations at the peak of x's dtype (the products run in
+    bf16 on the tensor cores, or in f32 on the CUDA cores). → (ms, what
+    bounds it)."""
     size = 2 if dtype == "bfloat16" else 4
+    N = sum(Ns)
     nbytes = M * K * size + N * K + 4 * N + M * N * size
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 2 * M * N * K / PEAK_OPS[dtype]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_int8_kernel() -> dict:
-    """int8_matmul against its plain version at llama3-1b's four projection
-    shapes for M in INT8_ROWS, bf16 and f32. Times cycle through enough
-    copies of the weights to leave the L2 cold, as a decode step finds
-    them (every layer's projections are read once a step), and are device
-    times (`graph_ms`); `host_ms` is the same call dispatched from Python
-    back to back (`cuda_ms`), which is what an eager decode step pays. The
-    library yardstick is torch.matmul on the unquantized bf16 weight (twice
-    the bytes), which the port never calls. Returns the kernels-line row:
-    one decode step's seven projections of one layer at M = INT8_DECODE_M."""
+def int8_case(M: int, K: int, Ns, dt: str, tag: str, launch=None,
+              kernel: str = "int8_matmul") -> dict:
+    """One int8_matmul call (a group when Ns has several widths) on x [M, K]
+    against random weights quantized per row: each member held per row
+    against the plain version, two calls equal bit for bit; then its
+    device time with the weights cycled past the L2, as a decode step
+    finds them (every layer's projections are read once a step), by CUDA
+    graph replay (`ms`); the same call dispatched from Python back to back
+    (`host_ms`, what an eager step pays); the plain versions; and one
+    torch.matmul on the concatenated bf16 weights (`library_ms`, twice the
+    weight bytes; a yardstick the port never calls). `launch(x, pairs)`
+    (default `int8_matmul_group`) is what is held and timed: another
+    build of the kernel can stand in for it under the name `kernel`."""
     import torch
 
     from polyaxon_tpu_torch.models.quant import quantize_kernel
-    from polyaxon_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from polyaxon_tpu_torch.ops.int8_matmul import (
+        INT8_MATMUL, int8_matmul_group, int8_matmul_reference,
+    )
 
-    row = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "max_abs_err": 0.0}
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(Ns) + M)
+    pairs = [quantize_kernel(torch.randn((n, K), generator=gen, device="cuda") / K ** 0.5)
+             for n in Ns]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    launch = launch or int8_matmul_group
+    ys = launch(x, pairs)
+    again = launch(x, pairs)
+    refs = [int8_matmul_reference(x, wq, scale) for wq, scale in pairs]
+    torch.cuda.synchronize()
+    rel = max(row_rel_err(y, r) for y, r in zip(ys, refs))
+    err = max((y.float() - r.float()).abs().max().item() for y, r in zip(ys, refs))
+    same = all(torch.equal(a, b) for a, b in zip(ys, again))
+    nbytes = sum(n * K for n in Ns)
+    copies = max(1, -(-INT8_COLD_BYTES // nbytes))
+    sets = [[(wq.clone(), scale) for wq, scale in pairs] for _ in range(copies)]
+    wbf = [torch.cat([(wq.float() * scale[:, None]).to(torch.bfloat16) for wq, scale in pairs])
+           for _ in range(max(1, -(-INT8_COLD_BYTES // (2 * nbytes))))]
+    xb = x.to(torch.bfloat16)
+    it = {"k": 0, "l": 0}
+
+    def call():
+        it["k"] = (it["k"] + 1) % copies
+        return launch(x, sets[it["k"]])
+
+    def library():
+        it["l"] = (it["l"] + 1) % len(wbf)
+        return torch.matmul(xb, wbf[it["l"]].T)
+
+    ms = graph_ms(call, reps=max(20, 2 * copies))
+    host_ms = cuda_ms(call, reps=max(20, 2 * copies))
+    plain_ms = graph_ms(lambda: [int8_matmul_reference(x, wq, s) for wq, s in pairs], reps=5)
+    lib_ms = graph_ms(library, reps=max(20, 2 * len(wbf)))
+    bound_ms, bound_by = int8_bound(M, K, Ns, dt)
+    own = launch is int8_matmul_group  # the plan is this build's
+    tile_n, splits = INT8_MATMUL.plan(M, K, Ns, dtype) if own else (None, None)
+    res = {
+        "phase": "kernel", "kernel": kernel, "shape": tag, "M": M, "K": K,
+        "N": list(Ns), "dtype": dt, "row_rel_err": rel, "max_abs_err": err,
+        "tol_row_rel": INT8_TOL[dt], "deterministic": same, "ms": ms, "host_ms": host_ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "x_bound": ms / bound_ms, "tflops": 2 * M * sum(Ns) * K / ms / 1e9,
+        "gb_per_s": (nbytes + M * K * dtype.itemsize) / ms / 1e6,
+        "tile_n": tile_n, "k_splits": splits, "cold_weight_copies": copies,
+    }
+    emit(res)
+    check(rel <= INT8_TOL[dt], f"{kernel} disagrees with its plain version at {tag} "
+          f"M={M} {dt}: row-relative {rel} (tol {INT8_TOL[dt]})")
+    check(same, f"{kernel} at {tag} M={M} {dt}: two calls differ")
+    del sets, wbf, pairs, x, ys, again, refs
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_layer(rows: dict, M: int) -> dict:
+    """One layer's four launches at M rows, bf16 (INT8_LAYER), summed from
+    the kernel phase's rows."""
+    keys = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")
+    layer = {k: sum(rows[(name, M)][k] for name in INT8_LAYER) for k in keys}
+    layer["max_abs_err"] = max(rows[(name, M)]["max_abs_err"] for name in INT8_LAYER)
+    layer["x_bound"] = layer["ms"] / layer["bound_ms"]
+    by_ops = sum(rows[(name, M)]["bound_ms"] for name in INT8_LAYER
+                 if rows[(name, M)]["bound_by"] == "operations")
+    layer["bound_by"] = "operations" if 2 * by_ops > layer["bound_ms"] else "bytes"
+    return layer
+
+
+def phase_int8_kernel() -> dict:
+    """int8_matmul against its plain version (int8_case): each of
+    llama3-1b's four projection shapes alone for M in INT8_ROWS, bf16 and
+    f32, and at INT8_SEAM_ROWS in bf16; the grouped q/k/v and gate/up
+    launches beside them. Then one layer's four launches, as the model
+    makes them: a decode step's (M = INT8_DECODE_M, the kernels-line row)
+    and a prefill's (INT8_PREFILL_ROWS, against cuBLAS on bf16 weights)."""
+    import torch
+
+    rows = {}
+    single = {"q_o": "o", "down": "down"}  # the single projections a layer launches
     for shape, (K, N) in INT8_SHAPES.items():
+        for M in INT8_ROWS + INT8_SEAM_ROWS:
+            for dt in ("bfloat16", "float32"):
+                if dt == "float32" and M in INT8_SEAM_ROWS:
+                    continue
+                res = int8_case(M, K, (N,), dt, shape)
+                if dt == "bfloat16" and shape in single:
+                    rows[(single[shape], M)] = res
+    for name in INT8_GROUPS:
+        K, Ns = INT8_LAYER[name]
         for M in INT8_ROWS:
             for dt in ("bfloat16", "float32"):
-                dtype = getattr(torch, dt)
-                gen = torch.Generator(device="cuda").manual_seed(K + N + M)
-                w = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
-                wq, scale = quantize_kernel(w)
-                x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-                y = int8_matmul(x, wq, scale)
-                ref = int8_matmul_reference(x, wq, scale)
-                torch.cuda.synchronize()
-                rel = row_rel_err(y, ref)
-                err = (y.float() - ref.float()).abs().max().item()
-                # cold weights: copies past the L2, one per call in turn
-                copies = max(1, -(-INT8_COLD_BYTES // (N * K)))
-                wqs = [wq.clone() for _ in range(copies)]
-                wbf = [(wq.float() * scale[:, None]).to(torch.bfloat16)
-                       for _ in range(max(1, -(-INT8_COLD_BYTES // (2 * N * K))))]
-                xb = x.to(torch.bfloat16)
-                it = {"k": 0, "l": 0}
-
-                def kernel():
-                    it["k"] = (it["k"] + 1) % copies
-                    return int8_matmul(x, wqs[it["k"]], scale)
-
-                def library():
-                    it["l"] = (it["l"] + 1) % len(wbf)
-                    return torch.matmul(xb, wbf[it["l"]].T)
-
-                ms = graph_ms(kernel, reps=max(20, 2 * copies))
-                host_ms = cuda_ms(kernel, reps=max(20, 2 * copies))
-                plain_ms = graph_ms(lambda: int8_matmul_reference(x, wq, scale), reps=5)
-                lib_ms = graph_ms(library, reps=max(20, 2 * len(wbf)))
-                bound_ms, bound_by = int8_bound(M, K, N, dt)
-                res = {
-                    "phase": "kernel", "kernel": "int8_matmul", "shape": shape,
-                    "M": M, "K": K, "N": N, "dtype": dt, "row_rel_err": rel,
-                    "max_abs_err": err, "tol_row_rel": INT8_TOL[dt], "ms": ms,
-                    "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "x_bound": ms / bound_ms,
-                    "gb_per_s": (N * K + M * K * dtype.itemsize) / ms / 1e6,
-                    "cold_weight_copies": copies,
-                }
-                emit(res)
-                check(rel <= INT8_TOL[dt], f"int8_matmul disagrees with its plain version "
-                      f"at {shape} M={M} {dt}: row-relative {rel} (tol {INT8_TOL[dt]})")
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                if M == INT8_DECODE_M and dt == "bfloat16":
-                    n = INT8_PER_LAYER[shape]
-                    for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms"):
-                        row[k] += n * res[k]
-                del wqs, wbf, w, wq, x, y, ref
-                torch.cuda.empty_cache()
-    row["bound_by"] = "bytes"
-    emit({"phase": "kernel-int8-decode-layer", "M": INT8_DECODE_M, "launches": 7,
-          **{k: row[k] for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
-          "x_bound": row["ms"] / row["bound_ms"], "device": device_line()})
-    return row
+                res = int8_case(M, K, Ns, dt, name)
+                if dt == "bfloat16":
+                    rows[(name, M)] = res
+    decode = int8_layer(rows, INT8_DECODE_M)
+    emit({"phase": "kernel-int8-decode-layer", "M": INT8_DECODE_M, "launches": len(INT8_LAYER),
+          **decode, "device": device_line()})
+    for M in INT8_PREFILL_ROWS:
+        layer = int8_layer(rows, M)
+        flops = 2 * M * sum(K * sum(Ns) for K, Ns in INT8_LAYER.values())
+        emit({"phase": "kernel-int8-prefill-layer", "M": M, "launches": len(INT8_LAYER),
+              "ms": layer["ms"], "bound_ms": layer["bound_ms"], "x_bound": layer["x_bound"],
+              "tflops": flops / layer["ms"] / 1e9, "cublas_ms": layer["library_ms"],
+              "plain_ms": layer["plain_ms"], "host_ms": layer["host_ms"],
+              "device": device_line()})
+    torch.cuda.empty_cache()
+    return decode
 
 
 def phase_forward(model) -> None:
@@ -1339,6 +1416,7 @@ def profile_fast_step(model, qmodel) -> None:
     from polyaxon_tpu_torch.models.generate import make_paged_cache
     from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
     from polyaxon_tpu_torch.models.spec_decode import spec_verify_paged
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
 
     B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, model.device
     K = FAST_CONFIGS["spec"]["draft_tokens"]
@@ -1362,12 +1440,26 @@ def profile_fast_step(model, qmodel) -> None:
             np.full(B, S - 1), np.ones(B, np.int64), kv_layout=layout,
             temperature=0.0, top_k=None, eos_id=None),
     }
+    # the int8 step's projections: one grouped q/k/v, o, one grouped
+    # gate/up and down a layer
+    before = INT8_MATMUL.launches
+    steps["int8"]()
+    torch.cuda.synchronize()
+    int8_launches = INT8_MATMUL.launches - before
+    want = len(INT8_LAYER) * qmodel.cfg.n_layers
+    check(int8_launches == want,
+          f"an int8 decode step launched int8_matmul {int8_launches} times, not {want}")
     for name, fn in steps.items():
-        profile_step(fn, {
+        line = profile_step(fn, {
             "phase": "serve-fast-profile", "path": name, "batch": B,
             "window_tokens": 1 if name == "int8" else K + 1, "frontier": S,
             "window_slots": n_pages * layout.page_tokens,
+            **({"int8_matmul_launches_a_step": int8_launches} if name == "int8" else {}),
         })
+        if name == "int8" and line["kernel_ms_total"] != "not measured":
+            check(line["int8_kernel_launches"] == want,
+                  f"the profiled int8 step ran {line['int8_kernel_launches']} int8 kernels, "
+                  f"not {want}")
     del int8_pool, pool
     torch.cuda.empty_cache()
 

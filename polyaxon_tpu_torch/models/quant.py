@@ -36,7 +36,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops.int8_matmul import int8_matmul
+from ..ops.int8_matmul import int8_matmul, int8_matmul_group
 
 # the seven decode projections; everything else (embed, lm_head, norms,
 # lora_a/b) stays at checkpoint precision
@@ -62,7 +62,12 @@ class Int8Linear(nn.Module):
         )
 
     def forward(self, x):
-        return int8_matmul(x, self.weight, self.scale)
+        return self.adapt(x, int8_matmul(x, self.weight, self.scale))
+
+    def adapt(self, x, y):
+        """What the projection adds to its int8 product `y` of `x`:
+        nothing here (a LoRA projection adds its adapter delta)."""
+        return y
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, int8"
@@ -80,9 +85,20 @@ class Int8LoRALinear(Int8Linear):
         self.lora_a = nn.Parameter(torch.zeros(in_features, rank, **factory))
         self.lora_b = nn.Parameter(torch.zeros(rank, out_features, **factory))
 
-    def forward(self, x):
+    def adapt(self, x, y):
         delta = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
-        return super().forward(x) + (self.alpha / self.rank) * delta
+        return y + (self.alpha / self.rank) * delta
+
+
+def project(x, projs) -> tuple:
+    """Each of `projs` applied to the same `x`: where all are int8
+    (`Int8Linear`, LoRA ones included) their int8 products come from one
+    grouped kernel launch and each adds its own adapter delta; any other
+    set (nn.Linear, LoRADense, a mix) calls each projection in turn."""
+    if len(projs) > 1 and all(isinstance(p, Int8Linear) for p in projs):
+        ys = int8_matmul_group(x, [(p.weight, p.scale) for p in projs])
+        return tuple(p.adapt(x, y) for p, y in zip(projs, ys))
+    return tuple(p(x) for p in projs)
 
 
 def quantize_kernel(w) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,7 +24,9 @@ projections and tied embeddings. Two attention paths, as in the reference:
 `quant="int8"` (set by `models.quant.quantize_module` at serving load)
 swaps every projection for `models.quant.Int8Linear` (int8 weight and
 per-output-channel scale through the int8 kernel), or `Int8LoRALinear`
-where LoRA applies.
+where LoRA applies. q/k/v and gate/up, each read from one input, then
+run as one grouped int8 launch (`models.quant.project`): 4 launches a
+layer instead of 7.
 
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
@@ -50,7 +52,7 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
-from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, quantize_kv
+from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, project, quantize_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,9 +242,10 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        q = self.q_proj(x).view(B, S, nh, hd)
-        k = self.k_proj(x).view(B, S, nkv, hd)
-        v = self.v_proj(x).view(B, S, nkv, hd)
+        q, k, v = project(x, (self.q_proj, self.k_proj, self.v_proj))
+        q = q.view(B, S, nh, hd)
+        k = k.view(B, S, nkv, hd)
+        v = v.view(B, S, nkv, hd)
         if cache is not None:
             return self.o_proj(self._decode(q, k, v, cos, sin, cache, plan))
         q = apply_rope(q, cos, sin)
@@ -347,7 +350,8 @@ class FeedForward(nn.Module):
         self.down_proj = _proj(cfg, "down_proj", cfg.ffn_dim, cfg.dim, **factory)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        gate, up = project(x, (self.gate_proj, self.up_proj))
+        return self.down_proj(F.silu(gate) * up)
 
 
 def dropout(x, rate: float, generator=None):

@@ -1,17 +1,19 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels
-// (flash_fwd.cu, flash_bwd.cu): asynchronous copies into shared memory, the
-// swizzled tile layout that wgmma's matrix descriptors read,
-// wgmma.mma_async itself, and the shared-memory opt-in of a launch.
+// (flash_fwd.cu, flash_bwd.cu, int8_matmul.cu): asynchronous copies into
+// shared memory, the swizzled tile layout that wgmma's matrix descriptors
+// read, wgmma.mma_async itself, and the shared-memory opt-in of a launch.
 //
-// Tiles: a [64][D] bf16 tile lives in shared memory in the canonical layout
-// of wgmma's swizzled modes. D is cut into panels of PW columns (PW = 64 for
+// Tiles: a [ROWS][D] bf16 tile (ROWS = 64 for attention, 128 for the int8
+// projection's x and widened weights) lives in shared memory in the
+// canonical layout of wgmma's swizzled modes. D is cut into panels of PW columns (PW = 64 for
 // D >= 64: 128-byte rows and the 128-byte swizzle; PW = 32 for D = 32:
 // 64-byte rows and the 64-byte swizzle). A panel holds the tile's 64 rows,
 // one after another, and each 16-byte chunk of a row sits at its column
 // chunk XOR-ed with the row's bits (address bits [4,7) ^= bits [7,10) for
 // 128 bytes, [4,6) ^= [7,9) for 64), so the eight rows of a core matrix fall
 // on distinct banks. Panels start on 1024-byte boundaries, so the
-// descriptors' base offset is 0.
+// descriptors' base offset is 0; so does every 64-row half of a 128-row
+// tile, which one warpgroup reads as its own M = 64 operand.
 //
 // The same tile serves both operand orders:
 // - K-major (the tile's columns are the product's K): rows are M or N, a
@@ -72,6 +74,55 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// make this thread's ordinary stores to shared memory visible to wgmma's
+// (async-proxy) reads; a block barrier must follow before another warp's
+// wgmma reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory, for the tensor memory accelerator (TMA):
+// a barrier completes its phase when `count` threads have arrived and the
+// bytes they announced have landed
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// make barrier initialisations visible to the async proxy (and the cluster)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive, announcing `bytes` that copies will deliver to this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  // labels are local to the braces, so every inlined copy has its own
+  asm volatile(
+      "{\n.reg .pred done;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra.uni LAB_DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "LAB_DONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first) into shared
+// memory by the TMA, completing `bar`'s announced bytes; boxes past the
+// tensor's edge arrive zero-filled
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // wait until at most N of this thread's copy groups are in flight, then
 // make the copies visible to wgmma's (async-proxy) reads of shared memory;
 // a block barrier must follow before other threads' copies are read
@@ -119,12 +170,13 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-template <int D> struct SwizzledTile {
+template <int D, int ROWS = 64> struct SwizzledTile {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static_assert(ROWS % 64 == 0, "whole 64-row (one warpgroup) slabs");
   static constexpr int PW = D >= 64 ? 64 : 32;  // panel width, elements
   static constexpr int ROW_BYTES = PW * 2;      // the swizzle width
-  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
-  static constexpr int BYTES = 64 * D * 2;
+  static constexpr int PANEL_BYTES = ROWS * ROW_BYTES;
+  static constexpr int BYTES = ROWS * D * 2;
   static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // 128B : 64B swizzle
   static constexpr uint32_t SWIZZLE = D >= 64 ? 0x70 : 0x30;
 
@@ -145,7 +197,7 @@ template <int D> struct SwizzledTile {
     return gmma_desc(tile + kk * 16 * ROW_BYTES, PANEL_BYTES, 8 * ROW_BYTES, LAYOUT);
   }
 
-  // rows [r0, r0 + 64) of a [S, D] bf16 slice with row stride `ld`
+  // rows [r0, r0 + ROWS) of a [S, D] bf16 slice with row stride `ld`
   // (elements, 16-byte aligned rows) into the tile, asynchronously, by the
   // block's `nthreads` threads; rows past S are zero-filled
   static __device__ __forceinline__ void load(uint32_t tile, const __nv_bfloat16* src,
@@ -153,7 +205,7 @@ template <int D> struct SwizzledTile {
                                               int nthreads) {
     constexpr int CPR = D / 8;  // 16-byte chunks per row
 #pragma unroll 4
-    for (int i = tid; i < 64 * CPR; i += nthreads) {
+    for (int i = tid; i < ROWS * CPR; i += nthreads) {
       const int r = i / CPR, c = (i % CPR) * 8;
       const bool live = r0 + r < S;
       cp_async16(tile + offset(r, c), live ? src + (r0 + r) * ld + c : src, live ? 16 : 0);
@@ -183,6 +235,87 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
+
+// D[64][128] (+)= A[64][16] . B[16][128], A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64][256] (+)= A[64][16] . B[16][256], A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the SS products by N, for kernels templated on their tile width
+template <int N> struct WgmmaSS;
+template <> struct WgmmaSS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int sd) {
+    wgmma_m64n128k16_ss(d, a, b, sd);
+  }
+};
+template <> struct WgmmaSS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t a, uint64_t b, int sd) {
+    wgmma_m64n256k16_ss(d, a, b, sd);
+  }
+};
 
 template <int N> struct WgmmaRsTransB;
 

@@ -373,7 +373,15 @@ INT8_CASES = [
     # (the tiled kernels), at llama3-1b's projection shapes and ragged ones
     (1, 2048, 2048), (8, 2048, 512), (5, 8192, 2048), (8, 2048, 8192),
     (64, 2048, 512), (300, 512, 200), (9, 48, 72), (2048, 2048, 2048),
+    # the rows the wgmma kernel takes on the main path (9-16: past the
+    # decode kernel; 255/264: a chunk, 8 decode rows + a chunk; 2304: a
+    # full step), at the q/o, k/v and down shapes
+    *[(M, K, N) for M in (9, 16, 64, 255, 264, 2304)
+      for K, N in ((2048, 2048), (2048, 512), (8192, 2048))],
 ]
+# one x against 1-4 projections (K, the N of each): q/k/v and gate/up of
+# llama3-1b, and a ragged four
+INT8_GROUPS = [(2048, (2048, 512, 512)), (2048, (8192, 8192)), (512, (72, 200, 16, 1000))]
 
 
 def _int8_inputs(M, K, N, dtype, device, seed=0):
@@ -408,6 +416,73 @@ def test_int8_matmul_matches_plain_version(cuda_device, M, K, N, dtype):
     assert _int8_rel(y, ref) < (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
 
 
+def _int8_tol(dtype):
+    return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 8, 9, 256, 264, 2048])
+@pytest.mark.parametrize("K,Ns", INT8_GROUPS)
+def test_int8_matmul_group_matches_plain_version(cuda_device, K, Ns, M, dtype):
+    """One grouped launch (one count), each member held per row against
+    its plain version (bf16 2^-7, f32 1e-5, as the single call), and two
+    calls give the same bits (K splits reduce in a fixed order)."""
+    from polyaxon_tpu_torch.models.quant import quantize_kernel
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    gen = torch.Generator(device=cuda_device).manual_seed(M + K)
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(dtype)
+    pairs = [quantize_kernel(torch.randn((n, K), generator=gen, device=cuda_device))
+             for n in Ns]
+    before = im.INT8_MATMUL.launches
+    ys = im.int8_matmul_group(x, pairs)
+    again = im.int8_matmul_group(x, pairs)
+    torch.cuda.synchronize()
+    assert im.INT8_MATMUL.launches == before + 2
+    for y, y2, (wq, scale), n in zip(ys, again, pairs, Ns):
+        assert y.shape == (M, n) and y.dtype == dtype
+        assert torch.equal(y, y2)
+        assert _int8_rel(y, im.int8_matmul_reference(x, wq, scale)) < _int8_tol(dtype)
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 256, 264, 2048])
+@pytest.mark.parametrize(
+    "K,Ns",
+    [(2048, (2048, 512, 512)), (2048, (2048,)), (2048, (8192, 8192)), (8192, (2048,))],
+    ids=["qkv", "o", "gate_up", "down"],
+)
+def test_int8_plan_is_a_function_of_shapes_within_the_kernels_limits(cuda_device, K, Ns, M):
+    """The launch plan (tile width, K splits), read from the C side: the
+    same every time, (0, 1) for f32, and within the kernels' limits (K
+    splits of 2-4 only while the split blocks fit in one wave)."""
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tile_n, splits = im.INT8_MATMUL.plan(M, K, Ns)
+    assert (tile_n, splits) == im.INT8_MATMUL.plan(M, K, Ns)
+    assert im.INT8_MATMUL.plan(M, K, Ns, torch.float32) == (0, 1)
+    assert splits in (1, 2, 4)
+    if M <= 8:
+        tiles = sum(-(-n // 64) for n in Ns)
+        assert tile_n == 0 and splits <= -(-K // 128)
+    else:
+        assert tile_n in (128, 256) and K // 64 >= 4 * splits
+        tiles = sum(-(-n // tile_n) for n in Ns) * -(-M // 128)
+    assert splits == 1 or tiles * splits <= sms
+
+
+def test_int8_matmul_is_deterministic(cuda_device):
+    """Repeated calls at split-K shapes (decode o and down, a prefill
+    chunk) give the same bits."""
+    from polyaxon_tpu_torch.ops import int8_matmul as im
+
+    for M, K, N in ((8, 2048, 2048), (8, 8192, 2048), (256, 8192, 2048), (264, 2048, 2048)):
+        x, wq, scale = _int8_inputs(M, K, N, torch.bfloat16, cuda_device, seed=M)
+        first = im.int8_matmul(x, wq, scale)
+        for _ in range(3):
+            assert torch.equal(im.int8_matmul(x, wq, scale), first)
+
+
 def test_int8_matmul_reads_strided_activations(cuda_device):
     """x out of a transposing reshape (not contiguous) and a leading batch
     shape give the same y as the packed input."""
@@ -422,8 +497,9 @@ def test_int8_matmul_reads_strided_activations(cuda_device):
 
 
 def test_int8_model_decodes_through_the_kernel(cuda_device):
-    """A quantized 2-layer model: every projection launches the kernel (7
-    per layer and forward), and a greedy decode on the int8 paged pool
+    """A quantized 2-layer model: its projections launch the kernel 4
+    times a layer and forward (q/k/v grouped, o, gate/up grouped, down),
+    and a greedy decode on the int8 paged pool
     (prefill, then one chunk of steps) launches it on every step and gives
     the tokens the plain versions give on the same weights."""
     from polyaxon_tpu_torch.models.generate import (
@@ -444,7 +520,7 @@ def test_int8_model_decodes_through_the_kernel(cuda_device):
     before = im.INT8_MATMUL.launches
     with torch.no_grad():
         qmodel(prompt)
-    assert im.INT8_MATMUL.launches == before + 7 * 2
+    assert im.INT8_MATMUL.launches == before + 4 * 2
     layout = PagedKVLayout(8, 1 + 2 * 3, kv_quant="int8")  # 24 slots a row
     new = 8
 
@@ -461,6 +537,6 @@ def test_int8_model_decodes_through_the_kernel(cuda_device):
 
     before = im.INT8_MATMUL.launches
     out = decode(qmodel)
-    assert im.INT8_MATMUL.launches == before + 7 * 2 * new
+    assert im.INT8_MATMUL.launches == before + 4 * 2 * new
     ref = decode(qmodel.to("cpu"))
     assert torch.equal(out, ref)
