@@ -80,6 +80,34 @@ preset (random weights from a fixed seed): inference, then training.
                counts are read: int8 against bf16 teacher-forced on 2048
                tokens, the argmax agreeing at >= 0.75 of the positions
                past a near-tie;
+4d. serve-tenants — multi-tenant serving on `llama3-1b` with rank-16 LoRA
+               on all seven projections (random bf16 weights from seed 0)
+               and three adapters (`seed:1..3`) behind three tenants, two
+               adapter slots beyond the checkpoint's own. First, outside
+               the counted path, the per-row LoRA delta on the card against
+               the merged-adapter product per row (fp and int8 bases, bf16
+               and f32, decode B=8 and a 256-row chunk) and the grouped
+               int8 launch of q/k/v and gate/up with per-row slots (one
+               launch each). Then the step config on that model without
+               tenants (the yardstick), and `tenants` (the step config with
+               a 64-page pool, the spill tier in RAM) and `tenants-int8`
+               (+ int8 weights and pool, the spill tier on disk) under one
+               traffic: a mixed wave, a burst at the tenant capped at 2
+               outstanding rows (which must shed tenant_quota there alone),
+               a flood that demotes the shared 1024-token prefix to the
+               spill tier, and a wave that restores it (the pages must hold
+               the demoted bytes) and brings an evicted adapter back from
+               its spill tier. No page, adapter pin or tenant charge
+               remains. Prints TTFT, decode tokens/s against the yardstick,
+               adapter load and restore ms, the KV restore and mirror-copy
+               ms and the spill bytes. The counts are read here; after
+               them, every served row must equal its solo reference (the
+               model with that adapter in its one slot: generate(), or the
+               int8 module on a direct int8 pool) or diverge at a near-tie
+               (TENANT_NEAR_TIE) or at top-k's edge (edge_flip), and a
+               decode step at B=8, frontier 2112,
+               with and without slots (the launches the slots add) and on
+               the int8 base (64 int8 launches);
 5. train     — `Trainer(program).run()`: 8 AdamW steps on [1, 4096]
                synthetic_text tokens, mixed precision, remat, fused LM
                loss, flash attention, with a profiler window over one step;
@@ -115,10 +143,10 @@ preset (random weights from a fixed seed): inference, then training.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then 4b, then 4c, then phases 5, 7 and 8) and read just
-after it, so `launches` counts the main paths only (4b launches none:
-decode attends by einsum, as the reference's does; 4c launches
-int8_matmul for every projection of the int8 config). The last lines are the kernels JSON line, the card's name
+(phases 3-4, then 4b, then 4c, then 4d, then phases 5, 7 and 8) and read
+just after it, so `launches` counts the main paths only (4b launches none:
+decode attends by einsum, as the reference's does; 4c and 4d launch
+int8_matmul for every projection of their int8 configs). The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
 non-zero and prints no result.
@@ -285,6 +313,44 @@ BEAM_PROMPT, BEAMS = 300, 4
 # reference's own floor, tests/test_generate.py:346-347)
 INT8_AGREE = 0.75
 INT8_TF_TOKENS = 2048
+# serve-tenants: llama3-1b with rank-16 LoRA on all seven projections (alpha
+# 16), three synthetic adapters (`seed:<n>`, 22.5 MB each in bf16) behind
+# three tenants, two adapter slots beyond the checkpoint's own, so the
+# third adapter evicts an idle one to the adapter spill tier. The pool is
+# 64 pages: wave 1 caches the shared prefix (8 pages), the flood's three
+# 2000-token rows need more than is free, so the idle prefix is demoted to
+# the spill tier (RAM in `tenants`, disk in `tenants-int8`) and wave 2
+# restores it.
+TENANT_RANK, TENANT_NEW, TENANT_SLOTS, TENANT_SEED, TENANT_BURST = 16, 32, 2, 8, 4
+TENANT_ADAPTERS = {"a1": "seed:1", "a2": "seed:2", "a3": "seed:3"}
+TENANTS = [
+    {"name": "acme", "adapter": "a1"},
+    {"name": "globex", "adapter": "a2"},
+    {"name": "initech", "adapter": "a3", "max_outstanding": 2},
+]
+TENANT_STEP = {**SERVE_CONFIGS["step"], "kv_pool_pages": 64}
+TENANT_CONFIGS = {
+    "tenants": {**TENANT_STEP, "spill_ram_bytes": 4 << 30,
+                "spill_dir": str(ARTIFACTS / "spill" / "tenants")},
+    "tenants-int8": {**TENANT_STEP, "quantize": True, "kv_quant": "int8",
+                     "spill_ram_bytes": 0, "spill_dir": str(ARTIFACTS / "spill" / "int8")},
+}
+# the per-row LoRA delta against the merged-adapter product per row: bf16
+# rounds the base product, the two rank-r products and the sum once each
+# (2^-8 relative at most each, well under 2^-7 together); f32 is sum order
+TENANT_LORA_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# served rows against their solo references: compare_rows's near-tie rule,
+# widened once for the adapter path. Its bf16 rounding differs from the solo
+# reference's (other lanes and buckets take other GEMM shapes, and the rank-16
+# deltas round on their own): on an H100 the served logits moved up to 0.094
+# (3 bf16 ulps, 2.3% of a 4.125 top logit) and a greedy row flipped at a
+# 0.094 gap (2.2%). The rule is the next power of two above that move
+TENANT_NEAR_TIE = 2.0 ** -5
+# a top-k sampled row may also flip at the mask's edge: a token within this
+# many bf16 ulps of the k-th logit may be in one path's mask and out of the
+# other's (on the card a sampled row's token sat 1 ulp above the 50th logit
+# of the reference's prefill and under it in its decode step)
+TENANT_EDGE_ULPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -966,16 +1032,23 @@ def phase_serve(model) -> None:
         server.stop()
 
 
-def _post_all(url: str, bodies: list) -> list:
+def _post_all(url: str, bodies: list, codes: bool = False) -> list:
     """POST every body at once, one thread each; the answers in order. A
-    failed request raises here, not inside its thread."""
+    failed request raises here, not inside its thread — or, with `codes`,
+    each answer is (HTTP status, JSON body) and only a failure to get an
+    answer raises."""
     import threading
+    import urllib.error
 
     out: list = [None] * len(bodies)
 
     def one(i):
         try:
             out[i] = _http(url + "/generate", bodies[i])
+            if codes:
+                out[i] = (200, out[i])
+        except urllib.error.HTTPError as e:
+            out[i] = (e.code, json.loads(e.read())) if codes else e
         except BaseException as e:  # noqa: BLE001 — re-raised below
             out[i] = e
 
@@ -985,7 +1058,7 @@ def _post_all(url: str, bodies: list) -> list:
     for t in threads:
         t.join(600)
     for i, o in enumerate(out):
-        if not isinstance(o, dict):
+        if not isinstance(o, tuple if codes else dict):
             raise SmokeFailure(f"request {i} failed: {o!r}")
     return out
 
@@ -1023,23 +1096,34 @@ def serve_traffic(vocab: int) -> list:
     return [shared[:4] + other[:4], shared[4:] + other[4:]]
 
 
-def next_token_gap(model, tokens: list, sample=None) -> float:
-    """The reference path's top-2 gap at the token after `tokens`, over its
-    top logit: (top1 - top2) / |top1| of the dense-cache prefill's last
-    logits — or, for a sampled row (`sample` = (temperature, top_k, seed,
-    generation index)), of the same logits with that row's Gumbel noise."""
+def sampler_logits(logits, sample):
+    """What a sampled row's pick compares (`sample` = (temperature, top_k,
+    seed, generation index)): the logits over the temperature, top-k
+    masked, plus that row's Gumbel noise, as generate's sampler makes them."""
+    from polyaxon_tpu_torch.models.generate import _gumbel, _top_k_mask
+
+    temperature, top_k, seed, g = sample
+    logits = _top_k_mask((logits / temperature)[None], top_k)[0]
+    return logits + _gumbel(logits.shape, seed, g, logits.device)
+
+
+def top2_gap(logits) -> float:
+    """(top1 - top2) / |top1| of one row of logits."""
     import torch
 
-    from polyaxon_tpu_torch.models.generate import _gumbel, _top_k_mask
+    top = torch.topk(logits, 2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def next_token_gap(model, tokens: list, sample=None) -> float:
+    """The reference path's top-2 gap at the token after `tokens`, over its
+    top logit (top2_gap) of the dense-cache prefill's last logits — or, for
+    a sampled row, of the logits its sampler compares (sampler_logits)."""
+    import torch
 
     x = torch.tensor([tokens], device=model.device)
     logits = model(x, cache=model.make_cache(1), pos=0)[0, -1].float()
-    if sample is not None:
-        temperature, top_k, seed, g = sample
-        logits = _top_k_mask((logits / temperature)[None], top_k)[0]
-        logits = logits + _gumbel(logits.shape, seed, g, logits.device)
-    top = torch.topk(logits, 2).values
-    return float((top[0] - top[1]) / top[0].abs())
+    return top2_gap(logits if sample is None else sampler_logits(logits, sample))
 
 
 def compare_rows(model, got: list, ref: list, prompt_len: int, sample=None,
@@ -1340,21 +1424,24 @@ def check_beams(model, out: dict) -> dict:
     return line
 
 
-def int8_pool_rows(qmodel, prompts: list) -> tuple:
+def int8_pool_rows(qmodel, prompts: list, new: int = SERVE_NEW, samples=None) -> tuple:
     """The int8 server's rows by the direct path: each prompt greedy through
     the int8 module on an int8 paged pool of its own (one-shot prefill,
     then one step a token at B=1), so the quantize-on-write, the scale
     scatter, the page gather and the dequantize meet the served rows'
-    chunked prefill, prefix-cache harvest and batched steps. Returns the
-    rows and, per row, each generated token's top-2 gap over the top
-    logit (the near-tie rule reads them)."""
+    chunked prefill, prefix-cache harvest and batched steps. `samples`
+    gives per prompt None (greedy) or (temperature, top_k, seed): that
+    row draws from the served rows' (seed, generation index) stream.
+    Returns the rows and, per row, each generated token's top-2 gap over
+    the top logit, with the row's noise where it samples (the near-tie
+    rule reads them)."""
     import torch
 
-    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.generate import _gumbel, _top_k_mask, make_paged_cache
     from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
 
     pt = SERVE_CONFIGS["step"]["kv_page_tokens"]
-    n_pages = -(-(max(len(p) for p in prompts) + SERVE_NEW) // pt)
+    n_pages = -(-(max(len(p) for p in prompts) + new) // pt)
     layout = PagedKVLayout(pt, 1 + n_pages, kv_quant="int8")
     cache = make_paged_cache(qmodel, layout)  # each prompt overwrites its slots
     dev = qmodel.device
@@ -1362,12 +1449,17 @@ def int8_pool_rows(qmodel, prompts: list) -> tuple:
     pad = torch.zeros(1, dtype=torch.long, device=dev)
     rows, gaps = [], []
     with torch.inference_mode():
-        for p in prompts:
+        for i, p in enumerate(prompts):
+            sample = None if samples is None else samples[i]
             x = torch.tensor([p], device=dev)
             row, gap = list(p), []
-            for j in range(SERVE_NEW):
+            for j in range(new):
                 logits = qmodel(x, cache=cache, pad=pad, pages=table, pos=len(row) - x.shape[1],
                                 kv_layout=layout)[0, -1].float()
+                if sample is not None:
+                    temperature, top_k, seed = sample
+                    logits = _top_k_mask((logits / temperature)[None], top_k)[0]
+                    logits = logits + _gumbel(logits.shape, seed, j, logits.device)
                 top = torch.topk(logits, 2).values
                 gap.append(float((top[0] - top[1]) / top[0].abs()))
                 row.append(int(logits.argmax()))
@@ -1540,6 +1632,541 @@ def check_int8_rows(qmodel, waves: list, answers: list) -> None:
     emit({"phase": "serve-fast-int8-rows", "config": "int8", "rows": len(prompts),
           "rows_diverged": len(divergences), "divergences": divergences,
           "seconds": time.perf_counter() - t0})
+
+
+def lora_card_case(base: str, dt: str, shape: str, M: tuple, ix: list,
+                   device: str = "cuda") -> dict:
+    """One projection of the tenants model with slot-stacked adapters on
+    the card: its output against the merged-adapter dense product of each
+    row (W + (alpha/r) A_b B_b, in f32 from the same parameters), held per
+    row (max |err| of a row over the row's max |ref|)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.quant import Int8LoRALinear, quantize_kernel
+    from polyaxon_tpu_torch.models.transformer import LoRADense
+
+    dtype = getattr(torch, dt)
+    K, N = INT8_SHAPES[shape]
+    B, S = M
+    gen = torch.Generator(device=device).manual_seed(11)
+    w = torch.randn(N, K, generator=gen, device=device) * K ** -0.5
+    a = torch.randn(TENANT_SLOTS + 1, K, TENANT_RANK, generator=gen, device=device) * 0.05
+    b = torch.randn(TENANT_SLOTS + 1, TENANT_RANK, N, generator=gen, device=device) * 0.05
+    x = torch.randn(B, S, K, generator=gen, device=device).to(dtype)
+    cls = LoRADense if base == "fp" else Int8LoRALinear
+    mod = cls(K, N, TENANT_RANK, 16.0, slots=TENANT_SLOTS + 1, device=device, dtype=dtype)
+    with torch.inference_mode():
+        if base == "fp":
+            mod.weight.copy_(w)
+            dense = mod.weight.float()
+        else:
+            wq, scale = quantize_kernel(w)
+            mod.weight.copy_(wq)
+            mod.scale.copy_(scale)
+            dense = mod.weight.float() * mod.scale[:, None]
+        mod.lora_a.copy_(a)
+        mod.lora_b.copy_(b)
+        ixt = torch.tensor(ix, device=device)
+        out = mod(x, ixt).float()
+        ref = torch.stack([
+            x[r].float() @ (dense.T + (16.0 / TENANT_RANK)
+                            * (mod.lora_a[i].float() @ mod.lora_b[i].float()))
+            for r, i in enumerate(ix)
+        ])
+    err = row_rel_err(out, ref)
+    return {"base": base, "dtype": dt, "shape": shape, "B": B, "S": S,
+            "max_row_rel_err": err, "tol": TENANT_LORA_TOL[dt]}
+
+
+def phase_lora_card(device: str = "cuda") -> None:
+    """The plain pieces the tenants path adds, on the card, before the
+    path's launches are counted: the per-row LoRA delta of slot-stacked
+    adapters (index gather + two batched products) against the merged-
+    adapter dense product per row, at decode (B=8) and a 256-row prefill
+    chunk, bf16 and f32, on the bf16 base and on the int8 base (through
+    int8_matmul); and on the int8 base, q/k/v and gate/up with per-row
+    slots still one grouped int8_matmul launch each."""
+    import torch
+
+    from polyaxon_tpu_torch.models.quant import Int8LoRALinear, project
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+
+    decode_ix = [0, 1, 2, 1, 2, 0, 2, 1]
+    for base in ("fp", "int8"):
+        for dt in ("bfloat16", "float32"):
+            for shape in INT8_SHAPES:
+                for M, ix in (((8, 1), decode_ix), ((1, 256), [2])):
+                    line = lora_card_case(base, dt, shape, M, ix, device)
+                    emit({"phase": "serve-tenants-lora", **line})
+                    check(line["max_row_rel_err"] <= line["tol"],
+                          f"slot-stacked LoRA {line} past its tolerance")
+    gen = torch.Generator(device=device).manual_seed(12)
+    for group, (K, Ns) in (("qkv", INT8_LAYER["qkv"]), ("gate_up", INT8_LAYER["gate_up"])):
+        projs = []
+        for n in Ns:
+            p = Int8LoRALinear(K, n, TENANT_RANK, 16.0, slots=TENANT_SLOTS + 1, device=device,
+                               dtype=torch.bfloat16)
+            with torch.inference_mode():
+                p.weight.copy_(torch.randint(-127, 128, (n, K), generator=gen, device=device))
+                p.lora_a.normal_(0.0, 0.05, generator=gen)
+                p.lora_b.normal_(0.0, 0.05, generator=gen)
+            projs.append(p)
+        x = torch.randn(8, 1, K, generator=gen, device=device).to(torch.bfloat16)
+        ix = torch.tensor(decode_ix, device=device)
+        with torch.inference_mode():
+            before = INT8_MATMUL.launches
+            grouped = project(x, tuple(projs), ix)
+            torch.cuda.synchronize(device)
+            launched = INT8_MATMUL.launches - before
+            alone = [p(x, ix) for p in projs]
+        err = max(row_rel_err(g.float(), a.float()) for g, a in zip(grouped, alone))
+        emit({"phase": "serve-tenants-lora-group", "group": group, "int8_launches": launched,
+              "max_row_rel_err_vs_members": err})
+        check(launched == 1, f"{group} with per-row slots ran {launched} int8 launches, not 1")
+        check(err <= TENANT_LORA_TOL["bfloat16"],
+              f"{group}: the grouped launch sits {err} from its members' own launches")
+
+
+def tenant_traffic(vocab: int) -> dict:
+    """The serve-tenants traffic, from a seeded generator: wave 1 mixes two
+    adapter tenants and the default tenant (acme's two rows behind the
+    shared SERVE_PREFIX-token prefix; a sampled row each for globex and
+    default); the burst sends TENANT_BURST rows at the capped tenant beside
+    one default row; the flood (default, 4 new tokens) needs more pages
+    than the pool has free, so the idle prefix entries are evicted to the
+    spill tier; wave 2 brings acme back (its prefix and its adapter come
+    back from the spill tiers) beside globex and default."""
+    import torch
+
+    gen = torch.Generator().manual_seed(TENANT_SEED)
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    def body(tenant, prompt, seed=None, new=TENANT_NEW):
+        b = {"tokens": [prompt], "maxNewTokens": new}
+        if tenant:
+            b["tenant"] = tenant
+        if seed is not None:
+            b.update({"temperature": 0.8, "topK": 50, "seed": seed})
+        return b
+
+    prefix = toks(SERVE_PREFIX)
+    return {
+        "prefix": prefix,
+        "wave1": [body("acme", prefix + toks(100)), body("acme", prefix + toks(120)),
+                  body("globex", toks(90)), body("globex", toks(110), seed=5),
+                  body(None, toks(100)), body(None, toks(80), seed=9)],
+        "burst": [body("initech", toks(100 + i)) for i in range(TENANT_BURST)]
+        + [body(None, toks(120))],
+        "flood": [body(None, toks(2000), new=4) for _ in range(3)],
+        "wave2": [body("acme", prefix + toks(150)), body("acme", toks(70)),
+                  body("globex", toks(100)), body(None, toks(60))],
+    }
+
+
+def _instrument_kv(kv) -> dict:
+    """Wrap the KV manager's spill points to record what the run does:
+    every demoted payload by its chain head, the host ms of each mirror
+    capture (a blocking device-to-host copy into pinned memory) and the
+    pages it copied, and the ms of each restore — its host part at
+    admission (take from RAM or disk, new pages, queue) and its device
+    write (flush_restores, synchronized)."""
+    import torch
+
+    rec = {"demoted": {}, "mirror_ms": [], "mirror_pages": 0, "restore_host_ms": [],
+           "restore_flush_ms": []}
+    put, capture, restore, flush = (kv._spill.put, kv._capture_mirror,
+                                    kv._maybe_restore, kv.flush_restores)
+
+    def put_rec(payload):
+        rec["demoted"][payload.hashes[-1]] = payload
+        return put(payload)
+
+    def capture_rec(new_ids):
+        t0 = time.perf_counter()
+        out = capture(new_ids)
+        rec["mirror_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["mirror_pages"] += len(new_ids)
+        return out
+
+    def restore_rec(tokens, limit, namespace=""):
+        before = kv.spill_restores
+        t0 = time.perf_counter()
+        restore(tokens, limit, namespace)
+        if kv.spill_restores > before:
+            rec["restore_host_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def flush_rec():
+        t0 = time.perf_counter()
+        n = flush()
+        if n:
+            torch.cuda.synchronize()
+            rec["restore_flush_ms"].append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    kv._spill.put, kv._capture_mirror = put_rec, capture_rec
+    kv._maybe_restore, kv.flush_restores = restore_rec, flush_rec
+    return rec
+
+
+def _instrument_registry(reg) -> dict:
+    """Time each adapter materialization (a cold load from `seed:` or a
+    restore from the adapter spill tier) by its kind."""
+    rec = {"load_ms": [], "restore_ms": []}
+    load = reg._load_into
+
+    def load_rec(e, slot):
+        before = reg.restores
+        t0 = time.perf_counter()
+        load(e, slot)
+        kind = "restore_ms" if reg.restores > before else "load_ms"
+        rec[kind].append((time.perf_counter() - t0) * 1e3)
+
+    reg._load_into = load_rec
+    return rec
+
+
+def run_tenant_config(model, name: str, traffic: dict) -> dict:
+    """One serve-tenants config under the traffic: wave 1, the burst (which
+    must shed tenant_quota at the capped tenant alone), the flood (which
+    must demote the shared prefix to the spill tier), wave 2 (which must
+    restore it — the pages holding exactly the demoted bytes — and hit
+    it). No page, reservation, adapter pin or tenant charge may remain
+    after the drain. Returns the answered rows (wave 1, the admitted burst
+    rows, wave 2), their bodies, the server's module and the numbers."""
+    import shutil
+
+    import torch
+
+    from polyaxon_tpu_torch.models.kv_pages import page_hashes
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+    from polyaxon_tpu_torch.serving.tenancy import normalize_adapters, normalize_tenants
+
+    config = TENANT_CONFIGS[name]
+    spill_dir = Path(config["spill_dir"])
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    gc.collect()  # the last config's server and pool
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = ModelServer(model, None, ServingConfig(
+        **SERVE_BASE, **config, adapters=normalize_adapters(TENANT_ADAPTERS),
+        tenants=normalize_tenants(TENANTS), adapter_slots=TENANT_SLOTS,
+    ), model_name=PRESET, device=model.device)
+    kv = server._kv
+    kv_rec = _instrument_kv(kv)
+    reg_rec = _instrument_registry(server._adapter_registry)
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    try:
+        t0 = time.perf_counter()
+        wave1 = [a["tokens"][0] for a in _post_all(url, traffic["wave1"])]
+        wall = time.perf_counter() - t0
+        burst = _post_all(url, traffic["burst"], codes=True)
+        during = _http(url + "/statsz")
+        _post_all(url, traffic["flood"])
+        spilled = _http(url + "/statsz")["kv"]["spill"]
+        t0 = time.perf_counter()
+        wave2 = [a["tokens"][0] for a in _post_all(url, traffic["wave2"])]
+        wall += time.perf_counter() - t0
+        stats = _http(url + "/statsz")
+        # the shared prefix came back from the spill tier into fresh pages:
+        # they hold exactly the bytes that were demoted
+        prefix = traffic["prefix"]  # acme's, in the namespace of its adapter
+        head = page_hashes(prefix, kv.layout.page_tokens, kv.prefix.hash_fn, "a1")[-1]
+        check(head in kv_rec["demoted"], f"{name}: the shared prefix was never demoted")
+        with kv._lock:
+            _, pages = kv.prefix.peek(prefix + [0], max_tokens=len(prefix), namespace="a1")
+            restored = [[kv.cache[i][f][pid].cpu() for i, f in kv.leaves] for pid in pages]
+        want = kv_rec["demoted"][head].pages
+        check(len(restored) == len(want) == SERVE_PREFIX // kv.layout.page_tokens,
+              f"{name}: {len(restored)} prefix pages resident after the restore, "
+              f"{len(want)} demoted")
+        check(all(torch.equal(a, b) for pa, pb in zip(restored, want)
+                  for a, b in zip(pa, pb)),
+              f"{name}: the restored prefix pages differ from the demoted bytes")
+    finally:
+        server.stop()
+    after = server.stats()
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    # the capped tenant's burst: tenant_quota at initech alone, the rest served
+    initech = [c for (c, _), b in zip(burst, traffic["burst"]) if b.get("tenant") == "initech"]
+    quota = [o.get("reason") for c, o in burst if c != 200]
+    check(set(quota) == {"tenant_quota"} and initech.count(503) == len(quota) >= 1,
+          f"{name}: the burst answered {[c for c, _ in burst]} ({quota})")
+    check(burst[-1][0] == 200, f"{name}: the default row of the burst was refused")
+    shed = during["tenancy"]["tenants"]
+    check(shed["initech"]["shed"] == len(quota) and all(
+        v["shed"] == 0 for t, v in shed.items() if t != "initech"),
+        f"{name}: sheds by tenant {shed}")
+    kv_after = after["kv"]
+    check(kv_after["active_rows"] == 0 and kv_after["pages_reserved"] == 0
+          and kv_after["pages_used"] == 1 + kv_after["prefix"]["held_pages"],
+          f"{name}: pages leaked: {kv_after}")
+    ten = after["tenancy"]
+    check(all(a["refs"] == 0 for a in ten["adapters"]["adapters"].values()),
+          f"{name}: an adapter slot is still pinned: {ten['adapters']}")
+    check(all(t["outstanding"] == 0 and t["tokens"] == 0 for t in ten["tenants"].values()),
+          f"{name}: a tenant is still charged: {ten['tenants']}")
+    spill = stats["kv"]["spill"]
+    check(spilled["spills"] >= 1, f"{name}: the flood demoted nothing: {spilled}")
+    tier = "restored_disk" if not config["spill_ram_bytes"] else "restored_ram"
+    check(spill["restores"] >= 1 and spill[tier] >= 1,
+          f"{name}: the prefix was not restored from {tier}: {spill}")
+    check(ten["adapters"]["restores"] >= 1 and ten["adapters"]["evictions"] >= 1,
+          f"{name}: no adapter was evicted and restored: {ten['adapters']}")
+    admitted = [o["tokens"][0] for (c, o), b in zip(burst, traffic["burst"]) if c == 200]
+    bodies = traffic["wave1"] + [b for (c, _), b in zip(burst, traffic["burst"]) if c == 200] \
+        + traffic["wave2"]
+    generated = TENANT_NEW * (len(traffic["wave1"]) + len(traffic["wave2"]))
+    adapter_load = server._m_adapter_load.summary()
+    line = {
+        "phase": "serve-tenants", "config": name, "device": device_line(),
+        "requests": len(traffic["wave1"]) + len(traffic["burst"]) + len(traffic["flood"])
+        + len(traffic["wave2"]), "new_tokens": TENANT_NEW,
+        "waves_decode_tokens_per_s": generated / wall,
+        "ttft_ms_p50": stats["ttft_ms"]["p50"], "ttft_ms_p95": stats["ttft_ms"]["p95"],
+        "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+        "burst_codes": [c for c, _ in burst], "tenant_quota_sheds": len(quota),
+        "adapter_loads": ten["adapters"]["loads"], "adapter_restores": ten["adapters"]["restores"],
+        "adapter_evictions": ten["adapters"]["evictions"],
+        "adapter_load_ms_p50": adapter_load["p50"], "adapter_load_ms_max": adapter_load["max"],
+        "adapter_cold_load_ms": reg_rec["load_ms"], "adapter_restore_ms": reg_rec["restore_ms"],
+        "adapter_spill_bytes": ten["adapter_spill"]["spilled_bytes"],
+        "kv_spills": spill["spills"], "kv_spill_bytes": spill["spilled_bytes"],
+        "kv_restores": spill["restores"], "restored_ram": spill["restored_ram"],
+        "restored_disk": spill["restored_disk"],
+        "restore_host_ms": kv_rec["restore_host_ms"],
+        "restore_flush_ms": kv_rec["restore_flush_ms"],
+        "mirror_pages": kv_rec["mirror_pages"],
+        "mirror_ms_per_page": (sum(kv_rec["mirror_ms"]) / kv_rec["mirror_pages"]
+                               if kv_rec["mirror_pages"] else None),
+        "page_bytes": sum(t.numel() * t.element_size() for t in want[0]),
+        "prefix_hits": stats["kv"]["prefix"]["hits"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(line)
+    return {"rows": wave1 + admitted + wave2, "bodies": bodies, "module": server.module,
+            "line": line}
+
+
+def _one_shot_logits(module, tokens: list, int8: bool):
+    """The reference path's next-token logits after `tokens` (f32): one B=1
+    prefill with no adapter_ix (slot 0) — through a dense cache on the bf16
+    module, through a direct int8 pool on the int8 one (as
+    int8_pool_rows's prefill)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+
+    dev = module.device
+    x = torch.tensor([tokens], device=dev)
+    if not int8:
+        return module(x, cache=module.make_cache(1), pos=0)[0, -1].float()
+    pt = SERVE_CONFIGS["step"]["kv_page_tokens"]
+    n_pages = -(-len(tokens) // pt)
+    layout = PagedKVLayout(pt, 1 + n_pages, kv_quant="int8")
+    table = torch.arange(1, 1 + n_pages, device=dev)[None]
+    return module(x, cache=make_paged_cache(module, layout), pad=torch.zeros(1, dtype=torch.long,
+                  device=dev), pages=table, pos=0, kv_layout=layout)[0, -1].float()
+
+
+def edge_flip(raw, got: int, ref: int, sample) -> bool:
+    """Whether a top-k sampled row's divergence is a flip at the mask's
+    edge: one of the two tokens lies within TENANT_EDGE_ULPS bf16 ulps of
+    the k-th logit of `raw` (the reference's logits), and the sampler's pick
+    on `raw` is one of the two tokens with that token in the mask and the
+    other with it out — paths that round differently put it on either side."""
+    import math
+
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import _gumbel
+
+    temperature, top_k, seed, g = sample
+    kth = float(torch.topk(raw, top_k).values[-1])
+    ulp = 2.0 ** (math.floor(math.log2(abs(kth))) - 7)
+    picked = sampler_logits(raw, sample)
+    noised = raw / temperature + _gumbel(raw.shape, seed, g, raw.device)
+    for t in (got, ref):
+        if abs(float(raw[t]) - kth) > TENANT_EDGE_ULPS * ulp:
+            continue
+        inside, outside = picked.clone(), picked.clone()
+        inside[t], outside[t] = noised[t], float("-inf")
+        if {int(torch.argmax(inside)), int(torch.argmax(outside))} == {got, ref}:
+            return True
+    return False
+
+
+def tenant_references(module, bodies: list, rows: list, int8: bool) -> dict:
+    """Each served row against its solo reference: the served slot-stacked
+    module with the row's adapter (the tenant's, or the checkpoint's own for
+    the default tenant) in slot 0 and no adapter_ix — generate() on the
+    bf16 module, or the int8 module on a direct int8 pool (int8_pool_rows)
+    for the int8 config. A row equals its reference or diverges where the
+    reference's top-2 gap over its top logit (for a sampled row: of the
+    logits its sampler compares) is under TENANT_NEAR_TIE — or, for a top-k
+    sampled row, at the mask's edge (edge_flip)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import generate
+    from polyaxon_tpu_torch.serving.adapters import adapter_template, ref_path, synth_adapter
+
+    template = adapter_template(module)
+    sources = dict(TENANT_ADAPTERS)
+    by_tenant = {t["name"]: t["adapter"] for t in TENANTS}
+    leaves = {ref_path(n): p for n, p in module.named_parameters() if ref_path(n) in template}
+    saved = {p: t.detach().clone() for p, t in leaves.items()}
+    groups: dict = {}
+    for i, b in enumerate(bodies):
+        groups.setdefault(by_tenant.get(b.get("tenant"), ""), []).append(i)
+    divergences, equal = [], 0
+    with torch.inference_mode():
+        for adapter, idx in groups.items():
+            values = (synth_adapter(template, int(sources[adapter][len("seed:"):]))
+                      if adapter else {p: t[0] for p, t in saved.items()})
+            for p, t in leaves.items():
+                t[0].copy_(values[p].to(t.device, t.dtype))
+            samples = [
+                (bodies[i]["temperature"], bodies[i]["topK"], bodies[i]["seed"])
+                if "temperature" in bodies[i] else None for i in idx
+            ]
+            prompts = [bodies[i]["tokens"][0] for i in idx]
+            if int8:
+                refs, _ = int8_pool_rows(module, prompts, new=TENANT_NEW, samples=samples)
+            else:
+                refs = [
+                    generate(module, torch.tensor([p]), max_new_tokens=TENANT_NEW,
+                             **({} if s is None else
+                                {"temperature": s[0], "top_k": s[1], "seed": [s[2]]})
+                             )[0].tolist()
+                    for p, s in zip(prompts, samples)
+                ]
+            for k, i in enumerate(idx):
+                got, ref, plen = rows[i], refs[k], len(prompts[k])
+                if got == ref:
+                    equal += 1
+                    continue
+                j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
+                check(j >= plen, f"row {i}: a response changed its prompt")
+                raw = _one_shot_logits(module, ref[:j], int8)
+                sample = None if samples[k] is None else (*samples[k], j - plen)
+                gap = top2_gap(raw if sample is None else sampler_logits(raw, sample))
+                edge = sample is not None and edge_flip(raw, got[j], ref[j], sample)
+                divergences.append({
+                    "row": i, "adapter": adapter or "base", "sampled": sample is not None,
+                    "position": j - plen, "served": got[j], "reference": ref[j],
+                    "gap_rel": gap, "top_k_edge_flip": edge,
+                    "near_tie": gap < TENANT_NEAR_TIE or edge,
+                })
+        for p, t in leaves.items():
+            t.copy_(saved[p])
+    return {"rows": len(rows), "rows_equal": equal, "near_tie": TENANT_NEAR_TIE,
+            "divergences": divergences}
+
+
+def profile_tenant_step(lmodel, stacked: dict) -> dict:
+    """One decode step at B=PROFILE_BATCH, frontier PROFILE_SLOTS, on the
+    paged pool: the LoRA model with its one adapter, then the served
+    slot-stacked modules with the rows on different slots (bf16 pool; the
+    int8 module on the int8 pool, whose step must still launch int8_matmul
+    4 times a layer). Emits each step's time, launches and device time
+    (profile_step) and the launches the slots add."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+
+    B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, lmodel.device
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, lmodel.cfg.vocab_size, (B, 1), generator=gen).to(dev)
+    pad = torch.zeros(B, dtype=torch.long, device=dev)
+    ix = torch.tensor([(b % (TENANT_SLOTS + 1)) for b in range(B)], device=dev)
+    lines = {}
+    for name, module, quant in (("lora", lmodel, "none"),
+                                ("lora-slots", stacked["tenants"], "none"),
+                                ("int8-slots", stacked["tenants-int8"], "int8")):
+        layout = PagedKVLayout(128, 1 + B * -(-S // 128), kv_quant=quant)
+        n_pages = layout.pages_for(S)
+        tables = 1 + torch.arange(B * n_pages, device=dev).reshape(B, n_pages)
+        pool = make_paged_cache(module, layout)
+        kw = {} if name == "lora" else {"adapter_ix": ix}
+
+        def step(module=module, pool=pool, tables=tables, layout=layout, kw=kw):
+            return module(tok, cache=pool, pos=S - 1, pad=pad, pages=tables, kv_layout=layout,
+                          **kw)
+
+        fields = {"phase": "serve-tenants-profile", "path": name, "batch": B, "frontier": S,
+                  "adapter_slots": None if name == "lora" else [int(i) for i in ix]}
+        if quant == "int8":
+            before = INT8_MATMUL.launches
+            step()
+            torch.cuda.synchronize()
+            n = INT8_MATMUL.launches - before
+            want = len(INT8_LAYER) * module.cfg.n_layers
+            check(n == want, f"an int8 step with adapter slots launched int8_matmul {n} "
+                  f"times, not {want}")
+            fields["int8_matmul_launches_a_step"] = n
+        lines[name] = profile_step(step, fields)
+        del pool
+        torch.cuda.empty_cache()
+    added = lines["lora-slots"]["kernel_launches"] - lines["lora"]["kernel_launches"]
+    emit({"phase": "serve-tenants-step", "device": device_line(),
+          "step_ms_lora": lines["lora"]["step_ms_median"],
+          "step_ms_lora_slots": lines["lora-slots"]["step_ms_median"],
+          "step_ms_int8_slots": lines["int8-slots"]["step_ms_median"],
+          "launches_lora": lines["lora"]["kernel_launches"],
+          "launches_lora_slots": lines["lora-slots"]["kernel_launches"],
+          "launches_added_by_slots": added})
+    return lines
+
+
+def phase_serve_tenants(lmodel) -> dict:
+    """Multi-tenant serving on the full-width LoRA model, the path whose
+    launches are counted: the step config on the tenants' LoRA model without
+    tenants (the yardstick for decode tokens/s), then `tenants` and
+    `tenants-int8` under tenant_traffic. Returns each config's
+    run_tenant_config result by name, for check_tenant_rows and
+    profile_tenant_step once the counts are read."""
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    traffic = tenant_traffic(lmodel.cfg.vocab_size)
+    # the yardstick: the same two waves, tenant-less, on the step config
+    plain = [{k: v for k, v in b.items() if k != "tenant"}
+             for b in traffic["wave1"] + traffic["wave2"]]
+    server = ModelServer(lmodel, None, ServingConfig(**SERVE_BASE, **TENANT_STEP),
+                         model_name=PRESET, device=lmodel.device)
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    try:
+        t0 = time.perf_counter()
+        _post_all(url, plain[:len(traffic["wave1"])])
+        _post_all(url, plain[len(traffic["wave1"]):])
+        wall = time.perf_counter() - t0
+        stats = _http(url + "/statsz")
+    finally:
+        server.stop()
+    emit({"phase": "serve-tenants", "config": "step-lora", "device": device_line(),
+          "waves_decode_tokens_per_s": TENANT_NEW * len(plain) / wall,
+          "ttft_ms_p50": stats["ttft_ms"]["p50"], "ttft_ms_p95": stats["ttft_ms"]["p95"],
+          "decode_step_ms_p50": stats["decode_step_ms"]["p50"]})
+    del server
+    return {name: run_tenant_config(lmodel, name, traffic) for name in TENANT_CONFIGS}
+
+
+def check_tenant_rows(served: dict) -> None:
+    """Each config's served rows against their solo references
+    (tenant_references): equal, or diverging only at a near-tie."""
+    for name, out in served.items():
+        t0 = time.perf_counter()
+        ref = tenant_references(out["module"], out["bodies"], out["rows"],
+                                int8=TENANT_CONFIGS[name].get("quantize", False))
+        emit({"phase": "serve-tenants-rows", "config": name, **ref,
+              "seconds": time.perf_counter() - t0})
+        bad = [d for d in ref["divergences"] if not d["near_tie"]]
+        check(not bad, f"{name}: rows diverge from their solo references past a near-tie: {bad}")
 
 
 def _device_time_us(evt) -> float:
@@ -2124,6 +2751,26 @@ def main() -> int:
         check_int8_rows(qmodel, batched["waves"], int8_answers)
         int8_teacher_forced(model, qmodel)
         del model, warm, qmodel, batched
+        torch.cuda.empty_cache()
+        phase_lora_card()  # the plain pieces, before the path is counted
+        lmodel = build_model(
+            "transformer_lm", {"preset": PRESET, "attention": "flash",
+                               "lora_rank": TENANT_RANK},
+            device="cuda", dtype=torch.bfloat16, seed=0,
+        ).module.eval()
+        for kern in KERNELS:  # the multi-tenant path starts here
+            kern.launches = 0
+        served = phase_serve_tenants(lmodel)
+        tenants = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        # the int8 config's projections (prefill and decode) with adapters
+        emit({"phase": "serve-tenants-launches", "launches": tenants})
+        check(tenants["int8_matmul"] > 0, "tenants-int8 never launched int8_matmul")
+        for name, n in tenants.items():
+            launches[name] += n
+        check_tenant_rows(served)
+        profile_tenant_step(lmodel, {name: out["module"] for name, out in served.items()})
+        del lmodel, served
+        gc.collect()
     torch.cuda.empty_cache()
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
     for name, n in phase_train().items():

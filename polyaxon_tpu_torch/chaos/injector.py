@@ -1,5 +1,6 @@
 """Process-level fault injection (failpoint style), an own copy of
-`polyaxon_tpu/chaos/injector.py` for the trainer and its checkpoints.
+`polyaxon_tpu/chaos/injector.py` for the trainer, its checkpoints and the
+serving spill tier.
 
 Instrumented sites call `inject("<point>", **ctx)`, a module-global None
 check when no plan is armed:
@@ -7,10 +8,16 @@ check when no plan is armed:
     trainer.step       ctx: step                       — each loop iteration
     checkpoint.save    ctx: step, directory, manager   — after a save starts
     checkpoint.upload  ctx: step, src, directory       — before the publish
+    kv.spill           ctx: h, path, phase             — a spill segment's
+                                                         meta / payload frames
+    kv.restore         ctx: h, pages                   — a restore mid-way
+    serving.adapter_restore ctx: name, slot, restored  — before a slot write
 
 The actions are real: "sigterm" sends a SIGTERM to this process (the
 preemption handler runs end to end), "corrupt_checkpoint" overwrites the
-files just written. Only "kill" is simulated: `SimulatedKill` stands in for
+files just written, "scramble_tail" appends seeded garbage to a spill
+segment (then dies); `corrupt_segment_frame` flips a byte of a segment's
+first frame (bit rot). Only "kill" is simulated: `SimulatedKill` stands in for
 a SIGKILL, which no in-process harness survives to observe.
 """
 
@@ -96,7 +103,44 @@ def _perform(fault: Fault, point: str, ctx: dict) -> None:
             mgr.wait_until_finished()
         corrupt_checkpoint(ctx["directory"], step=ctx.get("step"))
         return
+    if fault.action == "scramble_tail":
+        # a crash mid-append as the disk sees it: some garbage bytes made it
+        # into the segment, then the process died; recovery must truncate
+        # back to the last whole frame
+        scramble_tail(ctx["path"], _active.rng("scramble_tail"))
+        raise SimulatedKill(fault.message)
     raise ValueError(f"unknown chaos action {fault.action!r}")
+
+
+def scramble_tail(path: str, rng) -> int:
+    """Append 5-40 seeded garbage bytes to a segment — the torn tail a power
+    cut leaves. Returns the number of bytes appended."""
+    n = rng.randrange(5, 40)
+    garbage = bytes(rng.randrange(256) for _ in range(n))
+    with open(path, "ab") as f:
+        f.write(garbage)
+    return n
+
+
+def corrupt_segment_frame(path: str) -> None:
+    """Flip one payload byte of the FIRST frame of a framed segment (its CRC
+    now mismatches with valid data after it: the 'corrupt' verdict, not
+    'torn'). No-op on segments without a whole first frame."""
+    import struct
+
+    header = struct.Struct("<II")
+    p = Path(path)
+    try:
+        data = bytearray(p.read_bytes())
+    except OSError:
+        return
+    if len(data) < header.size:
+        return
+    length, _ = header.unpack_from(data, 0)
+    if length <= 0 or header.size + length > len(data):
+        return
+    data[header.size] ^= 0xFF
+    p.write_bytes(bytes(data))
 
 
 def corrupt_checkpoint(directory: str, step: Optional[int] = None) -> int:

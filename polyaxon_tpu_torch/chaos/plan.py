@@ -25,7 +25,8 @@ class Fault:
     action:  "raise" (TransientError), "raise_permanent" (PermanentError),
              "kill" (simulated SIGKILL), "sigterm" (a real SIGTERM to this
              process: the preemption notice), "corrupt_checkpoint" (scramble
-             the step just written) or "sleep" (stall `delay_ms`).
+             the step just written), "scramble_tail" (a spill segment's
+             torn tail, then a kill) or "sleep" (stall `delay_ms`).
     at:      fire on the Nth hit of the point (0-based) when `step` is None.
     count:   how many times the fault fires before it is spent.
     step:    when set, fire on the hit whose ctx carries this step.
@@ -60,6 +61,11 @@ class FaultPlan:
         self.faults = list(faults)
         self.params = dict(params or {})
         self._hits: dict[str, int] = {}
+
+    def rng(self, salt: str) -> random.Random:
+        """Deterministic sub-stream for `salt`, so two injectors never share
+        (and thus perturb) one stream."""
+        return random.Random(f"{self.seed}:{salt}")
 
     def fire(self, point: str, **ctx) -> Optional[Fault]:
         """Record a hit of `point`; return the fault due now (consuming one

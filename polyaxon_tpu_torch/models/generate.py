@@ -15,7 +15,9 @@ group), `paged_prefill_chunk` (one slice of a chunked prefill) and
 `paged_step` (one continuous-batching step at per-row frontiers). They
 update the pool in place where the reference donates it to its compiled
 programs; the reference's `jit_*` factories have no counterpart. The pool
-may be int8 (`kv_quant="int8"`: int8 payloads and f32 scales).
+may be int8 (`kv_quant="int8"`: int8 payloads and f32 scales). On a
+slot-stacked model (multi-tenant serving) every decode function takes
+`adapter_ix` [B], each row's adapter slot (None = slot 0 for every row).
 
 `beam_search`: the reference's HF-style beam search over the dense cache,
 prefilled once per row and tiled to the beams.
@@ -110,11 +112,8 @@ def generate(
     [B] the prompt is LEFT-padded to P: row b's tokens are
     `prompt[b, P - prompt_lengths[b]:]`, pad slots never attend and rotary
     positions shift per row. With `eos_id`, a row that feeds a generated
-    eos emits eos from then on."""
-    if adapter_ix is not None:
-        raise NotImplementedError(
-            "adapter_ix (multi-tenant LoRA slots) is not ported yet (ROADMAP.md)"
-        )
+    eos emits eos from then on. `adapter_ix` [B]: each row's adapter slot
+    on a slot-stacked model."""
     cfg = module.cfg
     device = module.device
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
@@ -140,14 +139,14 @@ def generate(
         return _sample(logits, seeds[0], index, temperature, top_k)
 
     cache = module.make_cache(B)
-    logits = module(prompt, cache=cache, pos=0, pad=pad)
+    logits = module(prompt, cache=cache, pos=0, pad=pad, adapter_ix=adapter_ix)
     buf = torch.zeros((B, total), dtype=torch.long, device=device)
     buf[:, :P] = prompt
     buf[:, P] = sample(logits[:, -1].float(), 0)
     done = torch.zeros(B, dtype=torch.bool, device=device)
     for t in range(P, total - 1):  # t = position of the token being fed
         tok = buf[:, t:t + 1]
-        logits = module(tok, cache=cache, pos=t, pad=pad)
+        logits = module(tok, cache=cache, pos=t, pad=pad, adapter_ix=adapter_ix)
         # per-row streams key on generation index (invariant to the pad);
         # the scalar stream keys on absolute position, as in the reference
         nxt = sample(logits[:, -1].float(), (t - P + 1) if per_row else t)
@@ -199,6 +198,7 @@ def _as_long(x, device):
 def paged_prefill(
     module, cache, prompt, *, pad, pages, kv_layout: PagedKVLayout,
     prefix_len: int, temperature: float, top_k: Optional[int], seeds,
+    adapter_ix=None,
 ) -> torch.Tensor:
     """Prefill `prompt` [B, S] (LEFT-padded suffixes when a shared prefix of
     `prefix_len` tokens is already in the pool) through the page tables,
@@ -208,7 +208,7 @@ def paged_prefill(
     logits = module(
         _as_long(prompt, dev), cache=cache, pad=_as_long(pad, dev),
         pages=_as_long(pages, dev), pos=int(prefix_len), kv_layout=kv_layout,
-        prefix_len=int(prefix_len),
+        prefix_len=int(prefix_len), adapter_ix=adapter_ix,
     )
     return _sample_rows(logits[:, -1].float(), _host_ints(seeds), 0, temperature, top_k)
 
@@ -217,7 +217,7 @@ def paged_prefill(
 def paged_decode_chunk(
     module, cache, tok, done, *, steps: int, pos: int, start_g: int, pad,
     pages, kv_layout: PagedKVLayout, prefix_len: int, temperature: float,
-    top_k: Optional[int], eos_id: Optional[int], seeds,
+    top_k: Optional[int], eos_id: Optional[int], seeds, adapter_ix=None,
 ) -> tuple:
     """Run `steps` cached decode steps through the page tables.
 
@@ -235,7 +235,7 @@ def paged_decode_chunk(
     for i in range(int(steps)):
         logits = module(
             tok[:, None], cache=cache, pad=pad, pages=pages, pos=int(pos) + i,
-            kv_layout=kv_layout, prefix_len=int(prefix_len),
+            kv_layout=kv_layout, prefix_len=int(prefix_len), adapter_ix=adapter_ix,
         )
         nxt = _sample_rows(logits[:, -1].float(), seeds, int(start_g) + i,
                            temperature, top_k)
@@ -251,7 +251,7 @@ def paged_decode_chunk(
 def paged_prefill_chunk(
     module, cache, chunk, *, pad, pages, kv_layout: PagedKVLayout,
     prefix_lens, pos: int, temperature: float = 0.0,
-    top_k: Optional[int] = None, seeds=None, final: bool = False,
+    top_k: Optional[int] = None, seeds=None, final: bool = False, adapter_ix=None,
 ):
     """Write one prefill slice `chunk` [B, C] (columns [pos - prefix, ...) of
     each row's LEFT-padded suffix) into slots [pos, pos + C). A non-final
@@ -263,6 +263,7 @@ def paged_prefill_chunk(
     kwargs = dict(
         cache=cache, pad=_as_long(pad, dev), pages=_as_long(pages, dev),
         pos=int(pos), kv_layout=kv_layout, prefix_lens=_as_long(prefix_lens, dev),
+        adapter_ix=adapter_ix,
     )
     chunk = _as_long(chunk, dev)
     if not final:
@@ -276,7 +277,7 @@ def paged_prefill_chunk(
 def paged_step(
     module, cache, tok, done, *, pad, prefix_lens, pages,
     kv_layout: PagedKVLayout, pos, g, seeds, temperature: float,
-    top_k: Optional[int], eos_id: Optional[int],
+    top_k: Optional[int], eos_id: Optional[int], adapter_ix=None,
 ) -> tuple:
     """ONE decode step of a continuous batch: feed `tok` [B] at per-row
     frontiers `pos` [B] and sample each row's next token at its own
@@ -289,6 +290,7 @@ def paged_step(
         tok[:, None], cache=cache, pad=_as_long(pad, dev),
         pages=_as_long(pages, dev), pos=np.asarray(_host_ints(pos)),
         kv_layout=kv_layout, prefix_lens=_as_long(prefix_lens, dev),
+        adapter_ix=adapter_ix,
     )
     nxt = _sample_rows(logits[:, -1].float(), _host_ints(seeds), _host_ints(g),
                        temperature, top_k)

@@ -21,6 +21,9 @@ prefixes are keyed by a ROLLING chain hash over page-aligned token
 chunks (hash of page k commits to pages 0..k), so a lookup walks the
 chain and returns the longest cached prefix whose token content
 VERIFIES (hash collisions degrade to misses, never to wrong KV).
+A `namespace` seeds the chain: K/V that depend on more than the tokens
+(the adapter that projected them) live in a chain of their own, and the
+empty namespace gives the plain chain.
 Eviction is LRU over entries not referenced by any in-flight request;
 freed pages return to the pool only when their refcount drains.
 
@@ -53,14 +56,16 @@ def _default_hash(prev: Optional[str], chunk: tuple) -> str:
 
 
 def page_hashes(
-    tokens, page_tokens: int, hash_fn: Optional[HashFn] = None
+    tokens, page_tokens: int, hash_fn: Optional[HashFn] = None, namespace: str = ""
 ) -> list[str]:
     """Chain hashes for every FULL page of `tokens`: entry k (0-based)
-    commits to tokens[: (k+1) * page_tokens]. Partial tail pages are not
-    addressable — prefix reuse is token-page-aligned by design."""
+    commits to tokens[: (k+1) * page_tokens] and to `namespace`. Partial
+    tail pages are not addressable — prefix reuse is token-page-aligned by
+    design."""
     fn = hash_fn or _default_hash
     out: list[str] = []
-    prev: Optional[str] = None
+    # a digest is hex, so no seed "ns:..." is ever another chain's link
+    prev: Optional[str] = f"ns:{namespace}" if namespace else None
     for i in range(len(tokens) // page_tokens):
         chunk = tuple(int(t) for t in tokens[i * page_tokens:(i + 1) * page_tokens])
         prev = fn(prev, chunk)
@@ -214,6 +219,7 @@ class PrefixEntry:
     pages: tuple  # pool page ids holding the prefilled K/V, in order
     tick: int  # logical LRU recency (counter, not a clock)
     active: int = 0  # in-flight requests currently reading this entry
+    namespace: str = ""  # the chain's seed (page_hashes)
 
     @property
     def n_tokens(self) -> int:
@@ -275,10 +281,10 @@ class PrefixCache:
         the full set of prefixes a router-side directory can match on."""
         return list(self._entries.keys())
 
-    def contains(self, tokens) -> bool:
+    def contains(self, tokens, namespace: str = "") -> bool:
         """True iff the FULL page-aligned content of `tokens` is indexed
-        (len must be a multiple of page_tokens)."""
-        hashes = page_hashes(tokens, self.pool.page_tokens, self.hash_fn)
+        in `namespace` (len must be a multiple of page_tokens)."""
+        hashes = page_hashes(tokens, self.pool.page_tokens, self.hash_fn, namespace)
         if not hashes:
             return False
         e = self._entries.get(hashes[-1])
@@ -286,10 +292,10 @@ class PrefixCache:
 
     # ------------------------------------------------------------ lookup
     def lookup(
-        self, tokens, max_tokens: Optional[int] = None
+        self, tokens, max_tokens: Optional[int] = None, namespace: str = ""
     ) -> tuple[int, tuple[int, ...], Optional[PrefixEntry]]:
-        """Longest verified cached prefix of `tokens` (capped at
-        `max_tokens`): (prefix_len, page_ids, entry).
+        """Longest verified cached prefix of `tokens` in `namespace` (capped
+        at `max_tokens`): (prefix_len, page_ids, entry).
 
         On a hit the entry's pages are REFERENCED for the caller and the
         entry marked active — release() when the request finishes. Walks
@@ -299,7 +305,7 @@ class PrefixCache:
         limit = len(tokens) if max_tokens is None else min(max_tokens, len(tokens))
         pt = self.pool.page_tokens
         best: Optional[PrefixEntry] = None
-        for k, h in enumerate(page_hashes(tokens[:limit], pt, self.hash_fn), 1):
+        for k, h in enumerate(page_hashes(tokens[:limit], pt, self.hash_fn, namespace), 1):
             e = self._entries.get(h)
             if e is None:
                 continue
@@ -318,7 +324,7 @@ class PrefixCache:
         return best.n_tokens, best.pages, best
 
     def peek(
-        self, tokens, max_tokens: Optional[int] = None
+        self, tokens, max_tokens: Optional[int] = None, namespace: str = ""
     ) -> tuple[int, tuple[int, ...]]:
         """Longest verified cached prefix WITHOUT refs, active marks, or
         hit/miss counter churn: (prefix_len, page_ids). A read-only probe
@@ -328,7 +334,7 @@ class PrefixCache:
         limit = len(tokens) if max_tokens is None else min(max_tokens, len(tokens))
         pt = self.pool.page_tokens
         best: Optional[PrefixEntry] = None
-        for k, h in enumerate(page_hashes(tokens[:limit], pt, self.hash_fn), 1):
+        for k, h in enumerate(page_hashes(tokens[:limit], pt, self.hash_fn, namespace), 1):
             e = self._entries.get(h)
             if e is None or e.tokens != tuple(int(t) for t in tokens[: k * pt]):
                 continue
@@ -343,9 +349,10 @@ class PrefixCache:
         self.pool.unref(pages)
 
     # ------------------------------------------------------------ insert
-    def insert(self, tokens, pages) -> bool:
-        """Index `tokens` (page-aligned length) → `pages`. Takes its own
-        refs on the pages (the caller keeps/drops its refs separately).
+    def insert(self, tokens, pages, namespace: str = "") -> bool:
+        """Index `tokens` (page-aligned length) in `namespace` → `pages`.
+        Takes its own refs on the pages (the caller keeps/drops its refs
+        separately).
         Returns False without indexing when the hash slot is taken by
         DIFFERENT content (collision: first writer wins) or the content
         is already indexed."""
@@ -359,7 +366,7 @@ class PrefixCache:
             raise ValueError(
                 f"{len(toks)} tokens need {len(toks) // pt} pages, got {len(pages)}"
             )
-        h = page_hashes(toks, pt, self.hash_fn)[-1]
+        h = page_hashes(toks, pt, self.hash_fn, namespace)[-1]
         cur = self._entries.get(h)
         if cur is not None:
             if cur.tokens != toks:
@@ -367,7 +374,7 @@ class PrefixCache:
             return False
         self._tick += 1
         self.pool.ref(pages)
-        self._entries[h] = PrefixEntry(toks, tuple(pages), self._tick)
+        self._entries[h] = PrefixEntry(toks, tuple(pages), self._tick, namespace=namespace)
         self.inserts += 1
         if self.max_pages is not None:
             self.evict_to(self.max_pages)

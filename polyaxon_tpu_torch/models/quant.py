@@ -16,7 +16,10 @@ reference's byte for byte. `Int8Linear` then computes
 kernel on the card, its plain version on the CPU; no dequantized copy of a
 weight is ever written. Embedding, lm_head and the norms stay at full
 precision. LoRA projections quantize their frozen base and keep the
-adapters (`lora_a`, `lora_b`) at checkpoint precision (`Int8LoRALinear`).
+adapters (`lora_a`, `lora_b`) at checkpoint precision (`Int8LoRALinear`),
+single or slot-stacked for multi-tenant serving: `project` still runs the
+int8 products of q/k/v and gate/up as one grouped launch, and each member
+adds its own per-row adapter delta after it.
 
 The same per-vector scheme backs the int8 paged KV pool: `quantize_kv`
 maps each slot's per-head K/V vector to an int8 payload plus one f32 scale,
@@ -37,6 +40,7 @@ import torch
 from torch import nn
 
 from ..ops.int8_matmul import int8_matmul, int8_matmul_group
+from .lora import lora_delta, run_proj
 
 # the seven decode projections; everything else (embed, lm_head, norms,
 # lora_a/b) stays at checkpoint precision
@@ -61,12 +65,13 @@ class Int8Linear(nn.Module):
             "scale", torch.ones(out_features, dtype=torch.float32, device=device)
         )
 
-    def forward(self, x):
-        return self.adapt(x, int8_matmul(x, self.weight, self.scale))
+    def forward(self, x, adapter_ix=None):
+        return self.adapt(x, int8_matmul(x, self.weight, self.scale), adapter_ix)
 
-    def adapt(self, x, y):
+    def adapt(self, x, y, adapter_ix=None):
         """What the projection adds to its int8 product `y` of `x`:
-        nothing here (a LoRA projection adds its adapter delta)."""
+        nothing here (a LoRA projection adds its adapter delta, per row
+        by `adapter_ix` when its adapters are slot-stacked)."""
         return y
 
     def extra_repr(self) -> str:
@@ -76,29 +81,33 @@ class Int8Linear(nn.Module):
 class Int8LoRALinear(Int8Linear):
     """The int8 base of a LoRA projection plus its fp adapters:
     y = int8(x) + (alpha / r)(x A) B, with `lora_a` [in, r] and `lora_b`
-    [r, out] in the reference's orientation."""
+    [r, out] in the reference's orientation — or, with `slots > 0`,
+    [slots, in, r] and [slots, r, out] gathered per row (`models/lora.py`)."""
 
-    def __init__(self, in_features, out_features, rank, alpha, device=None, dtype=None):
+    def __init__(self, in_features, out_features, rank, alpha, slots: int = 0,
+                 device=None, dtype=None):
         super().__init__(in_features, out_features, device=device)
-        self.rank, self.alpha = rank, alpha
+        self.rank, self.alpha, self.slots = rank, alpha, slots
         factory = dict(device=device, dtype=dtype)
-        self.lora_a = nn.Parameter(torch.zeros(in_features, rank, **factory))
-        self.lora_b = nn.Parameter(torch.zeros(rank, out_features, **factory))
+        lead = (slots,) if slots > 0 else ()
+        self.lora_a = nn.Parameter(torch.zeros(*lead, in_features, rank, **factory))
+        self.lora_b = nn.Parameter(torch.zeros(*lead, rank, out_features, **factory))
 
-    def adapt(self, x, y):
-        delta = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+    def adapt(self, x, y, adapter_ix=None):
+        delta = lora_delta(x, self.lora_a, self.lora_b, adapter_ix)
         return y + (self.alpha / self.rank) * delta
 
 
-def project(x, projs) -> tuple:
+def project(x, projs, adapter_ix=None) -> tuple:
     """Each of `projs` applied to the same `x`: where all are int8
     (`Int8Linear`, LoRA ones included) their int8 products come from one
-    grouped kernel launch and each adds its own adapter delta; any other
-    set (nn.Linear, LoRADense, a mix) calls each projection in turn."""
+    grouped kernel launch and each adds its own adapter delta (per row by
+    `adapter_ix` [B] on slot-stacked adapters); any other set (nn.Linear,
+    LoRADense, a mix) calls each projection in turn."""
     if len(projs) > 1 and all(isinstance(p, Int8Linear) for p in projs):
         ys = int8_matmul_group(x, [(p.weight, p.scale) for p in projs])
-        return tuple(p.adapt(x, y) for p, y in zip(projs, ys))
-    return tuple(p(x) for p in projs)
+        return tuple(p.adapt(x, y, adapter_ix) for p, y in zip(projs, ys))
+    return tuple(run_proj(p, x, adapter_ix) for p in projs)
 
 
 def quantize_kernel(w) -> tuple[torch.Tensor, torch.Tensor]:

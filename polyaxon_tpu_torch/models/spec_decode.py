@@ -23,6 +23,9 @@ Rollback is free: a rejected draft's K/V sits in slots the next window
 rewrites before any query attends them, and the live mask keeps them dead
 meanwhile. On the paged pool writes past a row's table are dropped.
 
+On a slot-stacked model every verify forward takes the rows' adapter
+slots (`adapter_ix`); the drafts, n-gram or draft model, ride slot 0.
+
 Sampled speculation needs per-row seeds: a scalar-seed stream keys on
 absolute position and cannot be replayed once rows accept different
 lengths, so `spec_generate` raises on it. The verify functions are plain
@@ -118,21 +121,23 @@ def _verify_targets(logits, fed, seeds, start_g, done, *, temperature: float,
 
 @torch.inference_mode()
 def spec_prefill(module, prompt, pad, seeds, *, temperature: float,
-                 top_k: Optional[int]):
+                 top_k: Optional[int], adapter_ix=None):
     """Dense prefill of the speculative path: (cache, first [B]) — the math
     of generate()'s prefill, generation index 0 sampled per row."""
     dev = module.device
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=dev)
     cache = module.make_cache(prompt.shape[0])
     logits = module(prompt, cache=cache, pos=0,
-                    pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev))
+                    pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev),
+                    adapter_ix=adapter_ix)
     first = _sample_rows(logits[:, -1].float(), _host_ints(seeds), 0, temperature, top_k)
     return cache, first
 
 
 @torch.inference_mode()
 def spec_verify(module, cache, fed, done, pad, seeds, pos, start_g, *,
-                temperature: float, top_k: Optional[int], eos_id: Optional[int]):
+                temperature: float, top_k: Optional[int], eos_id: Optional[int],
+                adapter_ix=None):
     """One dense verify window: feed `fed` [B, K+1] at per-row frontiers
     `pos` [B] (the cache is written in place; slots past seq_len drop) →
     (targets [B, K+1], accept [B]) as numpy."""
@@ -140,7 +145,7 @@ def spec_verify(module, cache, fed, done, pad, seeds, pos, start_g, *,
     logits = module(
         torch.as_tensor(np.asarray(fed), dtype=torch.long, device=dev), cache=cache,
         pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev),
-        pos=np.asarray(pos, np.int64),
+        pos=np.asarray(pos, np.int64), adapter_ix=adapter_ix,
     )
     targets, accept = _verify_targets(logits, fed, seeds, start_g, done,
                                       temperature=temperature, top_k=top_k, eos_id=eos_id)
@@ -150,7 +155,8 @@ def spec_verify(module, cache, fed, done, pad, seeds, pos, start_g, *,
 @torch.inference_mode()
 def spec_verify_paged(module, cache, fed, done, pad, pages, seeds, pos, start_g, *,
                       kv_layout: PagedKVLayout, prefix_len: int = 0, prefix_lens=None,
-                      temperature: float, top_k: Optional[int], eos_id: Optional[int]):
+                      temperature: float, top_k: Optional[int], eos_id: Optional[int],
+                      adapter_ix=None):
     """One paged verify window through the page tables `pages` [B, n_pages]
     (the pool is written in place; writes past a row's table — the
     rejected tail at its edge — drop). A shared prefix is `prefix_len`
@@ -166,7 +172,7 @@ def spec_verify_paged(module, cache, fed, done, pad, pages, seeds, pos, start_g,
         torch.as_tensor(np.asarray(fed), dtype=torch.long, device=dev), cache=cache,
         pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev),
         pages=torch.as_tensor(np.asarray(pages), dtype=torch.long, device=dev),
-        pos=np.asarray(pos, np.int64), kv_layout=kv_layout, **kw,
+        pos=np.asarray(pos, np.int64), kv_layout=kv_layout, adapter_ix=adapter_ix, **kw,
     )
     targets, accept = _verify_targets(logits, fed, seeds, start_g, done,
                                       temperature=temperature, top_k=top_k, eos_id=eos_id)
@@ -244,6 +250,7 @@ def spec_generate(
     stats: Optional[dict] = None,  # accumulates proposed/accepted/rollback
     drafter=None,  # models.draft.ModelDrafter — replaces the n-gram index
     controller=None,  # adaptive K: window_k() / observe() / tick_plain()
+    adapter_ix=None,  # [B] per-row adapter slot; None = slot 0
 ) -> torch.Tensor:
     """Speculative drop-in for generate() on the dense cache: the same
     [B, P + max_new_tokens] tokens per row (as generate() with per-row
@@ -283,7 +290,8 @@ def spec_generate(
     pad = P - lengths
 
     cache, first = spec_prefill(module, prompt, pad, seeds,
-                                temperature=temperature, top_k=top_k)
+                                temperature=temperature, top_k=top_k,
+                                adapter_ix=adapter_ix)
     first = first.cpu().numpy()
     buf = np.zeros((B, total), np.int64)
     buf[:, :P] = prompt
@@ -321,7 +329,7 @@ def spec_generate(
                     fed[b, 1:] = drafters[b].propose(k_eff) if remaining[b] > 0 else tok[b]
         targets, accept = spec_verify(
             module, cache, fed, done, pad, seeds, pos, start_g,
-            temperature=temperature, top_k=top_k, eos_id=eos_id,
+            temperature=temperature, top_k=top_k, eos_id=eos_id, adapter_ix=adapter_ix,
         )
         committed, done, remaining, eos_hit, delta = commit_window(
             fed, targets, accept, remaining, done, eos_id

@@ -28,6 +28,13 @@ where LoRA applies. q/k/v and gate/up, each read from one input, then
 run as one grouped int8 launch (`models.quant.project`): 4 launches a
 layer instead of 7.
 
+Multi-tenant serving (`adapter_slots > 0`, set by
+`serving.adapters.stack_adapter_params` at load) stacks every LoRA pair to
+[slots, ...]; the decode argument `adapter_ix` [B] picks each row's slot
+(slot 0, the checkpoint's own adapter, when it is None), so one batch mixes
+tenants (`models/lora.py`). The int8 projections keep their grouped launch
+and add each row's delta after it.
+
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
 applies it), drawn from the `dropout_generator` handed to `forward`.
@@ -35,8 +42,7 @@ applies it), drawn from the `dropout_generator` handed to `forward`.
 loss (`models/registry.py`), with `forward(return_features=True)`.
 
 Config fields this port does not serve yet raise NotImplementedError
-instead of being ignored: n_experts, pipeline_stages, adapter_slots,
-scan_layers, and the decode argument adapter_ix.
+instead of being ignored: n_experts, pipeline_stages and scan_layers.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
+from .lora import lora_delta, run_proj
 from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, project, quantize_kv
 
 
@@ -75,7 +82,11 @@ class TransformerConfig:
     # weight-only int8 projections for serving ("none" | "int8"); set by
     # models.quant.quantize_module at load, not a training config
     quant: str = "none"
-    adapter_slots: int = 0  # not ported: must stay 0
+    # multi-tenant serving: > 0 stacks every LoRA A/B pair to [slots, ...]
+    # and each row gathers its adapter by `adapter_ix`; slot 0 is the
+    # checkpoint's own adapter. Set by serving.adapters.stack_adapter_params
+    # at load, not a training config
+    adapter_slots: int = 0
     tie_embeddings: bool = False
     scan_layers: bool = False  # not ported: must stay False
     n_experts: int = 0  # not ported: must stay 0
@@ -107,7 +118,6 @@ def check_ported(cfg: TransformerConfig) -> None:
     refused = {
         "n_experts": cfg.n_experts > 0,
         "pipeline_stages": cfg.pipeline_stages > 1,
-        "adapter_slots": cfg.adapter_slots > 0,
         "scan_layers": bool(cfg.scan_layers),
     }
     bad = [name for name, hit in refused.items() if hit]
@@ -171,18 +181,21 @@ class LoRADense(nn.Linear):
     """y = x W + (alpha / r)(x A) B with a frozen base and trainable A/B.
 
     `weight` is [out, in] (nn.Linear); `lora_a` [in, r] and `lora_b`
-    [r, out] keep the reference's orientation. Only the single-adapter
-    form (the reference's slots == 0) is ported."""
+    [r, out] keep the reference's orientation. With `slots > 0` they are
+    [slots, in, r] and [slots, r, out], and each row of x gathers its slot
+    by `adapter_ix` (`models/lora.py`)."""
 
-    def __init__(self, in_features, out_features, rank, alpha, device=None, dtype=None):
+    def __init__(self, in_features, out_features, rank, alpha, slots: int = 0,
+                 device=None, dtype=None):
         super().__init__(in_features, out_features, bias=False, device=device, dtype=dtype)
-        self.rank, self.alpha = rank, alpha
+        self.rank, self.alpha, self.slots = rank, alpha, slots
         factory = dict(device=device, dtype=dtype)
-        self.lora_a = nn.Parameter(torch.zeros(in_features, rank, **factory))
-        self.lora_b = nn.Parameter(torch.zeros(rank, out_features, **factory))
+        lead = (slots,) if slots > 0 else ()
+        self.lora_a = nn.Parameter(torch.zeros(*lead, in_features, rank, **factory))
+        self.lora_b = nn.Parameter(torch.zeros(*lead, rank, out_features, **factory))
 
-    def forward(self, x):
-        delta = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+    def forward(self, x, adapter_ix=None):
+        delta = lora_delta(x, self.lora_a, self.lora_b, adapter_ix)
         return super().forward(x) + (self.alpha / self.rank) * delta
 
 
@@ -190,7 +203,8 @@ def _proj(cfg: TransformerConfig, name: str, in_f: int, out_f: int, **factory):
     int8 = cfg.quant == "int8"
     if cfg.lora_rank > 0 and (not cfg.lora_targets or name in cfg.lora_targets):
         lora = Int8LoRALinear if int8 else LoRADense
-        return lora(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, **factory)
+        return lora(in_f, out_f, cfg.lora_rank, cfg.lora_alpha,
+                    slots=cfg.adapter_slots, **factory)
     if int8:
         return Int8Linear(in_f, out_f, **factory)
     return nn.Linear(in_f, out_f, bias=False, **factory)
@@ -238,16 +252,18 @@ class Attention(nn.Module):
         self.v_proj = _proj(cfg, "v_proj", cfg.dim, nkv * hd, **factory)
         self.o_proj = _proj(cfg, "o_proj", nh * hd, cfg.dim, **factory)
 
-    def forward(self, x, cos, sin, *, cache=None, plan: Optional[_DecodePlan] = None):
+    def forward(self, x, cos, sin, *, cache=None, plan: Optional[_DecodePlan] = None,
+                adapter_ix=None):
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        q, k, v = project(x, (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = project(x, (self.q_proj, self.k_proj, self.v_proj), adapter_ix)
         q = q.view(B, S, nh, hd)
         k = k.view(B, S, nkv, hd)
         v = v.view(B, S, nkv, hd)
         if cache is not None:
-            return self.o_proj(self._decode(q, k, v, cos, sin, cache, plan))
+            return run_proj(self.o_proj, self._decode(q, k, v, cos, sin, cache, plan),
+                            adapter_ix)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # GQA expansion is the dispatch's concern (flash reads grouped kv)
@@ -255,7 +271,7 @@ class Attention(nn.Module):
             q, k, v, causal=True, backend=cfg.attention,
             block_kv=cfg.attention_block,
         )
-        return self.o_proj(out.reshape(B, S, nh * hd))
+        return run_proj(self.o_proj, out.reshape(B, S, nh * hd), adapter_ix)
 
     def _decode(self, q, k, v, cos, sin, cache, plan: _DecodePlan):
         """Prefill (S > 1) or step (S == 1): rope, write this call's K/V
@@ -349,9 +365,9 @@ class FeedForward(nn.Module):
         self.up_proj = _proj(cfg, "up_proj", cfg.dim, cfg.ffn_dim, **factory)
         self.down_proj = _proj(cfg, "down_proj", cfg.ffn_dim, cfg.dim, **factory)
 
-    def forward(self, x):
-        gate, up = project(x, (self.gate_proj, self.up_proj))
-        return self.down_proj(F.silu(gate) * up)
+    def forward(self, x, adapter_ix=None):
+        gate, up = project(x, (self.gate_proj, self.up_proj), adapter_ix)
+        return run_proj(self.down_proj, F.silu(gate) * up, adapter_ix)
 
 
 def dropout(x, rate: float, generator=None):
@@ -373,13 +389,15 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
         self.mlp = FeedForward(cfg, **factory)
 
-    def forward(self, x, cos, sin, *, cache=None, plan=None, generator=None):
+    def forward(self, x, cos, sin, *, cache=None, plan=None, generator=None,
+                adapter_ix=None):
         rate = self.cfg.dropout_rate if self.training else 0.0
-        h = self.attention(self.attention_norm(x), cos, sin, cache=cache, plan=plan)
+        h = self.attention(self.attention_norm(x), cos, sin, cache=cache, plan=plan,
+                           adapter_ix=adapter_ix)
         if rate:
             h = dropout(h, rate, generator)
         x = x + h
-        h = self.mlp(self.mlp_norm(x))
+        h = self.mlp(self.mlp_norm(x), adapter_ix)
         if rate:
             h = dropout(h, rate, generator)
         return x + h
@@ -485,13 +503,22 @@ class Transformer(nn.Module):
           an int or [B].
         `pad` [B] gives left-pad widths; with a shared prefix, `prefix_len`
         (or per row `prefix_lens` [B]) slots before the pad are live for
-        every query. In training mode dropout draws from
-        `dropout_generator` (on the model's device)."""
+        every query. `adapter_ix` [B] gives each row's adapter slot on a
+        slot-stacked model (`adapter_slots > 0`; None = slot 0 for all
+        rows). In training mode dropout draws from `dropout_generator` (on
+        the model's device)."""
         if adapter_ix is not None:
-            raise NotImplementedError(
-                "decode argument adapter_ix (multi-tenant LoRA slots) is not "
-                "ported yet (see ROADMAP.md)"
-            )
+            if self.cfg.adapter_slots <= 0:
+                raise ValueError(
+                    "adapter_ix needs a slot-stacked model (adapter_slots > 0 "
+                    "— serving.adapters.stack_adapter_params)"
+                )
+            adapter_ix = torch.as_tensor(adapter_ix, dtype=torch.long).to(self.device)
+            if adapter_ix.shape != tokens.shape[:1]:
+                raise ValueError(
+                    f"adapter_ix must be [B]={tokens.shape[0]}, got "
+                    f"{tuple(adapter_ix.shape)}"
+                )
         if cache is None:
             misplaced = {
                 "pad": pad is not None, "pages": pages is not None,
@@ -519,7 +546,7 @@ class Transformer(nn.Module):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
                 cache=None if cache is None else cache[i], plan=plan,
-                generator=dropout_generator,
+                generator=dropout_generator, adapter_ix=adapter_ix,
             )
         x = self.final_norm(x)
         if return_features:

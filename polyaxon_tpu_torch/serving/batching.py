@@ -24,10 +24,15 @@ math uses `time.monotonic`. Chaos points `serving.worker` (here) and
 `serving.decode` / `serving.slow` (the server's group execute) hook the
 seeded FaultPlan machinery into this path.
 
-Not ported: per-tenant admission and weighted fair queueing (the
-reference's `tenancy`), whose ServingConfig fields raise
-NotImplementedError, like those of the other unported features (meshes,
-the spill tier, adapters, disaggregated roles).
+**Tenancy** — with a `serving.tenancy.TenantAdmission`, `submit` charges
+each row's token budget against its tenant BEFORE the global queue check
+(a capped tenant's flood sheds `tenant_quota` on that tenant alone, and a
+row refused later is never charged), and the worker picks the next group's
+head by weighted fair share (smallest outstanding tokens / weight, FIFO
+within a tenant). Groups still mix tenants.
+
+Not ported: meshes and disaggregated roles, whose ServingConfig fields
+raise NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -165,9 +170,12 @@ class ServingConfig:
     scheduler. The fast decode: `speculate` (verify windows of
     `draft_tokens` n-gram drafts, or a draft model with `draft_model`, and
     `adaptive_draft` steering K), `quantize` (int8 weight-only projections,
-    quantized on load) and `kv_quant="int8"` (the int8 paged pool). Fields
-    of features not ported yet raise NotImplementedError when set to
-    anything but their defaults (see ROADMAP.md)."""
+    quantized on load) and `kv_quant="int8"` (the int8 paged pool).
+    Multi-tenant serving: `adapters`, `tenants`, `adapter_slots`; the
+    spill tier: `spill_ram_bytes`, `spill_dir`, `spill_dir_bytes`. Fields
+    of features not ported yet (`mesh_axes`, `role`) raise
+    NotImplementedError when set to anything but their defaults (see
+    ROADMAP.md)."""
 
     max_batch: int = 8
     max_wait_ms: float = 5.0
@@ -214,32 +222,36 @@ class ServingConfig:
     chunked_prefill: bool = False
     prefill_chunk_tokens: int = 64
     max_step_tokens: int = 256
-    # not ported: the spill tier, tenants and adapters, disaggregated roles
+    # tiered prefix spill: evicted PrefixCache entries demote to a host-RAM
+    # tier (spill_ram_bytes budget) and overflow to CRC-framed segment
+    # files under spill_dir (spill_dir_bytes budget; None = unbounded); a
+    # prefix hit on a spilled entry restores its pages into the pool
+    # instead of re-prefilling. Requires kv_pool_pages + prefix_cache
     spill_ram_bytes: Optional[int] = None
     spill_dir: Optional[str] = None
     spill_dir_bytes: Optional[int] = None
+    # multi-tenant serving: named LoRA adapters hot-swapped into the stacked
+    # slot params (serving/adapters.py) and per-tenant admission contracts
+    # (serving/tenancy.py).
+    # adapters — sorted (name, source) pairs; source is an .npz path or
+    #   "seed:<int>". Requires lora_rank > 0 on the served model.
+    # tenants — sorted TenantSpec pair-tuples (tenancy.normalize_tenants);
+    #   each may bind an adapter and carry outstanding/token caps and a
+    #   fair-share weight.
+    # adapter_slots — device-resident adapter slots BEYOND slot 0 (the
+    #   checkpoint's own adapter); 0 = one slot per configured adapter
     adapters: tuple = ()
     tenants: tuple = ()
     adapter_slots: int = 0
-    role: str = "both"
+    role: str = "both"  # not ported: disaggregated prefill/decode pools
 
     def __post_init__(self):
-        unported = {
-            "mesh_axes": bool(self.mesh_axes),
-            "spill_ram_bytes": self.spill_ram_bytes is not None,
-            "spill_dir": self.spill_dir is not None,
-            "spill_dir_bytes": self.spill_dir_bytes is not None,
-            "adapters": bool(self.adapters),
-            "tenants": bool(self.tenants),
-            "adapter_slots": bool(self.adapter_slots),
-            "role": self.role != "both",
-        }
+        unported = {"mesh_axes": bool(self.mesh_axes), "role": self.role != "both"}
         bad = [name for name, hit in unported.items() if hit]
         if bad:
             raise NotImplementedError(
-                f"ServingConfig fields {bad} (meshes, the spill tier, tenants "
-                "and adapters, disaggregated roles) are not ported to PyTorch "
-                "yet (see ROADMAP.md)"
+                f"ServingConfig fields {bad} (meshes, disaggregated roles) are "
+                "not ported to PyTorch yet (see ROADMAP.md)"
             )
 
     def ladders(self, seq_len: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -315,6 +327,12 @@ class PendingRequest:
     # release the row's resources promptly
     cancelled: bool = False
     step: Optional[object] = None  # serving.steps.RowStep on the step path
+    # multi-tenant serving: the tenant this row bills against and the
+    # adapter slot its decode gathers (0 = the base adapter). Per-row
+    # runtime state, deliberately NOT part of GroupKey: a group mixes tenants
+    tenant: str = "default"
+    adapter: str = ""  # adapter name, for the registry's release on finish
+    adapter_slot: int = 0
 
     def cancel(self) -> None:
         """Mark the row as abandoned by its client. Safe from any thread;
@@ -468,6 +486,7 @@ class DecodeCoalescer:
         max_queue: int = 64,
         breaker: Optional[CircuitBreaker] = None,
         observer: Optional[Callable[..., None]] = None,
+        tenancy=None,  # serving.tenancy.TenantAdmission
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -479,6 +498,7 @@ class DecodeCoalescer:
         self.max_queue = int(max_queue)
         self._breaker = breaker
         self._observer = observer
+        self.tenancy = tenancy
         self._queue: queue.Queue = queue.Queue()
         self._pending: deque[PendingRequest] = deque()
         self._inflight: Optional[list[PendingRequest]] = None
@@ -541,26 +561,58 @@ class DecodeCoalescer:
             )
         if req.expired():
             self._shed(
-                "deadline", "request deadline already expired at admission"
+                "deadline", "request deadline already expired at admission",
+                tenant=req.tenant,
             )
         if self._breaker is not None and not self._breaker.allow():
             self._shed(
                 "breaker_open",
                 "circuit breaker open: decode is failing, try again later",
                 retry_after_s=max(1.0, self._breaker.cooldown_s),
+                tenant=req.tenant,
             )
-        if self.depth >= self.max_queue:
-            self._shed(
-                "queue_full",
-                f"decode queue full ({self.max_queue} requests in flight)",
-            )
+        # per-tenant admission: charge the row's token budget against its
+        # tenant BEFORE the global queue check, so a tenant's flood sheds as
+        # `tenant_quota` on THAT tenant while everyone else's requests never
+        # see a fuller queue
+        release = None
+        if self.tenancy is not None:
+            try:
+                release = self.tenancy.admit(req.tenant, req.prompt_len + req.max_new)
+            except ShedError as e:
+                with self._count_lock:
+                    self.shed_total += 1
+                self._observe("shed", reason=e.reason, tenant=req.tenant)
+                raise
+            prev = req.on_finish
+
+            def _finish_release(r, _prev=prev, _rel=release):
+                try:
+                    if _prev is not None:
+                        _prev(r)
+                finally:
+                    _rel()  # idempotent: exactly once per admitted row
+
+            req.on_finish = _finish_release
+        try:
+            if self.depth >= self.max_queue:
+                self._shed(
+                    "queue_full",
+                    f"decode queue full ({self.max_queue} requests in flight)",
+                    tenant=req.tenant,
+                )
+        except BaseException:
+            if release is not None:
+                release()  # never charge a tenant for a row we refused
+            raise
         self._admit()
         self._queue.put(req)
 
-    def _shed(self, reason: str, message: str, retry_after_s: float = 1.0):
+    def _shed(self, reason: str, message: str, retry_after_s: float = 1.0,
+              tenant: Optional[str] = None):
         with self._count_lock:
             self.shed_total += 1
-        self._observe("shed", reason=reason)
+        self._observe("shed", reason=reason, tenant=tenant)
         raise ShedError(message, reason=reason, retry_after_s=retry_after_s)
 
     # ------------------------------------------------------------ lifecycle
@@ -703,8 +755,18 @@ class DecodeCoalescer:
             if not self._pending:
                 alive = self._drain_into_pending(timeout=0.1)
                 continue
-            # oldest-first head selection: never starve a key
-            head = self._pending[0]
+            # weighted fair head pick: among tenants with pending work, serve
+            # the one with the smallest outstanding tokens / weight (FIFO
+            # within a tenant by enqueue time); without tenancy this is the
+            # oldest-first rule. The group still mixes tenants: the head
+            # only chooses WHICH key flushes next
+            if self.tenancy is not None and len(self._pending) > 1:
+                head = min(
+                    self._pending,
+                    key=lambda r: (self.tenancy.share(r.tenant), r.enqueued_at),
+                )
+            else:
+                head = self._pending[0]
             batch = [r for r in self._pending if r.key == head.key][
                 : self.max_batch
             ]

@@ -1,6 +1,6 @@
 """Serving-side owner of the paged KV pool, counterpart of
-`polyaxon_tpu/serving/kv.py::KVCacheManager` without its spill tier
-(mirror, demote, restore) and its KV handoff (export, adopt).
+`polyaxon_tpu/serving/kv.py::KVCacheManager` with its spill tier and
+without its KV handoff (export, adopt).
 
 `KVCacheManager` glues the host accounting (`models/kv_pages.py`: PagePool
 refcounts and reservations, the content-addressed PrefixCache) to the
@@ -23,6 +23,19 @@ device pool (`models.generate.make_paged_cache`) and the coalescer:
   PrefixCache, so the next request sharing that prefix skips that part of
   its prefill (its rows alias the pages read-only: copy-on-write is free
   because decode only writes slots >= prefix_len).
+* **Spill tier** (`spill_ram_bytes` / `spill_dir`) — evicted prefix
+  entries demote to host RAM and disk (`serving/spill.py`) instead of
+  vanishing. Harvest takes a host MIRROR of each freshly written page
+  (one gather per dtype, copied to pinned memory on the stream that wrote
+  it), keyed by the chain hash at its position; `_demote` (the
+  PrefixCache's `on_evict` hook) builds the payload from the mirror, and
+  admission (`plan_row`) restores a spilled prefix longer than the cached
+  one into fresh pages before its lookup. The device write of a restore
+  waits in a queue until the decode worker's next dispatch
+  (`flush_restores`); each queued item holds its own page refs. Payload
+  leaves follow the reference's leaf order (layers by name, then
+  cached_key, [its scale], cached_value, [its scale]), so a segment
+  written by either package holds the same leaves in the same order.
 
 Page table layout per row (width = pages_for(L + pb + nb - 1)):
 `[shared prefix pages | own pages, allocated lazily | scratch]` — the
@@ -46,14 +59,17 @@ import torch
 
 from ..models.generate import make_paged_cache
 from ..models.quant import kv_pool_bytes
+from ..chaos.injector import inject
 from ..models.kv_pages import (
     PagedKVLayout,
     PagePool,
     PagePoolExhausted,
     PrefixCache,
     PrefixEntry,
+    page_hashes,
 )
 from .batching import ServingError, ShedError, choose_buckets
+from .spill import SpillManager, SpillPayload
 
 
 @dataclasses.dataclass
@@ -71,6 +87,7 @@ class RowPlan:
     reserved: int  # pages still reserved, not yet allocated
     own_pages: list = dataclasses.field(default_factory=list)
     released: bool = False
+    namespace: str = ""  # the prefix cache's chain the row reads and feeds
 
     @property
     def prefix_pages_n(self) -> int:
@@ -91,6 +108,9 @@ class KVCacheManager:
         kv_quant: str = "none",
         hash_fn=None,
         observer: Optional[Callable[..., None]] = None,
+        spill_ram_bytes: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        spill_dir_bytes: Optional[int] = None,
     ):
         if pool_pages < 2:
             raise ValueError(
@@ -119,6 +139,38 @@ class KVCacheManager:
         self.active_rows = 0
         self.active_rows_hwm = 0
         self.harvest_skipped = 0
+        # ---- tiered prefix spill: the host MIRROR holds each cached page's
+        # bytes keyed by the chain hash at its position (hash h_j commits to
+        # pages 0..j, so it names page j's content); `_mirror_refs[h]`
+        # counts live entries whose chain covers position h — the bytes
+        # drop when the last covering entry evicts
+        spill_on = bool((spill_ram_bytes or spill_dir) and self.prefix is not None)
+        self._spill: Optional[SpillManager] = (
+            SpillManager(ram_bytes=spill_ram_bytes or 0, dir_path=spill_dir,
+                         dir_bytes=spill_dir_bytes)
+            if spill_on else None
+        )
+        if self._spill is not None:
+            self.prefix.on_evict = self._demote
+        self._mirror: dict[str, list] = {}  # hash -> per-leaf page bytes
+        self._mirror_refs: dict[str, int] = {}
+        self._pending_restores: list = []  # (page ids, per-leaf values)
+        self.spill_restores = 0
+        self.restore_skipped = 0
+        self.restore_aborted = 0
+        self.spill_skipped = 0  # demotes with missing mirror bytes
+        self.mirror_capture_failures = 0
+        # 0, not the post-heal value: startup quarantines surface on the
+        # first observation
+        self._quarantined_seen = 0
+        # the pool's leaves in the reference's order: layers sorted by their
+        # tree name ("layer_10" < "layer_2"), each as (k, [k scale], v,
+        # [v scale])
+        fields = (0, 2, 1, 3) if self.layout.kv_quant == "int8" else (0, 1)
+        self.leaves = [
+            (i, f) for i in sorted(range(module.cfg.n_layers), key=lambda i: f"layer_{i}")
+            for f in fields
+        ]
 
     # ------------------------------------------------------------- helpers
     def _observe(self, event: str, **ctx) -> None:
@@ -148,18 +200,27 @@ class KVCacheManager:
     # ----------------------------------------------------------- admission
     def plan_row(
         self, tokens, max_new: int, prompt_ladder: tuple, new_ladder: tuple,
-        seq_len: int,
+        seq_len: int, namespace: str = "",
     ) -> RowPlan:
         """Admit one row: prefix lookup + suffix bucketing + reservation.
+        `namespace` names the prefix chain the row reads and, at harvest,
+        feeds: rows whose K/V differ for the same tokens (another adapter)
+        each get their own.
         Raises ServingError (400) when the row can NEVER fit the pool and
         ShedError(reason="kv_pages") (503) when it cannot fit NOW."""
         pt = self.layout.page_tokens
         with self._lock:
             L, ppages, entry = 0, (), None
             if self.prefix is not None:
+                if self._spill is not None:
+                    # restore a spilled prefix BEFORE the lookup, so the
+                    # lookup below hits it and the hit/miss ledger tells
+                    # what the request actually got
+                    self._maybe_restore(tokens, len(tokens) - 1, namespace)
                 # cap at len-1: prefill needs >= 1 suffix token to produce
                 # the first sampled logits
-                L, ppages, entry = self.prefix.lookup(tokens, max_tokens=len(tokens) - 1)
+                L, ppages, entry = self.prefix.lookup(
+                    tokens, max_tokens=len(tokens) - 1, namespace=namespace)
                 self._observe(
                     "prefix_hit" if entry is not None else "prefix_miss", tokens=L
                 )
@@ -207,6 +268,7 @@ class KVCacheManager:
                 new_bucket=nb,
                 n_pages=n_pages,
                 reserved=demand,
+                namespace=namespace,
             )
 
     def release(self, plan: RowPlan) -> None:
@@ -281,10 +343,10 @@ class KVCacheManager:
                 pool[dst] = vals.reshape(len(new_ids), pt, *pool.shape[2:])
 
     def harvest(self, rows) -> int:
-        """Index each completed row's page-aligned prompt prefix. `rows` is
-        [(tokens, plan, pad)] — called by the decode worker AFTER the row's
-        tokens are out (harvest must not delay TTFT). Returns the number of
-        entries inserted."""
+        """Index each completed row's page-aligned prompt prefix, in its
+        plan's namespace. `rows` is [(tokens, plan, pad)] — called by the
+        decode worker AFTER the row's tokens are out (harvest must not delay
+        TTFT). Returns the number of entries inserted."""
         if self.prefix is None:
             return 0
         pt = self.layout.page_tokens
@@ -297,7 +359,7 @@ class KVCacheManager:
             if k <= Lp:
                 continue
             with self._lock:
-                if self.prefix.contains(tokens[: k * pt]):
+                if self.prefix.contains(tokens[: k * pt], plan.namespace):
                     continue
                 n_new = k - Lp
                 if self.pool.available < n_new:
@@ -310,16 +372,221 @@ class KVCacheManager:
                 new_ids = self.pool.alloc(n_new)
                 table = list(plan.prefix_pages) + plan.own_pages
             self._copy_pages(table, plan.prefix_len + int(pad), n_new * pt, new_ids)
+            # the harvested pages' host mirror NOW, on the worker, from the
+            # freshly written pool: a later eviction needs the bytes after
+            # the pages may have been reused
+            mirror_pages = None
+            if self._spill is not None:
+                try:
+                    mirror_pages = self._capture_mirror(new_ids)
+                except Exception:  # noqa: BLE001 — spill is best-effort
+                    self.mirror_capture_failures += 1
             with self._lock:
+                hashes = (
+                    page_hashes(tokens[: k * pt], pt, self.prefix.hash_fn, plan.namespace)
+                    if self._spill is not None else ()
+                )
+                if mirror_pages is not None:
+                    for idx in range(n_new):
+                        self._mirror.setdefault(hashes[Lp + idx], mirror_pages[idx])
                 # index every chain link so partial-overlap prompts hit too
                 for j in range(Lp + 1, k + 1):
                     pages_j = tuple(plan.prefix_pages) + tuple(new_ids[: j - Lp])
-                    if self.prefix.insert(tokens[: j * pt], pages_j):
+                    if self.prefix.insert(tokens[: j * pt], pages_j, plan.namespace):
                         inserted += 1
+                        self._mirror_ref(hashes[:j])
+                self._mirror_gc(hashes)
                 # drop the allocation refs — the entries hold their own
                 self.pool.unref(new_ids)
                 self._pages_changed()
         return inserted
+
+    # --------------------------------------------------------- tiered spill
+    def _mirror_ref(self, hashes) -> None:
+        for h in hashes:
+            self._mirror_refs[h] = self._mirror_refs.get(h, 0) + 1
+
+    def _mirror_unref(self, hashes) -> None:
+        for h in hashes:
+            c = self._mirror_refs.get(h)
+            if c is None:
+                continue
+            if c <= 1:
+                del self._mirror_refs[h]
+                self._mirror.pop(h, None)
+            else:
+                self._mirror_refs[h] = c - 1
+
+    def _mirror_gc(self, hashes) -> None:
+        """Drop mirror bytes of positions no entry ended up covering (an
+        insert lost a collision race)."""
+        for h in hashes:
+            if h not in self._mirror_refs:
+                self._mirror.pop(h, None)
+
+    @torch.inference_mode()
+    def _capture_mirror(self, new_ids) -> list:
+        """Host copies of freshly written pool pages, per page per leaf (in
+        `self.leaves` order). The pages of every leaf of one dtype are
+        gathered into one device buffer and copied to pinned host memory on
+        the current stream, so the copy follows the write that produced
+        them; the call returns when the bytes are on the host."""
+        dev = self.cache[0][0].device
+        ids = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
+        leaves = [self.cache[i][f] for i, f in self.leaves]
+        by_dtype: dict = {}
+        for j, leaf in enumerate(leaves):
+            by_dtype.setdefault(leaf.dtype, []).append(j)
+        host: list = [None] * len(leaves)
+        for idx in by_dtype.values():
+            stacked = torch.stack([leaves[j].index_select(0, ids) for j in idx])
+            if stacked.is_cuda:
+                buf = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+                buf.copy_(stacked)  # blocking: ordered after the harvest's write
+            else:
+                buf = stacked.clone()
+            for n, j in enumerate(idx):
+                host[j] = buf[n]
+        return [[h[p] for h in host] for p in range(len(new_ids))]
+
+    def _observe_quarantine(self) -> None:
+        q = self._spill.quarantined
+        if q > self._quarantined_seen:
+            self._observe("kv_spill_quarantined", n=q - self._quarantined_seen)
+            self._quarantined_seen = q
+
+    def _demote(self, h: str, e: PrefixEntry) -> None:
+        """PrefixCache eviction hook: move the entry's bytes to the spill
+        tier instead of losing them. Runs under self._lock (every evict path
+        is inside a locked region) with the pages still referenced."""
+        hashes = page_hashes(e.tokens, self.layout.page_tokens, self.prefix.hash_fn,
+                             e.namespace)
+        try:
+            pages = []
+            for hj in hashes:
+                b = self._mirror.get(hj)
+                if b is None:
+                    # no mirror bytes for a position: the entry evicts the
+                    # pre-spill way
+                    self.spill_skipped += 1
+                    pages = None
+                    break
+                pages.append(b)
+            if pages is not None:
+                payload = SpillPayload(tuple(e.tokens), tuple(hashes), pages)
+                if self._spill.put(payload):
+                    self._observe("kv_spill", bytes=payload.nbytes)
+                self._observe_quarantine()
+        finally:
+            self._mirror_unref(hashes)
+
+    def _maybe_restore(self, tokens, limit: int, namespace: str = "") -> None:
+        """Admission-time restore: if the spill tier holds a LONGER verified
+        prefix of `tokens` than the in-pool cache, pull its pages back into
+        fresh pool pages and re-index every chain link, so the lookup that
+        follows hits it. Caller holds self._lock."""
+        pt = self.layout.page_tokens
+        hashes = page_hashes(tokens[:limit], pt, self.prefix.hash_fn, namespace)
+        if not hashes:
+            return
+        _k_len, k_pages = self.prefix.peek(tokens, max_tokens=limit, namespace=namespace)
+        k = len(k_pages)
+        j = 0
+        for cand in range(len(hashes), k, -1):
+            if self._spill.has(hashes[cand - 1], tokens[: cand * pt]):
+                j = cand
+                break
+        if j == 0:
+            return
+        n_new = j - k
+        # the harvest's headroom rule: cache warmth never eats the admission
+        # headroom a reservation is about to need
+        if self.pool.available < n_new:
+            self.restore_skipped += 1
+            return
+        payload = self._spill.take(hashes[j - 1], tokens[: j * pt])
+        self._observe_quarantine()
+        if payload is None:
+            return  # a corrupt or incomplete segment: quarantined, a clean miss
+        try:
+            new_ids = self.pool.alloc(n_new)
+        except PagePoolExhausted:
+            self.restore_skipped += 1
+            return
+        queued = None
+        try:
+            # chaos: a kill here is a death mid-restore — the except arm
+            # returns every page this restore holds
+            inject("kv.restore", h=hashes[j - 1], pages=n_new)
+            queued = self._queue_restore(new_ids, payload.pages[k:])
+            for pos in range(1, j + 1):
+                self._mirror.setdefault(hashes[pos - 1], payload.pages[pos - 1])
+            inserted = 0
+            for jj in range(k + 1, j + 1):
+                pages_jj = tuple(k_pages) + tuple(new_ids[: jj - k])
+                if self.prefix.insert(tokens[: jj * pt], pages_jj, namespace):
+                    inserted += 1
+                    self._mirror_ref(hashes[:jj])
+            self._mirror_gc(hashes)
+            if inserted == 0:
+                # lost the admission race (the hash slot holds other
+                # content): cancel the queued write, free its pages
+                self._unqueue_restore(queued)
+                queued = None
+                self.restore_aborted += 1
+            else:
+                self.spill_restores += 1
+                self._observe("kv_spill_restore", pages=n_new)
+            self.pool.unref(new_ids)
+            self._pages_changed()
+        except BaseException:
+            if queued is not None:
+                self._unqueue_restore(queued)
+            self.pool.unref(new_ids)
+            raise
+
+    def _queue_restore(self, new_ids, pages_payload) -> tuple:
+        """Queue the device write of restored pages: per leaf, the pages'
+        host values stacked. The item holds its OWN pool refs, so an
+        eviction racing the flush is harmless — the write lands in
+        still-held pages, which free right after."""
+        vals = [
+            torch.stack([page[leaf] for page in pages_payload])
+            for leaf in range(len(pages_payload[0]))
+        ]
+        self.pool.ref(new_ids)
+        item = (list(new_ids), vals)
+        self._pending_restores.append(item)
+        return item
+
+    def _unqueue_restore(self, item) -> bool:
+        """Cancel one queued restore (the abort path): drop it from the
+        queue and return its refs. Caller holds self._lock."""
+        try:
+            self._pending_restores.remove(item)
+        except ValueError:
+            return False
+        self.pool.unref(item[0])
+        return True
+
+    @torch.inference_mode()
+    def flush_restores(self) -> int:
+        """Write queued restores into the device pool. The decode worker
+        calls this under the server lock before each dispatch, so a restored
+        row's first read sees its bytes. Returns the batches applied."""
+        with self._lock:
+            if not self._pending_restores:
+                return 0
+            pending, self._pending_restores = self._pending_restores, []
+        dev = self.cache[0][0].device
+        for ids, vals in pending:
+            dst = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+            for (i, f), v in zip(self.leaves, vals):
+                self.cache[i][f][dst] = v.to(dev)
+            with self._lock:
+                self.pool.unref(ids)
+                self._pages_changed()
+        return len(pending)
 
     # ---------------------------------------------------------------- stats
     def kv_pool_bytes(self) -> int:
@@ -356,5 +623,16 @@ class KVCacheManager:
                     "misses": self.prefix.misses,
                     "evictions": self.prefix.evictions,
                     "collisions": self.prefix.collisions,
+                }
+            if self._spill is not None:
+                out["spill"] = {
+                    **self._spill.stats(),
+                    "restores": self.spill_restores,
+                    "restore_skipped": self.restore_skipped,
+                    "restore_aborted": self.restore_aborted,
+                    "spill_skipped": self.spill_skipped,
+                    "mirror_entries": len(self._mirror),
+                    "mirror_capture_failures": self.mirror_capture_failures,
+                    "pending_restores": len(self._pending_restores),
                 }
             return out

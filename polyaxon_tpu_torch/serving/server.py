@@ -15,7 +15,8 @@ Endpoints:
   GET  /kvz      → the prefix-cache chain hashes this replica holds
   POST /generate → {"tokens": [[...]]}; body {"tokens": [[int]],
        "maxNewTokens", "temperature", "topK", "eosId", "seed",
-       "deadlineMs", "numBeams" (beam search when > 1), "lengthPenalty"}.
+       "deadlineMs", "numBeams" (beam search when > 1), "lengthPenalty",
+       "tenant" (a configured tenant; absent = "default")}.
        400 validation; 503 + Retry-After shed (queue full,
        breaker open, expired at admission, KV pages exhausted, draining);
        504 deadline exceeded while queued.
@@ -52,14 +53,31 @@ width from the accept rate (`serving/adaptive.py`), down to plain decode.
 (`models.quant.quantize_module`; the caller's module is left as it is) and
 `kv_quant="int8"` stores the paged pool as int8 payloads and f32 scales.
 
+Multi-tenant serving: `adapters` (name → ".npz" path or "seed:<int>") and
+`tenants` (TenantSpec dicts: caps on outstanding rows and tokens, a
+fair-share weight, a bound adapter). The LoRA module is rebuilt at load
+with `adapter_slots` + 1 stacked slots (`serving/adapters.py`; slot 0 is
+the checkpoint's own adapter), a row's tenant picks its adapter, the
+`AdapterRegistry` pins the adapter's slot for the row's life (loading it,
+evicting an idle one to its spill tier, or restoring it), and every decode
+call gets the rows' slots as `adapter_ix`, so one group mixes tenants.
+Tenant admission (`serving/tenancy.py`) sheds a capped tenant's excess as
+`tenant_quota` before the global queue check; an unknown tenant is a 400.
+The prefix cache is namespaced by adapter (`plan_row`'s `namespace`): a
+prompt's K/V depend on the adapter that projected them, so one tenant's
+cached prefix never serves another adapter's row (the reference keys its
+cache by token ids alone and does).
+The spill tier (`spill_ram_bytes`, `spill_dir`) demotes evicted prefixes
+to host RAM and disk and restores them on a later hit (`serving/kv.py`).
+
 Unlike the reference, rows are not padded up to a power-of-two batch: an
 eager PyTorch program has no compiled shapes to share, so dummy rows would
 only cost work. Groups decode until their longest row is done, not to the
 end of the new-token bucket.
 
-Not ported yet (ROADMAP.md), refused by name: tenants and adapters, the
-spill tier, meshes and disaggregated roles (ServingConfig raises),
-`/kv_import`, `/tracez`, `/sloz` and `/queryz` (501) and `from_run`.
+Not ported yet (ROADMAP.md), refused by name: meshes and disaggregated
+roles (ServingConfig raises), `/kv_import`, `/tracez`, `/sloz` and
+`/queryz` (501) and `from_run`.
 """
 
 from __future__ import annotations
@@ -92,6 +110,7 @@ from ..models.generate import (
     paged_step,
 )
 from ..models.quant import quantize_module
+from .adapters import AdapterRegistry, adapter_template, ref_path, stack_adapter_params
 from ..models.spec_decode import (
     NgramDrafter,
     commit_window,
@@ -113,7 +132,9 @@ from .batching import (
     choose_buckets,
 )
 from .kv import KVCacheManager
+from .spill import SpillManager
 from .steps import RowStep, StepScheduler
+from .tenancy import DEFAULT_TENANT, TenantAdmission, TenantSpec
 
 UNPORTED_ROUTES = ("/kv_import", "/tracez", "/sloz", "/queryz")
 
@@ -177,6 +198,13 @@ class ModelServer:
             raise ValueError("draft_model/adaptive_draft require speculate=True")
         if cfg.speculate and int(cfg.draft_tokens) < 1:
             raise ValueError("draft_tokens must be >= 1")
+        if (cfg.spill_ram_bytes or cfg.spill_dir) and not (
+            cfg.kv_pool_pages and cfg.prefix_cache
+        ):
+            raise ValueError(
+                "spill_ram_bytes/spill_dir require the paged KV pool with the "
+                "prefix cache (set kv_pool_pages, keep prefix_cache on)"
+            )
         self.device = resolve_device(device)
         module = module.to(self.device).eval()
         if params is not None:
@@ -190,6 +218,34 @@ class ModelServer:
         self._quant_bytes_saved = 0
         if cfg.quantize:
             module, self._quant_bytes_saved = quantize_module(module)
+        # multi-tenant adapters: stack the LoRA params to [slots, ...] after
+        # quantize (int8 base + fp adapters compose); slot 0 keeps the
+        # checkpoint's own adapter, slots 1..N start zero for the registry
+        self._tenancy: Optional[TenantAdmission] = None
+        self._adapter_registry: Optional[AdapterRegistry] = None
+        self._adapter_spill: Optional[SpillManager] = None
+        self._adapter_sources = dict(cfg.adapters or ())
+        self._adapter_slots_active = False
+        if self._adapter_sources or cfg.adapter_slots:
+            if getattr(module.cfg, "lora_rank", 0) <= 0:
+                raise ValueError(
+                    "serving adapters require a LoRA model (lora_rank > 0): "
+                    "this checkpoint has no adapter params to multiplex"
+                )
+            n_hot = int(cfg.adapter_slots) or len(self._adapter_sources)
+            if n_hot < 1:
+                raise ValueError("adapter_slots must be >= 1 when adapters are configured")
+            module = stack_adapter_params(module, slots=n_hot + 1)
+            self._adapter_slots_active = True
+        if cfg.tenants or self._adapter_sources:
+            self._tenancy = TenantAdmission(cfg.tenants)
+            for pairs in cfg.tenants or ():
+                spec = TenantSpec.from_pairs(pairs)
+                if spec.adapter and spec.adapter not in self._adapter_sources:
+                    raise ValueError(
+                        f"tenant {spec.name!r} binds adapter {spec.adapter!r}, "
+                        "which is not configured"
+                    )
         self.module = module
         # adaptive speculation: a draft model by layer truncation of the
         # SERVED module (after quantize, so it rides the same int8 weights)
@@ -341,12 +397,67 @@ class ModelServer:
             "full-precision projections)",
         )
         self._m_quant_saved.set(self._quant_bytes_saved)
+        # tiered prefix spill series, registered from startup (zeros when the
+        # spill tier is off)
+        self._m_spill_bytes = t.counter(
+            "serving.kv_spill_bytes",
+            help="Bytes of evicted KV prefixes accepted into the spill tiers",
+        )
+        self._m_spill_restores = t.counter(
+            "serving.kv_spill_restores",
+            help="Spilled KV prefixes restored into the pool on a hit",
+        )
+        self._m_spill_quarantined = t.counter(
+            "serving.kv_spill_quarantined",
+            help="Corrupt spill segments quarantined to <seg>.corrupt (clean misses)",
+        )
+        # multi-tenant series: the adapter-swap cost and the named tenants'
+        # queue wait, registered from startup
+        self._m_tenant_queue_wait = t.histogram(
+            "serving.tenant_queue_wait_seconds",
+            help="Submit-to-dispatch wait for rows of NAMED tenants, seconds "
+            "(per-tenant splits in serving.queue_wait_by_tenant.*)",
+        )
+        self._m_adapter_load = t.histogram(
+            "serving.adapter_load_ms",
+            buckets=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 5000),
+            help="Wall time to materialize an adapter into its slot on acquire "
+            "(cold load or spill restore), milliseconds",
+        )
+        if self._tenancy is not None:
+            for name in self._tenancy.known():
+                self._tenant_series(name)
         self._prompt_ladder, self._new_ladder = self.config.ladders(int(module.cfg.seq_len))
         self._group_seq = itertools.count(1)
         # live streamed requests by request id, so a broken pipe in the
         # HTTP layer can cancel the right rows
         self._stream_rows: dict = {}
         self._lock = threading.Lock()  # device work: one caller at a time
+        # the adapter registry: named adapters managed like KV pages, idle
+        # ones evicted LRU to a spill manager of their own (a RAM tier, and
+        # <spill_dir>/adapters when spill_dir is set). Its lock serializes
+        # that manager; slot reads and writes take self._lock inside it
+        if self._adapter_slots_active:
+            self._adapter_template = adapter_template(module)
+            self._adapter_leaves = {
+                ref_path(name): p for name, p in module.named_parameters()
+                if ref_path(name) in self._adapter_template
+            }
+            self._adapter_spill = SpillManager(
+                ram_bytes=256 << 20,
+                dir_path=(str(cfg.spill_dir).rstrip("/") + "/adapters"
+                          if cfg.spill_dir else None),
+                dir_bytes=cfg.spill_dir_bytes,
+            )
+            self._adapter_registry = AdapterRegistry(
+                slots=module.cfg.adapter_slots - 1,
+                sources=self._adapter_sources,
+                template=self._adapter_template,
+                read_slot=self._adapter_read_slot,
+                write_slot=self._adapter_write_slot,
+                spill=self._adapter_spill,
+                telemetry=self.telemetry,
+            )
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._kv: Optional[KVCacheManager] = None
@@ -358,6 +469,9 @@ class ModelServer:
                 prefix_cache=bool(self.config.prefix_cache),
                 kv_quant=str(self.config.kv_quant or "none"),
                 observer=self._kv_observe,
+                spill_ram_bytes=self.config.spill_ram_bytes,
+                spill_dir=self.config.spill_dir,
+                spill_dir_bytes=self.config.spill_dir_bytes,
             )
             self._m_kv_total.set(self._kv.pool.n_pages)
             self._m_kv_used.set(self._kv.pool.used)
@@ -392,6 +506,7 @@ class ModelServer:
                 max_queue=self.config.max_queue,
                 breaker=breaker,
                 observer=self._observe,
+                tenancy=self._tenancy,
             )
         return DecodeCoalescer(
             self._dispatch_group,
@@ -400,6 +515,7 @@ class ModelServer:
             max_queue=self.config.max_queue,
             breaker=breaker,
             observer=self._observe,
+            tenancy=self._tenancy,
         )
 
     def _observe(self, event: str, **ctx) -> None:
@@ -411,6 +527,11 @@ class ModelServer:
             self.telemetry.counter(
                 f"serving.shed.{reason}", help=f"Requests shed at admission: {reason}"
             ).inc()
+            # per-tenant attribution, only for configured tenants: unknown
+            # names are a 400 before admission, so clients cannot mint series
+            tenant = ctx.get("tenant")
+            if tenant and self._tenancy is not None and tenant in self._tenancy.known():
+                self._tenant_series(tenant)[0].inc()
             if reason == "deadline":
                 self._m_deadline.inc()
         elif event == "deadline_dropped":
@@ -442,12 +563,82 @@ class ModelServer:
                 "serving.prefix_cache_evictions",
                 help="Prefix-cache entries LRU-evicted to admit new requests",
             ).inc()
+        elif event == "kv_spill":
+            self._m_spill_bytes.inc(int(ctx.get("bytes", 0)))
+        elif event == "kv_spill_restore":
+            self._m_spill_restores.inc()
+        elif event == "kv_spill_quarantined":
+            self._m_spill_quarantined.inc(int(ctx.get("n", 1)))
         elif event == "shed":
             self._observe("shed", **ctx)
 
+    # ------------------------------------------------------------ tenancy
+    def _tenant_series(self, tenant: str):
+        """The per-tenant series (shed counter, request-latency histogram,
+        queue-wait histogram), created on first use. Only configured tenant
+        names reach here, so the run's config bounds their number."""
+        t = self.telemetry
+        return (
+            t.counter(f"serving.shed_by_tenant.{tenant}",
+                      help=f"Requests shed at admission for tenant {tenant!r}"),
+            t.histogram(f"serving.request_seconds_by_tenant.{tenant}",
+                        help=f"End-to-end latency for tenant {tenant!r}, seconds"),
+            t.histogram(f"serving.queue_wait_by_tenant.{tenant}",
+                        help=f"Submit-to-dispatch wait for tenant {tenant!r}, seconds"),
+        )
+
     def _observe_queue_wait(self, r: PendingRequest) -> None:
+        """One row's submit → dispatch wait: the global histogram and, for a
+        configured tenant, its own split (and, for a named one, the
+        fairness signal)."""
         # same clock as PendingRequest.enqueued_at
-        self._m_queue_wait.observe(max(0.0, time.monotonic() - r.enqueued_at))
+        wait = max(0.0, time.monotonic() - r.enqueued_at)
+        self._m_queue_wait.observe(wait)
+        tenant = r.tenant or ""
+        if self._tenancy is None or tenant not in self._tenancy.known():
+            return
+        self._tenant_series(tenant)[2].observe(wait)
+        if tenant != DEFAULT_TENANT:
+            self._m_tenant_queue_wait.observe(wait)
+
+    def _observe_body_latency(self, body, dur: float) -> None:
+        """End-to-end latency split by the body's tenant."""
+        if self._tenancy is None:
+            return
+        try:
+            name = self._tenancy.resolve(str((body or {}).get("tenant") or "")).name
+        except (KeyError, AttributeError):  # unknown tenants 400 elsewhere
+            return
+        self._tenant_series(name)[1].observe(dur)
+
+    def _adapter_read_slot(self, slot: int) -> list:
+        """Host copies of every adapter leaf's [slot] slice, in the
+        registry's sorted path order (a demoted adapter's spill payload).
+        The copy runs on the stream of the steps, after them."""
+        with self._lock:
+            # a copy on every device: on the CPU .cpu() would return a view
+            # of the slot the registry is about to overwrite
+            return [self._adapter_leaves[p][slot].detach().to("cpu", copy=True)
+                    for p in sorted(self._adapter_template)]
+
+    @torch.inference_mode()
+    def _adapter_write_slot(self, slot: int, adapter: dict) -> None:
+        """Install one adapter (slash-joined path → tensor) into stacked
+        slot `slot`, in place, under self._lock: no step runs meanwhile, and
+        the copy is queued on the stream that runs the steps, so the next
+        step reads the new weights. Only a free or idle slot is written."""
+        with self._lock:
+            for path, value in adapter.items():
+                leaf = self._adapter_leaves[path]
+                leaf[slot].copy_(torch.as_tensor(value).to(leaf.device, leaf.dtype))
+
+    def _adapter_ix(self, rows: list):
+        """[len(rows)] adapter slots of one dispatch on the device, or None
+        when the model has no stacked slots."""
+        if not self._adapter_slots_active:
+            return None
+        return torch.tensor([r.adapter_slot for r in rows], dtype=torch.long,
+                            device=self.device)
 
     @property
     def requests_served(self) -> int:
@@ -504,13 +695,28 @@ class ModelServer:
             if deadline_ms <= 0:
                 raise ServingError(f"deadlineMs must be > 0, got {deadline_ms}")
             deadline = time.monotonic() + deadline_ms / 1e3
-        tenant = str(body.get("tenant") or "").strip()
-        if tenant and tenant != "default":
+        # tenant resolution: unknown names are a client error, not a shed —
+        # quota isolation is meaningless if anyone can mint a tenant
+        raw_tenant = str(body.get("tenant") or "").strip()
+        tenant, adapter = DEFAULT_TENANT, ""
+        if self._tenancy is not None:
+            try:
+                tspec = self._tenancy.resolve(raw_tenant)
+            except KeyError:
+                raise ServingError(f"unknown tenant {raw_tenant!r}")
+            tenant, adapter = tspec.name, tspec.adapter
+        elif raw_tenant and raw_tenant != DEFAULT_TENANT:
             raise ServingError(
-                f"unknown tenant {tenant!r}: tenants are not ported yet "
-                "(see ROADMAP.md)"
+                f"unknown tenant {raw_tenant!r}: this server has no tenants configured"
+            )
+        if adapter and (num_beams > 1 or not self.config.batching):
+            raise ServingError(
+                "adapter-bound tenants require the coalesced decode path "
+                "(no beam search, batching enabled)"
             )
         return {
+            "tenant": tenant,
+            "adapter": adapter,
             "arr": arr,
             "max_new": max_new,
             "temperature": temperature,
@@ -539,25 +745,44 @@ class ModelServer:
             self._m_spec_effective_k.set(eff_k)
         mode = dict(speculate=spec_on, draft_tokens=eff_k,
                     quantize=bool(self.config.quantize))
+        adapter = req.get("adapter") or ""
         out = []
         try:
             for i, row in enumerate(req["arr"]):
                 tokens = [int(t) for t in row]
+                # adapter residency first: pin the tenant's adapter slot for
+                # this row — may load it or restore it from spill (timed
+                # into the load histogram), may shed "adapter_capacity"
+                # when every slot is pinned by in-flight rows
+                slot = 0
+                if adapter:
+                    t0a = _now()
+                    try:
+                        slot, loaded = self._adapter_registry.acquire(adapter)
+                    except KeyError:
+                        raise ServingError(f"unknown adapter {adapter!r}")
+                    if loaded:
+                        self._m_adapter_load.observe((_now() - t0a) * 1e3)
                 plan = None
-                if self._kv is not None:
-                    # paged admission: prefix lookup + suffix bucketing +
-                    # page reservation (may shed with reason "kv_pages")
-                    plan = self._kv.plan_row(
-                        tokens, req["max_new"], self._prompt_ladder,
-                        self._new_ladder, seq_len,
-                    )
-                    pb, nb, L = plan.suffix_bucket, plan.new_bucket, plan.prefix_len
-                else:
-                    pb, nb = choose_buckets(
-                        len(tokens), req["max_new"], self._prompt_ladder,
-                        self._new_ladder, seq_len,
-                    )
-                    L = 0
+                try:
+                    if self._kv is not None:
+                        # paged admission: prefix lookup + suffix bucketing
+                        # + page reservation (may shed "kv_pages")
+                        plan = self._kv.plan_row(
+                            tokens, req["max_new"], self._prompt_ladder,
+                            self._new_ladder, seq_len, namespace=adapter or "",
+                        )
+                        pb, nb, L = plan.suffix_bucket, plan.new_bucket, plan.prefix_len
+                    else:
+                        pb, nb = choose_buckets(
+                            len(tokens), req["max_new"], self._prompt_ladder,
+                            self._new_ladder, seq_len,
+                        )
+                        L = 0
+                except BaseException:
+                    if adapter:
+                        self._adapter_registry.release(adapter)
+                    raise
                 key = GroupKey(
                     prompt_bucket=pb, new_bucket=nb,
                     temperature=req["temperature"], top_k=req["top_k"],
@@ -567,11 +792,12 @@ class ModelServer:
                     tokens=tokens, prompt_len=len(tokens), max_new=req["max_new"],
                     seed=req["seed"] + i, key=key, deadline=req["deadline"],
                     kv_plan=plan, t0=_now(), request_id=rid, row=i,
+                    tenant=req["tenant"], adapter=adapter, adapter_slot=slot,
                 )
-                if plan is not None:
+                if plan is not None or adapter:
                     # on ANY terminal path the row's pages, reservation and
-                    # prefix refs return to the pool (finish() and release()
-                    # are both idempotent)
+                    # prefix refs return to the pool and its adapter slot
+                    # unpins (finish() and release() are both idempotent)
                     r.on_finish = self._release_row
                 out.append(r)
         except ServingError:
@@ -584,6 +810,8 @@ class ModelServer:
     def _release_row(self, r: PendingRequest) -> None:
         if r.kv_plan is not None and self._kv is not None:
             self._kv.release(r.kv_plan)
+        if r.adapter and self._adapter_registry is not None:
+            self._adapter_registry.release(r.adapter)
 
     # ------------------------------------------------------------ compute
     def _execute_group(self, batch: list):
@@ -611,6 +839,7 @@ class ModelServer:
         seeds = [r.seed for r in batch]
         new = max(r.max_new for r in batch)
         stats: dict = {}
+        ix = self._adapter_ix(batch)
         with self._lock:
             if key.speculate:
                 drafter = None
@@ -620,12 +849,14 @@ class ModelServer:
                     self.module, arr, max_new_tokens=new, draft_tokens=key.draft_tokens,
                     temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
                     seeds=seeds, prompt_lengths=lengths, stats=stats, drafter=drafter,
+                    adapter_ix=ix,
                 )
             else:
                 out = generate(
                     self.module, torch.from_numpy(arr), max_new_tokens=new,
                     temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
                     seed=seeds, prompt_lengths=torch.from_numpy(lengths),
+                    adapter_ix=ix,
                 )
             out = out.cpu().numpy()
         tnow = _now()
@@ -708,10 +939,13 @@ class ModelServer:
         kv.ensure_pages(plans, upto_slot=L + pb)
         tables = kv.tables(plans, n, n_pages)
         with self._lock:
+            # land queued spill restores before the prefill reads the
+            # restored prefix pages
+            kv.flush_restores()
             tok = paged_prefill(
                 self.module, kv.cache, arr, pad=pads, pages=tables, kv_layout=kv.layout,
                 prefix_len=L, temperature=key.temperature, top_k=key.top_k,
-                seeds=[r.seed for r in batch],
+                seeds=[r.seed for r in batch], adapter_ix=self._adapter_ix(batch),
             )
             first = tok.cpu().tolist()
         tnow = _now()
@@ -742,7 +976,7 @@ class ModelServer:
         plans = [r.kv_plan for r in batch]
         common = dict(kv_layout=kv.layout, prefix_len=key.prefix_len,
                       temperature=key.temperature, top_k=key.top_k,
-                      seeds=[r.seed for r in batch])
+                      seeds=[r.seed for r in batch], adapter_ix=self._adapter_ix(batch))
         done = torch.zeros(n, dtype=torch.bool, device=tok.device)
         pos, g = key.prefix_len + key.prompt_bucket, 1
         remaining = max(r.max_new for r in batch) - 1
@@ -860,6 +1094,7 @@ class ModelServer:
                 [r.seed for r in batch], [st.pos for st in rows], [st.g for st in rows],
                 kv_layout=kv.layout, prefix_lens=[st.L for st in rows],
                 temperature=key.temperature, top_k=key.top_k, eos_id=key.eos_id,
+                adapter_ix=self._adapter_ix(batch),
             )
         self._m_decode_step.observe((_now() - t0) * 1e3)
         committed, done, remaining, eos_hit, delta = commit_window(
@@ -938,7 +1173,9 @@ class ModelServer:
         try:
             return self._handle_request(body, request_id)
         finally:
-            self._m_latency.observe(_now() - t0)
+            dur = _now() - t0
+            self._m_latency.observe(dur)
+            self._observe_body_latency(body, dur)
 
     def _check_open(self) -> None:
         if self._draining:
@@ -998,7 +1235,9 @@ class ModelServer:
         try:
             yield from self._stream_request(body, request_id)
         finally:
-            self._m_latency.observe(_now() - t0)
+            dur = _now() - t0
+            self._m_latency.observe(dur)
+            self._observe_body_latency(body, dur)
 
     def _stream_request(self, body: dict, rid: Optional[str] = None):
         self._check_open()
@@ -1157,7 +1396,14 @@ class ModelServer:
             speculation["controller"] = ctl.stats()
         quant = {"enabled": bool(self.config.quantize),
                  "bytes_saved": int(self._quant_bytes_saved)}
+        tenancy = {"enabled": self._tenancy is not None}
+        if self._tenancy is not None:
+            tenancy["tenants"] = self._tenancy.snapshot()
+        if self._adapter_registry is not None:
+            tenancy["adapters"] = self._adapter_registry.stats()
+            tenancy["adapter_spill"] = self._adapter_spill.stats()
         return {
+            "tenancy": tenancy,
             "kv": kv,
             "speculation": speculation,
             "quant": quant,
@@ -1395,11 +1641,14 @@ class _StepEngine:
         kv.ensure_pages([r.kv_plan], upto_slot=st.L + st.off + width)
         table = kv.tables([r.kv_plan], 1, st.n_pages)
         with s._lock:
+            # land queued spill restores before the chunk reads the restored
+            # prefix pages
+            kv.flush_restores()
             first = paged_prefill_chunk(
                 s.module, kv.cache, st.arr[:, st.off:st.off + width], pad=[st.pad],
                 pages=table, kv_layout=kv.layout, prefix_lens=[st.L],
                 pos=st.L + st.off, temperature=key.temperature, top_k=key.top_k,
-                seeds=[r.seed], final=final,
+                seeds=[r.seed], final=final, adapter_ix=s._adapter_ix([r]),
             )
             first = None if first is None else int(first[0])
         st.off += width
@@ -1493,6 +1742,7 @@ class _StepEngine:
                 kv_layout=kv.layout, pos=[r.step.pos for r in lane],
                 g=[r.step.g for r in lane], seeds=[r.seed for r in lane],
                 temperature=key0.temperature, top_k=key0.top_k, eos_id=key0.eos_id,
+                adapter_ix=s._adapter_ix(lane),
             )
             nxt, done = nxt.cpu().tolist(), done.cpu().tolist()
         s._m_decode_step.observe((_now() - t0) * 1e3)

@@ -113,6 +113,7 @@ class StepScheduler(DecodeCoalescer):
         max_queue: int = 64,
         breaker: Optional[CircuitBreaker] = None,
         observer: Optional[Callable[..., None]] = None,
+        tenancy=None,  # serving.tenancy.TenantAdmission
     ):
         super().__init__(
             execute,
@@ -121,6 +122,7 @@ class StepScheduler(DecodeCoalescer):
             max_queue=max_queue,
             breaker=breaker,
             observer=observer,
+            tenancy=tenancy,
         )
         if prefill_chunk_tokens < 1:
             raise ValueError(
@@ -211,13 +213,19 @@ class StepScheduler(DecodeCoalescer):
     def _admit_active(self) -> None:
         """pending → active under the token budget: a row joins only while
         the steady decode cost of everything active (plus it) fits in
-        max_step_tokens. FIFO; rows that don't fit yet stay pending (and
-        still purge on expiry) until finishing rows free budget."""
+        max_step_tokens. FIFO — or, with tenancy, weighted fair (smallest
+        outstanding tokens / weight first, FIFO within a tenant); rows that
+        don't fit yet stay pending (and still purge on expiry) until
+        finishing rows free budget."""
         budget = self.max_step_tokens
         active_cost = sum(r.step.cost for r in self._decoding)
         active_cost += sum(self._row_cost(r) for r in self._prefilling)
         while self._pending:
-            r = self._pending[0]
+            if self.tenancy is not None and len(self._pending) > 1:
+                r = min(self._pending,
+                        key=lambda p: (self.tenancy.share(p.tenant), p.enqueued_at))
+            else:
+                r = self._pending[0]
             if not self._engine.supports(r):
                 self._pending.remove(r)
                 self._classic.append(r)

@@ -107,6 +107,8 @@ def test_generate_refuses_too_long_and_adapters(pair):
     _, _, model = pair
     with pytest.raises(ValueError, match="seq_len"):
         generate(model, torch.zeros(1, 120, dtype=torch.long), max_new_tokens=9)
-    with pytest.raises(NotImplementedError):
+    # per-row adapter slots need a slot-stacked model, as in the reference
+    # (tests/test_torch_lora_slots.py decodes through the slots)
+    with pytest.raises(ValueError, match="adapter_slots"):
         generate(model, torch.zeros(1, 4, dtype=torch.long), max_new_tokens=2,
                  adapter_ix=[0])

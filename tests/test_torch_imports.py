@@ -15,6 +15,7 @@ from polyaxon_tpu_torch import DEFAULT_DEVICE, resolve_device
 from polyaxon_tpu_torch.models import build_model
 from polyaxon_tpu_torch.models.transformer import Transformer, _make_config
 from polyaxon_tpu_torch.runtime import Trainer
+from polyaxon_tpu_torch.serving.batching import ServingConfig
 from polyaxon_tpu_torch.serving.server import ModelServer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -44,7 +45,8 @@ def test_import_walk_sees_the_package():
             "synthetic.py", "stats.py", "checkpoint.py", "preemption.py",
             "injector.py", "plan.py", "registry.py", "spans.py", "monitors.py",
             "retry.py", "convert.py", "kv_pages.py", "kv.py", "steps.py",
-            "batching.py"} <= names
+            "batching.py", "adapters.py", "tenancy.py", "spill.py", "framing.py",
+            "lora.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -61,6 +63,18 @@ def test_default_device_is_the_card(monkeypatch):
         build_model("transformer_lm", dict(dim=32, n_layers=1, n_heads=2, vocab_size=16))
     with pytest.raises(RuntimeError, match="cuda"):
         ModelServer(Transformer(cfg, device="cpu"))
+    # the multi-tenant server (stacked adapter slots, the registry and its
+    # spill manager, the KV spill tier) defaults to the card as well
+    lora = _make_config(dict(dim=32, n_layers=1, n_heads=2, n_kv_heads=1,
+                             vocab_size=16, seq_len=16, lora_rank=2))
+    tenants = ServingConfig(adapters=(("a", "seed:1"),), tenants=((("adapter", "a"),
+                            ("name", "t")),), kv_pool_pages=8, kv_page_tokens=4,
+                            spill_ram_bytes=1 << 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelServer(Transformer(lora, device="cpu"), None, tenants)
+    served = ModelServer(Transformer(lora, device="cpu"), None, tenants, device="cpu")
+    assert served.module.cfg.adapter_slots == 2
+    assert served.module.layers[0].attention.q_proj.lora_a.device == torch.device("cpu")
     program = {
         "model": {"name": "transformer_lm", "config": dict(
             dim=32, n_layers=1, n_heads=2, vocab_size=16, seq_len=16)},

@@ -280,15 +280,18 @@ def test_kv_pool_exhaustion_sheds_503(lm):
 
 
 def test_unported_options_are_refused_by_name():
-    """Tenants, adapters, the spill tier and disaggregated roles are still
-    refused by name; speculation, int8 weights and the int8 pool are
-    served now (tests/test_torch_serving_fast.py)."""
-    for field in ({"tenants": (("a",),)}, {"role": "prefill"}, {"adapter_slots": 2},
-                  {"spill_dir": "/nowhere"}):
+    """Meshes and disaggregated roles are still refused by name;
+    speculation, int8 weights and the int8 pool (tests/test_torch_serving_
+    fast.py), tenants, adapters and the spill tier (tests/test_torch_
+    tenancy.py, tests/test_torch_spill.py) are served now."""
+    for field in ({"role": "prefill"}, {"mesh_axes": (("model", 2),)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingConfig(**field)
     for field in ({"speculate": True}, {"kv_quant": "int8"}, {"quantize": True},
-                  {"draft_model": ()}, {"adaptive_draft": True}):
+                  {"draft_model": ()}, {"adaptive_draft": True},
+                  {"tenants": ((("name", "a"),),)}, {"adapter_slots": 2},
+                  {"adapters": (("a", "seed:1"),)}, {"spill_dir": "/nowhere"},
+                  {"spill_ram_bytes": 1 << 20, "spill_dir_bytes": 1 << 20}):
         assert ServingConfig(**field)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelServer.from_run("uid")

@@ -155,9 +155,14 @@ def test_unknown_preset_raises():
     ids=lambda f: next(iter(f)),
 )
 def test_unported_config_fields_raise(field):
-    """MoE, pipelines, adapter slots and scanned layers are still refused;
-    int8 `quant` is ported: it builds the int8 projections (and refuses an
-    unknown kind)."""
+    """MoE, pipelines and scanned layers are still refused; int8 `quant` is
+    ported: it builds the int8 projections (and refuses an unknown kind),
+    and so are `adapter_slots`: each LoRA pair stacked to [slots, ...]."""
+    if "adapter_slots" in field:
+        model = Transformer(_make_config({**SMALL, **field, "lora_rank": 4}), device="cpu")
+        q = model.layers[0].attention.q_proj
+        assert q.lora_a.shape == (2, SMALL["dim"], 4) and q.lora_b.shape[0] == 2
+        return
     if "quant" in field:
         from polyaxon_tpu_torch.models.quant import Int8Linear
 
@@ -176,15 +181,16 @@ def test_unported_config_fields_raise(field):
      ({"kv_layout": object()}, ValueError),
      ({"prefix_len": 4}, ValueError),
      ({"prefix_lens": torch.zeros(1)}, ValueError),
-     ({"adapter_ix": torch.zeros(1)}, NotImplementedError),
+     ({"adapter_ix": torch.zeros(1)}, ValueError),
      ({"pos": torch.zeros(1, dtype=torch.long)}, ValueError)],
     ids=["pages", "kv_layout", "prefix_len", "prefix_lens", "adapter_ix", "per-row-pos"],
 )
 def test_unported_decode_arguments_raise(kwargs, error):
-    """adapter_ix is still unported. The paged and per-row arguments are
-    ported, and raise where they are misused on the dense cache: pages
-    without the pool's layout (or a layout without pages), a shared prefix
-    without the paged pool, per-row frontiers without pad widths."""
+    """The decode arguments raise where they are misused: adapter_ix on a
+    model without stacked adapter slots (as the reference does), and on the
+    dense cache pages without the pool's layout (or a layout without
+    pages), a shared prefix without the paged pool, per-row frontiers
+    without pad widths."""
     model = Transformer(_make_config(SMALL), device="cpu")
     cache = model.make_cache(1)
     with pytest.raises(error):
