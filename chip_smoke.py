@@ -108,6 +108,38 @@ preset (random weights from a fixed seed): inference, then training.
                decode step at B=8, frontier 2112,
                with and without slots (the launches the slots add) and on
                the int8 base (64 int8 launches);
+4e. serve-fleet — the serving fleet on the bf16 `llama3-1b` (after 4c,
+               before 4d): a `role: prefill` and a `role: decode` replica
+               behind the port's Router (ReplicaSetManager over
+               InProcessReplicas, one module, a pool each) and a monolithic
+               `direct` replica, all on the step config with a 64-page
+               pool; `fleet` (bf16) and `fleet-int8` (int8 weights and
+               pool). 12 requests of 32 new tokens, prompts of 128-2048
+               tokens, in waves of 2: two behind one 1024-token prefix (the
+               router's affinity may send the second to the decode
+               replica), a sampled one, two sent again streamed, and one
+               under a fault at serving.kv_import, which must fall back
+               and still answer; the rest of the waves streamed and timed
+               at the client. Routed rows equal direct's or diverge at a
+               near-tie (compare_rows; a sampled row also at top-k's edge,
+               edge_flip, printed beside the direct replica's answer for it
+               with its pages warm in its own prefix cache), streams equal
+               the non-streamed rows (the same rule); every request the
+               prefill replica took was handed off or is the one fallback;
+               exports equal the decode side's acknowledged imports, and
+               each export's replay, in the router's stitched /tracez,
+               was admitted on the adopted pages; no page leaks and the
+               lease table ends empty; that /tracez holds the router's, the
+               prefill replica's and the decode replica's spans; /sloz and
+               /queryz answer with the objectives and the history; an SLO
+               set to breach writes a flight-recorder bundle with a
+               torch.profiler trace; the routed replicas of fleet-int8
+               launch int8_matmul (counted apart from the direct
+               replica's). Prints the client's TTFT and decode tokens/s,
+               handoff bytes, and per handoff from its own trace the
+               capture, ship, adopt host and wire ms, the write's host ms,
+               and the router's own ms per request (one process, one GIL:
+               the semantics and costs, not throughput scaling);
 5. train     — `Trainer(program).run()`: 8 AdamW steps on [1, 4096]
                synthetic_text tokens, mixed precision, remat, fused LM
                loss, flash attention, with a profiler window over one step;
@@ -143,7 +175,8 @@ preset (random weights from a fixed seed): inference, then training.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then 4b, then 4c, then 4d, then phases 5, 7 and 8) and read
+(phases 3-4, then 4b, then 4c, then each config of 4e, then 4d, then
+phases 5, 7 and 8) and read
 just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c and 4d launch
 int8_matmul for every projection of their int8 configs). The last lines are the kernels JSON line, the card's name
@@ -154,6 +187,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -351,6 +385,27 @@ TENANT_NEAR_TIE = 2.0 ** -5
 # other's (on the card a sampled row's token sat 1 ulp above the 50th logit
 # of the reference's prefill and under it in its decode step)
 TENANT_EDGE_ULPS = 2
+# serve-fleet: three replicas of the step config with a 64-page pool. The
+# waves of FLEET_WAVE rows fit it: a 2048-token row reserves 17 pages, and
+# its harvest (which the export reads) copies up to 15 more, so two such
+# rows and one harvest take 49 of the 63 usable pages
+FLEET_NEW, FLEET_SEED, FLEET_WAVE, FLEET_REQUESTS = 32, 11, 2, 12
+FLEET_STEP = {**SERVE_CONFIGS["step"], "kv_pool_pages": 64}
+FLEET_CONFIGS = {
+    "fleet": FLEET_STEP,
+    "fleet-int8": {**FLEET_STEP, "quantize": True, "kv_quant": "int8"},
+}
+FLEET_SAMPLE = {"temperature": 0.8, "topK": 50, "seed": 7}
+FLEET_SLOS = [
+    {"name": "avail", "kind": "availability", "objective": 0.99, "windows": [5, 30]},
+    {"name": "latency", "kind": "latency", "objective": 0.95, "threshold_ms": 30000,
+     "windows": [5, 30]},
+]
+# on the direct replica: a latency objective no request meets, so its breach
+# edge writes a flight-recorder bundle with a FLEET_PROFILE_S profile window
+FLEET_BREACH_SLO = {"name": "breach", "kind": "latency", "objective": 0.99,
+                    "threshold_ms": 1, "windows": [1, 2]}
+FLEET_PROFILE_S = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -988,10 +1043,10 @@ def phase_forward(model) -> None:
     )
 
 
-def _http(url: str, body=None) -> dict:
+def _http(url: str, body=None, headers=None) -> dict:
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
-        url, data=data, headers={"Content-Type": "application/json"},
+        url, data=data, headers={"Content-Type": "application/json", **(headers or {})},
         method="POST" if data is not None else "GET",
     )
     with urllib.request.urlopen(req, timeout=300) as resp:
@@ -2169,6 +2224,424 @@ def check_tenant_rows(served: dict) -> None:
         check(not bad, f"{name}: rows diverge from their solo references past a near-tie: {bad}")
 
 
+def fleet_traffic(vocab: int) -> list:
+    """FLEET_REQUESTS bodies of FLEET_NEW new tokens, prompts of
+    SERVE_PROMPT_LENS tokens from a seeded generator, each a dict with its
+    `body` and `kind`: rows 0 and 4 behind one shared SERVE_PREFIX-token
+    prefix, row 5 sampled, rows 2 and 6 also sent streamed, the last under
+    the handoff fault."""
+    import torch
+
+    gen = torch.Generator().manual_seed(FLEET_SEED)
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    lo, hi = SERVE_PROMPT_LENS
+    prefix = toks(SERVE_PREFIX)
+    out = []
+    for i in range(FLEET_REQUESTS):
+        n = int(torch.randint(lo, hi + 1, (1,), generator=gen))
+        prompt = prefix + toks(max(1, n - SERVE_PREFIX)) if i in (0, 4) else toks(n)
+        body = {"tokens": [prompt], "maxNewTokens": FLEET_NEW}
+        if i == 5:
+            body.update(FLEET_SAMPLE)
+        kind = ("fault" if i == FLEET_REQUESTS - 1 else "stream" if i in (2, 6)
+                else "sampled" if i == 5 else "greedy")
+        out.append({"body": body, "kind": kind})
+    return out
+
+
+def _sse_timed(url: str, body: dict, rid: str) -> dict:
+    """POST /generate?stream=1 as request `rid`, reading each `data:` frame
+    as it arrives: the row (the prompt and the streamed tokens), the
+    client's TTFT (the send to the first frame with tokens, ms) and its
+    decode seconds (that frame to the last frame with tokens)."""
+    req = urllib.request.Request(
+        url + "/generate?stream=1", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": rid}, method="POST",
+    )
+    events, first, last = [], None, None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"stream {rid} answered {resp.status}")
+        for line in resp:
+            if not line.startswith(b"data: "):
+                continue
+            events.append(json.loads(line[len(b"data: "):]))
+            if events[-1].get("tokens"):
+                last = time.perf_counter()
+                first = last if first is None else first
+    check(bool(events) and events[-1].get("done") is True, f"stream {rid} did not end with done")
+    check(not any("error" in ev for ev in events), f"stream {rid} failed: {events}")
+    check(first is not None, f"stream {rid} sent no token")
+    return {"row": body["tokens"][0] + [x for ev in events if "tokens" in ev for x in ev["tokens"]],
+            "ttft_ms": (first - t0) * 1e3, "decode_s": last - first}
+
+
+def _fleet_drive(url: str, traffic: list, tag: str, fault=None) -> dict:
+    """The traffic against one URL (the router or the direct replica), each
+    request with the X-Request-Id `<tag>-<index>`: the non-fault bodies in
+    waves of FLEET_WAVE concurrent requests — streamed and timed at the
+    client (_sse_timed), but for the "stream" rows, which go whole here and
+    again streamed one at a time after the waves (ids `<tag>-<index>-s`) —
+    then the fault body alone, whole (under `fault`, a chaos plan, when
+    given). Returns the rows by index, the streamed repeats, and the
+    client's TTFT ms and decode seconds of each timed row."""
+    import threading
+
+    from polyaxon_tpu_torch.chaos import active
+
+    idx = [i for i, t in enumerate(traffic) if t["kind"] != "fault"]
+    rows, timed = {}, {}
+
+    def one(i):
+        body, rid = traffic[i]["body"], f"{tag}-{i}"
+        try:
+            if traffic[i]["kind"] == "stream":
+                rows[i] = _http(url + "/generate", body, {"X-Request-Id": rid})["tokens"][0]
+            else:
+                timed[i] = _sse_timed(url, body, rid)
+                rows[i] = timed[i]["row"]
+        except BaseException as e:  # noqa: BLE001 — raised below
+            rows[i] = e
+
+    for w in range(0, len(idx), FLEET_WAVE):
+        threads = [threading.Thread(target=one, args=(i,)) for i in idx[w:w + FLEET_WAVE]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        time.sleep(0.3)  # the router's poll sees the new /kvz heads
+    for i in idx:
+        check(isinstance(rows.get(i), list), f"{tag}: request {i} failed: {rows.get(i)!r}")
+    streamed = {i: _sse_timed(url, t["body"], f"{tag}-{i}-s")["row"]
+                for i, t in enumerate(traffic) if t["kind"] == "stream"}
+    for i, t in enumerate(traffic):
+        if t["kind"] == "fault":
+            with active(fault) if fault is not None else contextlib.nullcontext():
+                rows[i] = _http(url + "/generate", t["body"],
+                                {"X-Request-Id": f"{tag}-{i}"})["tokens"][0]
+    return {"rows": rows, "streamed": streamed,
+            "ttft_ms": [timed[i]["ttft_ms"] for i in sorted(timed)],
+            "decode_tokens_per_s": [(FLEET_NEW - 1) / timed[i]["decode_s"] for i in sorted(timed)]}
+
+
+def fleet_handoffs(name: str, stitched: dict, traffic: list, page_tokens: int) -> list:
+    """Each acknowledged handoff in the router's stitched traces (`stitched`:
+    id -> (traffic index, /tracez payload)), read from that one trace: the
+    prefill replica's (r0) kv_export and kv_handoff spans and the decode
+    replica's (r1) kv_plan on the replay. The replay must be admitted on the
+    adopted chain — a hit for the exported pages, capped as admission caps
+    any hit, below the prompt's last token: a replay that re-prefilled the
+    prompt answers the same tokens, so no other gate would see a broken
+    adopt. Returns per handoff the pages, the capture and ship ms, the
+    decode side's adopt host ms (which the import's answer carries back)
+    and the wire ms, the ship less that adopt."""
+    out = []
+    for rid, (i, tz) in stitched.items():
+        def spans(span, replica):
+            return [s for s in tz["spans"]
+                    if s["name"] == span and s["attrs"].get("replica") == replica]
+
+        ship = spans("kv_handoff", "r0")
+        if not ship:
+            continue
+        export, plan = spans("kv_export", "r0"), spans("kv_plan", "r1")
+        check(len(ship) == len(export) == len(plan) == 1,
+              f"{name}: {rid} holds {len(export)} exports, {len(ship)} ships, "
+              f"{len(plan)} decode-side plans")
+        plen = len(traffic[i]["body"]["tokens"][0])
+        pages = export[0]["attrs"]["pages"]
+        want = min(pages, (plen - 1) // page_tokens) * page_tokens
+        hit = plan[0]["attrs"]
+        check(hit["prefix_hit"] == (want > 0) and hit["prefix_len"] == want,
+              f"{name}: {rid}'s replay was admitted with a {hit['prefix_len']}-token prefix "
+              f"(hit {hit['prefix_hit']}), not on its {pages} adopted pages ({want} tokens)")
+        ship_ms, adopt_ms = ship[0]["dur_s"] * 1e3, ship[0]["attrs"]["adopt_ms"]
+        out.append({"id": rid, "row": i, "pages": pages, "prefix_len": hit["prefix_len"],
+                    "capture_ms": export[0]["dur_s"] * 1e3, "ship_ms": ship_ms,
+                    "adopt_host_ms": adopt_ms, "wire_ms": ship_ms - adopt_ms})
+    return out
+
+
+def phase_serve_fleet(model, name: str, kernels) -> dict:
+    """One fleet config: the prefill and decode replicas behind the Router
+    (ReplicaSetManager over InProcessReplicas), the direct replica beside
+    them, the traffic through both; the fleet's gates on the handoff, the
+    pools, the traces, /sloz, /queryz and the flight recorder. The kernel
+    counts are set to 0 just before the routed drive and read just after,
+    then again around the direct replica's drive. Returns the rows for
+    check_fleet_rows (run after the kernel counts are read), both drives'
+    launches, the direct replica's module (the near-tie reference) and,
+    for each sampled row, that row re-sent to the direct replica with its
+    prompt's pages warm in the direct replica's own prefix cache (the
+    witness check_fleet_rows reports where a sampled row diverges)."""
+    import shutil
+
+    from polyaxon_tpu_torch.chaos import Fault, FaultPlan
+    from polyaxon_tpu_torch.retry import RetryPolicy
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.replicas import InProcessReplica, ReplicaSetManager
+    from polyaxon_tpu_torch.serving.router import P2CBalancer, Router
+    from polyaxon_tpu_torch.serving.server import ModelServer
+    from polyaxon_tpu_torch.telemetry.stats import summarize
+
+    root = ARTIFACTS / "fleet" / name
+    shutil.rmtree(root, ignore_errors=True)
+    traffic = fleet_traffic(model.cfg.vocab_size)
+    cfg = FLEET_CONFIGS[name]
+
+    def replica(role):
+        return ModelServer(
+            model, None, ServingConfig(**SERVE_BASE, **cfg, role=role),
+            model_name=PRESET, device=model.device, slos=FLEET_SLOS,
+            history={"dir": str(root / f"history-{role}"), "interval_s": 0.5},
+        )
+
+    mgr = ReplicaSetManager(
+        lambda i: InProcessReplica(lambda: replica(("prefill", "decode")[i])),
+        replicas=2, retry=RetryPolicy(max_retries=1, backoff=0.5),
+    )
+    router = Router(mgr.endpoints, balancer=P2CBalancer(seed=FLEET_SEED),
+                    poll_interval_s=0.1)
+    mgr.attach_router(router)
+    direct = ModelServer(
+        model, None, ServingConfig(**SERVE_BASE, **cfg), model_name=PRESET,
+        device=model.device, slos=[FLEET_BREACH_SLO], debug_dir=str(root / "debug"),
+        slo_profile_s=FLEET_PROFILE_S,
+    )
+    rtag = f"{name}-routed"
+    t_phase = time.perf_counter()
+    try:
+        mgr.start()
+        rurl = f"http://127.0.0.1:{router.start('127.0.0.1', 0)}"
+        router.poll_once()
+        pre, dec = mgr.replica(0).server, mgr.replica(1).server
+        purl, durl = mgr.endpoints()
+        # the faulted request's import fails at its first hit
+        fault = FaultPlan([Fault("serving.kv_import", "raise", at=0)], seed=FLEET_SEED)
+        for kern in kernels:  # the routed fleet's path starts here
+            kern.launches = 0
+        routed = _fleet_drive(rurl, traffic, rtag, fault)
+        routed_launches = {kern.name: kern.launches for kern in kernels}  # ... ends here
+        check(fault.faults[0].fired == 1, "the handoff fault never fired")
+        xurl = f"http://127.0.0.1:{direct.start('127.0.0.1', 0)}"
+        # the breach SLO is evaluated here, not by its cadence: its
+        # profile window must not slow the direct replica's traffic
+        direct.slo_engine.stop()
+        direct.slo_engine.evaluate()  # the breach objective's first sample
+        for kern in kernels:  # the direct replica's drive starts here
+            kern.launches = 0
+        ref = _fleet_drive(xurl, traffic, f"{name}-direct")
+        direct_launches = {kern.name: kern.launches for kern in kernels}  # ... ends here
+        breach = direct.slo_engine.evaluate()
+        check(breach[0]["breached"], f"the breach SLO did not breach: {breach}")
+        # one request inside the profile window, so its steps are traced
+        _http(xurl + "/generate", {"tokens": [traffic[0]["body"]["tokens"][0][:256]],
+                                   "maxNewTokens": 8})
+        direct.flight_recorder.wait_profiles(60)
+        # the witness: each sampled row sent to the direct replica twice,
+        # the second time on its own harvested pages — the prefix hit
+        # splits the prompt's prefill at its last full page, as the decode
+        # replica's replay after a handoff does
+        warm = {}
+        for i, t in enumerate(traffic):
+            if t["kind"] == "sampled":
+                for k in range(2):
+                    rid = f"{name}-warm-{i}-{k}"
+                    row = _http(xurl + "/generate", t["body"], {"X-Request-Id": rid})["tokens"][0]
+                plan = [s["attrs"] for s in direct.traces.get(rid)["spans"]
+                        if s["name"] == "kv_plan"]
+                warm[i] = {"row": row, "prefix_len": plan[0]["prefix_len"]}
+        # the router's view of every request, stitched across replicas
+        stitched = {}
+        for i, t in enumerate(traffic):
+            for rid in [f"{rtag}-{i}"] + ([f"{rtag}-{i}-s"] if t["kind"] == "stream" else []):
+                stitched[rid] = (i, _http(rurl + "/tracez?id=" + rid))
+        sloz = {u: _http(u + "/sloz") for u in (purl, durl)}
+        for hist in (pre, dec):
+            hist.history_sampler.sample_once()
+        queryz = _http(durl + "/queryz?series=serving.requests&agg=max")
+        qlist = _http(purl + "/queryz")
+        rstats = _http(rurl + "/statsz")
+        dstats = _http(durl + "/statsz")
+    finally:
+        router.stop()
+        mgr.stop()
+        direct.stop()
+    wall_phase = time.perf_counter() - t_phase
+    # ---- the handoff's accounting
+    hp, hd = pre.stats()["handoff"], dec.stats()["handoff"]
+    check(hp["fallbacks"] == 1, f"{name}: fallbacks {hp['fallbacks']}, not the faulted "
+          f"one; prefill kv: {pre.stats()['kv']}")
+    check(hp["exports"] >= 1, f"{name}: no request was handed off")
+    check(hp["exports"] == hd["leases"]["completed"],
+          f"{name}: {hp['exports']} exports but {hd['leases']['completed']} imports")
+    # every request the prefill replica took was handed off or fell back
+    took = int(pre.telemetry.counter("serving.http_requests").value)
+    check(took == hp["exports"] + hp["fallbacks"],
+          f"{name}: the prefill replica took {took} requests: {hp}")
+    check(pre.stats()["requests"] == hp["fallbacks"],
+          f"{name}: the prefill replica decoded rows beyond its fallback")
+    check(hd["leases"]["active"] == 0 and hp["leases"]["active"] == 0,
+          f"{name}: the lease table is not empty: {hd['leases']}")
+    # ... and every export's replay decoded on the pages it adopted
+    handoffs = fleet_handoffs(name, stitched, traffic, cfg["kv_page_tokens"])
+    check(len(handoffs) == hp["exports"],
+          f"{name}: {hp['exports']} exports but {len(handoffs)} handoffs in the router's traces")
+    for tag, srv in (("prefill", pre), ("decode", dec), ("direct", direct)):
+        kv = srv.stats()["kv"]
+        check(kv["active_rows"] == 0 and kv["pages_reserved"] == 0,
+              f"{name} {tag}: rows still hold pages: {kv}")
+        check(kv["pages_used"] == 1 + kv["prefix"]["held_pages"],
+              f"{name} {tag}: pages leaked: {kv['pages_used']} used, "
+              f"{kv['prefix']['held_pages']} held by the prefix cache")
+        check(kv.get("handoff", {}).get("pending_pages", 0) == 0,
+              f"{name} {tag}: adopted pages never written")
+    # ---- traces, SLOs, history, the flight recorder
+    handed = handoffs[0]["id"]
+    tz = stitched[handed][1]
+    spans = tz["spans"]
+    reps = {s["attrs"].get("replica") for s in spans if s["attrs"].get("remote")}
+    names = {s["name"] for s in spans}
+    check(reps == {"r0", "r1"} and {"balance", "kv_export", "kv_handoff"} <= names
+          and tz["attrs"]["stitched"] == 2,
+          f"{name}: /tracez of {handed} does not stitch both replicas: {sorted(names)}")
+    for u, z in sloz.items():
+        check([o["name"] for o in z["slos"]] == ["avail", "latency"],
+              f"{name}: /sloz of {u} lacks the objectives: {z}")
+    check(queryz["points"], f"{name}: /queryz returned no history: {queryz}")
+    check("serving.kv_handoff_ms" in qlist["series"], f"{name}: /queryz series: {qlist}")
+    # each breach edge writes a bundle; one profiler window runs at a time
+    traces = [Path(b) / "profile" / "trace.json" for b in direct.flight_recorder.dumps]
+    traces = [json.loads(t.read_text()) for t in traces if t.is_file()]
+    check(any("traceEvents" in t for t in traces),
+          f"{name}: no flight-recorder bundle holds a torch.profiler trace")
+    events = [e for t in traces for e in t.get("traceEvents", [])]
+    profile_events = {"bundles": len(direct.flight_recorder.dumps), "events": len(events),
+                      "kernel_events": sum(1 for e in events if e.get("cat") == "kernel")}
+    shutil.rmtree(root, ignore_errors=True)
+    # ---- the numbers
+    added = []
+    for t in router.traces.dump():
+        if t["status"] == "ok":
+            up = sum(s["dur_s"] for s in t["spans"] if s["name"] == "upstream_attempt"
+                     and not s["attrs"].get("remote"))
+            added.append(t["dur_ms"] - up * 1e3)
+
+    def per_handoff(key):
+        return summarize([h[key] for h in handoffs])["mean"]
+
+    ttft = {k: summarize(d["ttft_ms"]) for k, d in (("router", routed), ("direct", ref))}
+    rate = {k: summarize(d["decode_tokens_per_s"]) for k, d in (("router", routed), ("direct", ref))}
+    emit({
+        "phase": "serve-fleet", "config": name, "device": device_line(),
+        "note": "three replicas in one process share one GIL: semantics and costs, "
+                "not throughput scaling",
+        "requests": len(traffic), "new_tokens": FLEET_NEW, "wave": FLEET_WAVE,
+        "prompt_lens": [len(t["body"]["tokens"][0]) for t in traffic],
+        # at the client, over the streamed rows of the waves
+        "client_timed_requests": len(routed["ttft_ms"]),
+        "ttft_ms_router_p50": ttft["router"]["p50"], "ttft_ms_router_p95": ttft["router"]["p95"],
+        "ttft_ms_direct_p50": ttft["direct"]["p50"], "ttft_ms_direct_p95": ttft["direct"]["p95"],
+        # (FLEET_NEW - 1) tokens over the first token to the last, a request
+        "decode_tokens_per_s_router_p50": rate["router"]["p50"],
+        "decode_tokens_per_s_direct_p50": rate["direct"]["p50"],
+        "handoff_exports": hp["exports"], "handoff_imports": hd["imports"],
+        "handoff_fallbacks": hp["fallbacks"], "affinity_hits": rstats["affinity"]["hits"],
+        "handoff_bytes_per_request": hp["bytes"] / max(1, hp["exports"]),
+        # per handoff, from its own trace; means over the handoffs
+        "handoff_capture_ms": per_handoff("capture_ms"),
+        "handoff_ship_ms": per_handoff("ship_ms"),
+        "handoff_adopt_host_ms": per_handoff("adopt_host_ms"),
+        "handoff_wire_ms": per_handoff("wire_ms"),
+        "handoff_wire_ms_min": min(h["wire_ms"] for h in handoffs),
+        "handoff_write_host_ms": dec.telemetry.histogram(
+            "serving.kv_handoff_write_ms").summary()["mean"],
+        "replay_prefix_tokens": [h["prefix_len"] for h in handoffs],
+        "router_added_ms_mean": statistics.mean(added) if added else None,
+        "router_added_ms_p50": statistics.median(added) if added else None,
+        "decode_imports_pages": dstats["kv"].get("handoff", {}).get("adopted_pages"),
+        "flight_recorder_profile_events": profile_events,
+        "phase_seconds": wall_phase,
+    })
+    return {"config": name, "traffic": traffic, "routed": routed, "ref": ref,
+            "module": direct.module, "warm": warm,
+            "launches": {"routed": routed_launches, "direct": direct_launches}}
+
+
+def check_fleet_rows(fleet: dict) -> None:
+    """Routed rows against the direct replica's: equal, or diverging only at
+    a near-tie (compare_rows, on the direct replica's module); each stream
+    against its non-streamed row by the same rule. On the int8 pool the
+    reference is the int8 module's own rows on a direct int8 pool
+    (int8_pool_rows, as serve-fast holds its int8 rows), with that path's
+    gaps, for the routed rows, the direct replica's and the streams. A
+    sampled row may also flip at top-k's edge (edge_flip, as serve-tenants
+    holds its sampled rows); where a sampled row diverges, the line shows
+    the witness beside it: that row from the direct replica with its
+    prompt's pages warm in its own prefix cache (the prefix hit, and
+    whether the row is the routed one)."""
+    t0 = time.perf_counter()
+    model, traffic = fleet["module"], fleet["traffic"]
+    bodies = [t["body"] for t in traffic]
+    samples = [(b["temperature"], b["topK"], b["seed"]) if "temperature" in b else None
+               for b in bodies]
+    int8 = FLEET_CONFIGS[fleet["config"]].get("kv_quant") == "int8"
+    if int8:
+        ref_rows, ref_gaps = int8_pool_rows(model, [b["tokens"][0] for b in bodies],
+                                            FLEET_NEW, samples)
+    out = {"routed": [], "direct": [], "streams": []}
+    for i, body in enumerate(bodies):
+        plen = len(body["tokens"][0])
+        got, direct = fleet["routed"]["rows"][i], fleet["ref"]["rows"][i]
+        check(len(got) == len(direct) == plen + FLEET_NEW,
+              f"{fleet['config']}: row {i} has {len(got)} tokens")
+        pairs = {"routed": got}
+        if i in fleet["routed"]["streamed"]:
+            pairs["streams"] = fleet["routed"]["streamed"][i]
+        if int8:
+            pairs["direct"] = direct
+        for kind, row in pairs.items():
+            try:
+                if int8:
+                    d = compare_rows(model, row, ref_rows[i], plen, gaps=ref_gaps[i])
+                elif kind == "streams":
+                    d = compare_rows(model, row, got, plen)
+                else:
+                    d = compare_rows(model, row, direct, plen, sample=samples[i])
+            except SmokeFailure as e:  # held below, after every row is reported
+                d = {"not_near_tie": str(e)}
+                if samples[i] is not None:
+                    # a top-k sampled row may flip at the mask's edge
+                    # (edge_flip, the rule serve-tenants holds its sampled
+                    # rows to), judged on the reference path's logits
+                    ref = ref_rows[i] if int8 else (got if kind == "streams" else direct)
+                    j = next(n for n, (a, b) in enumerate(zip(row, ref)) if a != b)
+                    raw = _one_shot_logits(model, ref[:j], int8)
+                    if edge_flip(raw, row[j], ref[j], (*samples[i], j - plen)):
+                        d = {"position": j - plen, "top_k_edge_flip": True}
+                    w = fleet["warm"][i]
+                    d["witness"] = {"warm_prefix_len": w["prefix_len"],
+                                    "warm_token": w["row"][j], "token": row[j],
+                                    "reference_token": ref[j],
+                                    "warm_equals_row": w["row"] == row,
+                                    # the reference path's logits there
+                                    "kth_logit": float(raw.topk(samples[i][1]).values[-1]),
+                                    "token_logit": float(raw[row[j]]),
+                                    "reference_token_logit": float(raw[ref[j]])}
+            if d is not None:
+                out[kind].append({"row": i, "sampled": samples[i] is not None, **d})
+    emit({"phase": "serve-fleet-rows", "config": fleet["config"],
+          "reference": "int8_pool_rows" if int8 else "direct replica",
+          "rows": len(traffic), "rows_diverged": len(out["routed"]),
+          "divergences": out["routed"], "direct_diverged": out["direct"],
+          "streams_diverged": out["streams"], "seconds": time.perf_counter() - t0})
+    bad = [d for ds in out.values() for d in ds if "not_near_tie" in d]
+    check(not bad, f"{fleet['config']}: rows diverge past a near-tie: {bad}")
+
+
 def _device_time_us(evt) -> float:
     """Self device time of a profiler row; the attribute's name changed
     across PyTorch versions."""
@@ -2750,7 +3223,22 @@ def main() -> int:
             launches[name] += n
         check_int8_rows(qmodel, batched["waves"], int8_answers)
         int8_teacher_forced(model, qmodel)
-        del model, warm, qmodel, batched
+        del qmodel, batched
+        torch.cuda.empty_cache()
+        for name, config in FLEET_CONFIGS.items():
+            # the counts are set to 0 and read around each drive, in the phase
+            fleet = phase_serve_fleet(model, name, KERNELS)
+            emit({"phase": "serve-fleet-launches", "config": name, **fleet["launches"]})
+            if config.get("quantize"):  # the prefill and decode replicas' projections
+                check(fleet["launches"]["routed"]["int8_matmul"] > 0,
+                      f"{name}: the routed replicas never launched int8_matmul")
+            for counts in fleet["launches"].values():
+                for kname, n in counts.items():
+                    launches[kname] += n
+            check_fleet_rows(fleet)
+            del fleet
+            gc.collect()
+        del model, warm
         torch.cuda.empty_cache()
         phase_lora_card()  # the plain pieces, before the path is counted
         lmodel = build_model(

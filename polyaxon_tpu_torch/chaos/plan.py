@@ -1,10 +1,12 @@
 """FaultPlan: a seeded, declarative schedule of faults. An own copy of
 `Fault` and `FaultPlan` from `polyaxon_tpu/chaos/plan.py` (stdlib only),
-with the one canned scenario the port's tests use; the others follow the
-modules that use them (the executor, serving, the event log).
+with the canned scenarios the port's tests use (`corrupt_then_kill`,
+`kv_handoff_crash`); the others follow the modules that use them (the
+executor, the event log).
 
 A scenario is a list of `Fault` entries bound to named injection points
-(`trainer.step`, `checkpoint.save`, `checkpoint.upload`). Everything random
+(`trainer.step`, `checkpoint.save`, `checkpoint.upload`, the KV handoff's
+`serving.kv_export`, `serving.kv_import` and `serving.kv_adopt`). Everything random
 about a scenario is drawn from a string-seeded PRNG when the plan is built,
 so one seed gives one scenario in every process. `chaos.injector.arm(plan)`
 makes the instrumented points consult it.
@@ -95,4 +97,26 @@ class FaultPlan:
             seed=seed,
             params={"corrupt_step": c, "kill_step": k,
                     "fallback_step": c - checkpoint_every},
+        )
+
+    @classmethod
+    def kv_handoff_crash(
+        cls, seed: int, window: int = 4, action: str = "raise"
+    ) -> "FaultPlan":
+        """A fault lands in a seed-chosen window of the live KV handoff:
+        export capture or send on the prefill side, the import's parse on
+        the decode side, or the adopt itself. Whatever the window, zero
+        pages leak on either replica and the request still completes with
+        the same tokens, by a clean retry or the prefill replica's local
+        fallback. The point and the hit index are seed-chosen, so repeated
+        runs walk different handoffs."""
+        rng = random.Random(f"kv_handoff_crash:{seed}")
+        point = rng.choice(
+            ["serving.kv_export", "serving.kv_import", "serving.kv_adopt"]
+        )
+        k = rng.randrange(0, max(1, window))
+        return cls(
+            [Fault(point, action, at=k, message=f"chaos: handoff fault at {point} #{k}")],
+            seed=seed,
+            params={"fault_point": point, "fault_hit": k, "fault_action": action},
         )

@@ -31,8 +31,8 @@ row refused later is never charged), and the worker picks the next group's
 head by weighted fair share (smallest outstanding tokens / weight, FIFO
 within a tenant). Groups still mix tenants.
 
-Not ported: meshes and disaggregated roles, whose ServingConfig fields
-raise NotImplementedError (see ROADMAP.md).
+Not ported: meshes, whose ServingConfig field raises NotImplementedError
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -172,10 +172,10 @@ class ServingConfig:
     `adaptive_draft` steering K), `quantize` (int8 weight-only projections,
     quantized on load) and `kv_quant="int8"` (the int8 paged pool).
     Multi-tenant serving: `adapters`, `tenants`, `adapter_slots`; the
-    spill tier: `spill_ram_bytes`, `spill_dir`, `spill_dir_bytes`. Fields
-    of features not ported yet (`mesh_axes`, `role`) raise
-    NotImplementedError when set to anything but their defaults (see
-    ROADMAP.md)."""
+    spill tier: `spill_ram_bytes`, `spill_dir`, `spill_dir_bytes`.
+    Disaggregated pools: `role`. Per-request traces: `trace`,
+    `trace_ring`. `mesh_axes` (not ported yet) raises NotImplementedError
+    when set (see ROADMAP.md)."""
 
     max_batch: int = 8
     max_wait_ms: float = 5.0
@@ -209,8 +209,7 @@ class ServingConfig:
     draft_model: Optional[tuple[tuple[str, object], ...]] = None
     adaptive_draft: bool = False
     kv_quant: str = "none"
-    # per-request span traces and their ring (/tracez) are not ported;
-    # the fields are accepted and have no effect yet
+    # per-request span traces and the tail-sampling ring behind /tracez
     trace: bool = True
     trace_ring: int = 256
     mesh_axes: Optional[tuple[tuple[str, int], ...]] = None  # not ported
@@ -243,15 +242,19 @@ class ServingConfig:
     adapters: tuple = ()
     tenants: tuple = ()
     adapter_slots: int = 0
-    role: str = "both"  # not ported: disaggregated prefill/decode pools
+    # disaggregated pools: "both" (the default) is the monolithic server;
+    # "prefill" runs chunked prefill and ships the finished page set to the
+    # decode replica the router names, over POST /kv_import (falling back
+    # to local decode when the import fails); "decode" advertises itself
+    # as an adoption target and still serves whole requests, so an outage
+    # of the prefill pool degrades instead of failing
+    role: str = "both"
 
     def __post_init__(self):
-        unported = {"mesh_axes": bool(self.mesh_axes), "role": self.role != "both"}
-        bad = [name for name, hit in unported.items() if hit]
-        if bad:
+        if self.mesh_axes:
             raise NotImplementedError(
-                f"ServingConfig fields {bad} (meshes, disaggregated roles) are "
-                "not ported to PyTorch yet (see ROADMAP.md)"
+                "ServingConfig field mesh_axes (meshes) is not ported to "
+                "PyTorch yet (see ROADMAP.md)"
             )
 
     def ladders(self, seq_len: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -333,6 +336,16 @@ class PendingRequest:
     tenant: str = "default"
     adapter: str = ""  # adapter name, for the registry's release on finish
     adapter_slot: int = 0
+    # the request's RequestTrace (shared by its rows), or None
+    trace: Optional[object] = None
+    # disaggregated handoff: on a prefill-role server the router names a
+    # decode replica (X-Handoff-Target); after the final prefill slice the
+    # step engine exports the finished page set, parks the wire bytes
+    # here and resolves the row with a sentinel error, so the HTTP handler
+    # thread (not the decode worker) runs the transfer
+    handoff_target: Optional[str] = None
+    handoff_epoch: int = 0
+    handoff_payload: Optional[bytes] = None
 
     def cancel(self) -> None:
         """Mark the row as abandoned by its client. Safe from any thread;

@@ -1,6 +1,6 @@
 """Serving-side owner of the paged KV pool, counterpart of
-`polyaxon_tpu/serving/kv.py::KVCacheManager` with its spill tier and
-without its KV handoff (export, adopt).
+`polyaxon_tpu/serving/kv.py::KVCacheManager` with its spill tier and its
+KV handoff (export, adopt).
 
 `KVCacheManager` glues the host accounting (`models/kv_pages.py`: PagePool
 refcounts and reservations, the content-addressed PrefixCache) to the
@@ -36,6 +36,15 @@ device pool (`models.generate.make_paged_cache`) and the coalescer:
   leaves follow the reference's leaf order (layers by name, then
   cached_key, [its scale], cached_value, [its scale]), so a segment
   written by either package holds the same leaves in the same order.
+* **KV handoff** (disaggregated pools) — on a prefill replica
+  `export_prefix` captures a finished row's cached page-aligned prefix as
+  a host SpillPayload (the wire unit of `serving/handoff.py`); on a decode
+  replica `adopt_pages` allocates pool pages for it, queues their device
+  write like a spill restore and indexes every chain link, so the
+  replayed request's admission hits it. Both work in the row's prefix
+  namespace: an adapter's pages land in that adapter's chain only.
+  `advertised_heads` (the `/kvz` payload) lists the resident and spilled
+  chain heads the router's affinity directory matches prompts against.
 
 Page table layout per row (width = pages_for(L + pb + nb - 1)):
 `[shared prefix pages | own pages, allocated lazily | scratch]` — the
@@ -69,6 +78,7 @@ from ..models.kv_pages import (
     page_hashes,
 )
 from .batching import ServingError, ShedError, choose_buckets
+from ..telemetry import now as _now
 from .spill import SpillManager, SpillPayload
 
 
@@ -154,12 +164,18 @@ class KVCacheManager:
             self.prefix.on_evict = self._demote
         self._mirror: dict[str, list] = {}  # hash -> per-leaf page bytes
         self._mirror_refs: dict[str, int] = {}
-        self._pending_restores: list = []  # (page ids, per-leaf values)
+        self._pending_restores: list = []  # (page ids, per-leaf values, tag)
         self.spill_restores = 0
         self.restore_skipped = 0
         self.restore_aborted = 0
         self.spill_skipped = 0  # demotes with missing mirror bytes
         self.mirror_capture_failures = 0
+        # ---- live KV handoff: pages held by adopt-queued writes not yet
+        # flushed read as HELD (in transit), not leaked
+        self._handoff_pending = 0
+        self.handoff_exports = 0
+        self.handoff_adopted_pages = 0
+        self.handoff_adopt_aborted = 0
         # 0, not the post-heal value: startup quarantines surface on the
         # first observation
         self._quarantined_seen = 0
@@ -187,6 +203,7 @@ class KVCacheManager:
             used=self.pool.used,
             total=self.pool.n_pages,
             prefix_held=self.prefix.held_pages if self.prefix is not None else 0,
+            handoff_held=self._handoff_pending,
         )
 
     @property
@@ -200,12 +217,13 @@ class KVCacheManager:
     # ----------------------------------------------------------- admission
     def plan_row(
         self, tokens, max_new: int, prompt_ladder: tuple, new_ladder: tuple,
-        seq_len: int, namespace: str = "",
+        seq_len: int, namespace: str = "", trace=None,
     ) -> RowPlan:
         """Admit one row: prefix lookup + suffix bucketing + reservation.
         `namespace` names the prefix chain the row reads and, at harvest,
         feeds: rows whose K/V differ for the same tokens (another adapter)
-        each get their own.
+        each get their own. `trace` (a RequestTrace) gets a `kv_plan`
+        annotation.
         Raises ServingError (400) when the row can NEVER fit the pool and
         ShedError(reason="kv_pages") (503) when it cannot fit NOW."""
         pt = self.layout.page_tokens
@@ -260,6 +278,11 @@ class KVCacheManager:
             self.active_rows += 1
             self.active_rows_hwm = max(self.active_rows_hwm, self.active_rows)
             self._pages_changed()
+            if trace is not None:
+                trace.annotate(
+                    "kv_plan", prefix_len=L, prefix_hit=entry is not None,
+                    suffix_bucket=pb, new_bucket=nb, pages=n_pages, reserved=demand,
+                )
             return RowPlan(
                 prefix_len=L,
                 prefix_pages=tuple(ppages),
@@ -290,12 +313,14 @@ class KVCacheManager:
             self._pages_changed()
 
     # ------------------------------------------------------ decode support
-    def ensure_pages(self, plans, upto_slot: int) -> None:
+    def ensure_pages(self, plans, upto_slot: int, traces=None) -> None:
         """Allocate each plan's own pages to cover slots [0, upto_slot) out
         of its reservation. Called by the decode worker before prefill and
-        each chunk or step — cannot fail (reserved <= free invariant)."""
+        each chunk or step — cannot fail (reserved <= free invariant).
+        `traces` (parallel to `plans`) gets a `kv_ensure` annotation per
+        row that allocated."""
         with self._lock:
-            for plan in plans:
+            for i, plan in enumerate(plans):
                 if plan is None:
                     continue
                 need_total = min(self.layout.pages_for(upto_slot), plan.n_pages)
@@ -305,6 +330,8 @@ class KVCacheManager:
                 ids = self.pool.alloc(need, reserved=True)
                 plan.reserved -= need
                 plan.own_pages.extend(ids)
+                if traces is not None and traces[i] is not None:
+                    traces[i].annotate("kv_ensure", pages=need, upto_slot=upto_slot)
             self._pages_changed()
 
     def tables(self, plans, batch: int, n_pages: int) -> np.ndarray:
@@ -344,14 +371,17 @@ class KVCacheManager:
 
     def harvest(self, rows) -> int:
         """Index each completed row's page-aligned prompt prefix, in its
-        plan's namespace. `rows` is [(tokens, plan, pad)] — called by the
-        decode worker AFTER the row's tokens are out (harvest must not delay
-        TTFT). Returns the number of entries inserted."""
+        plan's namespace. `rows` is [(tokens, plan, pad)] or [(tokens, plan,
+        pad, trace)] — called by the decode worker AFTER the row's tokens
+        are out (harvest must not delay TTFT). Returns the number of entries
+        inserted."""
         if self.prefix is None:
             return 0
         pt = self.layout.page_tokens
         inserted = 0
-        for tokens, plan, pad in rows:
+        for row in rows:
+            tokens, plan, pad = row[:3]
+            trace = row[3] if len(row) > 3 else None
             if plan is None or plan.released:
                 continue
             k = len(tokens) // pt  # full prompt pages
@@ -399,6 +429,8 @@ class KVCacheManager:
                 # drop the allocation refs — the entries hold their own
                 self.pool.unref(new_ids)
                 self._pages_changed()
+            if trace is not None:
+                trace.annotate("kv_harvest_row", pages=n_new)
         return inserted
 
     # --------------------------------------------------------- tiered spill
@@ -545,18 +577,21 @@ class KVCacheManager:
             self.pool.unref(new_ids)
             raise
 
-    def _queue_restore(self, new_ids, pages_payload) -> tuple:
+    def _queue_restore(self, new_ids, pages_payload, tag: str = "spill") -> tuple:
         """Queue the device write of restored pages: per leaf, the pages'
         host values stacked. The item holds its OWN pool refs, so an
         eviction racing the flush is harmless — the write lands in
-        still-held pages, which free right after."""
+        still-held pages, which free right after. `tag="handoff"` items
+        also count into the in-transit gauge until flushed."""
         vals = [
             torch.stack([page[leaf] for page in pages_payload])
             for leaf in range(len(pages_payload[0]))
         ]
         self.pool.ref(new_ids)
-        item = (list(new_ids), vals)
+        item = (list(new_ids), vals, tag)
         self._pending_restores.append(item)
+        if tag == "handoff":
+            self._handoff_pending += len(new_ids)
         return item
 
     def _unqueue_restore(self, item) -> bool:
@@ -567,6 +602,8 @@ class KVCacheManager:
         except ValueError:
             return False
         self.pool.unref(item[0])
+        if item[2] == "handoff":
+            self._handoff_pending -= len(item[0])
         return True
 
     @torch.inference_mode()
@@ -579,14 +616,146 @@ class KVCacheManager:
                 return 0
             pending, self._pending_restores = self._pending_restores, []
         dev = self.cache[0][0].device
-        for ids, vals in pending:
+        for ids, vals, tag in pending:
+            t0 = _now()
             dst = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
             for (i, f), v in zip(self.leaves, vals):
                 self.cache[i][f][dst] = v.to(dev)
             with self._lock:
                 self.pool.unref(ids)
+                if tag == "handoff":
+                    self._handoff_pending -= len(ids)
                 self._pages_changed()
+            if tag == "handoff":
+                # the host time of the adopted pages' device write (its
+                # copies are queued on the stream that runs the steps)
+                self._observe("kv_handoff_write", ms=(_now() - t0) * 1e3, pages=len(ids))
         return len(pending)
+
+    # ------------------------------------------------------ live handoff
+    def export_prefix(self, tokens, namespace: str = "") -> Optional[SpillPayload]:
+        """Capture the longest cached page-aligned prefix of `tokens` in
+        `namespace`'s chain as a host SpillPayload — the wire unit of the
+        live KV handoff. Decode worker only, right after the producing
+        step (the rule of `_capture_mirror`: the copy is queued on the
+        step's stream, after the write). The chain pages are ref-held
+        across the read so a racing eviction cannot recycle them. Returns
+        None when nothing page-aligned is cached (prompt shorter than a
+        page, prefix cache off): the caller decodes locally."""
+        if self.prefix is None:
+            return None
+        pt = self.layout.page_tokens
+        k = len(tokens) // pt
+        if k < 1:
+            return None
+        with self._lock:
+            _plen, page_ids = self.prefix.peek(tokens, max_tokens=k * pt, namespace=namespace)
+            j = len(page_ids)
+            if j < 1:
+                return None
+            page_ids = list(page_ids)
+            self.pool.ref(page_ids)
+        try:
+            pages = self._capture_mirror(page_ids)
+        finally:
+            with self._lock:
+                self.pool.unref(page_ids)
+                self._pages_changed()
+        hashes = page_hashes(tokens[: j * pt], pt, self.prefix.hash_fn, namespace)
+        with self._lock:
+            self.handoff_exports += 1
+        return SpillPayload(
+            tuple(int(t) for t in tokens[: j * pt]), tuple(hashes), pages,
+            namespace=namespace,
+        )
+
+    def adopt_pages(self, payload: SpillPayload) -> int:
+        """Adopt an imported handoff page set into `payload.namespace`'s
+        chain: allocate pool pages, queue the device write (flushed by the
+        worker before the next prefill, like a spill restore) and index
+        every chain link, so the replayed request's admission hits it.
+        Content verification (CRC frames, the hash chain against the
+        tokens) is the HTTP layer's; this method owns the refcounts.
+
+        Returns the number of newly adopted pages (0 when the chain is
+        already resident: a repeated import is idempotent). Raises
+        ShedError(reason="kv_handoff") when there is no headroom even after
+        LRU eviction. Every abort path — a chaos raise, a collision race, a
+        headroom shed — returns every page this adoption holds."""
+        if self.prefix is None:
+            raise ServingError("kv handoff requires the prefix cache")
+        pt = self.layout.page_tokens
+        ns = payload.namespace
+        tokens = tuple(int(t) for t in payload.tokens)
+        j = len(payload.pages)
+        with self._lock:
+            _plen, k_pages = self.prefix.peek(tokens, max_tokens=len(tokens), namespace=ns)
+            k = len(k_pages)
+            n_new = j - k
+            if n_new <= 0:
+                return 0
+            if self.pool.available < n_new:
+                if not self.prefix.evict_for(n_new):
+                    self._observe("shed", reason="kv_handoff")
+                    raise ShedError(
+                        f"KV pool cannot adopt {n_new} handoff pages "
+                        f"({self.pool.available} free)",
+                        reason="kv_handoff",
+                    )
+                self._observe("prefix_evict")
+            try:
+                new_ids = self.pool.alloc(n_new)
+            except PagePoolExhausted as e:
+                self._observe("shed", reason="kv_handoff")
+                raise ShedError(
+                    f"KV pool cannot adopt handoff pages: {e}", reason="kv_handoff"
+                ) from None
+            queued = None
+            try:
+                # chaos: a kill here is a death mid-adopt — the except arm
+                # returns every page this adoption holds
+                inject("serving.kv_adopt", h=payload.hashes[-1], pages=n_new)
+                queued = self._queue_restore(new_ids, payload.pages[k:], tag="handoff")
+                if self._spill is not None:
+                    for pos in range(1, j + 1):
+                        self._mirror.setdefault(payload.hashes[pos - 1], payload.pages[pos - 1])
+                inserted = 0
+                for jj in range(k + 1, j + 1):
+                    pages_jj = tuple(k_pages) + tuple(new_ids[: jj - k])
+                    if self.prefix.insert(tokens[: jj * pt], pages_jj, ns):
+                        inserted += 1
+                        if self._spill is not None:
+                            self._mirror_ref(payload.hashes[:jj])
+                if self._spill is not None:
+                    self._mirror_gc(payload.hashes)
+                if inserted == 0:
+                    # collision race: other content owns the chain slots —
+                    # cancel the queued write, free the pages
+                    self._unqueue_restore(queued)
+                    queued = None
+                    self.handoff_adopt_aborted += 1
+                    n_new = 0
+                else:
+                    self.handoff_adopted_pages += n_new
+                    self._observe("kv_handoff_adopt", pages=n_new)
+                self.pool.unref(new_ids)
+                self._pages_changed()
+                return n_new
+            except BaseException:
+                if queued is not None:
+                    self._unqueue_restore(queued)
+                self.pool.unref(new_ids)
+                self._pages_changed()
+                raise
+
+    def advertised_heads(self) -> list:
+        """Chain hashes restorable on this replica — resident PrefixCache
+        entries plus spilled entries in either tier. The /kvz payload."""
+        with self._lock:
+            heads = self.prefix.heads() if self.prefix is not None else []
+            if self._spill is not None:
+                heads.extend(self._spill.heads())
+            return list(dict.fromkeys(heads))
 
     # ---------------------------------------------------------------- stats
     def kv_pool_bytes(self) -> int:
@@ -623,6 +792,14 @@ class KVCacheManager:
                     "misses": self.prefix.misses,
                     "evictions": self.prefix.evictions,
                     "collisions": self.prefix.collisions,
+                }
+            if (self.handoff_exports or self.handoff_adopted_pages
+                    or self.handoff_adopt_aborted or self._handoff_pending):
+                out["handoff"] = {
+                    "exports": self.handoff_exports,
+                    "adopted_pages": self.handoff_adopted_pages,
+                    "adopt_aborted": self.handoff_adopt_aborted,
+                    "pending_pages": self._handoff_pending,
                 }
             if self._spill is not None:
                 out["spill"] = {

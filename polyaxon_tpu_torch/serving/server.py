@@ -12,7 +12,19 @@ Endpoints:
   GET  /statsz   → occupancy, latency and TTFT percentiles, resilience
                    counters, the KV pool and the step scheduler (JSON)
   GET  /metricsz → Prometheus text, rendered from the same registry
-  GET  /kvz      → the prefix-cache chain hashes this replica holds
+  GET  /kvz      → the prefix-cache chain hashes this replica holds (and
+                   its role)
+  GET  /tracez   → ?id=<request id>: one request's trace; ?n=&sort=
+                   recent|slowest|errors: the tail-sampled ring's summaries
+  GET  /sloz     → the SLO engine's objectives, burn rates and breaches
+  GET  /queryz   → ?series=&since=&until=&step=&agg=: windowed aggregates
+                   over the metrics history (503 when history is off)
+  POST /kv_import → adopt a prefill replica's exported page set (the
+       handoff's CRC-framed segment bytes; X-Handoff-Id and
+       X-Handoff-Epoch headers): 200 {"adopted_pages": n, "adopt_ms": the
+       import's host ms}; 400 malformed bytes or a hash chain that does not
+       match the tokens; 409 a stale epoch; 503 no pool headroom (reason
+       kv_handoff)
   POST /generate → {"tokens": [[...]]}; body {"tokens": [[int]],
        "maxNewTokens", "temperature", "topK", "eosId", "seed",
        "deadlineMs", "numBeams" (beam search when > 1), "lengthPenalty",
@@ -75,9 +87,27 @@ eager PyTorch program has no compiled shapes to share, so dummy rows would
 only cost work. Groups decode until their longest row is done, not to the
 end of the new-token bucket.
 
-Not ported yet (ROADMAP.md), refused by name: meshes and disaggregated
-roles (ServingConfig raises), `/kv_import`, `/tracez`, `/sloz` and
-`/queryz` (501) and `from_run`.
+Observability: every HTTP request gets a `RequestTrace` (admission,
+queue wait, prefill chunks, decode windows, harvest, the handoff), kept by
+the tail-sampling ring behind `/tracez` (`config.trace`). With `slos` the
+SLO engine burns availability and latency objectives (each latency
+objective also per tenant, `"<slo>@<tenant>"`), and with `debug_dir` a
+breach edge dumps a flight-recorder bundle (with a `torch.profiler` window
+when `slo_profile_s` > 0). `history` samples the registry into a
+crash-consistent store behind `/queryz`; `regression_rules` fire
+edge-triggered `perf_regression` events over it (to `event_sink`).
+
+Disaggregated pools (`role`): a `prefill` replica (chunked prefill, the
+paged pool and the prefix cache) runs a row's prefill, exports its cached
+page set after the last slice and ships it to the decode replica the
+router names (`X-Handoff-Target`, `X-Handoff-Epoch`) over `/kv_import`,
+then answers 503 `kv_handoff_done` (in band on a stream), which the router
+replays on that replica: its admission hits the adopted pages. A failed
+ship falls back to local decode. An adapter row's pages travel in its
+adapter's prefix namespace and land in the same namespace there.
+
+Not ported yet (ROADMAP.md), refused by name: meshes (ServingConfig
+raises) and `from_run`.
 """
 
 from __future__ import annotations
@@ -117,7 +147,23 @@ from ..models.spec_decode import (
     spec_generate,
     spec_verify_paged,
 )
-from ..telemetry import MetricsRegistry, now as _now
+from ..models.kv_pages import page_hashes
+from ..telemetry import (
+    FlightRecorder,
+    HistorySampler,
+    HistoryStore,
+    MetricsRegistry,
+    RegressionSentinel,
+    RequestTrace,
+    SLOEngine,
+    TraceRing,
+    build_objectives,
+    build_rules,
+    new_trace_id,
+    now as _now,
+    queryz_payload,
+    tracez_payload,
+)
 from .adaptive import AdaptiveSpecController
 from .batching import (
     CircuitBreaker,
@@ -131,12 +177,45 @@ from .batching import (
     ShedError,
     choose_buckets,
 )
+from .handoff import (
+    HandoffClient,
+    HandoffError,
+    LeaseTable,
+    StaleLeaseError,
+    payload_from_wire,
+    payload_to_wire,
+)
 from .kv import KVCacheManager
 from .spill import SpillManager
 from .steps import RowStep, StepScheduler
 from .tenancy import DEFAULT_TENANT, TenantAdmission, TenantSpec
 
-UNPORTED_ROUTES = ("/kv_import", "/tracez", "/sloz", "/queryz")
+class _HandoffPrefillDone(Exception):
+    """Sentinel resolving a prefill-role row: the first token is out and
+    the finished page set is exported, but the transfer has NOT run — the
+    HTTP handler thread ships it (network I/O never rides the decode
+    worker), then answers a retryable failover (shipped) or re-runs the
+    row locally (not)."""
+
+    def __init__(self, first_token: int):
+        super().__init__("prefill complete: KV handoff pending")
+        self.first_token = int(first_token)
+
+
+def _trace_status(error: Optional[BaseException]) -> str:
+    """Trace status for the tail sampler: everything that is not a clean
+    completion is retained preferentially."""
+    if error is None:
+        return "ok"
+    if isinstance(error, ShedError):
+        return f"shed:{error.reason}"
+    if isinstance(error, DeadlineExceededError):
+        return "deadline_exceeded"
+    if isinstance(error, ServingError):
+        return "invalid_request"
+    if isinstance(error, TimeoutError):
+        return "timeout"
+    return "error"
 
 
 class _Httpd(ThreadingHTTPServer):
@@ -183,9 +262,21 @@ class ModelServer:
         model_name: str = "transformer_lm",
         step: int = 0,
         device="cuda",
+        registry: Optional[MetricsRegistry] = None,
+        slos: Optional[list] = None,
+        debug_dir: Optional[str] = None,
+        slo_profile_s: float = 0.0,
+        history: Optional[dict] = None,
+        regression_rules: Optional[list] = None,
+        event_sink=None,
     ):
         """`params`: None (keep the module's weights), a torch state_dict,
-        or the JAX package's nested numpy param dict."""
+        or the JAX package's nested numpy param dict. `slos`: objective
+        dicts (name, kind availability|latency, objective, thresholdMs,
+        windows); `debug_dir`: where a breach writes its flight-recorder
+        bundle; `history`: {"dir", "interval_s", "max_bytes",
+        "segment_bytes"}; `regression_rules`: rule dicts over the history;
+        `event_sink`: called with each perf_regression event."""
         self.config = config or ServingConfig()
         cfg = self.config
         # the reference's cross-field rules: an ignored kv_quant would have an
@@ -198,6 +289,18 @@ class ModelServer:
             raise ValueError("draft_model/adaptive_draft require speculate=True")
         if cfg.speculate and int(cfg.draft_tokens) < 1:
             raise ValueError("draft_tokens must be >= 1")
+        # disaggregated pools: the handoff unit is the page-aligned prefix
+        # chain a chunked prefill leaves behind
+        if cfg.role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be 'both', 'prefill' or 'decode', got {cfg.role!r}")
+        if cfg.role == "prefill" and not (
+            cfg.chunked_prefill and cfg.kv_pool_pages and cfg.prefix_cache
+        ):
+            raise ValueError(
+                "role='prefill' requires chunked_prefill + kv_pool_pages + "
+                "prefix_cache (the handoff ships the page-aligned prefix chain "
+                "chunked prefill leaves in the cache)"
+            )
         if (cfg.spill_ram_bytes or cfg.spill_dir) and not (
             cfg.kv_pool_pages and cfg.prefix_cache
         ):
@@ -263,7 +366,7 @@ class ModelServer:
         self.step = step
         self._draining = False
         # ONE metrics pipeline: /statsz and /metricsz both render from it
-        self.telemetry = MetricsRegistry()
+        self.telemetry = registry or MetricsRegistry()
         t = self.telemetry
         self._m_requests = t.counter("serving.requests", help="Generation rows served")
         self._m_batches = t.counter("serving.batches", help="Decode batches dispatched")
@@ -424,9 +527,120 @@ class ModelServer:
             help="Wall time to materialize an adapter into its slot on acquire "
             "(cold load or spill restore), milliseconds",
         )
+        # live KV handoff series, registered from startup (zeros when the
+        # pools are off)
+        self._m_handoff_ms = t.histogram(
+            "serving.kv_handoff_ms",
+            buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000),
+            help="Prefill→decode KV handoff wall time, milliseconds (ship "
+            "through import acknowledgement)",
+        )
+        self._m_handoff_capture = t.histogram(
+            "serving.kv_handoff_capture_ms",
+            buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000),
+            help="Prefill side: harvest + export capture of the finished page "
+            "set to host bytes, milliseconds",
+        )
+        self._m_handoff_adopt = t.histogram(
+            "serving.kv_handoff_adopt_ms",
+            buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000),
+            help="Decode side: parse, verify and adopt of an import on the "
+            "host (after the body is read), milliseconds",
+        )
+        self._m_handoff_write = t.histogram(
+            "serving.kv_handoff_write_ms",
+            buckets=(0.1, 0.5, 1, 2, 5, 10, 25, 50, 100, 250),
+            help="Decode side: host time of the adopted pages' device write, "
+            "milliseconds",
+        )
+        self._m_handoff_bytes = t.counter(
+            "serving.kv_handoff_bytes", help="Wire bytes of acknowledged exports"
+        )
+        self._m_handoff_exports = t.counter(
+            "serving.kv_handoff_exports",
+            help="Page sets this replica exported to a decode replica over "
+            "POST /kv_import (acknowledged adoptions)",
+        )
+        self._m_handoff_imports = t.counter(
+            "serving.kv_handoff_imports",
+            help="Page sets this replica adopted from a prefill replica",
+        )
+        self._m_handoff_rejected = t.counter(
+            "serving.kv_handoff_rejected",
+            help="Imports refused: stale lease epoch (409), CRC/hash "
+            "verification failure (400), or headroom shed (503)",
+        )
+        self._m_handoff_fallbacks = t.counter(
+            "serving.kv_handoff_fallbacks",
+            help="Prefill-role requests completed by LOCAL decode because no "
+            "decode replica could adopt",
+        )
+        self._m_handoff_inflight = t.gauge(
+            "serving.kv_handoff_inflight",
+            help="Handoff exports in flight (captured, not yet acknowledged "
+            "or fallen back); drain waits on zero",
+        )
+        self._m_kv_handoff_held = t.gauge(
+            "serving.kv_pages_handoff_held",
+            help="KV pages held by adopted-but-not-yet-flushed imports "
+            "(in transit, not a leak)",
+        )
         if self._tenancy is not None:
             for name in self._tenancy.known():
                 self._tenant_series(name)
+        # per-request traces: the tail-sampling ring behind /tracez
+        self.traces = TraceRing(capacity=int(cfg.trace_ring))
+        # SLO engine + flight recorder: a breach edge dumps a post-mortem
+        # bundle under debug_dir; every latency objective is also tracked
+        # per tenant against that tenant's own latency histogram, named
+        # "<slo>@<tenant>", so a noisy neighbour burns its own budget
+        self.slo_engine: Optional[SLOEngine] = None
+        self.flight_recorder: Optional[FlightRecorder] = None
+        if debug_dir is not None and (slos or regression_rules):
+            self.flight_recorder = FlightRecorder(
+                debug_dir, registry=t, trace_ring=self.traces,
+                state_fn=self._occupancy_state, trace_fn=self._breach_trace,
+                profile_s=slo_profile_s,
+            )
+        if slos:
+            objectives = build_objectives(
+                slos, bad=[self._m_http_err], total=[self._m_http],
+                histogram=self._m_latency,
+            )
+            lat_specs = [x for x in slos if x.get("kind", "availability") == "latency"]
+            if self._tenancy is not None and lat_specs:
+                for tn in self._tenancy.known():
+                    objectives += build_objectives(
+                        [{**x, "name": f"{x.get('name', 'slo')}@{tn}"} for x in lat_specs],
+                        bad=[self._m_http_err], total=[self._m_http],
+                        histogram=self._tenant_series(tn)[1],
+                    )
+            self.slo_engine = SLOEngine(
+                objectives, t,
+                on_breach=self.flight_recorder.dump if self.flight_recorder else None,
+            )
+        # metrics history + regression sentinel: a background sampler
+        # snapshots this registry into a tiered store (/queryz reads it);
+        # rules over its windows fire edge-triggered perf_regression events
+        self.history: Optional[HistoryStore] = None
+        self.history_sampler: Optional[HistorySampler] = None
+        self.sentinel: Optional[RegressionSentinel] = None
+        if history is not None and history.get("dir"):
+            self.history = HistoryStore(
+                history["dir"],
+                max_bytes=int(history.get("max_bytes") or HistoryStore.DEFAULT_MAX_BYTES),
+                segment_bytes=int(
+                    history.get("segment_bytes") or HistoryStore.DEFAULT_SEGMENT_BYTES
+                ),
+            )
+            self.history_sampler = HistorySampler(
+                t, self.history, interval_s=float(history.get("interval_s") or 1.0)
+            )
+        if regression_rules and self.history is not None:
+            self.sentinel = RegressionSentinel(
+                self.history, t, build_rules(regression_rules),
+                on_event=event_sink, recorder=self.flight_recorder,
+            )
         self._prompt_ladder, self._new_ladder = self.config.ladders(int(module.cfg.seq_len))
         self._group_seq = itertools.count(1)
         # live streamed requests by request id, so a broken pipe in the
@@ -478,6 +692,17 @@ class ModelServer:
         self._coalescer: Optional[DecodeCoalescer] = None
         if self.config.batching:
             self._coalescer = self._make_coalescer()
+        # live KV handoff: the lease table guards the decode side
+        # (single-owner adoption per request id, monotonic epochs), the
+        # client ships exports from the prefill side; exports in flight
+        # gate drain (a replica must not report idle with a page set on
+        # the wire)
+        self._lease_table = LeaseTable()
+        self._handoff_client = HandoffClient()
+        self._handoff_lock = threading.Lock()
+        self._handoff_inflight = 0
+        self._handoff_idle = threading.Event()
+        self._handoff_idle.set()
 
     @classmethod
     def from_run(cls, *args, **kwargs):
@@ -485,6 +710,148 @@ class ModelServer:
             "ModelServer.from_run (restoring a run's checkpoint by its uid) is "
             "not ported yet (see ROADMAP.md)"
         )
+
+    # ------------------------------------------------------------ handoff
+    def _handoff_begin(self) -> None:
+        with self._handoff_lock:
+            self._handoff_inflight += 1
+            self._handoff_idle.clear()
+            self._m_handoff_inflight.set(self._handoff_inflight)
+
+    def _handoff_end(self) -> None:
+        with self._handoff_lock:
+            self._handoff_inflight -= 1
+            self._m_handoff_inflight.set(self._handoff_inflight)
+            if self._handoff_inflight <= 0:
+                self._handoff_idle.set()
+
+    def _handoff_ship(self, r: PendingRequest) -> bool:
+        """POST the exported page set to the router-named decode replica.
+        Handler thread only. True: the decode side adopted the pages (the
+        caller turns the row into a retryable failover, replayed there);
+        False: the caller falls back to local decode. Never raises."""
+        if not r.handoff_payload or not r.handoff_target:
+            return False
+        t0 = _now()
+        self._handoff_begin()
+        try:
+            res = self._handoff_client.send(
+                r.handoff_target, r.request_id or new_trace_id(), r.handoff_payload,
+                base_epoch=int(r.handoff_epoch),
+            )
+        finally:
+            self._handoff_end()
+            self._m_handoff_ms.observe((_now() - t0) * 1e3)
+        if res.ok:
+            self._m_handoff_exports.inc()
+            self._m_handoff_bytes.inc(len(r.handoff_payload))
+            if r.trace is not None:
+                r.trace.add(
+                    "kv_handoff", start=t0, dur_s=_now() - t0, row=r.row,
+                    pages=res.adopted_pages, epoch=res.epoch, attempts=res.attempts,
+                    adopt_ms=res.adopt_ms,
+                )
+            return True
+        self._m_handoff_rejected.inc()
+        return False
+
+    def _handoff_rerun(self, req: dict, row_idx: int) -> PendingRequest:
+        """The local fallback after a failed handoff: re-run one row of the
+        validated request here, with the handoff target cleared. The
+        finished prefix is warm in this replica's cache, so the re-run goes
+        straight to decode. Returns the resolved row; raises its error."""
+        self._m_handoff_fallbacks.inc()
+        sub = dict(req)
+        sub["arr"] = req["arr"][row_idx:row_idx + 1]
+        # _make_requests seeds row i as seed + i: keep the original row's
+        # stream, so the fallback gives the monolithic tokens
+        sub["seed"] = int(req["seed"]) + row_idx
+        sub["handoff_target"] = ""
+        r2 = self._make_requests(sub, req.get("rid"))[0]
+        r2.row = row_idx
+        r2.submitted_t = _now()
+        try:
+            self._coalescer.submit(r2)
+        except BaseException:
+            self._release_row(r2)
+            raise
+        if not r2.done.wait(self.config.request_timeout_s):
+            raise TimeoutError(
+                f"handoff fallback did not complete within "
+                f"{self.config.request_timeout_s:.0f}s"
+            )
+        if r2.error is not None:
+            raise r2.error
+        return r2
+
+    def _handoff_stream_resolve(self, req: dict, r: PendingRequest) -> list:
+        """Terminal events of a streamed row whose prefill finished with a
+        pending handoff. Shipped: one in-band error frame the router's
+        failover treats as retryable (it replays the stream on the decode
+        replica and trims the first token, already sent). Not shipped:
+        the local fallback's remaining tokens as one chunk, then done."""
+        i = r.row
+        if self._handoff_ship(r):
+            return [{"row": i, "error": "kv_handoff_done: decode replica owns the stream"}]
+        try:
+            r2 = self._handoff_rerun(req, i)
+        except BaseException as e:  # noqa: BLE001 — in-band taxonomy
+            return [{"row": i, "error": str(e)}]
+        out = []
+        rest = r2.result[r2.prompt_len + 1:]
+        if rest:
+            out.append({"row": i, "tokens": [int(x) for x in rest]})
+        out.append({"row": i, "done": True})
+        return out
+
+    # ------------------------------------------------------------ tracing
+    def _new_trace(self, rid: str, **attrs) -> Optional[RequestTrace]:
+        """A RequestTrace for this request id, or None with config.trace off."""
+        if not self.config.trace:
+            return None
+        return RequestTrace(rid, **attrs)
+
+    def _finish_trace(self, trace: Optional[RequestTrace],
+                      error: Optional[BaseException]) -> None:
+        """Close the root span and hand the trace to the tail sampler."""
+        if trace is None:
+            return
+        trace.finish(status=_trace_status(error),
+                     error=None if error is None else str(error))
+        self.traces.record(trace)
+
+    def _trace_group(self, batch) -> tuple:
+        """Open one decode group: a fresh group span id shared by every
+        member row's trace, and each row's queue_wait span (submit →
+        dispatch). Returns (group_id, dispatch_t)."""
+        gid = next(self._group_seq)
+        td = _now()
+        for r in batch:
+            if r.trace is None:
+                continue
+            r.trace.set_group(gid)
+            start = r.submitted_t if r.submitted_t is not None else r.trace.t0
+            r.trace.add("queue_wait", start=start, dur_s=td - start, group=gid, row=r.row)
+        return gid, td
+
+    def _occupancy_state(self) -> dict:
+        """Queue and KV occupancy for the flight-recorder bundle."""
+        out: dict = {"draining": self._draining}
+        c = self._coalescer
+        if c is not None:
+            out["queue"] = {"depth": c.depth,
+                            "breaker": c.breaker.state if c.breaker else None}
+        if self._kv is not None:
+            out["kv"] = self._kv.stats()
+        return out
+
+    def _breach_trace(self, breach: dict) -> Optional[dict]:
+        """The trace that explains a latency breach: the p99 exemplar."""
+        if breach.get("kind") == "latency":
+            ex = self._m_latency.exemplar(0.99)
+            if ex is not None:
+                return self.traces.get(ex["trace_id"])
+        return None
 
     # ---------------------------------------------------------- coalescer
     def _make_coalescer(self) -> DecodeCoalescer:
@@ -554,6 +921,11 @@ class ModelServer:
         if event == "kv_pages":
             self._m_kv_used.set(ctx["used"])
             self._m_kv_prefix_held.set(ctx.get("prefix_held", 0))
+            self._m_kv_handoff_held.set(ctx.get("handoff_held", 0))
+        elif event == "kv_handoff_adopt":
+            self._m_handoff_imports.inc()
+        elif event == "kv_handoff_write":
+            self._m_handoff_write.observe(float(ctx.get("ms", 0.0)))
         elif event == "prefix_hit":
             self._m_prefix_hits.inc()
         elif event == "prefix_miss":
@@ -714,6 +1086,15 @@ class ModelServer:
                 "adapter-bound tenants require the coalesced decode path "
                 "(no beam search, batching enabled)"
             )
+        # disaggregated handoff: the router names a decode replica for a
+        # prefill-role replica to ship the finished page set to
+        handoff_target, handoff_epoch = "", 0
+        if self.config.role == "prefill":
+            handoff_target = str(body.get("handoffTarget") or "").strip()
+            try:
+                handoff_epoch = int(body.get("handoffEpoch") or 0)
+            except (TypeError, ValueError):
+                handoff_epoch = 0
         return {
             "tenant": tenant,
             "adapter": adapter,
@@ -726,6 +1107,8 @@ class ModelServer:
             "deadline": deadline,
             "num_beams": num_beams,
             "length_penalty": _float(body, "lengthPenalty", 1.0),
+            "handoff_target": handoff_target,
+            "handoff_epoch": handoff_epoch,
         }
 
     def _make_requests(self, req: dict, rid: Optional[str] = None) -> list:
@@ -771,6 +1154,7 @@ class ModelServer:
                         plan = self._kv.plan_row(
                             tokens, req["max_new"], self._prompt_ladder,
                             self._new_ladder, seq_len, namespace=adapter or "",
+                            trace=req.get("trace"),
                         )
                         pb, nb, L = plan.suffix_bucket, plan.new_bucket, plan.prefix_len
                     else:
@@ -793,6 +1177,9 @@ class ModelServer:
                     seed=req["seed"] + i, key=key, deadline=req["deadline"],
                     kv_plan=plan, t0=_now(), request_id=rid, row=i,
                     tenant=req["tenant"], adapter=adapter, adapter_slot=slot,
+                    trace=req.get("trace"),
+                    handoff_target=req.get("handoff_target") or None,
+                    handoff_epoch=int(req.get("handoff_epoch") or 0),
                 )
                 if plan is not None or adapter:
                     # on ANY terminal path the row's pages, reservation and
@@ -830,6 +1217,7 @@ class ModelServer:
             self._observe_queue_wait(r)
         self._m_occupancy.observe(n)
         self._m_batches.inc()
+        gid, td = self._trace_group(batch)
         P = key.prompt_bucket
         arr = np.zeros((n, P), np.int64)
         lengths = np.zeros((n,), np.int64)
@@ -866,6 +1254,14 @@ class ModelServer:
             self._m_ttft.observe((tnow - r.t0) * 1e3)
             r.first_token_at = tnow
             r.finish(result=out[i, pad:pad + r.prompt_len + r.max_new].tolist())
+            if r.trace is not None:
+                # one fused prefill + decode call: the whole dispatch is one
+                # decode span (a speculative group's carries its accounting)
+                end = r.finished_t if r.finished_t is not None else _now()
+                extra = ({k: int(stats.get(k, 0)) for k in ("proposed", "accepted", "rollback")}
+                         if key.speculate else {"steps": key.new_bucket})
+                r.trace.add("decode", start=td, dur_s=end - td, group=gid, rows=n,
+                            row=r.row, **extra)
         if key.speculate:
             self._spec_observe(stats)
         else:
@@ -927,16 +1323,18 @@ class ModelServer:
             self._observe_queue_wait(r)
         self._m_occupancy.observe(n)
         self._m_batches.inc()
+        gid, td = self._trace_group(batch)
         L, pb, nb = key.prefix_len, key.prompt_bucket, key.new_bucket
         n_pages = kv.layout.pages_for(L + pb + nb - 1)
         plans = [r.kv_plan for r in batch]
+        traces = [r.trace for r in batch]
         arr = np.zeros((n, pb), np.int64)
         pads = np.zeros((n,), np.int64)
         for i, r in enumerate(batch):
             sfx = r.tokens[L:]
             arr[i, pb - len(sfx):] = sfx
             pads[i] = pb - len(sfx)
-        kv.ensure_pages(plans, upto_slot=L + pb)
+        kv.ensure_pages(plans, upto_slot=L + pb, traces=traces)
         tables = kv.tables(plans, n, n_pages)
         with self._lock:
             # land queued spill restores before the prefill reads the
@@ -953,23 +1351,33 @@ class ModelServer:
         for i, r in enumerate(batch):
             r.first_token_at = tnow
             self._m_ttft.observe((tnow - r.t0) * 1e3)
+            if r.trace is not None:
+                r.trace.add("prefill", start=td, dur_s=tnow - td, group=gid, row=r.row,
+                            prefix_len=L, suffix_bucket=pb)
             self._emit(r, [first[i]])
         decode = self._paged_windows if key.speculate else self._paged_chunks
-        decode(batch, gen, tok, pads, n_pages)
+        decode(batch, gen, tok, pads, n_pages, gid, tnow)
         # index each row's page-aligned prompt prefix BEFORE finish()
         # releases the pages — the next request with this prefix skips it
+        th0 = _now()
         try:
             with self._lock:
-                kv.harvest([(r.tokens, r.kv_plan, int(pads[i])) for i, r in enumerate(batch)])
+                kv.harvest([(r.tokens, r.kv_plan, int(pads[i]), r.trace)
+                            for i, r in enumerate(batch)])
         except Exception:  # noqa: BLE001 — cache warmth must not fail rows
             traceback.print_exc()
+        th1 = _now()
         for i, r in enumerate(batch):
+            if r.trace is not None:
+                r.trace.add("kv_harvest", start=th0, dur_s=th1 - th0, group=gid, row=r.row)
             r.finish(result=list(r.tokens) + gen[i][: r.max_new])
         self._m_requests.inc(n)
 
-    def _paged_chunks(self, batch: list, gen: list, tok, pads, n_pages: int) -> None:
+    def _paged_chunks(self, batch: list, gen: list, tok, pads, n_pages: int,
+                      gid: int, t_prev: float) -> None:
         """The plain decode of a paged group after its prefill: chunks of
-        `stream_chunk_tokens` steps, each chunk's tokens streamed out."""
+        `stream_chunk_tokens` steps, each chunk's tokens streamed out and
+        traced as one decode span (the spans tile the decode region)."""
         kv = self._kv
         key = batch[0].key
         n = len(batch)
@@ -982,9 +1390,11 @@ class ModelServer:
         remaining = max(r.max_new for r in batch) - 1
         chunk_cap = max(1, int(self.config.stream_chunk_tokens))
         early_eos = False
+        traces = [r.trace for r in batch]
+        window = 0
         while remaining > 0:
             steps = min(chunk_cap, remaining)
-            kv.ensure_pages(plans, upto_slot=pos + steps)
+            kv.ensure_pages(plans, upto_slot=pos + steps, traces=traces)
             tables = kv.tables(plans, n, n_pages)
             t0 = _now()
             with self._lock:
@@ -1000,6 +1410,12 @@ class ModelServer:
                 fresh = toks_host[i][: max(0, r.max_new - len(gen[i]))]
                 gen[i].extend(fresh)
                 self._emit(r, fresh)
+            t_new = _now()
+            for r in batch:
+                if r.trace is not None:
+                    r.trace.add("decode", start=t_prev, dur_s=t_new - t_prev, group=gid,
+                                row=r.row, window=window, steps=steps)
+            t_prev, window = t_new, window + 1
             tok = toks[:, -1]
             pos, g, remaining = pos + steps, g + steps, remaining - steps
             if all_done:
@@ -1017,7 +1433,8 @@ class ModelServer:
                 gen[i].extend(fill)
                 self._emit(r, fill)
 
-    def _paged_windows(self, batch: list, gen: list, tok, pads, n_pages: int) -> None:
+    def _paged_windows(self, batch: list, gen: list, tok, pads, n_pages: int,
+                       gid: int, t_prev: float) -> None:
         """The speculative decode of a paged group after its prefill:
         verify windows through the page tables. Rows accept different
         lengths, so each row keeps its own write frontier and generation
@@ -1059,6 +1476,7 @@ class ModelServer:
         totals = dict.fromkeys(
             ("proposed", "accepted", "accepted_judged", "truncated", "rollback"), 0
         )
+        window = 0
         while any(st.remaining > 0 for st in rows):
             fed = np.empty((n, K + 1), np.int64)
             fed[:, 0] = [st.tok for st in rows]
@@ -1070,10 +1488,18 @@ class ModelServer:
                     fed[i, 1:] = st.tok
                 elif drafter is None:
                     fed[i, 1:] = st.drafter.propose(K)
-            kv.ensure_pages(plans, upto_slot=max(st.pos for st in rows) + K + 1)
+            kv.ensure_pages(plans, upto_slot=max(st.pos for st in rows) + K + 1,
+                            traces=[r.trace for r in batch])
             delta = self._verify_window(batch, rows, fed, kv.tables(plans, n, n_pages))
             for k in totals:
                 totals[k] += delta[k]
+            t_new = _now()
+            for r in batch:
+                if r.trace is not None:
+                    r.trace.add("verify", start=t_prev, dur_s=t_new - t_prev, group=gid,
+                                row=r.row, window=window, proposed=delta["proposed"],
+                                accepted=delta["accepted"], rollback=delta["rollback"])
+            t_prev, window = t_new, window + 1
             if all(r.cancelled for r in batch):
                 break  # nobody reads these rows: finish() releases their pages
         self._spec_observe(totals)
@@ -1168,14 +1594,22 @@ class ModelServer:
     def handle_request(self, body: dict, request_id: Optional[str] = None) -> dict:
         """HTTP-path entry: producer side of the coalescer (the synchronous
         path when batching is off or the server is not started). End-to-end
-        latency lands in the request-seconds histogram either way."""
+        latency lands in the request-seconds histogram either way, with the
+        request id as its exemplar; the request's trace lands in the ring."""
+        rid = request_id or new_trace_id()
+        trace = self._new_trace(rid)
         t0 = _now()
+        error: Optional[BaseException] = None
         try:
-            return self._handle_request(body, request_id)
+            return self._handle_request(body, rid, trace)
+        except BaseException as e:
+            error = e
+            raise
         finally:
             dur = _now() - t0
-            self._m_latency.observe(dur)
+            self._m_latency.observe(dur, exemplar=rid)
             self._observe_body_latency(body, dur)
+            self._finish_trace(trace, error)
 
     def _check_open(self) -> None:
         if self._draining:
@@ -1200,9 +1634,13 @@ class ModelServer:
                 r.done.wait(self.config.request_timeout_s)
             raise
 
-    def _handle_request(self, body: dict, rid: Optional[str] = None) -> dict:
+    def _handle_request(self, body: dict, rid: Optional[str] = None,
+                        trace: Optional[RequestTrace] = None) -> dict:
         self._check_open()
         req = self._validate(body)
+        req["rid"], req["trace"] = rid, trace
+        if trace is not None and req.get("tenant"):
+            trace.attrs["tenant"] = req["tenant"]
         if (self._coalescer is None or self._coalescer._thread is None
                 or req["num_beams"] > 1):
             # synchronous path: decode starts immediately, so the only
@@ -1210,17 +1648,49 @@ class ModelServer:
             if req["deadline"] is not None and time.monotonic() >= req["deadline"]:
                 self._observe("shed", reason="deadline")
                 raise ShedError("deadline already expired at admission", reason="deadline")
-            return self.generate(body)
+            if trace is None:
+                return self.generate(body)
+            t_sync = _now()
+            trace.add("admission", start=trace.t0, dur_s=t_sync - trace.t0)
+            out = self.generate(body)
+            trace.add("decode", start=t_sync, dur_s=_now() - t_sync)
+            return out
         rows = self._make_requests(req, rid)
         self._submit(rows)
+        if trace is not None:
+            # validate + kv plan + submit: the latency the queue_wait and
+            # decode spans do not cover
+            first = rows[0].submitted_t if rows else trace.t0
+            trace.add("admission", start=trace.t0, dur_s=first - trace.t0)
         timeout = self.config.request_timeout_s
         for r in rows:
             if not r.done.wait(timeout):
                 raise TimeoutError(f"decode did not complete within {timeout:.0f}s")
+        # disaggregated handoff: prefill-role rows resolve with a sentinel
+        # (page set exported, not yet shipped). Ship here, on the handler
+        # thread. All shipped: a retryable 503 kv_handoff_done, which the
+        # router replays on the decode replica. Any ship failed: re-run
+        # those rows locally (the prefix is warm here; the decode side's
+        # partial adoptions are evictable cache warmth, never a leak)
+        pending = [r for r in rows if isinstance(r.error, _HandoffPrefillDone)]
+        if pending:
+            if all([self._handoff_ship(r) for r in pending]):
+                self._observe("shed", reason="kv_handoff_done")
+                raise ShedError("prefill complete: decode replica owns the KV",
+                                reason="kv_handoff_done")
+            for r in pending:
+                r2 = self._handoff_rerun(req, r.row)
+                r.result, r.error = r2.result, None
         for r in rows:
             if r.error is not None:
                 raise r.error
-        return {"tokens": [r.result for r in rows]}
+        out = {"tokens": [r.result for r in rows]}
+        if trace is not None:
+            # scatter-back: the last row finishing → the response assembled
+            done_t = max((r.finished_t for r in rows if r.finished_t is not None),
+                         default=_now())
+            trace.add("stream_flush", start=done_t, dur_s=_now() - done_t)
+        return out
 
     # ----------------------------------------------------------- streaming
     def stream_request(self, body: dict, request_id: Optional[str] = None):
@@ -1231,22 +1701,33 @@ class ModelServer:
         "error": msg}`) per row, then `{"done": true}`. Admission errors
         (400/503/504) raise before the first event, so the HTTP layer can
         still set a status code; later failures become in-band events."""
+        rid = request_id or new_trace_id()
+        trace = self._new_trace(rid, stream=True)
         t0 = _now()
+        error: Optional[BaseException] = None
         try:
-            yield from self._stream_request(body, request_id)
+            yield from self._stream_request(body, rid, trace)
+        except BaseException as e:
+            error = e
+            raise
         finally:
             dur = _now() - t0
-            self._m_latency.observe(dur)
+            self._m_latency.observe(dur, exemplar=rid)
             self._observe_body_latency(body, dur)
+            self._finish_trace(trace, error)
 
-    def _stream_request(self, body: dict, rid: Optional[str] = None):
+    def _stream_request(self, body: dict, rid: Optional[str] = None,
+                        trace: Optional[RequestTrace] = None):
         self._check_open()
         req = self._validate(body)
+        req["rid"], req["trace"] = rid, trace
+        if trace is not None and req.get("tenant"):
+            trace.attrs["tenant"] = req["tenant"]
         if (self._kv is None or self._coalescer is None
                 or self._coalescer._thread is None or req["num_beams"] > 1):
             # no incremental decode on this path: one terminal chunk per row
             # (same event shape, no partial delivery)
-            out = self._handle_request(body, rid)
+            out = self._handle_request(body, rid, trace)
             for i, row in enumerate(out["tokens"]):
                 yield {"row": i, "tokens": row[len(req["arr"][i]):]}
                 yield {"row": i, "done": True}
@@ -1271,6 +1752,9 @@ class ModelServer:
             self._stream_rows[rid] = rows
         try:
             self._submit(rows)
+            if trace is not None:
+                first = rows[0].submitted_t if rows else trace.t0
+                trace.add("admission", start=trace.t0, dur_s=first - trace.t0)
             pending = len(rows)
             while pending:
                 try:
@@ -1280,9 +1764,20 @@ class ModelServer:
                         f"decode did not complete within "
                         f"{self.config.request_timeout_s:.0f}s"
                     ) from None
-                if "done" in ev or "error" in ev:
-                    pending -= 1
-                yield ev
+                evs = [ev]
+                if "error" in ev and isinstance(rows[ev["row"]].error, _HandoffPrefillDone):
+                    # ship the exported page set now: shipped → an in-band
+                    # error frame the router replays on the decode replica
+                    # (trimming what was sent); failed → local fallback
+                    evs = self._handoff_stream_resolve(req, rows[ev["row"]])
+                for ev in evs:
+                    if "done" in ev or "error" in ev:
+                        pending -= 1
+                    yield ev
+            if trace is not None:
+                done_t = max((r.finished_t for r in rows if r.finished_t is not None),
+                             default=_now())
+                trace.add("stream_flush", start=done_t, dur_s=_now() - done_t)
             yield {"done": True}
         finally:
             if rid is not None:
@@ -1316,14 +1811,15 @@ class ModelServer:
         return ready, reason
 
     def kv_heads(self) -> dict:
-        """GET /kvz: the prefix chain hashes this replica holds, keyed by
-        the pool's page size."""
-        if self._kv is None or self._kv.prefix is None:
-            return {"enabled": False, "pageTokens": 0, "heads": [], "role": "both"}
-        with self._kv._lock:
-            heads = self._kv.prefix.heads()
-        return {"enabled": True, "pageTokens": self._kv.layout.page_tokens,
-                "heads": heads, "role": "both"}
+        """GET /kvz: the prefix chain hashes this replica can serve warm
+        (in the pool or spilled), keyed by the pool's page size so the
+        router hashes prompts the same way, and its role."""
+        if self._kv is None:
+            return {"enabled": False, "pageTokens": 0, "heads": [],
+                    "role": self.config.role}
+        return {"enabled": self._kv.prefix is not None,
+                "pageTokens": self._kv.layout.page_tokens,
+                "heads": self._kv.advertised_heads(), "role": self.config.role}
 
     @staticmethod
     def _pct(summary: dict, scale: float = 1.0) -> dict:
@@ -1402,8 +1898,25 @@ class ModelServer:
         if self._adapter_registry is not None:
             tenancy["adapters"] = self._adapter_registry.stats()
             tenancy["adapter_spill"] = self._adapter_spill.stats()
+        # in-transit exports count as held work (they gate drain), never as
+        # leaked pages
+        handoff = {
+            "role": self.config.role,
+            "inflight": int(self._handoff_inflight),
+            "exports": int(self._m_handoff_exports.value),
+            "imports": int(self._m_handoff_imports.value),
+            "rejected": int(self._m_handoff_rejected.value),
+            "fallbacks": int(self._m_handoff_fallbacks.value),
+            "bytes": int(self._m_handoff_bytes.value),
+            "leases": self._lease_table.stats(),
+        }
+        slo = (self.slo_engine.to_dict() if self.slo_engine is not None
+               else {"enabled": False, "breached": False, "slos": []})
+        if self.flight_recorder is not None:
+            slo["flight_recorder_dumps"] = self.flight_recorder.dumps
         return {
             "tenancy": tenancy,
+            "handoff": handoff,
             "kv": kv,
             "speculation": speculation,
             "quant": quant,
@@ -1421,6 +1934,8 @@ class ModelServer:
             "max_new_buckets": list(self._new_ladder),
             "max_batch": self.config.max_batch,
             "max_wait_ms": self.config.max_wait_ms,
+            "tracing": {"enabled": bool(self.config.trace), **self.traces.stats()},
+            "slo": slo,
         }
 
     # ------------------------------------------------------------ http
@@ -1451,21 +1966,18 @@ class ModelServer:
                 self.end_headers()
                 self.wfile.write(data)
 
-            def _unported(self, path: str):
-                self._send(501, {
-                    "error": f"{path} is not ported to PyTorch yet (see ROADMAP.md)",
-                    "reason": "not_ported",
-                })
-
             def do_GET(self):
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
                 if path == "/healthz":
                     self._send(200, {"status": "ok", "model": server.model_name,
                                      "step": server.step})
                 elif path == "/readyz":
                     ready, reason = server.readiness()
+                    # the role rides readiness (on the 503 too), so the
+                    # router learns pool membership from its probe
                     self._send(200 if ready else 503,
-                               {"ready": ready, "reason": reason, "role": "both"})
+                               {"ready": ready, "reason": reason,
+                                "role": server.config.role})
                 elif path == "/statsz":
                     self._send(200, server.stats())
                 elif path == "/metricsz":
@@ -1479,8 +1991,15 @@ class ModelServer:
                                    "text/plain; version=0.0.4")
                 elif path == "/kvz":
                     self._send(200, server.kv_heads())
-                elif path in UNPORTED_ROUTES:
-                    self._unported(path)
+                elif path == "/tracez":
+                    self._send(*tracez_payload(server.traces, query))
+                elif path == "/sloz":
+                    self._send(200, server.slo_engine.to_dict()
+                               if server.slo_engine is not None
+                               else {"enabled": False, "breached": False, "slos": []})
+                elif path == "/queryz":
+                    # windowed queries over the metrics history; 503 when off
+                    self._send(*queryz_payload(server.history, query))
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
 
@@ -1515,10 +2034,83 @@ class ModelServer:
                 finally:
                     gen.close()
 
+            def _kv_import(self):
+                """POST /kv_import: adopt a prefill replica's exported page
+                set. The taxonomy the exporter's HandoffClient keys on: 400
+                malformed bytes or a hash-chain mismatch (final), 409 a
+                stale epoch (a newer owner exists), 503 shed (reason
+                kv_handoff: no headroom), 200 with the adopted page count.
+                Every abort path releases the lease, so a higher-epoch
+                retry proceeds."""
+                rid = (self.headers.get("X-Handoff-Id") or "").strip()[:128] or None
+                server._m_http.inc()
+                kv = server._kv
+                if kv is None or kv.prefix is None:
+                    server._m_handoff_rejected.inc()
+                    self._send(400, {"error": "no prefix cache on this replica",
+                                     "reason": "rejected"}, rid=rid)
+                    return
+                try:
+                    epoch = int(self.headers.get("X-Handoff-Epoch") or 0)
+                except ValueError:
+                    epoch = 0
+                lease = None
+                try:
+                    data = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                    t0 = _now()  # the adopt's host time: parse, verify, adopt
+                    # chaos: a fault in the import window must adopt fully
+                    # or not at all; the exporter sees a clean failure
+                    inject("serving.kv_import", rid=rid, epoch=epoch, size=len(data))
+                    payload = payload_from_wire(data)
+                    ns = payload.namespace
+                    if ns and ns not in server._adapter_sources:
+                        raise HandoffError(f"unknown prefix namespace {ns!r}")
+                    want = page_hashes(list(payload.tokens), kv.layout.page_tokens,
+                                       kv.prefix.hash_fn, ns)
+                    if list(want) != list(payload.hashes):
+                        raise HandoffError(
+                            "content-hash chain does not match the prompt tokens"
+                        )
+                    lease = server._lease_table.acquire(rid or "anon", epoch)
+                    adopted = kv.adopt_pages(payload)
+                    adopt_ms = (_now() - t0) * 1e3
+                    server._m_handoff_adopt.observe(adopt_ms)
+                    if server._lease_table.complete(lease):
+                        # the adopt's host ms rides back, so the exporter's
+                        # kv_handoff span splits its ship into wire and adopt
+                        self._send(200, {"adopted_pages": int(adopted), "adopt_ms": adopt_ms},
+                                   rid=rid)
+                    else:
+                        # preempted mid-adopt by a higher epoch: the newer
+                        # owner's adoption is authoritative, ours is
+                        # evictable cache warmth; this exporter stands down
+                        server._m_handoff_rejected.inc()
+                        self._send(409, {"error": "preempted mid-adopt",
+                                         "reason": "stale_epoch"}, rid=rid)
+                except StaleLeaseError as e:
+                    server._m_handoff_rejected.inc()
+                    self._send(409, {"error": str(e), "reason": "stale_epoch"}, rid=rid)
+                except HandoffError as e:
+                    server._m_handoff_rejected.inc()
+                    self._send(400, {"error": str(e), "reason": "rejected"}, rid=rid)
+                except ShedError as e:
+                    if lease is not None:
+                        server._lease_table.release(lease)
+                    server._m_http_err.inc()
+                    self._send(503, {"error": str(e), "reason": e.reason},
+                               headers={"Retry-After": str(max(1, int(round(e.retry_after_s))))},
+                               rid=rid)
+                except Exception as e:  # noqa: BLE001 — surface, keep serving
+                    if lease is not None:
+                        server._lease_table.release(lease)
+                    server._m_http_err.inc()
+                    self._send(500, {"error": f"{type(e).__name__}: {e}",
+                                     "reason": "internal"}, rid=rid)
+
             def do_POST(self):
                 path, _, query = self.path.partition("?")
-                if path in UNPORTED_ROUTES:
-                    self._unported(path)
+                if path == "/kv_import":
+                    self._kv_import()
                     return
                 if path != "/generate":
                     self._send(404, {"error": f"no route {self.path}"})
@@ -1532,6 +2124,17 @@ class ModelServer:
                         body = json.loads(self.rfile.read(n) or b"{}")
                     except json.JSONDecodeError as e:
                         raise ServingError(f"body is not JSON: {e}")
+                    if isinstance(body, dict):
+                        # the router (or any proxy) forwards the tenant and
+                        # the handoff target as headers; the body wins
+                        tenant_hdr = (self.headers.get("X-Tenant") or "").strip()[:128]
+                        if tenant_hdr:
+                            body.setdefault("tenant", tenant_hdr)
+                        target = (self.headers.get("X-Handoff-Target") or "").strip()[:256]
+                        if target:
+                            body.setdefault("handoffTarget", target)
+                            body.setdefault("handoffEpoch",
+                                            self.headers.get("X-Handoff-Epoch") or 0)
                     if want_stream and server.config.stream:
                         self._stream(body, rid)
                     else:
@@ -1559,6 +2162,9 @@ class ModelServer:
         self._httpd = _Httpd((host, port), Handler)
         self._draining = False
         self._m_ready.set(1)
+        for loop in (self.slo_engine, self.history_sampler, self.sentinel):
+            if loop is not None:
+                loop.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
         return self._httpd.server_address[1]
@@ -1572,6 +2178,12 @@ class ModelServer:
         grace = self.config.drain_grace_s if drain_grace_s is None else drain_grace_s
         self._draining = True
         self._m_ready.set(0)
+        # an export in flight holds pages the leak accounting cannot see
+        # yet: drain does not report idle with a page set on the wire
+        self._handoff_idle.wait(timeout=max(0.0, grace))
+        for loop in (self.slo_engine, self.sentinel, self.history_sampler):
+            if loop is not None:
+                loop.stop()
         if self._coalescer is not None:
             self._coalescer.stop(drain_s=grace)
             # a restarted server gets a fresh worker (and breaker)
@@ -1625,7 +2237,15 @@ class _StepEngine:
         st.next_chunk = min(st.chunk_w, pb)
         st.gen = None
         st.buf = []
+        st.gid = next(s._group_seq)
+        st.window = 0
         s._observe_queue_wait(r)
+        st.t_prev = _now()
+        if r.trace is not None:
+            r.trace.set_group(st.gid)
+            start = r.submitted_t if r.submitted_t is not None else r.trace.t0
+            r.trace.add("queue_wait", start=start, dur_s=st.t_prev - start,
+                        group=st.gid, row=r.row)
         r.step = st
 
     def prefill_chunk(self, r: PendingRequest) -> int:
@@ -1638,7 +2258,7 @@ class _StepEngine:
         # chaos point: a fault here lands BETWEEN prefill chunks — the row
         # fails with its page table half-built and on_finish returns it all
         inject("serving.prefill_chunk", row=r.row, off=st.off)
-        kv.ensure_pages([r.kv_plan], upto_slot=st.L + st.off + width)
+        kv.ensure_pages([r.kv_plan], upto_slot=st.L + st.off + width, traces=[r.trace])
         table = kv.tables([r.kv_plan], 1, st.n_pages)
         with s._lock:
             # land queued spill restores before the chunk reads the restored
@@ -1653,15 +2273,21 @@ class _StepEngine:
             first = None if first is None else int(first[0])
         st.off += width
         s._m_prefill_chunks.inc()
+        tnow = _now()
+        if r.trace is not None:
+            r.trace.add("prefill", start=st.t_prev, dur_s=tnow - st.t_prev, group=st.gid,
+                        row=r.row, chunk_off=st.off - width, chunk_tokens=width,
+                        prefix_len=st.L, suffix_bucket=st.pb)
+        st.t_prev = tnow
         if not final:
             st.next_chunk = min(st.chunk_w, st.pb - st.off)
             return width
         # the prefill boundary: the first sampled token leaves NOW — TTFT
         # does not wait for co-resident prompts
-        tnow = _now()
         r.first_token_at = tnow
         s._m_ttft.observe((tnow - r.t0) * 1e3)
         st.gen = [first]
+        st.decode_t0 = tnow
         self._emit(r, [first])
         if key.eos_id is not None and first == key.eos_id:
             # everything after a generated eos is pinned: finish host-side
@@ -1671,7 +2297,7 @@ class _StepEngine:
             self._finish_row(r)
         elif r.max_new <= 1:
             self._finish_row(r)
-        else:
+        elif not self._maybe_handoff(r, first):
             st.tok, st.done = first, False
             st.pos = st.L + st.pb
             st.g = 1
@@ -1689,6 +2315,45 @@ class _StepEngine:
                     st.drafter = NgramDrafter(r.tokens + [first])
             st.phase = "decode"
         return width
+
+    def _maybe_handoff(self, r: PendingRequest, first: int) -> bool:
+        """The prefill-role exit. With a decode target named by the router,
+        harvest the finished page set into the prefix cache (whose refs
+        keep it alive through the transfer), capture its host bytes on the
+        step's stream after the producing step (the rule of
+        `_capture_mirror`) and resolve the row with the
+        `_HandoffPrefillDone` sentinel — the HTTP handler thread runs the
+        transfer, never this worker. Returns False (decode here) when no
+        target was named or the capture fails: local decode is always the
+        graceful degradation."""
+        s = self._s
+        if not r.handoff_target or s.config.role != "prefill":
+            return False
+        kv = s._kv
+        st = r.step
+        t0 = _now()
+        try:
+            # chaos: a fault in the capture window degrades to local decode
+            inject("serving.kv_export", rid=r.request_id, row=r.row, phase="capture")
+            with s._lock:
+                kv.harvest([(r.tokens, r.kv_plan, int(st.pad), r.trace)])
+                payload = kv.export_prefix(r.tokens, r.kv_plan.namespace)
+        except Exception:  # noqa: BLE001 — capture is best-effort
+            payload = None
+        if payload is None:
+            # a handoff-targeted request completing by local decode IS a
+            # fallback, whatever stopped the capture
+            s._m_handoff_fallbacks.inc()
+            return False
+        r.handoff_payload = payload_to_wire(payload)
+        dt = _now() - t0
+        s._m_handoff_capture.observe(dt * 1e3)
+        st.phase = "done"
+        if r.trace is not None:
+            r.trace.add("kv_export", start=t0, dur_s=dt, group=st.gid, row=r.row,
+                        pages=len(payload.pages))
+        r.finish(error=_HandoffPrefillDone(first))
+        return True
 
     def lanes(self, rows: list) -> list:
         """Rows of one sampling signature share a step — speculative rows
@@ -1712,11 +2377,19 @@ class _StepEngine:
         s = self._s
         st = r.step
         st.phase = "done"
+        tnow = _now()
+        if (r.trace is not None and not r.key.speculate and st.gen is not None
+                and len(st.gen) > 1):
+            r.trace.add("decode", start=st.decode_t0, dur_s=tnow - st.decode_t0,
+                        group=st.gid, row=r.row, steps=len(st.gen) - 1)
         try:
             with s._lock:
-                s._kv.harvest([(r.tokens, r.kv_plan, int(st.pad))])
+                s._kv.harvest([(r.tokens, r.kv_plan, int(st.pad), r.trace)])
         except Exception:  # noqa: BLE001 — cache warmth must not fail rows
             traceback.print_exc()
+        if r.trace is not None:
+            r.trace.add("kv_harvest", start=tnow, dur_s=_now() - tnow, group=st.gid,
+                        row=r.row)
         r.finish(result=list(r.tokens) + st.gen[: r.max_new])
         s._m_requests.inc(1)
 
@@ -1731,7 +2404,8 @@ class _StepEngine:
         # table; reads past a row's own span are masked dead
         width = max(r.step.n_pages for r in lane)
         plans = [r.kv_plan for r in lane]
-        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + 1)
+        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + 1,
+                        traces=[r.trace for r in lane])
         tables = kv.tables(plans, n, width)
         t0 = _now()
         with s._lock:
@@ -1796,10 +2470,20 @@ class _StepEngine:
             else:
                 fed[i, 1:] = st.drafter.propose(K)
         plans = [r.kv_plan for r in lane]
-        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + K + 1)
-        s._spec_observe(s._verify_window(lane, [r.step for r in lane], fed,
-                                         kv.tables(plans, n, width)))
+        kv.ensure_pages(plans, upto_slot=max(r.step.pos for r in lane) + K + 1,
+                        traces=[r.trace for r in lane])
+        delta = s._verify_window(lane, [r.step for r in lane], fed, kv.tables(plans, n, width))
+        s._spec_observe(delta)
+        tnow = _now()
         for r in lane:
-            if r.step.remaining <= 0:
+            st = r.step
+            if r.trace is not None:
+                r.trace.add("verify", start=st.t_prev, dur_s=tnow - st.t_prev,
+                            group=st.gid, row=r.row, window=st.window,
+                            proposed=delta["proposed"], accepted=delta["accepted"],
+                            rollback=delta["rollback"])
+            st.t_prev = tnow
+            st.window += 1
+            if st.remaining <= 0:
                 self._finish_row(r)
         return n * (K + 1)

@@ -74,6 +74,9 @@ class SpillPayload:
     hashes: tuple
     pages: list  # list[list[torch.Tensor]], page-major
     nbytes: int = 0
+    # the prefix chain the hashes belong to (an adapter's, or "" for the
+    # base model's); only the KV handoff's wire carries it
+    namespace: str = ""
 
     def __post_init__(self):
         if not self.nbytes:
@@ -306,7 +309,12 @@ class SpillManager:
             hashes = tuple(meta["hashes"])
             tokens = tuple(int(t) for t in meta["tokens"])
             head = str(meta["h"])
+            # the KV handoff's wire names an adapter's chain; spill segments
+            # and the reference's bytes carry none
+            namespace = meta.get("namespace") or ""
             if any(spec["dtype"] not in DTYPES for spec in leaves):
+                return None
+            if not isinstance(namespace, str):
                 return None
         except (ValueError, KeyError, TypeError):
             return None
@@ -325,7 +333,7 @@ class SpillManager:
                 pages.append(page)
         except RuntimeError:  # a payload whose size does not fit its shape
             return None
-        return head, SpillPayload(tokens, hashes, pages)
+        return head, SpillPayload(tokens, hashes, pages, namespace=namespace)
 
     def _heal(self) -> None:
         """Startup scan of an existing spill dir: truncate torn tails, drop

@@ -94,8 +94,11 @@ class Histogram:
         self._count = 0
         self._min: Optional[float] = None
         self._max: Optional[float] = None
+        # last (value, trace_id) landing in each bucket: the exemplar that
+        # links a p99 spike to a concrete request trace
+        self._exemplars: list = [None] * (len(bounds) + 1)
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar: Optional[str] = None) -> None:
         value = float(value)
         i = next((i for i, b in enumerate(self.bounds) if value <= b), len(self.bounds))
         with self._lock:
@@ -106,10 +109,20 @@ class Histogram:
                 self._min = value
             if self._max is None or value > self._max:
                 self._max = value
+            if exemplar is not None:
+                self._exemplars[i] = (value, str(exemplar))
 
     def _state(self):
         with self._lock:
             return list(self._counts), self._sum, self._count, self._min, self._max
+
+    @property
+    def count(self) -> int:
+        return self._state()[2]
+
+    @property
+    def sum(self) -> float:
+        return self._state()[1]
 
     def percentile(self, q: float) -> Optional[float]:
         """Estimate the q-quantile (q in [0, 1]) from bucket counts."""
@@ -129,6 +142,49 @@ class Histogram:
                 return min(max(est, vmin), vmax)
             cum += c
         return vmax
+
+    def count_le(self, value: float) -> float:
+        """Estimated cumulative count of observations <= value (linear
+        interpolation inside the bucket the threshold falls in): the
+        latency SLO's good events, from bucket counts only."""
+        counts, _sum, total, vmin, vmax = self._state()
+        if total == 0:
+            return 0.0
+        value = float(value)
+        cum = 0.0
+        for i, c in enumerate(counts):
+            lo = self.bounds[i - 1] if i > 0 else (vmin if vmin is not None else 0.0)
+            hi = self.bounds[i] if i < len(self.bounds) else (vmax if vmax is not None else lo)
+            if value >= hi:
+                cum += c
+                continue
+            if value >= lo and hi > lo:
+                cum += c * (value - lo) / (hi - lo)
+            break
+        return cum
+
+    def exemplar(self, q: float = 0.99) -> Optional[dict]:
+        """The exemplar nearest the q-quantile bucket: {'value',
+        'trace_id'} of a request that landed there, or None."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+            ex = list(self._exemplars)
+        if total == 0:
+            return None
+        target = q * total
+        cum = 0.0
+        idx = len(counts) - 1
+        for i, c in enumerate(counts):
+            cum += c
+            if cum >= target:
+                idx = i
+                break
+        # the rank bucket may hold no exemplar: fall outward to the nearest
+        for j in list(range(idx, len(ex))) + list(range(idx - 1, -1, -1)):
+            if ex[j] is not None:
+                return {"value": ex[j][0], "trace_id": ex[j][1]}
+        return None
 
     def summary(self) -> dict:
         counts, total_sum, total, vmin, vmax = self._state()

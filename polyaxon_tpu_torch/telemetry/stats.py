@@ -1,15 +1,44 @@
-"""The analytic train-step FLOPs formula and MFU, counterparts of
-`train_step_flops` and `mfu` in `polyaxon_tpu/telemetry/stats.py`, with the
+"""The analytic train-step FLOPs formula and MFU, and the exact sample
+quantiles, counterparts of `train_step_flops`, `mfu`, `quantile` and
+`summarize` in `polyaxon_tpu/telemetry/stats.py`, with the
 peak of the one NVIDIA card the port runs on instead of TPU generations."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 # Dense bf16 tensor-core peak of the NVIDIA H100 SXM, FLOP/s: the data sheet
 # figure (989 TFLOP/s at the full 700 W power limit). A card set below
 # 700 W reaches less.
 H100_PEAK_BF16_FLOPS = 989e12
+
+
+def quantile(values: Sequence[float], q: float) -> Optional[float]:
+    """Exact sample quantile with linear interpolation between order
+    statistics (numpy's default, type 7), q in [0, 1]; None on empty
+    input."""
+    if not values:
+        return None
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"q must be in [0, 1], got {q}")
+    s = sorted(float(v) for v in values)
+    pos = q * (len(s) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(s) - 1)
+    frac = pos - lo
+    return s[lo] * (1.0 - frac) + s[hi] * frac
+
+
+def summarize(values: Sequence[float]) -> dict:
+    """count/mean/p50/p95/p99 of a sample."""
+    n = len(values)
+    return {
+        "count": n,
+        "mean": (sum(values) / n) if n else None,
+        "p50": quantile(values, 0.5),
+        "p95": quantile(values, 0.95),
+        "p99": quantile(values, 0.99),
+    }
 
 
 def peak_bf16_flops(device_name: str) -> Optional[float]:

@@ -46,7 +46,9 @@ def test_import_walk_sees_the_package():
             "injector.py", "plan.py", "registry.py", "spans.py", "monitors.py",
             "retry.py", "convert.py", "kv_pages.py", "kv.py", "steps.py",
             "batching.py", "adapters.py", "tenancy.py", "spill.py", "framing.py",
-            "lora.py"} <= names
+            "lora.py", "tracing.py", "slo.py", "history.py", "detect.py",
+            "federate.py", "handoff.py", "affinity.py", "replicas.py",
+            "router.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -84,6 +86,32 @@ def test_default_device_is_the_card(monkeypatch):
         Trainer(program)
     assert Trainer(program, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the disaggregated roles default to the card as well
+    pooled = ServingConfig(role="prefill", chunked_prefill=True, kv_pool_pages=8,
+                           kv_page_tokens=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelServer(Transformer(cfg, device="cpu"), None, pooled)
+
+
+FLEET = ("serving/router.py", "serving/replicas.py", "serving/affinity.py",
+         "serving/handoff.py", "telemetry/tracing.py", "telemetry/slo.py",
+         "telemetry/history.py", "telemetry/detect.py", "telemetry/federate.py")
+
+
+@pytest.mark.parametrize("rel", FLEET)
+def test_fleet_and_telemetry_copies_stand_alone(rel):
+    """The router and telemetry are own copies of JAX-free reference
+    modules: they import nothing of the reference, and no torch at module
+    level (the flight recorder's profiler imports it inside its window)."""
+    path = REPO / "polyaxon_tpu_torch" / rel
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), rel
+    top = ast.parse(path.read_text())
+    top_roots = {a.name.split(".")[0] for n in top.body if isinstance(n, ast.Import)
+                 for a in n.names}
+    top_roots |= {n.module.split(".")[0] for n in top.body
+                  if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module}
+    assert "torch" not in top_roots, rel
 
 
 def _run_smoke(cwd: Path, script: Path):

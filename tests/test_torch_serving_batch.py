@@ -216,8 +216,11 @@ def test_statsz_and_metricsz_carry_the_reference_series(served, lm):
     assert kvz["enabled"] is (name == "paged")
     if name == "paged":
         assert kvz["pageTokens"] == 8 and kvz["heads"]
+    # /tracez is served now (tests/test_torch_tracing.py holds it against
+    # the reference): GET answers the ring, POST has no route
+    assert "traces" in get(url, "/tracez")
     code, out = post(url, {}, path="/tracez")
-    assert code == 501 and "ROADMAP" in out["error"]
+    assert code == 404
 
 
 def test_full_queue_sheds_503_and_past_deadline_answers_504(lm):
@@ -280,14 +283,14 @@ def test_kv_pool_exhaustion_sheds_503(lm):
 
 
 def test_unported_options_are_refused_by_name():
-    """Meshes and disaggregated roles are still refused by name;
-    speculation, int8 weights and the int8 pool (tests/test_torch_serving_
-    fast.py), tenants, adapters and the spill tier (tests/test_torch_
-    tenancy.py, tests/test_torch_spill.py) are served now."""
-    for field in ({"role": "prefill"}, {"mesh_axes": (("model", 2),)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingConfig(**field)
-    for field in ({"speculate": True}, {"kv_quant": "int8"}, {"quantize": True},
+    """Meshes are still refused by name; speculation, int8 weights and the
+    int8 pool (tests/test_torch_serving_fast.py), tenants, adapters and the
+    spill tier (tests/test_torch_tenancy.py, tests/test_torch_spill.py) and
+    the disaggregated roles (tests/test_torch_handoff.py) are served now."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingConfig(mesh_axes=(("model", 2),))
+    for field in ({"role": "prefill"}, {"role": "decode"},
+                  {"speculate": True}, {"kv_quant": "int8"}, {"quantize": True},
                   {"draft_model": ()}, {"adaptive_draft": True},
                   {"tenants": ((("name", "a"),),)}, {"adapter_slots": 2},
                   {"adapters": (("a", "seed:1"),)}, {"spill_dir": "/nowhere"},
