@@ -164,7 +164,28 @@ preset (random weights from a fixed seed): inference, then training.
                the disk writes stay under ~40 GB). Prints the bytes per
                checkpoint, the stall of each boundary save, the background
                write and upload seconds, the restore seconds, the step
-               spans, the snapshot's device time and the peak memory;
+               spans, the snapshot's device time and the peak memory.
+               The full-size case is a run of the port's RunStore: its
+               spec a jaxjob program that trains on a token_file corpus
+               (2^24 uint32 tokens from numpy seed 0, the native loader)
+               and pins `serving` (int8 weights, a 256-page pool, chunked
+               prefill, maxBatch 8), its durable tier the run's outputs;
+               its timeline holds the preemption and the resume;
+7b. serve-run — after R, before Q corrupts the durable step 3:
+               `ModelServer.from_run(uuid[:8], store=...)` with one
+               override (maxQueue 16). The step is 3, the config the
+               spec's plus the override, the served params P's at its
+               save bit for bit (fp leaves, and each projection's fp
+               weight as it reached the card with the int8 weight and
+               scale quantized from it), and the card's peak over from_run
+               under the params' bytes plus 10% (the Adam moments are never
+               read). Then 8 greedy requests of 32 new tokens over HTTP,
+               streamed and timed at the client, prompts of 128-2048
+               corpus tokens, which must launch int8_matmul; after the
+               counts are read each row is held against the int8 module's
+               rows on a direct pool (the near-tie rule). Prints from_run's
+               seconds (read, to-device, quantize), the bytes read, the
+               peak, TTFT and decode tokens/s;
 8. train-rules — the remat policies `nothing`, `dots` and
                `dots_no_batch`, 4 steps each at full size (median step
                seconds, peak memory, the flash launches per layer and step);
@@ -176,9 +197,9 @@ preset (random weights from a fixed seed): inference, then training.
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (phases 3-4, then 4b, then 4c, then each config of 4e, then 4d, then
-phases 5, 7 and 8) and read
-just after it, so `launches` counts the main paths only (4b launches none:
-decode attends by einsum, as the reference's does; 4c and 4d launch
+phases 5, 7 (7b zeroes and reads its own, then puts 7's back) and 8) and
+read just after it, so `launches` counts the main paths only (4b launches none:
+decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
@@ -1479,9 +1500,11 @@ def check_beams(model, out: dict) -> dict:
     return line
 
 
-def int8_pool_rows(qmodel, prompts: list, new: int = SERVE_NEW, samples=None) -> tuple:
+def int8_pool_rows(qmodel, prompts: list, new: int = SERVE_NEW, samples=None,
+                   kv_quant: str = "int8") -> tuple:
     """The int8 server's rows by the direct path: each prompt greedy through
-    the int8 module on an int8 paged pool of its own (one-shot prefill,
+    the int8 module on a paged pool of its own (int8, or the module's dtype
+    with `kv_quant="none"`; one-shot prefill,
     then one step a token at B=1), so the quantize-on-write, the scale
     scatter, the page gather and the dequantize meet the served rows'
     chunked prefill, prefix-cache harvest and batched steps. `samples`
@@ -1497,7 +1520,7 @@ def int8_pool_rows(qmodel, prompts: list, new: int = SERVE_NEW, samples=None) ->
 
     pt = SERVE_CONFIGS["step"]["kv_page_tokens"]
     n_pages = -(-(max(len(p) for p in prompts) + new) // pt)
-    layout = PagedKVLayout(pt, 1 + n_pages, kv_quant="int8")
+    layout = PagedKVLayout(pt, 1 + n_pages, kv_quant=kv_quant)
     cache = make_paged_cache(qmodel, layout)  # each prompt overwrites its slots
     dev = qmodel.device
     table = torch.arange(1, 1 + n_pages, device=dev)[None]
@@ -2884,8 +2907,13 @@ def run_resume(case: dict) -> dict:
     state bit for bit and the schedule at 3, and train step 3 (and save 4
     once, the final save a no-op); with two tiers, trainer Q restores after
     the durable copy of the newest step is corrupted and must fall back to
-    the local copy. Returns what it measured; a failed check raises."""
+    the local copy. With `run_store` the run is a run of the port's
+    RunStore (its durable tier the run's outputs) that trains on a
+    token_file corpus through the native loader, and after R, before Q,
+    serve-run serves it (phase_serve_run). Returns what it measured; a
+    failed check raises."""
     import shutil
+    import uuid as uuidlib
 
     import numpy as np
     import torch
@@ -2894,12 +2922,32 @@ def run_resume(case: dict) -> dict:
     from polyaxon_tpu_torch.retry import Preempted
     from polyaxon_tpu_torch.runtime import Trainer, preemption
     from polyaxon_tpu_torch.runtime import checkpoint as ck
+    from polyaxon_tpu_torch.store import RunStore
     from polyaxon_tpu_torch.telemetry import get_registry
 
     root = ARTIFACTS / "resume"
     shutil.rmtree(root, ignore_errors=True)
     durable = root / "ckpt"
     local = root / "ckpt_local" if case["two_tier"] else None
+    store = uuid = corpus = None
+
+    def program_of(every) -> dict:
+        program = resume_program(every, case["model"], local)
+        return corpus_program(program, corpus) if corpus else program
+
+    if case.get("run_store"):
+        root.mkdir(parents=True)
+        corpus = root / "corpus.bin"
+        np.random.default_rng(CORPUS_SEED).integers(
+            0, 128256, CORPUS_TOKENS, dtype=np.uint32).tofile(corpus)
+        store, uuid = RunStore(root / "home"), uuidlib.uuid4().hex
+        store.create_run(uuid, "train-resume", "chip-smoke", {
+            "kind": "operation", "name": "train-resume", "component": {
+                "kind": "component", "name": "train-resume",
+                "run": {"kind": "jaxjob", "program": program_of(case["p_every"])}}})
+        for status in ("compiled", "queued", "scheduled", "starting", "running"):
+            store.set_status(uuid, status)
+        durable = store.outputs_dir(uuid) / "checkpoints"
     check(preemption.install(), "the SIGTERM handler needs the main thread")
     preemption.clear()
     writes = get_registry().counter("checkpoint.tier_writes")
@@ -2922,9 +2970,12 @@ def run_resume(case: dict) -> dict:
     # --- P: preempted by a real SIGTERM at the head of step 3
     before, base_writes = {h: _hist(h) for h in hists}, writes.value
     events_p = []
-    p = Trainer(resume_program(case["p_every"], case["model"], local),
+    p = Trainer(program_of(case["p_every"]),
                 checkpoint_dir=str(durable),
                 event_fn=lambda kind, body: events_p.append((kind, body)))
+    if corpus:
+        check(p.data.meta["loader"] == "native",
+              f"the corpus loader is {p.data.meta['loader']!r}, not the native one")
     try:
         with active(FaultPlan([Fault("trainer.step", "sigterm", step=3)])):
             p.run()
@@ -2942,6 +2993,8 @@ def run_resume(case: dict) -> dict:
     check(all(steps == [3] for steps in tiers.values()), f"P left steps {tiers}")
     out["p"] = {"events": events_p, **measured(p, before, base_writes)}
     fp_p = fingerprint(p)
+    p_params = params_fingerprint(p.module.state_dict()) if store else None
+    p.close()
     out["bytes_per_checkpoint"] = (durable / "3" / ck.STATE_FILE).stat().st_size
     tensors = _state_tensors(p.checkpoint_state())
     out["state_tensor_bytes"] = sum(t.numel() * t.element_size() for t in tensors)
@@ -2968,7 +3021,7 @@ def run_resume(case: dict) -> dict:
         if kind == "resumed":
             fp_r.append(fingerprint(r))
 
-    program = resume_program(case["r_every"], case["model"], local)
+    program = program_of(case["r_every"])
     r = Trainer({**program, "train": {**program["train"], "resume": True}},
                 checkpoint_dir=str(durable), event_fn=on_event,
                 log_fn=lambda step, m: lrs.append((step, m["learning_rate"], m["loss"])))
@@ -2990,8 +3043,19 @@ def run_resume(case: dict) -> dict:
               f"R wrote {out['r']['tier_writes']} step copies, expected {n_tiers}: "
               "one save of step 4, the final one a no-op")
         check(ck.all_steps(str(durable)) == [4], "R's save of step 4 is missing")
+    r.close()
     del r
     torch.cuda.empty_cache()
+    if store:
+        for kind, body in events_p + events_r:
+            store.log_event(uuid, kind, body)
+        store.set_status(uuid, "succeeded")
+        labels = [e["label"] for e in store.timeline(uuid)]
+        check("preempted (step 3, resume at 3)" in labels and
+              "resumed at step 3 from durable tier" in labels and labels[-1] == "-> succeeded",
+              f"the run's timeline: {labels}")
+        # served before Q corrupts the durable copy of step 3
+        out["serve_run_launches"] = phase_serve_run(store, uuid, p_params, corpus)
 
     # --- Q: the durable copy of the newest step corrupted; the local copy
     if local:
@@ -3010,6 +3074,7 @@ def run_resume(case: dict) -> dict:
               "the corrupt durable copy was not quarantined")
         out["q"] = {"events": events_q, "restore_seconds": [
             x["dur_s"] for x in q.tracer.recent(100) if x["name"] == "restore"]}
+        q.close()
         del q
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     ck.close_all()
@@ -3026,10 +3091,193 @@ def run_resume(case: dict) -> dict:
 # final no-op run at the preset's width with 2 layers and an 8192-token
 # vocabulary (1.86 GB a checkpoint, three writes), on one tier.
 RESUME_CASES = [
-    {"size": "full", "model": None, "two_tier": True, "p_every": 3, "r_every": None},
+    {"size": "full", "model": None, "two_tier": True, "p_every": 3, "r_every": None,
+     "run_store": True},
     {"size": "2 layers, vocab 8192", "model": {"n_layers": 2, "vocab_size": 8192},
      "two_tier": False, "p_every": 2, "r_every": 2},
 ]
+
+
+# serve-run: the full-size resume case is a run of the port's RunStore that
+# trains on a token_file corpus (the native loader) of 2^24 uint32 tokens
+# below the vocabulary, written by numpy from seed 0, and pins these
+# serving knobs; after R it is served by ModelServer.from_run: 8 greedy
+# requests of 32 new tokens over HTTP, prompts of 128-2048 corpus tokens.
+# The restore may hold at most the params' bytes plus 10% on the card.
+CORPUS_TOKENS, CORPUS_SEED = 1 << 24, 0
+RUN_SERVING = {"quantize": True, "kvPoolPages": 256, "chunkedPrefill": True, "maxBatch": 8}
+RUN_OVERRIDES = {"max_queue": 16}
+RUN_PROMPTS, RUN_NEW, RUN_PROMPT_SEED = 8, 32, 5
+RESTORE_SLACK = 1.10
+
+
+def corpus_program(program: dict, corpus: Path) -> dict:
+    """`program` training on the token_file corpus through the native loader
+    (the same sequence length and vocabulary), with the serving pins."""
+    data = {"name": "token_file", "batchSize": program["data"]["batchSize"], "config": {
+        "path": str(corpus), "seq_len": TRAIN_TOKENS, "dtype": "uint32",
+        "loader": "native", "vocab_size": 128256}}
+    return {**program, "data": data, "serving": RUN_SERVING}
+
+
+def params_fingerprint(state: dict) -> dict:
+    """name -> the sum of the tensor's integer view (bit-exact summary)."""
+    import torch
+
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    names = list(state)
+    sums = torch.stack([state[n].view(ints[state[n].element_size()]).sum(dtype=torch.int64)
+                        for n in names]).tolist()
+    return dict(zip(names, sums))
+
+
+def run_prompts(corpus: Path, vocab: int) -> list:
+    """RUN_PROMPTS windows of the corpus, 128-2048 tokens, at seeded starts."""
+    import numpy as np
+
+    tokens = np.memmap(corpus, dtype=np.uint32, mode="r")
+    rng = np.random.default_rng(RUN_PROMPT_SEED)
+    lens = np.linspace(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1], RUN_PROMPTS).astype(int)
+    starts = rng.integers(0, len(tokens) - lens.max(), RUN_PROMPTS)
+    prompts = [tokens[s:s + n].astype(np.int64).tolist() for s, n in zip(starts, lens)]
+    check(all(0 <= t < vocab for p in prompts for t in p), "a corpus token is out of vocab")
+    return prompts
+
+
+def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
+    """ModelServer.from_run on the resumed run (before Q corrupts its durable
+    step 3): the step is 3; the served params are P's at its save, bit for
+    bit (every fp leaf, and each projection's fp weight as it reached the
+    card, whose int8 weight and scale the served module holds); the card's
+    peak over from_run stays under the params' bytes plus 10%; the config is
+    the spec's pins plus the override. Then 8 greedy requests over HTTP,
+    each row held against the int8 module's own rows on a direct pool
+    (int8_pool_rows; the near-tie rule). The kernel counts are zeroed
+    before from_run and read after the requests (the served path only),
+    then put back as they were. Returns the served path's launches."""
+    import threading
+
+    import torch
+
+    from polyaxon_tpu_torch.models import quant
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS as FLASH_KERNELS
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.schemas.run_kinds import V1ServingSpec
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    kernels = (*FLASH_KERNELS, INT8_MATMUL)
+    counts_before = {k.name: k.launches for k in kernels}
+    arrived = []  # (fp weight, int8 weight, scale) sums per quantize on load
+    real_quantize = quant.quantize_kernel
+
+    def recording(w):
+        q, scale = real_quantize(w)
+        ints = {4: torch.int32, 2: torch.int16}[w.element_size()]
+        arrived.append(tuple(t.view(dt).sum(dtype=torch.int64) for t, dt in (
+            (w, ints), (q, torch.int8), (scale, torch.int32))))
+        return q, scale
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:  # the served run's path starts here
+        k.launches = 0
+    quant.quantize_kernel = recording
+    try:
+        t0 = time.perf_counter()
+        server = ModelServer.from_run(uuid[:8], store=store, config_overrides=RUN_OVERRIDES)
+        torch.cuda.synchronize()
+        from_run_s = time.perf_counter() - t0
+    finally:
+        quant.quantize_kernel = real_quantize
+    peak = torch.cuda.max_memory_allocated() - base
+    info = server.restore_info
+    check(server.step == 3, f"from_run restored step {server.step}, expected 3")
+    check(info["bytes_read"] == 4 * PRESET_PARAMS,
+          f"read {info['bytes_read']} B of params, expected {4 * PRESET_PARAMS} (f32 masters)")
+    check(peak <= RESTORE_SLACK * info["bytes_read"],
+          f"from_run peaked at {peak} B on the card, over {RESTORE_SLACK} x the params' "
+          f"{info['bytes_read']} B")
+    want = dataclasses.replace(V1ServingSpec.from_dict(RUN_SERVING).to_config(), **RUN_OVERRIDES)
+    check(server.config == want, f"served config {server.config} is not the spec's {want}")
+    # the served params: P's, bit for bit
+    served = server.module.state_dict()
+    targets = [n for n in p_params if n.endswith(".weight")
+               and quant._is_target(quant._split(n)[0])]
+    check(len(arrived) == len(targets), f"{len(arrived)} weights quantized on load, "
+                                        f"expected {len(targets)}")
+    got = params_fingerprint({n: served[n] for n in p_params if n not in targets})
+    for name, (w_sum, q_sum, s_sum) in zip(targets, arrived):
+        prefix = quant._split(name)[0]
+        got[name] = int(w_sum)
+        check(int(q_sum) == int(served[name].view(torch.int8).sum(dtype=torch.int64)) and
+              int(s_sum) == int(served[f"{prefix}.scale"].view(torch.int32).sum(
+                  dtype=torch.int64)), f"{name}: the served int8 weight is not the one quantized")
+    bad = [n for n in p_params if got[n] != p_params[n]]
+    check(not bad, f"served params differ from P's at its save: {bad[:4]}")
+    del served
+
+    prompts = run_prompts(corpus, server.module.cfg.vocab_size)
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    timed: dict = {}
+
+    def one(i):
+        try:
+            timed[i] = _sse_timed(url, {"tokens": [prompts[i]], "maxNewTokens": RUN_NEW},
+                                  f"run-{i}")
+        except BaseException as e:  # noqa: BLE001 — raised below
+            timed[i] = e
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(RUN_PROMPTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}  # ... and ends here
+        stats = server.stats()
+    finally:
+        server.stop()
+    for i in range(RUN_PROMPTS):
+        check(isinstance(timed.get(i), dict), f"serve-run request {i} failed: {timed.get(i)!r}")
+    check(launches["int8_matmul"] > 0, "the served run never launched int8_matmul")
+    rows = [timed[i]["row"] for i in range(RUN_PROMPTS)]
+    t1 = time.perf_counter()
+    reference, gaps = int8_pool_rows(server.module, prompts, new=RUN_NEW, kv_quant="none")
+    divergences = []
+    for i, (p, row) in enumerate(zip(prompts, rows)):
+        check(len(row) == len(p) + RUN_NEW, f"serve-run row {i} has {len(row)} tokens")
+        d = compare_rows(server.module, row, reference[i], len(p), gaps=gaps[i])
+        if d is not None:
+            divergences.append({"row": i, **d})
+    for k in kernels:  # put back the counts of the phase around this one
+        k.launches = counts_before[k.name]
+    ttft = [timed[i]["ttft_ms"] for i in range(RUN_PROMPTS)]
+    decode = [(RUN_NEW - 1) / timed[i]["decode_s"] for i in range(RUN_PROMPTS)]
+    out = {
+        "phase": "serve-run", "device": device_line(), "run": uuid, "step": server.step,
+        "from_run_s": from_run_s, "read_s": info["read_s"], "to_device_s": info["to_device_s"],
+        "quantize_s": info["quantize_s"], "bytes_read": info["bytes_read"],
+        "state_file_bytes": Path(info["path"]).stat().st_size,
+        "peak_bytes": peak, "peak_over_params": peak / info["bytes_read"],
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": RUN_NEW,
+        "ttft_ms_p50": statistics.median(ttft), "ttft_ms": ttft,
+        "decode_tokens_per_s_p50": statistics.median(decode),
+        "decode_tokens_per_s": decode, "wall_s": wall,
+        "kv": stats.get("kv"), "launches": launches,
+        "rows_diverged": len(divergences), "divergences": divergences,
+        "rows_check_s": time.perf_counter() - t1,
+    }
+    emit(out)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_resume() -> dict:
@@ -3049,6 +3297,9 @@ def phase_train_resume() -> dict:
         kern.launches = 0
     results = [run_resume(case) for case in RESUME_CASES]
     launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    # serve-run counts its own path (put back around it) and adds it here
+    served = [r.pop("serve_run_launches") for r in results if "serve_run_launches" in r]
+    check(len(served) == 1, "serve-run did not run")
     # P trains steps 0-2 and R step 3 in each case
     layer_steps = sum(4 * ((c["model"] or {}).get("n_layers") or PRESET_LAYERS)
                       for c in RESUME_CASES)
@@ -3056,7 +3307,8 @@ def phase_train_resume() -> dict:
     emit({"phase": "train-resume", "preset": PRESET, "disk_free_bytes": free,
           "runs": results, "launches": launches, "expected_launches": expected})
     check(launches == expected, f"kernel launches {launches}, expected {expected}")
-    return launches
+    emit({"phase": "serve-run-launches", "launches": served[0]})
+    return {name: launches.get(name, 0) + served[0][name] for name in served[0]}
 
 
 def phase_train_rules() -> dict:

@@ -12,8 +12,11 @@ counterpart is easy to find:
   LM-head loss, and optax's optimizers and schedules;
 - `models/transformer.py`, `models/convert.py`, `models/generate.py`,
   `models/registry.py`: the flagship LM and its dense-KV-cache decode;
-- `data/`, `schemas/program.py`, `telemetry/stats.py`: the token streams,
-  the `program:` block and the throughput formulas the trainer reads;
+- `data/` (with `native/`), `schemas/`, `telemetry/stats.py`: the token
+  streams and file corpora, the run spec (`program:`, `serving:`,
+  `observability:`) and the throughput formulas the trainer reads;
+- `store/`, `settings.py`: the run store (event log, timelines) that
+  training writes and `ModelServer.from_run` serves from;
 - `runtime/trainer.py`: `Trainer`, single-GPU training of a program;
   `runtime/checkpoint.py` its checkpoints (two tiers, quarantine),
   `runtime/preemption.py` SIGTERM as a preemption notice;
@@ -21,7 +24,8 @@ counterpart is easy to find:
   `chaos/`, `retry.py`: the trainer's metrics, spans, device memory gauges,
   fault injection and failure classes (own copies of stdlib modules of the
   reference);
-- `serving/server.py`: `ModelServer`, the per-request `/generate` path.
+- `serving/`: `ModelServer` (batched, paged and step decode, int8,
+  speculation, tenants, `from_run`), the router and the replica set.
 
 Entry points run on the card (`device="cuda"`) unless told otherwise.
 """

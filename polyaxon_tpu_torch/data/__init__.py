@@ -1,7 +1,11 @@
 """Data pipelines: `program.data.name` → an infinite iterator of numpy
-batches (own copies of the reference's procedural token streams)."""
+batches. Own copies of the reference's procedural token streams
+(`synthetic.py`) and of its file-backed pipelines (`files.py`: memory-
+mapped token corpora, with the native prefetch loader, and .npy array
+datasets)."""
 
-from . import synthetic  # noqa: F401  (registers the datasets)
+from . import files  # noqa: F401  (registers token_file/array_file)
+from . import synthetic  # noqa: F401  (registers the procedural streams)
 from .registry import DataSpec, build_data, register_dataset
 
 __all__ = ["DataSpec", "build_data", "register_dataset"]

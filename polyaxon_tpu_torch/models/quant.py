@@ -207,6 +207,17 @@ def decode_weight_bytes(state) -> tuple[int, int]:
     return target, total
 
 
+def int8_bytes_saved(module) -> int:
+    """Device bytes an int8 module (`cfg.quant == "int8"`) saves against
+    its fp self at the dtype of its other weights: `quantize_params`'
+    accounting, for a module quantized on load."""
+    fp = module.dtype.itemsize
+    return int(sum(
+        m.weight.numel() * (fp - 1) - m.scale.numel() * m.scale.element_size()
+        for m in module.modules() if isinstance(m, Int8Linear)
+    ))
+
+
 @torch.no_grad()
 def quantize_module(module):
     """Quantize-on-load for serving: a new module of the same type with

@@ -62,6 +62,9 @@ the same step function, metrics and loop:
   stream's batches 0..; the schedule, Adam's count and the dropout seeds
   (keyed by the step) continue.
 
+`close()` releases the data pipelines (the native loader's prefetch
+threads and its corpus mmap) when the run is over.
+
 `donate_state` is accepted and has nothing to do: PyTorch updates the
 weights and optimizer state in place. Not in this slice, each raising
 NotImplementedError (see ROADMAP.md): mesh axes, and a program without
@@ -97,7 +100,7 @@ from ..models import build_model
 from ..ops.losses import build_loss
 from ..ops.optimizers import build_optimizer, global_norm
 from ..retry import Preempted
-from ..schemas.program import V1Program, V1TrainSpec, to_camel
+from ..schemas.run_kinds import V1ObservabilitySpec, V1Program, V1TrainSpec
 from ..telemetry import MetricsRegistry, SpanTracer, get_registry, now, train_step_flops
 from ..telemetry import mfu as _mfu_of
 from ..tracking.monitors import device_metrics
@@ -199,17 +202,11 @@ class Trainer:
         self._tiers = None
         # one metrics pipeline: every number the trainer reports goes
         # through this registry (and on to the caller through _emit)
-        obs = program.observability or {}
-
-        def obs_field(name, default=None):
-            return obs.get(name, obs.get(to_camel(name), default))
-
-        self.telemetry = registry or MetricsRegistry(
-            default_buckets=obs_field("histogram_buckets")
-        )
+        obs = program.observability or V1ObservabilitySpec()
+        self.telemetry = registry or MetricsRegistry(default_buckets=obs.histogram_buckets)
         self.tracer = SpanTracer(
             path=str(Path(artifacts_dir) / "telemetry" / "spans.jsonl")
-            if artifacts_dir and obs_field("trace", True) else None
+            if artifacts_dir and obs.trace else None
         )
         self.compute_dtype = _DTYPES[tspec.precision]
         self.param_dtype = param_dtype_for(tspec.precision)
@@ -613,6 +610,14 @@ class Trainer:
                 tiers.wait()
         self._event("preempted", {"step": step, "resume_step": int(saved or 0)})
         raise Preempted(f"SIGTERM preemption notice at step {step}", step=saved)
+
+    def close(self):
+        """Release the data pipelines' resources (the native loader's
+        prefetch threads and its corpus mmap) when the run ends, not at
+        GC time. Idempotent."""
+        self.data.shutdown()
+        if hasattr(self, "_eval_data"):
+            self._eval_data.shutdown()
 
     # -------------------------------------------------------------- ckpt
     def _checkpoint_tiers(self):

@@ -19,6 +19,14 @@ the router's poll interval: entries evicted-and-not-spilled since the
 last scrape still match here and miss there; entries prefilled since
 the last scrape miss here and route by load. Both are benign.
 
+Namespaces: a replica seeds an adapter row's chain with the adapter's
+name (the port's prefix cache is namespaced by adapter), and only the
+replica maps a tenant to its adapter. So a replica's advertisement also
+carries its tenant → namespace map, and `match` hashes a tenant's prompt
+in the namespace that replica gives the tenant. A request without a
+tenant, or with one the replica binds to no adapter, hashes in the base
+namespace: base-model rows match exactly as in the reference.
+
 Clock-free by construction: the
 directory has no time axis — freshness is whatever the poll loop last
 wrote. Thread-safe: the poll thread writes, request threads read.
@@ -31,6 +39,7 @@ from typing import Iterable, Optional
 
 # dependency-free module (no torch, no clocks) — safe in the router
 from ..models.kv_pages import page_hashes
+from .tenancy import DEFAULT_TENANT
 
 __all__ = ["PrefixDirectory"]
 
@@ -47,25 +56,33 @@ class PrefixDirectory:
         self.max_prompt_pages = max(1, int(max_prompt_pages))
         # slug -> (page_tokens, frozenset of chain-head hex digests)
         self._by_slug: dict[str, tuple[int, frozenset]] = {}
+        # slug -> {tenant: prefix namespace} (tenants bound to an adapter)
+        self._namespaces: dict[str, dict[str, str]] = {}
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------ writes
     def update(
-        self, slug: str, page_tokens: int, heads: Iterable[str]
+        self, slug: str, page_tokens: int, heads: Iterable[str],
+        namespaces: Optional[dict] = None,
     ) -> None:
         """Replace `slug`'s advertisement (the poll loop calls this with
-        each fresh `/kvz` answer; an empty/failed scrape clears it)."""
+        each fresh `/kvz` answer; an empty/failed scrape clears it).
+        `namespaces`: the replica's tenant → prefix namespace map."""
         pt = int(page_tokens or 0)
         hs = frozenset(str(h) for h in heads)
+        ns = {str(t): str(n) for t, n in (namespaces or {}).items() if n}
         with self._lock:
             if pt <= 0 or not hs:
                 self._by_slug.pop(slug, None)
+                self._namespaces.pop(slug, None)
             else:
                 self._by_slug[slug] = (pt, hs)
+                self._namespaces[slug] = ns
 
     def forget(self, slug: str) -> None:
         with self._lock:
             self._by_slug.pop(slug, None)
+            self._namespaces.pop(slug, None)
 
     # ------------------------------------------------------------- reads
     @property
@@ -78,8 +95,10 @@ class PrefixDirectory:
             ent = self._by_slug.get(slug)
             return len(ent[1]) if ent else 0
 
-    def match(self, tokens) -> dict[str, int]:
-        """Longest advertised prefix per replica for this prompt.
+    def match(self, tokens, tenant: str = "") -> dict[str, int]:
+        """Longest advertised prefix per replica for this prompt of
+        `tenant` (hashed in the namespace each replica gives the tenant;
+        an empty tenant is the replicas' "default" one).
 
         Returns `{slug: matched_full_pages}` for every replica holding
         at least one full page of the prompt (matched pages > 0). The
@@ -90,19 +109,23 @@ class PrefixDirectory:
         """
         with self._lock:
             snapshot = dict(self._by_slug)
+            namespaces = {slug: self._namespaces.get(slug, {}) for slug in snapshot}
         if not snapshot or len(tokens) < 2:
             return {}
         usable = len(tokens) - 1
-        # one hash chain per distinct page size (heterogeneous fleets)
-        chains: dict[int, list] = {}
+        tenant = (tenant or "").strip() or DEFAULT_TENANT
+        # one hash chain per distinct (page size, namespace)
+        chains: dict[tuple, list] = {}
         out: dict[str, int] = {}
         for slug, (pt, heads) in snapshot.items():
-            if pt not in chains:
+            key = (pt, namespaces[slug].get(tenant, ""))
+            if key not in chains:
                 n = min(usable // pt, self.max_prompt_pages)
-                chains[pt] = (
-                    page_hashes(tokens[: n * pt], pt) if n > 0 else []
+                chains[key] = (
+                    page_hashes(tokens[: n * pt], pt, namespace=key[1])
+                    if n > 0 else []
                 )
-            chain = chains[pt]
+            chain = chains[key]
             for j in range(len(chain), 0, -1):  # longest first
                 if chain[j - 1] in heads:
                     out[slug] = j

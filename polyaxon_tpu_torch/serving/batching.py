@@ -263,6 +263,25 @@ class ServingConfig:
         return tuple(sorted(pl)), tuple(sorted(nl))
 
 
+def normalize_mesh_axes(spec) -> Optional[tuple[tuple[str, int], ...]]:
+    """dict or pair-tuple → the frozen `ServingConfig.mesh_axes` form,
+    sorted; a mesh of all-1 axes is the single-card path and normalizes to
+    None (the reference's normalizer; any other mesh is refused by
+    `ServingConfig` as not ported)."""
+    if not spec:
+        return None
+    pairs = sorted(
+        (str(ax), int(n))
+        for ax, n in (spec.items() if hasattr(spec, "items") else spec)
+    )
+    for ax, n in pairs:
+        if n < 1 and n != -1:
+            raise ValueError(f"mesh axis {ax}={n}: sizes are >=1 (or -1)")
+    if all(n == 1 for _, n in pairs):
+        return None
+    return tuple(pairs)
+
+
 def normalize_draft_model(spec) -> Optional[tuple[tuple[str, object], ...]]:
     """dict or pair-tuple of `draft:` overrides → the frozen, hashable
     `ServingConfig.draft_model` (sorted (key, value) pairs, list values as

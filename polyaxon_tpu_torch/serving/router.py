@@ -454,11 +454,12 @@ class Router:
                 adv = json.loads(r.read())
             heads = adv.get("heads") or []
             pt = int(adv.get("pageTokens") or 0) if adv.get("enabled") else 0
+            namespaces = adv.get("namespaces") or {}
         except Exception:
-            heads, pt = [], 0
+            heads, pt, namespaces = [], 0, {}
         s.kv_page_tokens = pt
         s.kv_heads = len(heads) if pt else 0
-        self.directory.update(s.slug, pt, heads)
+        self.directory.update(s.slug, pt, heads, namespaces)
 
     def poll_once(self) -> None:
         """One discovery + health pass (the loop body; tests call it
@@ -570,7 +571,7 @@ class Router:
             ] or list(self._states)
 
     def _order(
-        self, body: bytes, trace: Optional[RequestTrace] = None
+        self, body: bytes, trace: Optional[RequestTrace] = None, tenant: str = ""
     ) -> list[ReplicaState]:
         """Candidate order for one request: affinity-first when some
         candidate advertises a prefix of the prompt (and isn't drowning),
@@ -597,10 +598,11 @@ class Router:
             or self.directory.empty
         ):
             return order
-        tokens = _first_row_tokens(body)
+        tokens, body_tenant = _first_row_tokens(body)
         if not tokens:
             return order
-        matches = self.directory.match(tokens)
+        # the body's tenant wins over the header's, as on the replica
+        matches = self.directory.match(tokens, body_tenant or tenant)
         holders = [s for s in order if matches.get(s.slug)]
         if not holders:
             return order
@@ -636,7 +638,7 @@ class Router:
         headers) of the first acceptable upstream answer — payload bytes
         verbatim, so the client sees exactly what the replica wrote."""
         t_bal = _now()
-        order = self._order(body, trace)
+        order = self._order(body, trace, tenant)
         if trace is not None:
             trace.add(
                 "balance", start=t_bal, dur_s=_now() - t_bal,
@@ -785,7 +787,7 @@ class Router:
         sent: dict[int, int] = {}  # row → tokens already delivered
         done_rows: set[int] = set()
         t_bal = _now()
-        order = self._order(body, trace)
+        order = self._order(body, trace, tenant)
         if trace is not None:
             trace.add(
                 "balance", start=t_bal, dur_s=_now() - t_bal,
@@ -1401,18 +1403,17 @@ class _StreamError(Exception):
         self.retryable = retryable
 
 
-def _first_row_tokens(body: bytes) -> Optional[list]:
-    """Prompt tokens of the request's first row, or None when the body
-    isn't the /generate shape (the replica will reject it anyway — the
-    router never fails a request over affinity parsing)."""
+def _first_row_tokens(body: bytes) -> tuple[Optional[list], str]:
+    """Prompt tokens of the request's first row (None when the body isn't
+    the /generate shape: the replica will reject it anyway — the router
+    never fails a request over affinity parsing) and the body's tenant."""
     try:
-        rows = json.loads(body).get("tokens")
-        row = rows[0]
-        if not isinstance(row, list):
-            return None
-        return row
+        data = json.loads(body)
+        row = data.get("tokens")[0]
+        tenant = str(data.get("tenant") or "").strip()
+        return (row if isinstance(row, list) else None), tenant
     except Exception:
-        return None
+        return None, ""
 
 
 def _iter_sse_frames(resp):

@@ -106,12 +106,14 @@ replays on that replica: its admission hits the adopted pages. A failed
 ship falls back to local decode. An adapter row's pages travel in its
 adapter's prefix namespace and land in the same namespace there.
 
-Not ported yet (ROADMAP.md), refused by name: meshes (ServingConfig
-raises) and `from_run`.
+`ModelServer.from_run` serves the newest checkpoint of a run of the run
+store (`store/local.py`) with the knobs its spec pins. Not ported yet
+(ROADMAP.md), refused by name: meshes (ServingConfig raises).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -121,6 +123,7 @@ import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional
 
@@ -139,7 +142,7 @@ from ..models.generate import (
     paged_prefill_chunk,
     paged_step,
 )
-from ..models.quant import quantize_module
+from ..models.quant import int8_bytes_saved, quantize_module
 from .adapters import AdapterRegistry, adapter_template, ref_path, stack_adapter_params
 from ..models.spec_decode import (
     NgramDrafter,
@@ -252,6 +255,96 @@ def _new_request_id() -> str:
     return secrets.token_hex(8)
 
 
+_STAGE_BYTES = 64 << 20  # the pinned staging buffer of a restore to the card
+
+
+def _restore_params(ckpt_dir: Path, module) -> dict:
+    """Read ONLY the params subtree ("model") of the newest step's
+    `state.pt` (`runtime/checkpoint.py`'s layout) into `module`, the
+    counterpart of the reference's Orbax partial restore.
+
+    The file is opened with `torch.load(mmap=True, weights_only=True)`,
+    so the optimizer's moments are never read, let alone moved. Each param
+    is copied into the module's own tensor; on the card through a 64 MiB
+    pinned staging buffer. Into an int8 module (`cfg.quant == "int8"`)
+    each projection weight goes to the device alone, is quantized there
+    (`models.quant.quantize_kernel`) and dropped, so no fp copy of the
+    module ever exists on the device. Returns what it measured: the step,
+    the bytes read, and seconds spent reading (mmap to staging), moving
+    to the device and quantizing."""
+    from ..models import quant
+    from ..runtime.checkpoint import STATE_FILE, _steps_on_disk
+
+    steps = _steps_on_disk(str(ckpt_dir))
+    if not steps:
+        raise ServingError(f"no restorable checkpoint in {ckpt_dir}")
+    torch_steps = [s for s in steps if (ckpt_dir / str(s) / STATE_FILE).is_file()]
+    if not torch_steps:
+        raise ServingError(
+            f"no {STATE_FILE} under {ckpt_dir} (steps {steps}): the run was "
+            "checkpointed by the JAX package (Orbax), which the port does not read"
+        )
+    step = torch_steps[-1]
+    path = ckpt_dir / str(step) / STATE_FILE
+    t0 = time.perf_counter()
+    state = torch.load(path, map_location="cpu", mmap=True, weights_only=True)["model"]
+    times = {"read_s": time.perf_counter() - t0, "to_device_s": 0.0, "quantize_s": 0.0}
+    own = module.state_dict()
+    int8 = getattr(module.cfg, "quant", "none") == "int8"
+
+    def is_target(name: str, leaf_name: str = "weight") -> bool:
+        prefix, leaf = quant._split(name)
+        return int8 and leaf == leaf_name and quant._is_target(prefix)
+
+    want = {k for k in own if not is_target(k, "scale")}  # scales are made here
+    if set(state) != want:
+        raise ServingError(
+            f"{path}: the params do not fit the run's model (missing "
+            f"{sorted(want - set(state))[:4]}, unexpected {sorted(set(state) - want)[:4]})"
+        )
+    dev = module.device
+    stage = (torch.empty(_STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+             if dev.type == "cuda" else None)
+
+    def to_device(src, dst) -> None:
+        if stage is None:
+            t = time.perf_counter()
+            dst.copy_(src)
+            times["to_device_s"] += time.perf_counter() - t
+            return
+        flat_src, flat_dst = src.reshape(-1), dst.view(-1)
+        per = _STAGE_BYTES // src.element_size()
+        for i in range(0, flat_src.numel(), per):
+            part = flat_src[i:i + per]
+            t = time.perf_counter()
+            staged = stage[:part.numel() * part.element_size()].view(part.dtype).copy_(part)
+            t1 = time.perf_counter()
+            flat_dst[i:i + part.numel()].copy_(staged, non_blocking=True)
+            torch.cuda.synchronize(dev)  # the staging buffer is reused next
+            times["read_s"] += t1 - t
+            times["to_device_s"] += time.perf_counter() - t1
+
+    n_bytes = 0
+    with torch.no_grad():
+        for name, value in state.items():
+            n_bytes += value.numel() * value.element_size()
+            if not is_target(name):
+                to_device(value, own[name])
+                continue
+            w = torch.empty(value.shape, dtype=value.dtype, device=dev)
+            to_device(value, w)
+            t = time.perf_counter()
+            q, s = quant.quantize_kernel(w)
+            own[name].copy_(q)
+            own[f"{quant._split(name)[0]}.scale"].copy_(s)
+            del w, q, s
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times["quantize_s"] += time.perf_counter() - t
+    del state
+    return {"step": step, "path": str(path), "bytes_read": n_bytes, **times}
+
+
 class ModelServer:
     def __init__(
         self,
@@ -319,7 +412,9 @@ class ModelServer:
         # int8 quantize-on-load: a new module with int8 projections, built
         # before anything captures the module; the fp copy is the caller's
         self._quant_bytes_saved = 0
-        if cfg.quantize:
+        if cfg.quantize and module.cfg.quant == "int8":  # quantized on load (from_run)
+            self._quant_bytes_saved = int8_bytes_saved(module)
+        elif cfg.quantize:
             module, self._quant_bytes_saved = quantize_module(module)
         # multi-tenant adapters: stack the LoRA params to [slots, ...] after
         # quantize (int8 base + fp adapters compose); slot 0 keeps the
@@ -364,6 +459,7 @@ class ModelServer:
             self._spec_controller = AdaptiveSpecController(k_init=k0, k_min=1, k_max=max(k0, 8))
         self.model_name = model_name
         self.step = step
+        self.restore_info: Optional[dict] = None  # set by from_run
         self._draining = False
         # ONE metrics pipeline: /statsz and /metricsz both render from it
         self.telemetry = registry or MetricsRegistry()
@@ -705,11 +801,109 @@ class ModelServer:
         self._handoff_idle.set()
 
     @classmethod
-    def from_run(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "ModelServer.from_run (restoring a run's checkpoint by its uid) is "
-            "not ported yet (see ROADMAP.md)"
+    def from_run(
+        cls,
+        run_ref: str,
+        store=None,
+        mesh_axes: Optional[dict] = None,
+        config: Optional[ServingConfig] = None,
+        config_overrides: Optional[dict] = None,
+        *,
+        device="cuda",
+    ):
+        """Serve the newest checkpoint of a `transformer_lm` jaxjob run of
+        the run store (the reference's `from_run`).
+
+        A serving-shaped restore, not a Trainer: the module is built from
+        the stored spec in the run's master-weight dtype
+        (`param_dtype_for(train.precision)`), no data pipeline is built,
+        and only the params subtree of the newest
+        `<outputs>/checkpoints/<step>/state.pt` is read (`_restore_params`;
+        the optimizer's moments never reach the device). With
+        `quantize` the module is built int8 and each projection is
+        quantized on the device as it arrives.
+
+        `config` replaces the serving knobs wholesale; absent, the spec's
+        `program.serving` provides them. `config_overrides` (field → value)
+        layer single knobs over that base. `mesh_axes` layers like an
+        override, and a mesh is refused by `ServingConfig` (not ported).
+        The run's observability block wires the SLO engine, the metrics
+        history under `<outputs>/telemetry/history/` and the regression
+        rules, whose events land in the run's event log. What the restore
+        measured is kept on the server as `restore_info`."""
+        from ..models import build_model
+        from ..runtime.trainer import param_dtype_for
+        from ..schemas.run_kinds import V1JAXJob
+        from ..store import RunStore
+        from .batching import normalize_mesh_axes
+
+        t_start = time.perf_counter()
+        store = store or RunStore()
+        uuid = store.resolve(run_ref)
+        run = (store.read_spec(uuid).get("component") or {}).get("run") or {}
+        if run.get("kind") != "jaxjob" or not run.get("program"):
+            raise ServingError(f"run {uuid[:8]} is not a native jaxjob program run")
+        program = V1JAXJob.from_dict(run).program
+        if program.model.name not in ("transformer_lm",):
+            raise ServingError(
+                f"serving supports the LM family (transformer_lm), run "
+                f"{uuid[:8]} trained {program.model.name!r}"
+            )
+        if config is None and program.serving is not None:
+            config = program.serving.to_config()
+        if config_overrides:
+            config = dataclasses.replace(config or ServingConfig(), **config_overrides)
+        if mesh_axes:
+            config = dataclasses.replace(
+                config or ServingConfig(), mesh_axes=normalize_mesh_axes(mesh_axes)
+            )
+        config = config or ServingConfig()
+        ckpt_dir = (store.outputs_dir(uuid) / "checkpoints").resolve()
+        if not ckpt_dir.is_dir():
+            raise ServingError(
+                f"run {uuid[:8]} has no checkpoints under its outputs — "
+                "train with train.checkpointEvery set"
+            )
+        tspec = program.train
+        precision = tspec.precision if tspec else "mixed"
+        model_config = dict(program.model.config or {})
+        if config.quantize:
+            model_config["quant"] = "int8"
+        dev = resolve_device(device)
+        module = build_model(
+            program.model.name, model_config, device=dev,
+            dtype=param_dtype_for(precision), seed=int(tspec.seed) if tspec else 0,
+        ).module.eval()
+        info = _restore_params(ckpt_dir, module)
+        slos = history = rules = None
+        obs = program.observability
+        if obs is not None and obs.slos:
+            slos = [s.to_config() for s in obs.slos]
+        if obs is not None and obs.history is not None and obs.history.enabled:
+            history = obs.history.to_config(
+                str(store.outputs_dir(uuid) / "telemetry" / "history")
+            )
+        if obs is not None and obs.regression_rules:
+            rules = obs.rules_config()
+        server = cls(
+            module,
+            None,
+            config,
+            model_name=program.model.name,
+            step=info["step"],
+            device=dev,
+            slos=slos,
+            debug_dir=str(store.outputs_dir(uuid) / "debug") if (slos or rules) else None,
+            history=history,
+            regression_rules=rules,
+            event_sink=(
+                (lambda kind, body: store.log_event(uuid, kind, body)) if rules else None
+            ),
         )
+        server.restore_info = {
+            **info, "run": uuid, "seconds": time.perf_counter() - t_start,
+        }
+        return server
 
     # ------------------------------------------------------------ handoff
     def _handoff_begin(self) -> None:
@@ -1813,13 +2007,24 @@ class ModelServer:
     def kv_heads(self) -> dict:
         """GET /kvz: the prefix chain hashes this replica can serve warm
         (in the pool or spilled), keyed by the pool's page size so the
-        router hashes prompts the same way, and its role."""
+        router hashes prompts the same way, and its role. `namespaces` maps
+        each tenant whose rows decode with an adapter to that adapter: its
+        chains are seeded with it (`plan_row`'s namespace), so the router
+        hashes that tenant's prompts in it. A tenant not listed hashes in
+        the base namespace."""
+        namespaces = {}
+        if self._tenancy is not None:
+            for name in self._tenancy.known():
+                adapter = self._tenancy.resolve(name).adapter
+                if adapter:
+                    namespaces[name] = adapter
         if self._kv is None:
             return {"enabled": False, "pageTokens": 0, "heads": [],
-                    "role": self.config.role}
+                    "role": self.config.role, "namespaces": namespaces}
         return {"enabled": self._kv.prefix is not None,
                 "pageTokens": self._kv.layout.page_tokens,
-                "heads": self._kv.advertised_heads(), "role": self.config.role}
+                "heads": self._kv.advertised_heads(), "role": self.config.role,
+                "namespaces": namespaces}
 
     @staticmethod
     def _pct(summary: dict, scale: float = 1.0) -> dict:

@@ -41,14 +41,15 @@ def test_no_jax_or_reference_imports(path):
 def test_import_walk_sees_the_package():
     names = {p.name for p in SOURCES}
     assert {"flash_attention.py", "transformer.py", "server.py", "chip_smoke.py",
-            "losses.py", "optimizers.py", "trainer.py", "program.py",
+            "losses.py", "optimizers.py", "trainer.py", "run_kinds.py",
             "synthetic.py", "stats.py", "checkpoint.py", "preemption.py",
             "injector.py", "plan.py", "registry.py", "spans.py", "monitors.py",
             "retry.py", "convert.py", "kv_pages.py", "kv.py", "steps.py",
             "batching.py", "adapters.py", "tenancy.py", "spill.py", "framing.py",
             "lora.py", "tracing.py", "slo.py", "history.py", "detect.py",
             "federate.py", "handoff.py", "affinity.py", "replicas.py",
-            "router.py"} <= names
+            "router.py", "eventlog.py", "timeline.py", "local.py", "lifecycle.py",
+            "base.py", "files.py", "dataloader.py", "settings.py", "queue.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -135,3 +136,60 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(tmp_path, alone)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+STORE_AND_SPECS = ("store/eventlog.py", "store/timeline.py", "store/local.py",
+                   "store/framing.py", "schemas/lifecycle.py", "schemas/base.py",
+                   "schemas/run_kinds.py", "settings.py", "scheduler/queue.py",
+                   "data/files.py", "native/dataloader.py")
+
+
+@pytest.mark.parametrize("rel", STORE_AND_SPECS)
+def test_store_specs_and_data_copies_stand_alone(rel):
+    """Own copies of JAX-free reference modules: nothing of the reference,
+    and no torch (nor pydantic) at module level."""
+    roots = _imported_roots(REPO / "polyaxon_tpu_torch" / rel)
+    assert not roots & set(FORBIDDEN), rel
+    assert not roots & {"torch", "pydantic"}, rel
+
+
+def test_the_native_loader_builds_only_from_the_port(tmp_path, monkeypatch):
+    """No path of the port, and no build command, points into the JAX
+    package's `native/` (whose Makefile builds the reference's copy)."""
+    from polyaxon_tpu_torch.native import dataloader as native
+
+    reference = (REPO / "polyaxon_tpu" / "native").resolve()
+    for path in (native.SOURCE, native.BUILD_DIR, native.library_path()):
+        assert not path.resolve().is_relative_to(reference), path
+    assert native.SOURCE.resolve().is_relative_to(REPO / "polyaxon_tpu_torch")
+    commands = []
+
+    def fake_run(cmd, **kwargs):
+        commands.append(cmd)
+        raise OSError("not building here")
+
+    monkeypatch.setattr(native, "library_path", lambda: tmp_path / "lib.so")
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    with pytest.raises(native.NativeBuildError):
+        native.build()
+    (cmd,) = commands
+    assert "make" not in Path(cmd[0]).name
+    assert str(native.SOURCE) in cmd and "-shared" in cmd
+    assert not any(str(reference) in str(a) or "polyaxon_tpu/native" in str(a) for a in cmd)
+
+
+def test_from_run_defaults_to_the_card(tmp_path, monkeypatch):
+    import inspect
+
+    from polyaxon_tpu_torch.store import RunStore
+
+    assert inspect.signature(ModelServer.from_run).parameters["device"].default == "cuda"
+    store = RunStore(tmp_path)
+    program = {"model": {"name": "transformer_lm", "config": dict(
+        dim=32, n_layers=1, n_heads=2, vocab_size=16, seq_len=16)}}
+    store.create_run("a" * 32, "r", "p", {"component": {"run": {
+        "kind": "jaxjob", "program": program}}})
+    (store.outputs_dir("a" * 32) / "checkpoints").mkdir()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelServer.from_run("r", store=store)

@@ -242,7 +242,12 @@ CONVERT_CASES = {
     "adafactor-factored": ("adafactor", {"min_dim_size_to_factor": 3, "momentum": 0.5}),
     "rmsprop-centered": ("rmsprop", {"centered": True, "momentum": 0.9}),
     "adagrad": ("adagrad", None),
+    # a LoRA run: the reference wraps the chain in multi_transform, with
+    # set_to_zero on the frozen parameters ("s" here); the port gives the
+    # optimizer only the trainable ones
+    "adamw-lora": ("adamw", {"weight_decay": 0.1}),
 }
+FROZEN = {"adamw-lora": ("s",)}
 
 
 @pytest.mark.parametrize("case", list(CONVERT_CASES))
@@ -259,6 +264,12 @@ def test_opt_state_from_jax_continues_optax(case):
              for _ in range(4)]
     sched = {"name": "cosine", "warmup_steps": 1}
     tx, _ = jax_opt.build_optimizer(name, 0.05, config, sched, total_steps=4)
+    frozen = FROZEN.get(case, ())
+    if frozen:
+        tx = optax.multi_transform(
+            {"train": tx, "freeze": optax.set_to_zero()},
+            {k: "freeze" if k in frozen else "train" for k in shapes},
+        )
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     mid = None
@@ -273,7 +284,8 @@ def test_opt_state_from_jax_continues_optax(case):
         return t.T.contiguous() if t.ndim == 2 else t
 
     tp = {k: port(v) for k, v in mid[0].items()}
-    optimizer, _ = opt.build_optimizer(tp.values(), name, 0.05, config, sched, total_steps=4)
+    trained = [p for k, p in tp.items() if k not in frozen]
+    optimizer, _ = opt.build_optimizer(trained, name, 0.05, config, sched, total_steps=4)
     layout = {k: ((k,), len(v) == 2) for k, v in shapes.items()}
     opt_state_from_jax(mid[1], optimizer, tp, layout)
     assert optimizer.count == 2
@@ -283,9 +295,12 @@ def test_opt_state_from_jax_continues_optax(case):
         optimizer.step()
     for k in shapes:
         np.testing.assert_allclose(tp[k].numpy(), port(jp[k]).numpy(), rtol=1e-6, atol=1e-7)
+    for k in frozen:  # frozen on both sides
+        np.testing.assert_array_equal(tp[k].numpy(), port(params[k]).numpy())
     # without the conversion the port's continuation differs
     fresh = {k: port(v) for k, v in mid[0].items()}
-    other, _ = opt.build_optimizer(fresh.values(), name, 0.05, config, sched, total_steps=4)
+    other, _ = opt.build_optimizer([p for k, p in fresh.items() if k not in frozen], name,
+                                   0.05, config, sched, total_steps=4)
     for g in grads[2:]:
         for k, p in fresh.items():
             p.grad = port(g[k])

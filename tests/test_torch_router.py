@@ -350,3 +350,65 @@ def test_federated_metricsz_statsz_and_stitched_tracez(fleet):
 def test_fleet_placement_is_refused_by_name():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ReplicaSetManager(lambda i: None, fleet=object())
+
+
+# ----------------------------------------- affinity in adapter namespaces
+def test_tenants_route_to_their_own_namespace_heads():
+    """Two tenants on different adapters send one prompt through the
+    router: each goes to the replica holding the prompt's heads in its
+    adapter's namespace (the replicas advertise their tenant → namespace
+    map on /kvz). A base-model row hashes as the reference's directory
+    does."""
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.serving.tenancy import normalize_adapters, normalize_tenants
+
+    lora = build_model("transformer_lm", dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                                              vocab_size=128, seq_len=64, lora_rank=4),
+                       device="cpu").module.eval()
+    cfg = ServingConfig(
+        max_batch=2, max_wait_ms=1.0, kv_pool_pages=32, kv_page_tokens=8,
+        adapters=normalize_adapters({"a1": "seed:1", "a2": "seed:2"}),
+        tenants=normalize_tenants([{"name": "t1", "adapter": "a1"},
+                                   {"name": "t2", "adapter": "a2"}]))
+    servers = [ModelServer(lora, None, cfg, device="cpu") for _ in range(2)]
+    urls = [f"http://127.0.0.1:{s.start('127.0.0.1', 0)}" for s in servers]
+    router = trouter.Router(urls, balancer=trouter.P2CBalancer(seed=3))
+    prompt = np.random.default_rng(5).integers(1, 127, 33).tolist()
+    body = {"tokens": [prompt], "maxNewTokens": 2}
+    try:
+        # t1 warms r0 and t2 warms r1: the same tokens, chained in a1 and a2
+        for url, tenant in zip(urls, ("t1", "t2")):
+            assert _post(url, {**body, "tenant": tenant})[0] == 200
+        router.poll_once()
+        kvz = json.loads(_get(urls[0], "/kvz"))
+        assert kvz["namespaces"] == {"t1": "a1", "t2": "a2"}
+        assert router.directory.match(prompt, "t1") == {"r0": 4}
+        assert router.directory.match(prompt, "t2") == {"r1": 4}
+        assert router.directory.match(prompt) == {}  # no base-namespace heads
+        url = f"http://127.0.0.1:{router.start('127.0.0.1', 0)}"
+        for tenant, slot in (("t1", 0), ("t2", 1), ("t2", 1), ("t1", 0)):
+            served = [s.requests_served for s in servers]
+            if tenant == "t1":  # by header, as a proxy forwards it
+                req = urllib.request.Request(
+                    url + "/generate", data=json.dumps(body).encode(), method="POST",
+                    headers={"Content-Type": "application/json", "X-Tenant": tenant})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    assert r.status == 200
+            else:  # in the body
+                assert _post(url, {**body, "tenant": tenant})[0] == 200
+            assert [s.requests_served - n for s, n in zip(servers, served)] == [
+                int(slot == 0), int(slot == 1)]
+        assert router.stats()["affinity"]["hits"] == 4
+        # a base-model row: the same chain as the reference's directory
+        assert _post(urls[1], body)[0] == 200
+        router.poll_once()
+        heads = [json.loads(_get(u, "/kvz"))["heads"] for u in urls]
+        ref = jaff.PrefixDirectory()
+        for i, h in enumerate(heads):
+            ref.update(f"r{i}", 8, h)
+        assert router.directory.match(prompt) == ref.match(prompt) == {"r1": 4}
+        assert router.directory.match(prompt, "t1") == {"r0": 4}
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()

@@ -282,11 +282,12 @@ def test_kv_pool_exhaustion_sheds_503(lm):
         server.stop()
 
 
-def test_unported_options_are_refused_by_name():
+def test_unported_options_are_refused_by_name(tmp_path):
     """Meshes are still refused by name; speculation, int8 weights and the
     int8 pool (tests/test_torch_serving_fast.py), tenants, adapters and the
-    spill tier (tests/test_torch_tenancy.py, tests/test_torch_spill.py) and
-    the disaggregated roles (tests/test_torch_handoff.py) are served now."""
+    spill tier (tests/test_torch_tenancy.py, tests/test_torch_spill.py),
+    the disaggregated roles (tests/test_torch_handoff.py) and `from_run`
+    (tests/test_torch_from_run.py) are served now."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(mesh_axes=(("model", 2),))
     for field in ({"role": "prefill"}, {"role": "decode"},
@@ -296,8 +297,11 @@ def test_unported_options_are_refused_by_name():
                   {"adapters": (("a", "seed:1"),)}, {"spill_dir": "/nowhere"},
                   {"spill_ram_bytes": 1 << 20, "spill_dir_bytes": 1 << 20}):
         assert ServingConfig(**field)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelServer.from_run("uid")
+    # from_run resolves the run now: an unknown one is the reference's KeyError
+    from polyaxon_tpu_torch.store import RunStore
+
+    with pytest.raises(KeyError, match="no run matching 'uid'"):
+        ModelServer.from_run("uid", store=RunStore(tmp_path), device="cpu")
 
 
 def test_buckets_match_the_reference():
