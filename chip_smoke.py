@@ -6,7 +6,9 @@
 Run from the root of a checkout. It builds the hand-written kernels from the
 checkout's sources, holds each against its plain PyTorch version, then
 drives the port's two main paths at the full width of the `llama3-1b`
-preset (random weights from a fixed seed): inference, then training.
+preset (random weights from a fixed seed): inference, then training; then
+the rest of the model zoo through the Trainer at the widths of the repo's
+BASELINE configurations.
 
 1. build     — nvcc the kernel sources, all at once, with their ptxas
                reports; then the SASS of each library (`cuobjdump
@@ -108,7 +110,8 @@ preset (random weights from a fixed seed): inference, then training.
                decode step at B=8, frontier 2112,
                with and without slots (the launches the slots add) and on
                the int8 base (64 int8 launches);
-4e. serve-fleet — the serving fleet on the bf16 `llama3-1b` (after 4c,
+4e. serve-fleet — the serving fleet on the bf16 `llama3-1b` width at 4 of
+               its 16 layers (FLEET_LAYERS, a cut; after 4c,
                before 4d): a `role: prefill` and a `role: decode` replica
                behind the port's Router (ReplicaSetManager over
                InProcessReplicas, one module, a pool each) and a monolithic
@@ -187,20 +190,53 @@ preset (random weights from a fixed seed): inference, then training.
                seconds (read, to-device, quantize), the bytes read, the
                peak, TTFT and decode tokens/s;
 8. train-rules — the remat policies `nothing`, `dots` and
-               `dots_no_batch`, 4 steps each at full size (median step
-               seconds, peak memory, the flash launches per layer and step);
+               `dots_no_batch`, 4 steps each at the preset's width with 4
+               layers (RULES_LAYERS, a cut; median step seconds, peak
+               memory, the flash launches per layer and step);
                then lamb, lion, adafactor, rmsprop and adagrad (and adamw
                beside them) for 3 steps each at the preset's width with 2
                layers: every loss finite, each rule's state bytes,
-               adafactor's far under adamw's.
+               adafactor's far under adamw's;
+9. train-zoo — `Trainer(program).run()`, 6 steps each, on each BASELINE
+               configuration at full width on its procedural stream:
+               `mlp` (mnist.yaml, f32, batch 128), `resnet50` (224 px,
+               1000 classes, SGD Nesterov, cosine, mixed, batch 64 of the
+               YAML's 1024), `vit` S/16 (224 px, `attention: xla`: its 196
+               tokens are no multiple of the kernels' 128-row q block;
+               AdamW, mixed, 128), `bert` (bert.yaml: bert-base, seq 512,
+               remat, `attention: flash`, mixed, 32 of 256), `seq2seq`
+               `small` (128/128, flash, mixed, 32) and `transformer_lm` at
+               llama3-1b's width with 8 switch experts (capacity 1.25) at 4
+               layers, seq 2048, flash, fused loss, mixed. Each prints its
+               median step seconds, images or tokens per second, peak
+               memory and losses; every loss finite, the MLP's falling
+               (in 6 steps of 1000 classes ViT's and ResNet's rise: each
+               batch raises its own classes, the next holds mostly
+               others), each path's
+               flash launches exactly what its code launches (BERT 24/12/12
+               a step, seq2seq 12/12/12, MoE 4/4/4; none elsewhere) and
+               every BatchNorm statistic of ResNet-50 moved. Then BERT-
+               base's bf16 logits through the flash kernels (non-causal)
+               against the einsum path on the same weights (relative
+               Frobenius, limit BERT_FLASH_VS_XLA) and against an f32 copy
+               (as the forward phase's rule).
+
+    python3 chip_smoke.py --zoo TAG [--seeds N ...] [--lrs X ...]
+
+runs one train-zoo configuration alone (TAG as in ZOO_CASES, e.g.
+`vit-s16`) for each seed and learning rate given, with every check of
+phase 9, and prints its lines and the card's name and power limit: a
+second look at a loss curve. It builds no kernel, so a configuration
+that launches one fails there.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (phases 3-4, then 4b, then 4c, then each config of 4e, then 4d, then
-phases 5, 7 (7b zeroes and reads its own, then puts 7's back) and 8) and
-read just after it, so `launches` counts the main paths only (4b launches none:
+phases 5, 7 (7b zeroes and reads its own, then puts 7's back), 8 and each
+configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
-int8_matmul for every projection of their int8 configs). The last lines are the kernels JSON line, the card's name
+int8_matmul for every projection of their int8 configs). The `wall` line
+gives the seconds of each group of phases. The last lines are the kernels JSON line, the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 Without CUDA, or without the rest of the checkout beside it, it exits
 non-zero and prints no result.
@@ -304,6 +340,87 @@ EINSUM_STEPS = 3
 TRAIN_VS_EINSUM = {"loss": 5e-5, "grad_norm": 9e-4, "update": 7e-2}
 PRESET_LAYERS, PRESET_PARAMS = 16, 1_498_482_688  # llama3-1b's depth and size
 RULES_STEPS = 4  # steps of each remat policy
+RULES_LAYERS = 4  # the remat policies at the preset's width, depth cut from 16
+# train-zoo: the BASELINE configurations through the port's Trainer at their
+# full width on their procedural streams, ZOO_STEPS steps each (the step
+# seconds are the median of the steps after the first). `launches` is what
+# the code launches a step: BERT's remat runs each layer's forward kernel
+# twice; seq2seq's 6 encoder (non-causal) and 6 decoder (causal) layers
+# once each; the MoE model's 4 layers once each
+ZOO_STEPS = 6
+ZOO_PROFILE_STEP = 3  # the torch.profiler window: this step alone
+# examples/bert.yaml's rule; its schedule `linear_warmup` is a name neither
+# package's build_schedule knows, so a constant after a linear warmup
+ZOO_ADAMW = {"name": "adamw", "learningRate": 1e-4,
+             "config": {"weight_decay": 0.01, "b2": 0.98},
+             "schedule": {"name": "constant", "warmup_steps": 2}}
+ZOO_CASES = [
+    dict(tag="mlp", unit="images", descend=True, launches={}, program={
+        "model": {"name": "mlp", "config": {"hidden": [512, 256], "num_classes": 10,
+                                            "input_dim": 784}},
+        "data": {"name": "mnist", "batchSize": 128},
+        "optimizer": {"name": "adamw", "learningRate": 1e-3},
+        "train": {"precision": "float32"}}),
+    dict(tag="resnet50", unit="images", descend=False, launches={}, program={
+        "model": {"name": "resnet50", "config": {"num_classes": 1000}},
+        "data": {"name": "synthetic_imagenet", "batchSize": 64},
+        "optimizer": {"name": "sgd", "learningRate": 0.1,
+                      "config": {"momentum": 0.9, "nesterov": True},
+                      "schedule": {"name": "cosine", "warmup_steps": 2}},
+        "train": {"precision": "mixed"}}),
+    dict(tag="vit-s16", unit="images", descend=False, launches={}, program={
+        "model": {"name": "vit", "config": {"variant": "S/16", "num_classes": 1000,
+                                            "image_size": 224, "attention": "xla"}},
+        "data": {"name": "synthetic_imagenet", "batchSize": 128},
+        # vit_hyperband.yaml's defaults. With 1000 classes and 128 images a
+        # batch, 6 batches hold ~0.8 images of a class: each step raises the
+        # logits of its batch's classes and the next batch holds mostly
+        # others, so the loss rises (at lr 1e-3 and 1e-4, seeds 0-2) and is
+        # not required to fall here; the reference's test requires it of a
+        # 10-class ViT, as tests/test_torch_zoo_trainer.py does on the CPU
+        "optimizer": {"name": "adamw", "learningRate": 1e-3,
+                      "config": {"weight_decay": 0.01}},
+        "train": {"precision": "mixed"}}),
+    dict(tag="bert-base", unit="tokens", descend=False,
+         launches={"flash_fwd": 24, "flash_dq": 12, "flash_dkv": 12}, program={
+             # examples/bert.yaml: its num_layers/hidden_dim/... are not BERT's
+             # keys, so both packages build bert-base
+             "model": {"name": "bert", "config": {
+                 "num_layers": 12, "hidden_dim": 768, "num_heads": 12, "mlp_dim": 3072,
+                 "vocab_size": 30522, "max_len": 512, "attention": "flash"}},
+             "data": {"name": "synthetic_mlm", "batchSize": 32,
+                      "config": {"seq_len": 512, "vocab_size": 30522}},
+             "optimizer": ZOO_ADAMW,
+             "train": {"precision": "mixed", "remat": True}}),
+    dict(tag="seq2seq-small", unit="tokens", descend=False,
+         launches={"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12}, program={
+             "model": {"name": "seq2seq", "config": {"preset": "small", "src_len": 128,
+                                                     "tgt_len": 128, "attention": "flash"}},
+             "data": {"name": "synthetic_seq2seq", "batchSize": 32,
+                      "config": {"src_len": 128, "tgt_len": 128, "vocab_size": 32128}},
+             "optimizer": {"name": "adamw", "learningRate": 3e-4,
+                           "schedule": {"name": "cosine", "warmup_steps": 2}},
+             "train": {"precision": "mixed"}}),
+    # llama3-1b's width with 8 switch experts, depth cut to 4 layers (f32
+    # masters, grads and AdamW of its 2.2 B parameters are ~35 GB)
+    dict(tag="moe-llama3-1b-4l", unit="tokens", descend=False,
+         launches={"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4}, program={
+             "model": {"name": "transformer_lm", "config": {
+                 "preset": PRESET, "n_layers": 4, "n_experts": 8, "capacity_factor": 1.25,
+                 "seq_len": 2048, "attention": "flash", "fused_lm_loss": True}},
+             "data": {"name": "synthetic_text", "batchSize": 1,
+                      "config": {"seq_len": 2048, "vocab_size": 128256}},
+             "optimizer": {"name": "adamw", "learningRate": 3e-4,
+                           "schedule": {"name": "cosine", "warmup_steps": 2}},
+             "train": {"precision": "mixed"}}),
+]
+# BERT-base's logits with `attention: flash` against `attention: xla` on the
+# same bf16 weights, [ZOO_BERT_ROWS, 512] tokens: relative Frobenius. Both
+# round attention to bf16 at different points; a prior from the llama3-1b
+# forward check (0.0168 read there, limit 2.5e-2), and the flash path must
+# sit as close to an f32 copy as the einsum path does (FORWARD_REL_SLACK)
+ZOO_BERT_ROWS = 8
+BERT_FLASH_VS_XLA = 2.5e-2
 # serve-batched: three server configs on the full model under one traffic,
 # two waves of 8 concurrent greedy requests of SERVE_NEW tokens, 8 of the
 # 16 prompts behind one shared SERVE_PREFIX-token system prefix
@@ -411,6 +528,7 @@ TENANT_EDGE_ULPS = 2
 # its harvest (which the export reads) copies up to 15 more, so two such
 # rows and one harvest take 49 of the 63 usable pages
 FLEET_NEW, FLEET_SEED, FLEET_WAVE, FLEET_REQUESTS = 32, 11, 2, 12
+FLEET_LAYERS = 4  # the fleet runs the preset's width at 4 of its 16 layers
 FLEET_STEP = {**SERVE_CONFIGS["step"], "kv_pool_pages": 64}
 FLEET_CONFIGS = {
     "fleet": FLEET_STEP,
@@ -609,6 +727,18 @@ KERNEL_CASES = [
     # ragged S (200 is no multiple of the 64-row tiles), causal, GQA 2
     dict(case="seq-200-causal-gqa2-bf16", B=1, S=200, H=4, KV=2, D=64, causal=True,
          dtype="bfloat16", block_q=8, block_kv=40),
+    # train-zoo's shapes: BERT-base's encoder (non-causal, one query head per
+    # kv head), seq2seq-small's encoder (non-causal, G=1) and decoder
+    # self-attention (causal, G=1), and the MoE model's attention at 2048
+    # tokens (causal GQA 32/8)
+    dict(case="bert-base-b32-s512", B=32, S=512, H=12, KV=12, D=64, causal=False,
+         dtype="bfloat16", block_q=128, block_kv=512),
+    dict(case="seq2seq-small-enc-b32-s128", B=32, S=128, H=8, KV=8, D=64, causal=False,
+         dtype="bfloat16", block_q=128, block_kv=128),
+    dict(case="seq2seq-small-dec-b32-s128", B=32, S=128, H=8, KV=8, D=64, causal=True,
+         dtype="bfloat16", block_q=128, block_kv=128),
+    dict(case="moe-llama3-1b-s2048", B=1, S=2048, H=32, KV=8, D=64, causal=True,
+         dtype="bfloat16", block_q=128, block_kv=512),
 ]
 
 
@@ -1393,12 +1523,7 @@ def profile_step(fn, fields: dict) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=_device_time_us, reverse=True,
-    )
+    kernels = device_kernels(prof)
     busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
     int8 = [e for e in kernels if "int8_" in e.key]
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
@@ -2674,6 +2799,20 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
+def device_kernels(prof) -> list:
+    """A profile's kernel rows, most device time first: operator rows and the
+    device ranges of annotations (Optimizer.step#...) repeat their kernels'
+    time, so they are left out."""
+    import torch
+
+    return sorted(
+        (e for e in prof.key_averages()
+         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=_device_time_us, reverse=True,
+    )
+
+
 def phase_train() -> dict:
     """`Trainer(program).run()` at llama3-1b width; returns the launches."""
     import torch
@@ -2750,14 +2889,7 @@ def phase_train() -> dict:
     check(launches == expected, f"kernel launches {launches}, expected {expected}")
     prof = trainer.profile
     check(prof is not None, "the profile window produced no profiler")
-    # kernel rows only: operator rows and the device ranges of annotations
-    # (Optimizer.step#...) repeat their kernels' time
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=_device_time_us, reverse=True,
-    )
+    kernels = device_kernels(prof)
     busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
     emit({
         "phase": "train-profile", "step": 1, "kernel_ms_total": busy_ms,
@@ -3312,8 +3444,9 @@ def phase_train_resume() -> dict:
 
 
 def phase_train_rules() -> dict:
-    """The remat policies at full size, then the five ported optimizers
-    (and adamw) at 2 layers; returns the kernel launches."""
+    """The remat policies at the preset's width with RULES_LAYERS layers,
+    then the five ported optimizers (and adamw) at 2 layers; returns the
+    kernel launches."""
     import torch
 
     from polyaxon_tpu_torch.ops.flash_attention import KERNELS
@@ -3322,11 +3455,13 @@ def phase_train_rules() -> dict:
     base = resume_program(None)
     launches = {kern.name: 0 for kern in KERNELS}
     policies = {}
+    cut = {"name": "transformer_lm",
+           "config": {**base["model"]["config"], "n_layers": RULES_LAYERS}}
     for policy in ("nothing", "dots", "dots_no_batch"):
         train = {k: v for k, v in base["train"].items() if k != "remat"}
         losses = []
-        trainer = Trainer({**base, "train": {**train, "steps": RULES_STEPS,
-                                             "rematPolicy": policy}},
+        trainer = Trainer({**base, "model": cut,
+                           "train": {**train, "steps": RULES_STEPS, "rematPolicy": policy}},
                           log_fn=lambda step, m: losses.append(m["loss"]))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3344,7 +3479,7 @@ def phase_train_rules() -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resting = torch.cuda.memory_allocated()
-        trainer._loss(batch, 0).backward()
+        trainer._loss(batch, 0)[0].backward()
         torch.cuda.synchronize()
         fwd_bwd_gb = (torch.cuda.max_memory_allocated() - resting) / 1e9
         del batch
@@ -3387,9 +3522,153 @@ def phase_train_rules() -> dict:
         del trainer
         torch.cuda.empty_cache()
     emit({"phase": "train-rules", "preset": PRESET, "steps": RULES_STEPS,
+          "remat_layers": RULES_LAYERS,
           "remat": policies, "optimizers_2_layers": optimizers})
     check(optimizers["adafactor"]["state_bytes"] < 0.01 * optimizers["adamw"]["state_bytes"],
           "adafactor's factored state is not far under adamw's")
+    return launches
+
+
+def zoo_case(case: dict) -> dict:
+    """One BASELINE configuration through `Trainer(program).run()` for
+    ZOO_STEPS steps; the flash kernels' counts are set to 0 just before the
+    run and read just after. Returns its line."""
+    import torch
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    stamps = []
+    program = {**case["program"], "train": {
+        **case["program"]["train"], "steps": ZOO_STEPS, "logEvery": 1,
+        "profileStart": ZOO_PROFILE_STEP, "profileStop": ZOO_PROFILE_STEP + 1}}
+    t0 = time.perf_counter()
+    trainer = Trainer(program, artifacts_dir=str(ARTIFACTS / "zoo" / case["tag"]),
+                      log_fn=lambda step, m: stamps.append((time.perf_counter(), m)))
+    build_s = time.perf_counter() - t0
+    stats = {k: v.clone() for k, v in trainer.module.named_buffers() if "running" in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS:  # this configuration's path starts here
+        kern.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    losses = [h["loss"] for h in result.history]
+    # a log point is read one step late, so consecutive reads are one step
+    # of the device apart; the first interval holds the first step's set-up
+    gaps = [b[0] - a[0] for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(gaps[1:])
+    batch = trainer.data.batch_size
+    meta = trainer.data.meta
+    per_example = (meta.get("seq_len") or meta.get("src_len", 0) + meta.get("tgt_len", 0)
+                   if case["unit"] == "tokens" else 1)
+    moved = [k for k, v in trainer.module.named_buffers()
+             if k in stats and not torch.equal(v, stats[k])]
+    kernels = device_kernels(trainer.profile)
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1e3
+    line = {
+        "phase": "train-zoo", "model": case["tag"], "batch": batch,
+        "precision": program["train"]["precision"], "steps": ZOO_STEPS,
+        "n_params": sum(p.numel() for p in trainer.module.parameters()),
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in result.history],
+        "accuracy": [h["accuracy"] for h in result.history if "accuracy" in h],
+        "median_step_seconds": step_s,
+        f"{case['unit']}_per_s": batch * per_example / step_s,
+        "data_wait_frac": [h.get("data_wait_frac") for h in result.history],
+        "build_seconds": build_s, "run_seconds": run_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "expected_launches": {k: n * ZOO_STEPS for k, n in case["launches"].items()},
+        "batch_stats_moved": f"{len(moved)}/{len(stats)}",
+        # one profiled step: the device's kernel time against the median step
+        "profiled_step_kernel_ms": busy_ms,
+        "device_idle_share_vs_median_step": 1 - busy_ms / 1e3 / step_s,
+        "profiled_step_launches": sum(e.count for e in kernels),
+        "top_kernels": [{"name": e.key[:80], "ms": _device_time_us(e) / 1e3,
+                         "count": e.count} for e in kernels[:6]],
+    }
+    emit(line)
+    check(len(losses) == ZOO_STEPS and all(math.isfinite(x) for x in losses),
+          f"{case['tag']}: losses {losses}")
+    if case["descend"]:  # as the reference's tests require of these models
+        check(losses[-1] < losses[0], f"{case['tag']}: the loss did not fall: {losses}")
+    want = {k.name: case["launches"].get(k.name, 0) * ZOO_STEPS for k in KERNELS}
+    check(launches == want, f"{case['tag']}: kernel launches {launches}, expected {want}")
+    check(len(moved) == len(stats), f"{case['tag']}: BatchNorm statistics that did not "
+          f"move: {sorted(set(stats) - set(moved))[:5]}")
+    if case["tag"] == "resnet50":
+        check(len(stats) == 2 * 53, f"resnet50 has {len(stats)} running buffers, not 106")
+    del trainer, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def bert_flash_vs_xla() -> dict:
+    """BERT-base's logits with `attention: flash` against `attention: xla`
+    (and both against an f32 copy) on the same seeded weights, in bf16,
+    outside any counted path."""
+    import torch
+
+    from polyaxon_tpu_torch.data import build_data
+    from polyaxon_tpu_torch.models import build_model
+
+    tokens = torch.from_numpy(next(build_data(
+        "synthetic_mlm", ZOO_BERT_ROWS, {"seq_len": 512, "vocab_size": 30522}).iterator
+    )["inputs"]).cuda()
+    model = build_model("bert", {"preset": "bert-base", "attention": "xla"},
+                        device="cuda", seed=0).module.eval()
+    out = {}
+    with torch.inference_mode():
+        out["f32"] = model(tokens).float()
+        model.to(torch.bfloat16)
+        out["xla"] = model(tokens).float()
+        for mod in model.modules():  # the same bf16 weights through the kernels
+            if hasattr(mod, "backend"):
+                mod.backend = "flash"
+        out["flash"] = model(tokens).float()
+    del model
+    rel = {f"{a}_vs_{b}": ((out[a] - out[b]).norm() / out[b].norm()).item()
+           for a, b in (("flash", "xla"), ("flash", "f32"), ("xla", "f32"))}
+    finite = all(torch.isfinite(v).all().item() for v in out.values())
+    line = {"phase": "train-zoo-bert-logits", "rows": ZOO_BERT_ROWS, "seq": 512,
+            "rel_frobenius": rel, "limit_flash_vs_xla": BERT_FLASH_VS_XLA}
+    emit(line)
+    check(finite, "non-finite BERT logits")
+    check(rel["flash_vs_xla"] <= BERT_FLASH_VS_XLA,
+          f"BERT flash logits {rel['flash_vs_xla']} from the einsum path's")
+    check(rel["flash_vs_f32"] <= max(FORWARD_REL_SLACK * rel["xla_vs_f32"], FORWARD_REL_FLOOR),
+          f"BERT flash logits sit {rel['flash_vs_f32']} from f32, the einsum path "
+          f"{rel['xla_vs_f32']}")
+    del out, tokens
+    torch.cuda.empty_cache()
+    return line
+
+
+def zoo_probe(tag: str, seeds: list, lrs: list) -> None:
+    """ZOO_CASES[tag] through zoo_case once for each (seed, learning rate):
+    `train.seed` draws both the weights and the stream; no learning rate
+    given keeps the case's."""
+    case = next(c for c in ZOO_CASES if c["tag"] == tag)
+    for seed in seeds:
+        for lr in lrs or [case["program"]["optimizer"]["learningRate"]]:
+            program = case["program"]
+            zoo_case({**case, "program": {
+                **program, "optimizer": {**program["optimizer"], "learningRate": lr},
+                "train": {**program["train"], "seed": seed}}})
+
+
+def phase_train_zoo() -> dict:
+    """Each ZOO_CASES configuration, then BERT's flash logits against the
+    einsum path; returns the kernel launches summed over the runs."""
+    launches: dict = {}
+    for case in ZOO_CASES:
+        for name, n in zoo_case(case)["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    bert_flash_vs_xla()
     return launches
 
 
@@ -3411,8 +3690,17 @@ def device_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port")
+    parser.add_argument("--zoo", choices=[c["tag"] for c in ZOO_CASES],
+                        help="run this train-zoo configuration alone")
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0])
+    parser.add_argument("--lrs", type=float, nargs="+", default=[])
+    args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
 
@@ -3433,15 +3721,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.zoo:
+        zoo_probe(args.zoo, args.seeds, args.lrs)
+        print(device_line(), flush=True)
+        return 0
+
     from polyaxon_tpu_torch.models import build_model
     from polyaxon_tpu_torch.ops.flash_attention import KERNELS as FLASH_KERNELS
     from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
 
     KERNELS = (*FLASH_KERNELS, INT8_MATMUL)
+    phase_s: dict = {}
+    t_last = [t_start]
+
+    def stamp(name: str) -> None:  # seconds since the stamp before
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
+
     phase_build()
     rows = {"flash_fwd": phase_kernels(), **phase_backward_kernels(),
             "int8_matmul": phase_int8_kernel()}
     phase_autograd_chain()
+    stamp("build+kernels")
     with torch.inference_mode():
         model = build_model(
             "transformer_lm", {"preset": PRESET, "attention": "flash"},
@@ -3464,6 +3766,7 @@ def main() -> int:
         emit({"phase": "serve-batched-launches", "launches": served})
         for name, n in served.items():
             launches[name] += n
+        stamp("forward+serve+serve-batched")
         for kern in KERNELS:  # the fast decode path starts here
             kern.launches = 0
         qmodel, int8_answers = phase_serve_fast(model, batched)
@@ -3475,11 +3778,18 @@ def main() -> int:
             launches[name] += n
         check_int8_rows(qmodel, batched["waves"], int8_answers)
         int8_teacher_forced(model, qmodel)
-        del qmodel, batched
+        del qmodel, batched, model, warm
         torch.cuda.empty_cache()
+        stamp("serve-fast")
+        # the fleet at the preset's width with FLEET_LAYERS layers (a cut)
+        fmodel = build_model(
+            "transformer_lm", {"preset": PRESET, "attention": "flash",
+                               "n_layers": FLEET_LAYERS},
+            device="cuda", dtype=torch.bfloat16, seed=0,
+        ).module.eval()
         for name, config in FLEET_CONFIGS.items():
             # the counts are set to 0 and read around each drive, in the phase
-            fleet = phase_serve_fleet(model, name, KERNELS)
+            fleet = phase_serve_fleet(fmodel, name, KERNELS)
             emit({"phase": "serve-fleet-launches", "config": name, **fleet["launches"]})
             if config.get("quantize"):  # the prefill and decode replicas' projections
                 check(fleet["launches"]["routed"]["int8_matmul"] > 0,
@@ -3490,8 +3800,9 @@ def main() -> int:
             check_fleet_rows(fleet)
             del fleet
             gc.collect()
-        del model, warm
+        del fmodel
         torch.cuda.empty_cache()
+        stamp("serve-fleet")
         phase_lora_card()  # the plain pieces, before the path is counted
         lmodel = build_model(
             "transformer_lm", {"preset": PRESET, "attention": "flash",
@@ -3512,15 +3823,19 @@ def main() -> int:
         del lmodel, served
         gc.collect()
     torch.cuda.empty_cache()
+    stamp("serve-tenants")
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
     for name, n in phase_train().items():
         launches[name] += n
     phase_train_vs_einsum()
-    for phase in (phase_train_resume, phase_train_rules):
+    stamp("train")
+    for phase, tag in ((phase_train_resume, "train-resume"), (phase_train_rules, "train-rules"),
+                       (phase_train_zoo, "train-zoo")):
         for name, n in phase().items():
             launches[name] += n
+        stamp(tag)
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start, "phases": phase_s})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3541,4 +3856,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

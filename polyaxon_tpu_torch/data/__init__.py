@@ -1,6 +1,7 @@
 """Data pipelines: `program.data.name` → an infinite iterator of numpy
-batches. Own copies of the reference's procedural token streams
-(`synthetic.py`) and of its file-backed pipelines (`files.py`: memory-
+batches. Own copies of the reference's procedural streams (`synthetic.py`:
+classification images and vectors, token streams, the seq2seq reversal
+task) and of its file-backed pipelines (`files.py`: memory-
 mapped token corpora, with the native prefetch loader, and .npy array
 datasets)."""
 

@@ -11,6 +11,19 @@ nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
     final_norm/scale, lm_head/kernel        → final_norm.scale, lm_head.weight
     .../lora_a, .../lora_b (lora_rank > 0)  → the same names, as they are
     .../scale (a quantize_module tree)      → the same names, as they are
+    layer_{i}/moe/router/kernel [D, E]      → layers.{i}.moe.router.weight [E, D]
+    layer_{i}/moe/{gate,up,down}_kernel     → the same names, as they are
+                                              ([E, D, F], [E, D, F], [E, F, D])
+
+A zoo model's tree (`params_from_jax(params_np)` with no config: the MLP,
+ResNet, ViT, BERT, seq2seq, a lone MoE feed-forward) maps by its module
+paths, which the port's modules keep: `a/b/leaf` → `a.b.<leaf>`, where a
+Dense `kernel` [in, out] becomes `weight` [out, in], a conv `kernel` HWIO
+becomes `weight` OIHW, an `embedding` becomes `weight`, a LayerNorm or
+BatchNorm `scale` becomes `weight`, and every other leaf (`bias`,
+`pos_embed`, `mlm_bias`, the MoE kernels) keeps its name and layout. With
+`batch_stats` (ResNet), its `mean`/`var` become the BatchNorm buffers
+`running_mean`/`running_var`.
 
 Flax Dense kernels are [in, out] and nn.Linear weights [out, in], so each
 kernel is transposed (the inverse of `models/convert_hf.py` there). The
@@ -37,8 +50,12 @@ _MLP = ("gate_proj", "up_proj", "down_proj")
 # optax's per-parameter state fields, by the names of its state NamedTuples
 _MOMENTS = ("mu", "nu", "trace", "ema", "sum_of_squares", "v_row", "v_col", "v")
 
-# port parameter name → (path in the reference's tree, transposed?)
-Layout = dict[str, tuple[tuple[str, ...], bool]]
+# port parameter name → (path in the reference's tree, how it turns: False
+# as it is, True transposed, or a permutation of its axes)
+Layout = dict[str, tuple[tuple[str, ...], Any]]
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_ZOO_NAMES = {"embedding": "weight", "scale": "weight"}
+_STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,6 +74,53 @@ def _unwrap(params_np: dict) -> dict:
     return params_np.get("params", params_np)
 
 
+def _orient(t: torch.Tensor, how) -> torch.Tensor:
+    if how is True:
+        return t.T.contiguous()
+    if how:
+        return t.permute(*how).contiguous()
+    return t
+
+
+def zoo_layout(params_np: dict) -> Layout:
+    """Where each parameter of a zoo model sits in the reference's tree
+    (optionally wrapped as {"params": ...}): the module path, with the leaf
+    renamed and turned as the module docstring says."""
+    layout: Layout = {}
+
+    def walk(node: dict, path: tuple) -> None:
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, (*path, key))
+                continue
+            how = False
+            name = _ZOO_NAMES.get(key, key)
+            if key == "kernel":
+                name = "weight"
+                ndim = len(getattr(value, "shape", ()))
+                how = True if ndim == 2 else _HWIO_TO_OIHW if ndim == 4 else False
+            layout[".".join((*path, name))] = ((*path, key), how)
+
+    walk(_unwrap(params_np), ())
+    return layout
+
+
+def _stats_state(batch_stats: dict) -> dict[str, torch.Tensor]:
+    """flax `batch_stats` ({"batch_stats": ...} or its inside) → the
+    BatchNorm buffers."""
+    out = {}
+
+    def walk(node: dict, path: tuple) -> None:
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, (*path, key))
+            else:
+                out[".".join((*path, _STATS_NAMES[key]))] = _tensor(value)
+
+    walk(batch_stats.get("batch_stats", batch_stats), ())
+    return out
+
+
 def transformer_layout(params_np: dict, cfg) -> Layout:
     """Where each of `Transformer(cfg)`'s parameters sits in the reference's
     tree (optionally wrapped as {"params": ...})."""
@@ -73,8 +137,13 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
         pre, layer = f"layers.{i}", f"layer_{i}"
         for name in _ATTN:
             dense(f"{pre}.attention.{name}", (layer, "attention", name))
-        for name in _MLP:
-            dense(f"{pre}.mlp.{name}", (layer, "mlp", name))
+        if getattr(cfg, "n_experts", 0) > 0:
+            layout[f"{pre}.moe.router.weight"] = ((layer, "moe", "router", "kernel"), True)
+            for name in ("gate_kernel", "up_kernel", "down_kernel"):
+                layout[f"{pre}.moe.{name}"] = ((layer, "moe", name), False)
+        else:
+            for name in _MLP:
+                dense(f"{pre}.mlp.{name}", (layer, "mlp", name))
         for norm in ("attention_norm", "mlp_norm"):
             layout[f"{pre}.{norm}.scale"] = ((layer, norm, "scale"), False)
     layout["final_norm.scale"] = (("final_norm", "scale"), False)
@@ -83,15 +152,24 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
     return layout
 
 
-def params_from_jax(params_np: dict, cfg) -> dict[str, torch.Tensor]:
+def layout_for(params_np: dict, cfg=None) -> Layout:
+    """`transformer_layout` for a TransformerConfig, `zoo_layout` for None."""
+    return zoo_layout(params_np) if cfg is None else transformer_layout(params_np, cfg)
+
+
+def params_from_jax(params_np: dict, cfg=None, batch_stats=None) -> dict[str, torch.Tensor]:
     """Nested numpy param dict (optionally wrapped as {"params": ...}) →
     float32 CPU state_dict for `Transformer(cfg)` (int8 for quantized
-    kernels); `load_state_dict` casts it to the model's dtype and device."""
+    kernels), or with `cfg` None for a zoo model, plus its BatchNorm buffers
+    from `batch_stats`; `load_state_dict` casts it to the model's dtype and
+    device."""
     p = _unwrap(params_np)
-    out = {}
-    for name, (path, transposed) in transformer_layout(p, cfg).items():
-        t = _tensor(_at(p, path))
-        out[name] = t.T.contiguous() if transposed else t
+    out = {
+        name: _orient(_tensor(_at(p, path)), how)
+        for name, (path, how) in layout_for(p, cfg).items()
+    }
+    if batch_stats is not None:
+        out.update(_stats_state(batch_stats))
     return out
 
 
@@ -140,8 +218,8 @@ def opt_state_from_jax(
     `trace`, `ema`, `sum_of_squares`, adafactor's `v_row`/`v_col`/`v`),
     matched by field name. `params` names the optimizer's parameters
     (e.g. `dict(module.named_parameters())`) and `layout` says where each
-    sits in the reference's tree and whether it is transposed
-    (`transformer_layout`). Raises on a missing leaf or a shape mismatch."""
+    sits in the reference's tree and how it turns (`transformer_layout`,
+    `zoo_layout`). Raises on a missing leaf or a shape mismatch."""
     counts: set[int] = set()
     moments: dict[str, Any] = {}
     _collect(opt_state_np, counts, moments)
@@ -149,20 +227,25 @@ def opt_state_from_jax(
         raise ValueError(f"optax state holds counts {sorted(counts)}, expected one")
     groups = {id(p): g for g in optimizer.param_groups for p in g["params"]}
     with torch.no_grad():
-        for name, (path, transposed) in layout.items():
+        for name, (path, how) in layout.items():
             p = params[name]
             if id(p) not in groups:
                 continue  # not trained (a frozen parameter)
             state = optimizer.state[p]
             for field, dst in state.items():
                 source = field
-                if transposed and field in ("v_row", "v_col"):
+                if how and field in ("v_row", "v_col"):
+                    if how is not True:
+                        raise NotImplementedError(
+                            f"{name}: adafactor's factored state of a conv kernel "
+                            "is not carried across"
+                        )
                     source = _adafactor_source(field, p, groups[id(p)])
                 if source not in moments:
                     raise KeyError(f"optax state has no {source!r} tree for {name}")
                 src = torch.from_numpy(np.array(_at(moments[source], path), copy=True))
-                if transposed and src.ndim == 2:
-                    src = src.T
+                if src.ndim == p.ndim:
+                    src = _orient(src, how)
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(
                         f"{name}.{field}: optax {tuple(src.shape)}, port {tuple(dst.shape)}"

@@ -227,6 +227,11 @@ def quantize_module(module):
     cfg = getattr(module, "cfg", None)
     if cfg is None or not hasattr(cfg, "quant"):
         raise ValueError(f"{type(module).__name__} has no quantizable decode path")
+    if getattr(cfg, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "int8 quantization of an MoE model (n_experts > 0) is not ported "
+            "to PyTorch yet (see ROADMAP.md)"
+        )
     if cfg.quant != "none":
         raise ValueError(
             f"module is already quantized (cfg.quant = {cfg.quant!r}) — "

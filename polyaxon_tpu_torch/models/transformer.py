@@ -35,6 +35,14 @@ Multi-tenant serving (`adapter_slots > 0`, set by
 tenants (`models/lora.py`). The int8 projections keep their grouped launch
 and add each row's delta after it.
 
+`n_experts > 0` swaps each block's SwiGLU for `models.moe.MoEFeedForward`
+(top-1 switch routing, `capacity_factor`, the sown balance loss) under the
+name `moe`, on every path the dense model has: the forward, training and
+the dense-KV `generate` (prefill and each decode step route their own
+tokens, as the reference's decode does). The paged pool and int8
+projections refuse it (NotImplementedError, see ROADMAP.md), and so does
+every serving path but the per-request one (`serving/server.py`).
+
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
 applies it), drawn from the `dropout_generator` handed to `forward`.
@@ -42,7 +50,7 @@ applies it), drawn from the `dropout_generator` handed to `forward`.
 loss (`models/registry.py`), with `forward(return_features=True)`.
 
 Config fields this port does not serve yet raise NotImplementedError
-instead of being ignored: n_experts, pipeline_stages and scan_layers.
+instead of being ignored: pipeline_stages and scan_layers.
 """
 
 from __future__ import annotations
@@ -58,7 +66,9 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
+from .layers import dropout
 from .lora import lora_delta, run_proj
+from .moe import MoEFeedForward
 from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, project, quantize_kv
 
 
@@ -89,7 +99,9 @@ class TransformerConfig:
     adapter_slots: int = 0
     tie_embeddings: bool = False
     scan_layers: bool = False  # not ported: must stay False
-    n_experts: int = 0  # not ported: must stay 0
+    # MoE: replace the dense FFN with n_experts switch-routed experts
+    n_experts: int = 0
+    capacity_factor: float = 1.25
     pipeline_stages: int = 0  # not ported: must stay <= 1
     # the speculative draft model's overrides of this config
     # (models/draft.py), a sorted (key, value) tuple; () = the defaults
@@ -116,9 +128,9 @@ def check_ported(cfg: TransformerConfig) -> None:
     if cfg.quant not in ("none", "int8"):
         raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
     refused = {
-        "n_experts": cfg.n_experts > 0,
         "pipeline_stages": cfg.pipeline_stages > 1,
         "scan_layers": bool(cfg.scan_layers),
+        "n_experts with quant='int8'": cfg.n_experts > 0 and cfg.quant == "int8",
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
@@ -370,16 +382,6 @@ class FeedForward(nn.Module):
         return run_proj(self.down_proj, F.silu(gate) * up, adapter_ix)
 
 
-def dropout(x, rate: float, generator=None):
-    """flax nn.Dropout in training: keep each element with probability
-    1 - rate and scale it by 1 / (1 - rate). The mask comes from
-    `generator` (torch's default one when None); its draws differ from
-    jax.random's by construction."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
-
-
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, **factory):
         super().__init__()
@@ -387,7 +389,11 @@ class Block(nn.Module):
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
         self.attention = Attention(cfg, **factory)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=factory["device"])
-        self.mlp = FeedForward(cfg, **factory)
+        if cfg.n_experts > 0:
+            self.moe = MoEFeedForward(cfg.dim, cfg.ffn_dim, cfg.n_experts,
+                                      capacity_factor=cfg.capacity_factor, **factory)
+        else:
+            self.mlp = FeedForward(cfg, **factory)
 
     def forward(self, x, cos, sin, *, cache=None, plan=None, generator=None,
                 adapter_ix=None):
@@ -397,7 +403,10 @@ class Block(nn.Module):
         if rate:
             h = dropout(h, rate, generator)
         x = x + h
-        h = self.mlp(self.mlp_norm(x), adapter_ix)
+        if self.cfg.n_experts > 0:
+            h = self.moe(self.mlp_norm(x), generator)
+        else:
+            h = self.mlp(self.mlp_norm(x), adapter_ix)
         if rate:
             h = dropout(h, rate, generator)
         return x + h
@@ -443,9 +452,9 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
-        """Seeded random weights: embedding N(0, 0.02), projections
-        truncated-normal LeCun (std 1/sqrt(fan_in)), LoRA A N(0, 0.01) and
-        B zero, norm scales one. Same distributions as the reference's
+        """Seeded random weights: embedding N(0, 0.02), projections (and the
+        MoE router and expert kernels) truncated-normal LeCun (std
+        1/sqrt(fan_in)), LoRA A N(0, 0.01) and B zero, norm scales one. Same distributions as the reference's
         initializers, different draws (torch.Generator vs jax.random)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
@@ -461,6 +470,8 @@ class Transformer(nn.Module):
                 mod.lora_b.zero_()
             if isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
+            if isinstance(mod, MoEFeedForward):
+                mod.reset_with(gen)
 
     def make_cache(self, batch: int) -> list:
         """Zeroed dense KV cache: per layer (k, v), each
@@ -580,6 +591,11 @@ class Transformer(nn.Module):
             )
         shape = tuple(cache[0][0].shape)
         if paged:
+            if self.cfg.n_experts > 0:
+                raise NotImplementedError(
+                    "the paged KV pool with an MoE model (n_experts > 0) is not "
+                    "ported to PyTorch yet (see ROADMAP.md)"
+                )
             if shape[:2] != (kv_layout.pool_pages, kv_layout.page_tokens):
                 raise ValueError(
                     f"pages need the pool of {kv_layout} (models.generate."

@@ -1,15 +1,29 @@
 """The training loop on one GPU: a `V1Program` → trained weights.
 
 Counterpart of `polyaxon_tpu/runtime/trainer.py` for a single device, with
-the same step function, metrics and loop:
+the same step function, metrics and loop, for every model of the registry
+(the transformer LM and the zoo):
 
 - precision: f32 master weights for `float32` and `mixed`, bf16 ones for
-  `bfloat16`. Under `mixed` every float parameter (norm scales and the
-  embedding included) is cast to bf16 for the forward, as the reference's
-  `_cast_floats` does, and the forward runs through
+  `bfloat16` (parameters only: buffers such as BatchNorm's running
+  statistics stay f32, as the reference's `batch_stats` do). Under `mixed`
+  every float parameter (norm scales and the embedding included) is cast
+  to bf16 for the forward, as the reference's `_cast_floats` does, and so
+  is a float input batch (images); the forward runs through
   `torch.func.functional_call` over those cast copies, so the gradients
   land on the masters in f32 through the casts. (`torch.autocast` chooses
   per op and would be a different function.)
+- the model's other state (`ModelBundle.mutable`, "batch_stats") and sown
+  losses (`ModelBundle.aux_losses`, the MoE balance loss): the forward
+  runs inside `models.layers.collecting()`, which hands back the aux
+  losses (added to the training loss, not to eval's) and BatchNorm's new
+  running statistics, applied to the buffers after that microbatch's
+  backward when the bundle declares "batch_stats" mutable; under remat they come out of the checkpointed function once,
+  as the reference's `apply` returns them, so the recompute cannot apply
+  them twice. Eval runs the module in eval mode (the running statistics).
+- data: a program without `data` trains on `synthetic` with batch 32, as
+  the reference's does; a stream that declares its feature shape must
+  match the model's input in element count (`_validate_data_shape`).
 - frozen parameters: with `ModelBundle.trainable_patterns` (LoRA) only the
   matching parameters are given to the optimizer, so the rest get zero
   updates and no weight decay, and clipping sees only the trainable ones.
@@ -33,9 +47,10 @@ the same step function, metrics and loop:
 - the fused loss (`ModelBundle.fused_loss`): the module returns features
   and the loss computes the lm head in vocab chunks.
 - metrics `loss`, `learning_rate` (the schedule at the step before the
-  update) and `grad_norm`; `eval.loss` / `eval.perplexity` on a separate
-  stream every `eval_every` steps; `tokens_per_sec`, `mfu` and
-  `data_wait_frac` per log window; `steps_per_sec` and `examples_per_sec`
+  update) and `grad_norm`, and `accuracy` (on the training forward's
+  logits) for `task == "classification"`; `eval.loss` / `eval.perplexity`
+  (and `eval.accuracy`) on a separate stream every `eval_every` steps;
+  `tokens_per_sec`, `mfu` and `data_wait_frac` per log window; `steps_per_sec` and `examples_per_sec`
   at the end.
 - a prefetch thread (queue of 2) moves batches to the device ahead of the
   step; a log point is read one log point later, so reading it does not
@@ -66,16 +81,15 @@ the same step function, metrics and loop:
 threads and its corpus mmap) when the run is over.
 
 `donate_state` is accepted and has nothing to do: PyTorch updates the
-weights and optimizer state in place. Not in this slice, each raising
-NotImplementedError (see ROADMAP.md): mesh axes, and a program without
-`data` (the reference then trains on its image dataset `synthetic`, which
-the port does not have).
+weights and optimizer state in place. Mesh axes are not in this slice and
+raise NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import queue
 import re
 import threading
@@ -97,6 +111,8 @@ from ..chaos.injector import inject
 from ..data import build_data
 from ..device import resolve_device
 from ..models import build_model
+from ..models.layers import collecting
+from ..ops.losses import accuracy as accuracy_metric
 from ..ops.losses import build_loss
 from ..ops.optimizers import build_optimizer, global_norm
 from ..retry import Preempted
@@ -181,15 +197,10 @@ class Trainer:
         self.program = program
         tspec = program.train or V1TrainSpec()
         self.tspec = tspec
-        unported = {
-            "a program without data (the reference's image dataset "
-            "'synthetic')": program.data is None,
-            "mesh_axes (multi-GPU parallelism)": bool(mesh_axes),
-        }
-        bad = [name for name, hit in unported.items() if hit]
-        if bad:
+        if mesh_axes:
             raise NotImplementedError(
-                f"{bad} are not ported to PyTorch yet (see ROADMAP.md)"
+                "mesh_axes (multi-GPU parallelism) is not ported to PyTorch yet "
+                "(see ROADMAP.md)"
             )
         if tspec.checkpoint_every and not checkpoint_dir:
             raise ValueError("train.checkpointEvery needs a checkpoint_dir to save into")
@@ -217,11 +228,18 @@ class Trainer:
         )
         self.module = self.bundle.module
         if self.param_dtype != torch.float32:
-            self.module.to(self.param_dtype)  # norm scales too, as _cast_floats
-        dspec = program.data
-        self.data = build_data(
-            dspec.name, int(dspec.batch_size), dspec.config, seed=int(tspec.seed)
+            # every parameter (norm scales too, as _cast_floats); buffers stay
+            with torch.no_grad():
+                for p in self.module.parameters():
+                    p.data = p.data.to(self.param_dtype)
+        dspec = program.data  # none: the reference's image default
+        self._data_args = (
+            (dspec.name, int(dspec.batch_size), dspec.config) if dspec
+            else ("synthetic", 32, None)
         )
+        self.data = build_data(*self._data_args, seed=int(tspec.seed))
+        self._validate_data_shape()
+        self.is_classification = self.bundle.task == "classification"
         self.steps = int(tspec.steps)
         self.step = 0
 
@@ -267,6 +285,23 @@ class Trainer:
         self.profile = None
         self._profiling = False
 
+    def _validate_data_shape(self):
+        """A stream that declares its feature shape (the classification
+        streams) must match the model's input in element count (the MLP
+        flattens (28, 28, 1) to 784), the reference's config-level error."""
+        declared = self.data.meta.get("shape")
+        model_shape = tuple(self.bundle.input_shape)
+        if not declared or len(model_shape) < 1:
+            return
+        declared = tuple(declared)
+        if math.prod(declared) != math.prod(model_shape):
+            raise ValueError(
+                f"data/model shape mismatch: dataset '{self.data.name}' emits "
+                f"features of shape {declared} but model "
+                f"'{self.program.model.name}' expects {model_shape} — align "
+                "data.config.shape with the model config"
+            )
+
     # -------------------------------------------------------------- step
     def _compute_params(self) -> dict[str, torch.Tensor]:
         """name → the tensor the forward uses: the master itself, or its
@@ -279,27 +314,47 @@ class Trainer:
             for n, p in params.items()
         }
 
+    def _inputs(self, batch) -> torch.Tensor:
+        x = batch["inputs"]
+        return x.to(self.compute_dtype) if x.is_floating_point() else x
+
     def _apply(self, params, inputs, seed: Optional[int]):
+        """(output, the summed aux loss or None, the `Collected` box) of one
+        forward; the caller applies the box's buffer updates."""
         kwargs: dict[str, Any] = {}
         if self.fused_loss is not None:
             kwargs["return_features"] = True
-        if seed is not None and getattr(self.module.cfg, "dropout_rate", 0.0):
+        if seed is not None and "dropout" in self.bundle.rngs:
             gen = torch.Generator(device=self.device)
             kwargs["dropout_generator"] = gen.manual_seed(seed)
-        return functional_call(self.module, params, (inputs,), kwargs)
+        with collecting() as box:
+            out = functional_call(self.module, params, (inputs,), kwargs)
+        aux = box.aux_loss(self.device) if self.bundle.aux_losses else None
+        return out, aux, box
 
     def _loss(self, batch, seed: int):
+        """(loss with the aux losses, logits or features, what the forward
+        collected)."""
         params = self._compute_params()
+        inputs = self._inputs(batch)
         if self.remat:
-            out = checkpoint(
-                self._apply, params, batch["inputs"], seed,
+            out, aux, box = checkpoint(
+                self._apply, params, inputs, seed,
                 use_reentrant=False, context_fn=self._remat_context,
             )
         else:
-            out = self._apply(params, batch["inputs"], seed)
+            out, aux, box = self._apply(params, inputs, seed)
         if self.fused_loss is not None:  # `out` carries features
-            return self.fused_loss(params, out, batch)
-        return self.loss_fn(out, batch)
+            loss = self.fused_loss(params, out, batch)
+        else:
+            loss = self.loss_fn(out, batch)
+        if aux is not None:
+            loss = loss + aux
+        return loss, out, box
+
+    def _update_state(self, box) -> None:
+        if "batch_stats" in self.bundle.mutable:
+            box.apply_updates()
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer update on `batch` (token tensors on the device) →
@@ -310,18 +365,26 @@ class Trainer:
         for p in masters:
             p.grad = None
         if self.grad_accum == 1:
-            loss = self._loss(batch, step_seed(seed, step))
+            loss, out, box = self._loss(batch, step_seed(seed, step))
             loss.backward()
+            self._update_state(box)  # after the backward's recompute, if any
             loss = loss.detach()
+            acc = accuracy_metric(out.detach(), batch) if self.is_classification else None
         else:
             A = self.grad_accum
             micro = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:]) for k, v in batch.items()}
             loss = torch.zeros((), device=self.device)
+            acc = torch.zeros((), device=self.device)
             for i in range(A):
-                loss_i = self._loss({k: v[i] for k, v in micro.items()}, step_seed(seed, step, i))
+                mb = {k: v[i] for k, v in micro.items()}
+                loss_i, out, box = self._loss(mb, step_seed(seed, step, i))
                 loss_i.backward()  # adds onto .grad in the master dtype
+                self._update_state(box)  # the next microbatch sees these stats
                 loss = loss + loss_i.detach()
+                if self.is_classification:
+                    acc = acc + accuracy_metric(out.detach(), mb)
             loss = loss / A
+            acc = acc / A if self.is_classification else None
             for p in masters:
                 if p.grad is not None:
                     p.grad.div_(A)
@@ -330,6 +393,8 @@ class Trainer:
             "learning_rate": float(np.float32(self.sched(step))),
             "grad_norm": global_norm(p.grad for p in masters if p.grad is not None),
         }
+        if acc is not None:
+            metrics["accuracy"] = acc
         self.optimizer.step()
         self.step += 1
         return metrics
@@ -338,12 +403,14 @@ class Trainer:
     def eval_step(self, batch: dict) -> dict:
         self.module.eval()
         params = self._compute_params()
-        out = self._apply(params, batch["inputs"], None)
+        out, _, _ = self._apply(params, self._inputs(batch), None)
         if self.fused_loss is not None:
             loss = self.fused_loss(params, out, batch).float()
         else:
             loss = self.loss_fn(out, batch).float()
         metrics = {"eval.loss": loss}
+        if self.is_classification:
+            metrics["eval.accuracy"] = accuracy_metric(out, batch)
         # cross-entropy family: loss is mean nats per token
         if "cross_entropy" in self.loss_name or self.loss_name == "masked_lm":
             metrics["eval.perplexity"] = torch.exp(loss)
@@ -482,13 +549,10 @@ class Trainer:
         stream: the same seed (the synthetic task must match training) and
         a shifted process index, so eval batches differ from training's."""
         if not hasattr(self, "_eval_data"):
-            dspec = self.program.data
+            name, _, config = self._data_args
             self._eval_data = build_data(
-                dspec.name,
-                self.data.batch_size,
-                dspec.config,
-                seed=int(self.tspec.seed),
-                process_index=7919,
+                name, self.data.batch_size, config,
+                seed=int(self.tspec.seed), process_index=7919,
             )
         totals: dict[str, float] = {}
         it = self._eval_data.iterator

@@ -345,6 +345,19 @@ def _restore_params(ckpt_dir: Path, module) -> dict:
     return {"step": step, "path": str(path), "bytes_read": n_bytes, **times}
 
 
+def _refuse_moe_paths(module, cfg: ServingConfig) -> None:
+    """An MoE model (`n_experts > 0`) serves per request (`batching=False`):
+    the coalescer's left-padded groups are not carried for it yet (see
+    ROADMAP.md). The paged pool and int8 projections refuse it themselves;
+    speculation, chunked prefill and adapters run only on the batched
+    paths."""
+    if getattr(module.cfg, "n_experts", 0) > 0 and cfg.batching:
+        raise NotImplementedError(
+            "an MoE model (n_experts > 0) with batching is not ported to PyTorch "
+            "yet; serve it with batching=False (see ROADMAP.md)"
+        )
+
+
 class ModelServer:
     def __init__(
         self,
@@ -403,6 +416,7 @@ class ModelServer:
             )
         self.device = resolve_device(device)
         module = module.to(self.device).eval()
+        _refuse_moe_paths(module, cfg)
         if params is not None:
             if all(isinstance(v, torch.Tensor) for v in params.values()):
                 state = params

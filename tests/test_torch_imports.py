@@ -1,6 +1,7 @@
 """The port stands alone: no module of `polyaxon_tpu_torch/` nor
-`chip_smoke.py` imports JAX, its libraries or the JAX package, and every
-entry point defaults to the card and raises without one."""
+`chip_smoke.py` imports JAX, its libraries, the JAX package or
+`transformers` (the HF converter reads checkpoints by duck typing), and
+every entry point defaults to the card and raises without one."""
 
 import ast
 import os
@@ -19,7 +20,7 @@ from polyaxon_tpu_torch.serving.batching import ServingConfig
 from polyaxon_tpu_torch.serving.server import ModelServer
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "polyaxon_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "polyaxon_tpu", "transformers")
 SOURCES = sorted((REPO / "polyaxon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -49,7 +50,9 @@ def test_import_walk_sees_the_package():
             "lora.py", "tracing.py", "slo.py", "history.py", "detect.py",
             "federate.py", "handoff.py", "affinity.py", "replicas.py",
             "router.py", "eventlog.py", "timeline.py", "local.py", "lifecycle.py",
-            "base.py", "files.py", "dataloader.py", "settings.py", "queue.py"} <= names
+            "base.py", "files.py", "dataloader.py", "settings.py", "queue.py",
+            "layers.py", "mlp.py", "encoder.py", "vit.py", "bert.py", "seq2seq.py",
+            "resnet.py", "moe.py", "convert_hf.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -92,6 +95,53 @@ def test_default_device_is_the_card(monkeypatch):
                            kv_page_tokens=4)
     with pytest.raises(RuntimeError, match="cuda"):
         ModelServer(Transformer(cfg, device="cpu"), None, pooled)
+
+
+ZOO = [("mlp", {"hidden": [8]}), ("resnet", {"depth": 18, "width": 4}),
+       ("resnet50", {"width": 4}), ("vit", {"preset": "tiny-test"}),
+       ("bert", {"preset": "tiny-test"}), ("seq2seq", {"preset": "tiny-test"}),
+       ("transformer_lm", {"dim": 32, "n_layers": 1, "n_heads": 2, "vocab_size": 16,
+                           "seq_len": 16, "n_experts": 2})]
+
+
+@pytest.mark.parametrize("name,config", ZOO, ids=[f"{n}-{i}" for i, (n, _) in enumerate(ZOO)])
+def test_zoo_builders_default_to_the_card(monkeypatch, name, config):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(name, dict(config))
+    module = build_model(name, dict(config), device="cpu").module
+    assert all(p.device == torch.device("cpu") for p in module.parameters())
+
+
+def test_convert_hf_runs_without_transformers():
+    """`models/convert_hf.py` converts a duck-typed checkpoint in a process
+    where `transformers` cannot be imported."""
+    code = (
+        "import sys; sys.modules['transformers'] = None\n"
+        "import torch\n"
+        "from polyaxon_tpu_torch.models.convert_hf import from_hf_llama, to_hf_llama_state_dict\n"
+        "cfg = dict(hidden_size=8, num_attention_heads=2, num_key_value_heads=1,\n"
+        "           intermediate_size=16, num_hidden_layers=1, vocab_size=10,\n"
+        "           max_position_embeddings=8, rms_norm_eps=1e-5, tie_word_embeddings=True)\n"
+        "shapes = {'model.embed_tokens.weight': (10, 8), 'model.norm.weight': (8,)}\n"
+        "pre = 'model.layers.0.'\n"
+        "shapes.update({pre + 'input_layernorm.weight': (8,),\n"
+        "               pre + 'post_attention_layernorm.weight': (8,),\n"
+        "               pre + 'self_attn.q_proj.weight': (8, 8), pre + 'self_attn.k_proj.weight': (4, 8),\n"
+        "               pre + 'self_attn.v_proj.weight': (4, 8), pre + 'self_attn.o_proj.weight': (8, 8),\n"
+        "               pre + 'mlp.gate_proj.weight': (16, 8), pre + 'mlp.up_proj.weight': (16, 8),\n"
+        "               pre + 'mlp.down_proj.weight': (8, 16)})\n"
+        "sd = {k: torch.randn(v) for k, v in shapes.items()}\n"
+        "model_cfg, state = from_hf_llama(sd, config=cfg)\n"
+        "back = to_hf_llama_state_dict(model_cfg, state)\n"
+        "assert all(torch.equal(back[k], sd[k]) for k in sd) and 'transformers' not in [\n"
+        "    m for m, mod in sys.modules.items() if mod is not None]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 FLEET = ("serving/router.py", "serving/replicas.py", "serving/affinity.py",

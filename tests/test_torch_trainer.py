@@ -228,11 +228,15 @@ def test_grad_accum_adjusts_to_a_divisor():
 
 
 def test_program_without_data_raises():
-    """The reference falls back to its image dataset `synthetic`, which the
-    port does not have."""
+    """Without `data` both packages fall back to the image dataset
+    `synthetic` (32-dim vectors), which a token model cannot take: the
+    data/model shape check raises, as the reference's does
+    (`tests/test_torch_zoo_trainer.py` trains a classifier on it)."""
     prog = program()
     del prog["data"]
-    with pytest.raises(NotImplementedError, match="without data"):
+    with pytest.raises(ValueError, match="shape mismatch"):
+        JaxTrainer(JaxProgram.from_dict(prog), devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="shape mismatch"):
         Trainer(prog, device="cpu")
 
 

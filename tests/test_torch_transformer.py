@@ -113,13 +113,14 @@ def test_features_match_jax():
 )
 def test_make_config_matches_jax(config):
     """Every field the port keeps equals the reference's, the training
-    fields (dropout, fused loss), int8 `quant` and the draft model's
-    overrides included; the MoE/pipeline tuning fields are not carried."""
+    fields (dropout, fused loss), int8 `quant`, the draft model's overrides
+    and the MoE capacity factor included; the pipeline tuning field is not
+    carried."""
     ours = dataclasses.asdict(_make_config(config))
     ref = dataclasses.asdict(jax_make_config(config))
     assert ours == {name: ref[name] for name in ours}
     assert {"dropout_rate", "fused_lm_loss", "fused_loss_chunk", "quant", "draft"} <= set(ours)
-    assert not {"capacity_factor", "pipeline_microbatches"} & set(ours)
+    assert "capacity_factor" in ours and "pipeline_microbatches" not in ours
 
 
 @pytest.mark.parametrize(
@@ -155,9 +156,20 @@ def test_unknown_preset_raises():
     ids=lambda f: next(iter(f)),
 )
 def test_unported_config_fields_raise(field):
-    """MoE, pipelines and scanned layers are still refused; int8 `quant` is
+    """Pipelines and scanned layers are still refused; int8 `quant` is
     ported: it builds the int8 projections (and refuses an unknown kind),
-    and so are `adapter_slots`: each LoRA pair stacked to [slots, ...]."""
+    and so are `adapter_slots`: each LoRA pair stacked to [slots, ...], and
+    `n_experts`: each block's FFN an MoE under `moe` (int8 projections of
+    it are refused)."""
+    if "n_experts" in field:
+        from polyaxon_tpu_torch.models.moe import MoEFeedForward
+
+        model = Transformer(_make_config({**SMALL, **field}), device="cpu")
+        assert isinstance(model.layers[0].moe, MoEFeedForward)
+        assert not hasattr(model.layers[0], "mlp")
+        with pytest.raises(NotImplementedError, match="n_experts"):
+            Transformer(_make_config({**SMALL, **field, "quant": "int8"}), device="cpu")
+        return
     if "adapter_slots" in field:
         model = Transformer(_make_config({**SMALL, **field, "lora_rank": 4}), device="cpu")
         q = model.layers[0].attention.q_proj
