@@ -62,7 +62,7 @@ BASELINE configurations.
                ops, the device's idle share);
 4c. serve-fast — the same traffic on the step config three more times:
                `spec` (n-gram speculation, 4 drafts a window), `draft` (+
-               the half-depth draft model by layer truncation and the
+               a 2-layer draft model by layer truncation and the
                adaptive controller of K), `int8` (int8 weights quantized
                on load, through int8_matmul, and the int8 paged pool).
                spec and draft rows are held against the step config's
@@ -188,7 +188,22 @@ BASELINE configurations.
                counts are read each row is held against the int8 module's
                rows on a direct pool (the near-tie rule). Prints from_run's
                seconds (read, to-device, quantize), the bytes read, the
-               peak, TTFT and decode tokens/s;
+               peak, TTFT and decode tokens/s. Then the same run served by
+               the CLI in a child process, `python -m polyaxon_tpu_torch
+               serve -uid <run> --max-queue 16` on the run's store (its
+               start-up timed): 4 greedy requests, each row held against
+               the in-process server's row (the near-tie rule);
+7c. cli      — the port's CLI: `main(["check", "-f", f])` on every file of
+               examples/; `main(["run", "-f", <Polyaxonfile>, "-P",
+               "steps=6"])` in this process on a `transformer_lm` program
+               at the preset's width with 2 layers (a cut; flash, mixed,
+               remat, an `observability:` block, no checkpoints): the run
+               succeeds, `ops metrics` shows 6 training steps and the host
+               and device gauges of the SystemMonitor, and the flash
+               launches are PER_STEP's for 2 layers and 6 steps; then
+               `python -m polyaxon_tpu_torch run -f examples/mnist.yaml -P
+               steps=20` as a child process. Prints the run's steps/s, the
+               launches, the serve child's answers and the seconds;
 8. train-rules — the remat policies `nothing`, `dots` and
                `dots_no_batch`, 4 steps each at the preset's width with 4
                layers (RULES_LAYERS, a cut; median step seconds, peak
@@ -232,8 +247,8 @@ that launches one fails there.
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (phases 3-4, then 4b, then 4c, then each config of 4e, then 4d, then
-phases 5, 7 (7b zeroes and reads its own, then puts 7's back), 8 and each
-configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
+phases 5, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
+8 and each configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The `wall` line
 gives the seconds of each group of phases. The last lines are the kernels JSON line, the card's name
@@ -467,12 +482,14 @@ INT8_LAYER = {"qkv": (2048, (2048, 512, 512)), "o": (2048, (2048,)),
 INT8_GROUPS = ("qkv", "gate_up")  # timed beside their single projections
 INT8_COLD_BYTES = 160 << 20  # weight copies cycled per timing: past the 50 MB L2
 # serve-fast: the step config with speculation (n-gram drafts, K = 4), with
-# the "auto" draft model (half depth by layer truncation) and the adaptive
-# controller, and with int8 weights and the int8 pool; the same traffic
+# a 2-layer draft model (layer truncation; the half-depth "auto" draft was
+# checked at full depth before and costs the most time of this phase) and
+# the adaptive controller, and with int8 weights and the int8 pool; the
+# same traffic
 FAST_CONFIGS = {
     "spec": {**SERVE_CONFIGS["step"], "speculate": True, "draft_tokens": 4},
     "draft": {**SERVE_CONFIGS["step"], "speculate": True, "draft_tokens": 4,
-              "draft_model": (), "adaptive_draft": True},
+              "draft_model": (("n_layers", 2),), "adaptive_draft": True},
     "int8": {**SERVE_CONFIGS["step"], "quantize": True, "kv_quant": "int8"},
 }
 SAMPLED_FAST = "spec"  # the sampled request, held against dense's
@@ -3389,6 +3406,9 @@ def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
             divergences.append({"row": i, **d})
     for k in kernels:  # put back the counts of the phase around this one
         k.launches = counts_before[k.name]
+    # the CLI serves the same run from a child process while its checkpoint
+    # is intact (Q corrupts it next, and the phase then removes it)
+    CLI_SERVE.update(serve_child(store.home, uuid, server.module, prompts, rows))
     ttft = [timed[i]["ttft_ms"] for i in range(RUN_PROMPTS)]
     decode = [(RUN_NEW - 1) / timed[i]["decode_s"] for i in range(RUN_PROMPTS)]
     out = {
@@ -3409,6 +3429,222 @@ def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
     del server
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# cli: the port's CLI. A Polyaxonfile of a transformer_lm program at the
+# preset's width with CLI_LAYERS layers (a cut), run in this process by
+# `main(["run", ...])` for CLI_STEPS steps; the serve child of serve-run
+# answers CLI_SERVE_REQUESTS of serve-run's prompts.
+CLI_LAYERS, CLI_STEPS = 2, 6
+CLI_SERVE_REQUESTS = 4
+CLI_SERVE_READY_S = 600.0
+CLI_CHILD_TIMEOUT_S = 600.0
+CLI_SERVE: dict = {}  # what serve-run's `serve` child answered, for the cli line
+CLI_POLYAXONFILE = """\
+version: 1.1
+kind: operation
+name: cli-lm
+component:
+  kind: component
+  name: cli-lm
+  inputs:
+  - {{name: steps, type: int, value: 2}}
+  run:
+    kind: jaxjob
+    program:
+      model:
+        name: transformer_lm
+        config: {{preset: {preset}, attention: flash, n_layers: {layers}, fused_lm_loss: true}}
+      data:
+        name: synthetic_text
+        batchSize: 1
+        config: {{seq_len: {tokens}, vocab_size: 128256}}
+      optimizer:
+        name: adamw
+        learningRate: 3.0e-4
+        schedule: {{name: cosine, warmup_steps: 2}}
+      train:
+        steps: "{{{{ params.steps }}}}"
+        logEvery: 1
+        precision: mixed
+        remat: true
+      observability: {{sampleInterval: 1.0}}
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _stop_child(child) -> None:
+    if child.poll() is None:
+        child.terminate()  # SIGTERM: a server drains and exits
+        try:
+            child.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=60)
+
+
+def serve_child(home: Path, uuid: str, module, prompts: list, rows: list) -> dict:
+    """`python -m polyaxon_tpu_torch serve -uid <run>` as a child process on
+    the run's store, with serve-run's override (its start-up timed: CUDA
+    init, the restore of the newest state.pt, the int8 quantize on load):
+    CLI_SERVE_REQUESTS concurrent greedy requests of serve-run's prompts,
+    each row held against the in-process server's row by compare_rows (the
+    near-tie rule, on the served int8 module). The child is stopped before
+    this returns."""
+    import os
+    import threading
+
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if k != "POLYAXON_TORCH_DEVICE"}
+    env["POLYAXON_HOME"] = str(home)
+    log = ARTIFACTS / "serve_child.log"
+    argv = [sys.executable, "-m", "polyaxon_tpu_torch", "serve", "-uid", uuid[:8],
+            "--port", str(port), "--max-queue", str(RUN_OVERRIDES["max_queue"])]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        child = subprocess.Popen(argv, cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < CLI_SERVE_READY_S:
+            if child.poll() is not None:
+                raise SmokeFailure(f"the serve child exited with {child.returncode}: "
+                                   f"{log.read_text()[-2000:]}")
+            try:
+                if _http(url + "/readyz").get("ready"):
+                    ready_s = time.perf_counter() - t0
+                    break
+            except Exception:  # noqa: BLE001 — not up yet
+                pass
+            time.sleep(0.5)
+        check(ready_s is not None, f"the serve child was not ready in {CLI_SERVE_READY_S} s")
+        answers: dict = {}
+
+        def ask(i):
+            try:
+                answers[i] = _http(url + "/generate",
+                                   {"tokens": [prompts[i]], "maxNewTokens": RUN_NEW})
+            except BaseException as e:  # noqa: BLE001 — raised below
+                answers[i] = e
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(CLI_SERVE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        answer_s = time.perf_counter() - t1
+    finally:
+        _stop_child(child)
+    check(child.returncode == 0, f"the serve child exited with {child.returncode} on SIGTERM")
+    first = log.read_text().splitlines()[:1]
+    check(first and first[0].startswith(f"serving transformer_lm (step 3) on {url}"),
+          f"the serve child's first line: {first}")
+    divergences = []
+    for i in range(CLI_SERVE_REQUESTS):
+        check(isinstance(answers.get(i), dict), f"serve child request {i}: {answers.get(i)!r}")
+        row = answers[i]["tokens"][0]
+        check(len(row) == len(prompts[i]) + RUN_NEW, f"serve child row {i}: {len(row)} tokens")
+        d = compare_rows(module, row, rows[i], len(prompts[i]))
+        if d is not None:
+            divergences.append({"row": i, **d})
+    return {"ready_s": ready_s, "requests": CLI_SERVE_REQUESTS, "answer_s": answer_s,
+            "rows_equal_in_process": CLI_SERVE_REQUESTS - len(divergences),
+            "divergences": divergences}
+
+
+def _cli(main, argv: list) -> tuple:
+    """(exit code, stdout) of the port's CLI run in this process."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main(argv)
+    return code, out.getvalue()
+
+
+def phase_cli() -> dict:
+    """The port's CLI (phase 7c); returns the run's kernel launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.store import RunStore
+
+    t0 = time.perf_counter()
+    check(CLI_SERVE.get("requests") == CLI_SERVE_REQUESTS, "serve-run's serve child did not run")
+    root = Path(tempfile.mkdtemp(prefix="cli-", dir=ARTIFACTS))
+    saved = {k: os.environ.get(k) for k in ("POLYAXON_HOME", "POLYAXON_TORCH_DEVICE")}
+    os.environ["POLYAXON_HOME"] = str(root / "home")
+    os.environ.pop("POLYAXON_TORCH_DEVICE", None)  # the card, as a user runs it
+    try:
+        examples = sorted((HERE / "examples").glob("*.yaml"))
+        for f in examples:
+            code, out = _cli(main, ["check", "-f", str(f)])
+            check(code == 0 and json.loads(out)["component"]["run"]["kind"] == "jaxjob",
+                  f"check -f {f.name} exited {code}")
+        spec = root / "cli-lm.yaml"
+        spec.write_text(CLI_POLYAXONFILE.format(preset=PRESET, layers=CLI_LAYERS,
+                                                tokens=TRAIN_TOKENS))
+        for kern in KERNELS:  # the CLI's run starts here
+            kern.launches = 0
+        t1 = time.perf_counter()
+        code, out = _cli(main, ["run", "-f", str(spec), "-P", f"steps={CLI_STEPS}"])
+        run_s = time.perf_counter() - t1
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        check(code == 0 and out.rstrip().endswith("finished: V1Statuses.SUCCEEDED"),
+              f"run exited {code}: {out}")
+        store = RunStore(root / "home")
+        (run,) = store.list_runs()
+        code, out = _cli(main, ["ops", "metrics", "-uid", run["uuid"][:8]])
+        records = [json.loads(line) for line in out.splitlines()]
+        steps = [r["step"] for r in records if "loss" in r]
+        check(code == 0 and steps == list(range(1, CLI_STEPS + 1)), f"ops metrics steps {steps}")
+        gauges = sorted({k for r in records for k in r if k.startswith("sys.")})
+        samples = sum(1 for r in records if "sys.cpu_percent" in r)
+        for name in ("sys.cpu_percent", "sys.memory_percent", "sys.memory_used_gb",
+                     "sys.gpu0.hbm_used_gb", "sys.gpu0.hbm_percent"):
+            check(name in gauges, f"ops metrics has no {name}: {gauges}")
+        summary = next(e for e in store.read_events(run["uuid"]) if e["kind"] == "run_summary")
+        expected = {k: PER_STEP[k] * CLI_LAYERS * CLI_STEPS for k in PER_STEP}
+        check(launches == expected, f"cli run launches {launches}, expected {expected}")
+        t2 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items()}
+        env["POLYAXON_HOME"] = str(root / "home-mnist")
+        proc = subprocess.run(
+            [sys.executable, "-m", "polyaxon_tpu_torch", "run", "-f",
+             str(HERE / "examples" / "mnist.yaml"), "-P", "steps=20"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=CLI_CHILD_TIMEOUT_S,
+        )
+        mnist_s = time.perf_counter() - t2
+        check(proc.returncode == 0 and "finished: V1Statuses.SUCCEEDED" in proc.stdout,
+              f"python -m polyaxon_tpu_torch run mnist exited {proc.returncode}: "
+              f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "cli", "device": device_line(), "examples_checked": len(examples),
+          "layers": CLI_LAYERS, "steps": CLI_STEPS,
+          "steps_per_sec": summary["steps_per_sec"], "run_s": run_s,
+          "final_loss": summary["final_metrics"].get("loss"), "gauges": gauges,
+          "monitor_samples": samples,
+          "launches": launches, "expected_launches": expected,
+          "mnist_subprocess_s": mnist_s, "serve": CLI_SERVE,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -3829,8 +4065,8 @@ def main(argv: list) -> int:
         launches[name] += n
     phase_train_vs_einsum()
     stamp("train")
-    for phase, tag in ((phase_train_resume, "train-resume"), (phase_train_rules, "train-rules"),
-                       (phase_train_zoo, "train-zoo")):
+    for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
+                       (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo")):
         for name, n in phase().items():
             launches[name] += n
         stamp(tag)

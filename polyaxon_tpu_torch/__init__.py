@@ -27,9 +27,15 @@ counterpart is easy to find:
 - `serving/`: `ModelServer` (batched, paged and step decode, int8,
   speculation, tenants, `from_run`), the router and the replica set.
 
-Entry points run on the card (`device="cuda"`) unless told otherwise.
+- `polyaxonfile/` (with its own YAML reader), `compiler/`,
+  `runtime/executor.py`, `client/` and `cli/`: a Polyaxonfile on disk to a
+  run on the card, as `python -m polyaxon_tpu_torch check|run|ops|serve`.
+
+Entry points run on the card (`device="cuda"`) unless told otherwise; the
+CLI reads `POLYAXON_TORCH_DEVICE` (`cpu` for the plain path).
 """
 
-from .device import DEFAULT_DEVICE, resolve_device
+from .device import DEFAULT_DEVICE, ENV_DEVICE, env_device, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "ENV_DEVICE", "env_device", "resolve_device"]
+__version__ = "0.1.0"

@@ -1,8 +1,9 @@
-"""The failure taxonomy the trainer and the chaos injector raise and the
-backoff curve of the serving fleet (the KV handoff client, the replica
-set's restarts): an own copy of the exception classes and of
-`RetryPolicy.delay` of `polyaxon_tpu/retry.py`. The retry loop that
-classifies failures belongs to the executor, which is not ported yet."""
+"""The failure taxonomy and the retry/backoff policy, an own copy of
+`polyaxon_tpu/retry.py`: the classes the trainer and the chaos injector
+raise, `classify` (preempted / permanent / transient) and `RetryPolicy`,
+which the executor's attempt loop builds from a run's `termination:`
+(`from_termination`) and the serving fleet (the KV handoff client, the
+replica set's restarts) uses for its backoff."""
 
 from __future__ import annotations
 
@@ -31,6 +32,24 @@ class Preempted(TransientError):
         self.step = step
 
 
+PERMANENT = "permanent"
+TRANSIENT = "transient"
+PREEMPTED = "preempted"
+
+
+def classify(exc: BaseException) -> str:
+    """PREEMPTED, PERMANENT or TRANSIENT. Unknown exception types are
+    TRANSIENT (retry up to maxRetries); permanence is opted into by raising
+    `PermanentError` or setting a truthy `permanent` attribute."""
+    if isinstance(exc, Preempted):
+        return PREEMPTED
+    if isinstance(exc, PermanentError):
+        return PERMANENT
+    if getattr(exc, "permanent", False):
+        return PERMANENT
+    return TRANSIENT
+
+
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
     """Exponential backoff with deterministic jitter: attempt `n` (0-based)
@@ -42,6 +61,23 @@ class RetryPolicy:
     backoff_factor: float = 2.0
     backoff_max: float = 60.0
     jitter: float = 0.1
+
+    @classmethod
+    def from_termination(cls, term) -> "RetryPolicy":
+        """From a `V1Termination` (None: no retries)."""
+        if term is None:
+            return cls()
+
+        def _f(value, default):
+            return float(value) if value is not None else default
+
+        return cls(
+            max_retries=int(term.max_retries or 0),
+            backoff=_f(term.backoff, 0.0),
+            backoff_factor=_f(term.backoff_factor, 2.0),
+            backoff_max=_f(term.backoff_max, 60.0),
+            jitter=_f(term.jitter, 0.1),
+        )
 
     def delay(self, attempt: int, *, seed: Optional[str] = None) -> float:
         """Seconds to wait before retry `attempt`. Deterministic for a

@@ -137,15 +137,21 @@ class CheckpointManager:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(cuda[0].device))
         self._pending = step
-        self._thread = threading.Thread(
+        thread = threading.Thread(
             target=self._write, args=(step, snapshot, ready, cuda[0].device if cuda else None),
             name=f"ckpt-write-{step}", daemon=True,
         )
-        self._thread.start()
+        # published only once started, under the lock `_join` reads it
+        # with: an uploader joining in between would otherwise join a
+        # thread that has not started and raise
+        with self._lock:
+            thread.start()
+            self._thread = thread
         return True
 
     def _join(self) -> None:
-        t = self._thread
+        with self._lock:
+            t = self._thread
         if t is not None:
             t.join()
 

@@ -14,6 +14,7 @@ by `trigger()`.
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import threading
 
@@ -50,3 +51,25 @@ def requested() -> bool:
 
 def clear() -> None:
     _flag.clear()
+
+
+@contextlib.contextmanager
+def scoped():
+    """The handler for the length of a block (a run of the executor): on
+    the main thread it replaces whatever handled SIGTERM and puts it back
+    after, flag cleared both ways. Yields whether the handler is in place
+    (False off the main thread, where `trigger()` still works)."""
+    global _installed
+    if threading.current_thread() is not threading.main_thread():
+        clear()
+        yield False
+        return
+    old, was = signal.getsignal(signal.SIGTERM), _installed
+    _installed = False
+    clear()
+    try:
+        yield install()
+    finally:
+        clear()
+        signal.signal(signal.SIGTERM, old)
+        _installed = was

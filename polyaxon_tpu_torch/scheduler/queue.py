@@ -6,7 +6,7 @@ draining agent of either package would resurrect it.
 Same files as the reference: `<home>/queues/<name>.jsonl` (one JSON entry
 per line, flock'd around every mutation) and `<home>/queues/config.json`
 (per-queue settings). Pushing and claiming entries belong to the agent,
-which is not ported.
+which is not ported; `peek_all` reads them.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class RunQueue:
                 return result
             finally:
                 fcntl.flock(f, fcntl.LOCK_UN)
+
+    def peek_all(self) -> list[dict]:
+        """Every entry, without claiming any (what `stats` shows of a
+        queued run)."""
+        return self._locked(lambda entries: (list(entries), entries))
 
     def remove(self, run_uuid: str) -> bool:
         def fn(entries):

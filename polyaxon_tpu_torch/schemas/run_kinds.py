@@ -1,37 +1,28 @@
-"""The run-spec subset that the port reads, as dataclasses with the fields,
-defaults and cross-field rules of `polyaxon_tpu/schemas/run_kinds.py`:
+"""Run kinds: what a component executes. An own copy of
+`polyaxon_tpu/schemas/run_kinds.py` on the port's dataclass specs:
 
 - `V1Program` and its parts (model, data, optimizer, train): what
   `runtime/trainer.py` runs;
 - `V1ServingSpec` (with `V1TenantSpec` and `V1PoolsSpec`) and
   `V1ObservabilitySpec` (with `V1SLOSpec`, `V1HistorySpec` and
   `V1RegressionRuleSpec`): what `ModelServer.from_run` serves a run with;
-- `V1MeshSpec` and `V1JAXJob`, the run kind `from_run` accepts. Its
-  `container`, `init`, `sidecars`, `environment` and `volumes` are carried
-  as plain dicts and lists: the port runs programs, not containers.
+- the kinds: `V1JAXJob` (a `program:` the framework runs, or a
+  container), `V1Job`, `V1Service`, the legacy Kubeflow kinds the
+  compiler folds into a jaxjob, `V1TunerJob` and `V1Dag`.
 
-Scalar fields keep what they are given (see `schemas/base.py`), so a
-`{{ params.x }}` template survives parsing; a rule on a value checks it
-only once the value is concrete, as the reference's do.
+Scalar fields typed `int | str` keep a `{{ params.x }}` template as a
+string until the compiler interpolates it; a rule on such a value checks
+it only once it is concrete, as the reference's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, ClassVar, Optional, Union
+from typing import Annotated, Any, Literal, Optional, Union
 
-from .base import Spec, to_camel
-
-PRECISIONS = ("bfloat16", "float32", "mixed")
-REMAT_POLICIES = (None, "nothing", "dots", "dots_no_batch")
-
-Num = Union[int, float, str]
-
-
-def _choice(owner: str, field: str, value, allowed) -> None:
-    if value not in allowed:
-        raise ValueError(f"{owner}: {field} must be one of {allowed}, got {value!r}")
+from .base import Spec, Tagged, to_camel
+from .environment import V1Environment
 
 
 def _isnum(v) -> bool:
@@ -40,6 +31,33 @@ def _isnum(v) -> bool:
 
 def _isint(v) -> bool:
     return isinstance(v, int) and not isinstance(v, bool)
+
+
+@dataclasses.dataclass
+class V1Container(Spec):
+    """The container subset the local runner understands."""
+
+    name: Optional[str] = None
+    image: Optional[str] = None
+    command: Optional[list[str]] = None
+    args: Optional[list[str]] = None
+    env: Optional[dict[str, str] | list[dict[str, Any]]] = None
+    working_dir: Optional[str] = None
+    resources: Optional[dict] = None
+    volume_mounts: Optional[list[dict]] = None
+
+
+@dataclasses.dataclass
+class V1Init(Spec):
+    """Init-time provisioning of the run's context directory."""
+
+    artifacts: Optional[dict] = None
+    git: Optional[dict] = None
+    dockerfile: Optional[dict] = None
+    file: Optional[dict] = None
+    connection: Optional[str] = None
+    container: Optional[V1Container] = None
+    paths: Optional[list[str]] = None
 
 
 # ------------------------------------------------------------------ program
@@ -80,19 +98,19 @@ class V1TrainSpec(Spec):
     checkpoint_local_dir: Optional[str] = None
     resume: Optional[bool] = None
     seed: Union[int, str] = 0
-    precision: str = "mixed"
+    precision: Literal["bfloat16", "float32", "mixed"] = "mixed"
     remat: Optional[bool] = None
-    remat_policy: Optional[str] = None
+    remat_policy: Optional[Literal["nothing", "dots", "dots_no_batch"]] = None
     donate_state: bool = True
     loss: Optional[str] = None
     grad_accum: Optional[Union[int, str]] = None
 
     def __post_init__(self):
-        _choice("V1TrainSpec", "precision", self.precision, PRECISIONS)
-        _choice("V1TrainSpec", "remat_policy", self.remat_policy, REMAT_POLICIES)
         if _isint(self.checkpoint_keep) and self.checkpoint_keep < 1:
             raise ValueError(
-                f"checkpointKeep must be >= 1, got {self.checkpoint_keep}"
+                f"checkpointKeep must be >= 1, got {self.checkpoint_keep} "
+                "(retention counts checkpoints, 0 would silently fall back "
+                "to the default)"
             )
 
 
@@ -106,7 +124,7 @@ class V1TenantSpec(Spec):
     name: str
     max_outstanding: Optional[Union[int, str]] = None
     max_tokens: Optional[Union[int, str]] = None
-    weight: Num = 1.0
+    weight: float | str = 1.0
     adapter: Optional[str] = None
 
     def __post_init__(self):
@@ -145,14 +163,14 @@ class V1ServingSpec(Spec):
     at. An explicit config or `config_overrides` layer over it."""
 
     max_batch: Union[int, str] = 8
-    max_wait_ms: Num = 5.0
+    max_wait_ms: float | str = 5.0
     batching: bool = True
     prompt_buckets: Optional[list[int]] = None
     max_new_buckets: Optional[list[int]] = None
-    request_timeout_s: Num = 600.0
+    request_timeout_s: float | str = 600.0
     max_queue: Union[int, str] = 64
-    default_deadline_ms: Optional[Num] = None
-    drain_grace_s: Num = 5.0
+    default_deadline_ms: Optional[float | str] = None
+    drain_grace_s: float | str = 5.0
     breaker_threshold: Union[int, str] = 5
     kv_page_tokens: Union[int, str] = 128
     kv_pool_pages: Optional[Union[int, str]] = None
@@ -162,9 +180,9 @@ class V1ServingSpec(Spec):
     speculate: bool = False
     draft_tokens: Union[int, str] = 4
     quantize: bool = False
-    draft_model: Optional[dict[str, Any]] = None
+    draft_model: Optional[dict[str, int | str | float | bool]] = None
     adaptive_draft: bool = False
-    kv_quant: str = "none"
+    kv_quant: Literal["none", "int8"] = "none"
     chunked_prefill: bool = False
     prefill_chunk_tokens: Union[int, str] = 64
     max_step_tokens: Union[int, str] = 256
@@ -179,12 +197,9 @@ class V1ServingSpec(Spec):
     adapter_slots: Union[int, str] = 0
     pools: Optional[V1PoolsSpec] = None
 
-    _nested: ClassVar[dict[str, type]] = {"pools": V1PoolsSpec}
-    _nested_lists: ClassVar[dict[str, type]] = {"tenants": V1TenantSpec}
-    _MESH_AXES_ALLOWED: ClassVar[tuple] = ("batch", "model", "data", "fsdp")
+    _MESH_AXES_ALLOWED = ("batch", "model", "data", "fsdp")
 
     def __post_init__(self):  # noqa: C901 — the reference's rules, in order
-        _choice("V1ServingSpec", "kv_quant", self.kv_quant, ("none", "int8"))
         if _isint(self.replicas) and self.replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {self.replicas}")
         if self.mesh_axes is not None:
@@ -389,14 +404,13 @@ class V1SLOSpec(Spec):
     (`telemetry/slo.py`), evaluated as multi-window burn rates."""
 
     name: str
-    kind: str = "availability"
-    objective: Num = 0.999
-    threshold_ms: Optional[Num] = None
+    kind: Literal["availability", "latency"] = "availability"
+    objective: float | str = 0.999
+    threshold_ms: Optional[float | str] = None
     windows: Optional[list[float]] = None
-    burn_threshold: Num = 1.0
+    burn_threshold: float | str = 1.0
 
     def __post_init__(self):
-        _choice(f"slo {self.name!r}", "kind", self.kind, ("availability", "latency"))
         if _isnum(self.objective) and not 0.0 < self.objective < 1.0:
             raise ValueError(
                 f"slo {self.name!r}: objective must be in (0, 1), got {self.objective}"
@@ -443,7 +457,7 @@ class V1HistorySpec(Spec):
     `/queryz` over it."""
 
     enabled: bool = True
-    interval_s: Num = 1.0
+    interval_s: float | str = 1.0
     max_bytes: Optional[Union[int, str]] = None
     segment_bytes: Optional[Union[int, str]] = None
 
@@ -473,20 +487,17 @@ class V1RegressionRuleSpec(Spec):
 
     name: str
     series: str
-    kind: str = "ceiling"
-    agg: str = "avg"
-    window_s: Num = 60.0
-    threshold: Num
-    direction: str = "above"
-    alpha: Num = 0.3
+    kind: Literal["ceiling", "window_ratio", "ewma_drift"] = "ceiling"
+    agg: Literal["avg", "min", "max", "rate", "p50", "p95", "p99"] = "avg"
+    window_s: float | str = 60.0
+    threshold: float | str
+    direction: Literal["above", "below"] = "above"
+    alpha: float | str = 0.3
     lookback_windows: Union[int, str] = 5
     min_samples: Union[int, str] = 3
 
     def __post_init__(self):
         owner = f"rule {self.name!r}"
-        _choice(owner, "kind", self.kind, ("ceiling", "window_ratio", "ewma_drift"))
-        _choice(owner, "agg", self.agg, ("avg", "min", "max", "rate", "p50", "p95", "p99"))
-        _choice(owner, "direction", self.direction, ("above", "below"))
         if _isnum(self.window_s) and self.window_s <= 0:
             raise ValueError(f"{owner}: windowS must be > 0, got {self.window_s}")
         if _isnum(self.alpha) and not 0.0 < self.alpha <= 1.0:
@@ -514,7 +525,7 @@ class V1ObservabilitySpec(Spec):
     buckets and span tracing, and what serving the run arms (SLOs, the
     metrics history and its regression rules)."""
 
-    sample_interval: Num = 10.0
+    sample_interval: float | str = 10.0
     histogram_buckets: Optional[list[float]] = None
     trace: bool = True
     slos: Optional[list[V1SLOSpec]] = None
@@ -522,10 +533,6 @@ class V1ObservabilitySpec(Spec):
     # a rule list, or "default" for the serving drift pack
     regression_rules: Optional[Union[list[V1RegressionRuleSpec], str]] = None
 
-    _nested: ClassVar[dict[str, type]] = {"history": V1HistorySpec}
-    _nested_lists: ClassVar[dict[str, type]] = {
-        "slos": V1SLOSpec, "regression_rules": V1RegressionRuleSpec,
-    }
 
     def __post_init__(self):
         if _isnum(self.sample_interval) and self.sample_interval <= 0:
@@ -577,11 +584,6 @@ class V1Program(Spec):
     serving: Optional[V1ServingSpec] = None
     observability: Optional[V1ObservabilitySpec] = None
 
-    _nested: ClassVar[dict[str, type]] = {
-        "model": V1ModelSpec, "data": V1DataSpec,
-        "optimizer": V1OptimizerSpec, "train": V1TrainSpec,
-        "serving": V1ServingSpec, "observability": V1ObservabilitySpec,
-    }
 
 
 # ------------------------------------------------------------------ run kind
@@ -614,51 +616,230 @@ class V1MeshSpec(Spec):
                 raise ValueError(f"mesh axis {ax!r} has invalid size {v}")
 
 
-def _requested_chips(environment: Optional[dict]) -> Optional[int]:
-    """Chips a plain-dict `environment` requests: `resources.tpu`
-    (topology "AxB[xC]" or count, times slices) or `resources.chips`."""
-    res = (environment or {}).get("resources") or {}
-    tpu = res.get("tpu")
-    if tpu is not None:
-        topology, count = tpu.get("topology"), tpu.get("count")
-        dims = [int(d) for d in str(topology).split("x")] if topology else [int(count or 1)]
-        return math.prod(dims) * int(tpu.get("slices") or 1)
-    chips = res.get("chips")
-    return int(chips) if _isint(chips) else None
+# ------------------------------------------------------------------ run kinds
+@dataclasses.dataclass
+class V1Job(Spec):
+    kind: Literal["job"] = "job"
+    container: Optional[V1Container] = None
+    init: Optional[list[V1Init]] = None
+    sidecars: Optional[list[V1Container]] = None
+    environment: Optional[V1Environment] = None
+    connections: Optional[list[str]] = None
+    volumes: Optional[list[dict]] = None
+
+
+@dataclasses.dataclass
+class V1Service(Spec):
+    kind: Literal["service"] = "service"
+    container: Optional[V1Container] = None
+    init: Optional[list[V1Init]] = None
+    sidecars: Optional[list[V1Container]] = None
+    environment: Optional[V1Environment] = None
+    connections: Optional[list[str]] = None
+    volumes: Optional[list[dict]] = None
+    ports: Optional[list[int]] = None
+    rewrite_path: Optional[bool] = None
+    is_external: Optional[bool] = None
+    replicas: Optional[int] = None
+
+    @classmethod
+    def _check_replicas(cls, v):
+        if v is not None and v < 1:
+            raise ValueError("Input should be greater than or equal to 1")
+        return v
+
+
+def _at_least_one(v):
+    if v < 1:
+        raise ValueError("Input should be greater than or equal to 1")
+    return v
 
 
 @dataclasses.dataclass
 class V1JAXJob(Spec):
-    """The native distributed training job: a `program` the framework runs
-    itself (or a `container` command, which the port does not run)."""
+    """The native training job: a `program` the framework runs itself, or
+    a `container` command run as a local process. `replicas` counts host
+    processes (one on one card; a gang is not ported)."""
 
-    kind: str = "jaxjob"
+    kind: Literal["jaxjob"] = "jaxjob"
     replicas: int = 1
     mesh: Optional[V1MeshSpec] = None
     program: Optional[V1Program] = None
-    container: Optional[dict[str, Any]] = None
-    init: Optional[list[dict[str, Any]]] = None
-    sidecars: Optional[list[dict[str, Any]]] = None
-    environment: Optional[dict[str, Any]] = None
+    container: Optional[V1Container] = None
+    init: Optional[list[V1Init]] = None
+    sidecars: Optional[list[V1Container]] = None
+    environment: Optional[V1Environment] = None
     connections: Optional[list[str]] = None
     volumes: Optional[list[dict]] = None
     coordinator_port: int = 8476
 
-    _nested: ClassVar[dict[str, type]] = {"mesh": V1MeshSpec, "program": V1Program}
+    _check_replicas = staticmethod(_at_least_one)
 
     def __post_init__(self):
-        _choice("V1JAXJob", "kind", self.kind, ("jaxjob",))
-        if not _isint(self.replicas) or self.replicas < 1:
-            raise ValueError(f"replicas must be an int >= 1, got {self.replicas!r}")
         if self.program is None and self.container is None:
             raise ValueError("jaxjob needs `program` (native) or `container`")
         # a pinned decode mesh larger than the run's own chip request can
         # never come up: refused at parse time
         serving = self.program.serving if self.program is not None else None
-        if serving is not None:
-            need, have = serving.chips_needed(), _requested_chips(self.environment)
+        res = self.environment.resources if self.environment is not None else None
+        if serving is not None and res is not None:
+            need = serving.chips_needed()
+            have = res.tpu.total_chips if res.tpu is not None else res.chips
             if need is not None and have is not None and need > have:
                 raise ValueError(
                     f"serving.meshAxes {serving.mesh_axes} needs {need} "
                     f"chips per replica, but resources request only {have}"
                 )
+
+
+@dataclasses.dataclass
+class V1KFReplica(Spec):
+    """Replica group of the legacy Kubeflow-style kinds."""
+
+    replicas: int = 1
+    container: Optional[V1Container] = None
+    init: Optional[list[V1Init]] = None
+    sidecars: Optional[list[V1Container]] = None
+    environment: Optional[V1Environment] = None
+    connections: Optional[list[str]] = None
+
+    _check_replicas = staticmethod(_at_least_one)
+
+
+@dataclasses.dataclass
+class V1TFJob(Spec):
+    kind: Literal["tfjob"] = "tfjob"
+    chief: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    ps: Optional[V1KFReplica] = None
+    evaluator: Optional[V1KFReplica] = None
+    clean_pod_policy: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1PyTorchJob(Spec):
+    kind: Literal["pytorchjob"] = "pytorchjob"
+    master: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    clean_pod_policy: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1MPIJob(Spec):
+    kind: Literal["mpijob"] = "mpijob"
+    launcher: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    slots_per_worker: Optional[int] = None
+    clean_pod_policy: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1XGBoostJob(Spec):
+    kind: Literal["xgboostjob"] = "xgboostjob"
+    master: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    clean_pod_policy: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1PaddleJob(Spec):
+    kind: Literal["paddlejob"] = "paddlejob"
+    master: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    clean_pod_policy: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1DaskJob(Spec):
+    kind: Literal["daskjob"] = "daskjob"
+    job: Optional[V1KFReplica] = None
+    scheduler: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1RayJob(Spec):
+    kind: Literal["rayjob"] = "rayjob"
+    head: Optional[V1KFReplica] = None
+    worker: Optional[V1KFReplica] = None
+    entrypoint: Optional[str] = None
+    ray_version: Optional[str] = None
+    mesh: Optional[V1MeshSpec] = None
+    program: Optional[V1Program] = None
+
+
+@dataclasses.dataclass
+class V1TunerJob(Spec):
+    """Auxiliary tuner job driving a matrix sweep."""
+
+    kind: Literal["tuner"] = "tuner"
+    container: Optional[V1Container] = None
+    environment: Optional[V1Environment] = None
+
+
+@dataclasses.dataclass(kw_only=True)
+class V1OperationRef(Spec):
+    """An operation inside a DAG: an inline component or a path ref, with
+    its dependencies."""
+
+    name: str
+    dag_ref: Optional[str] = None
+    path_ref: Optional[str] = None
+    hub_ref: Optional[str] = None
+    component: Optional[dict] = None  # validated when the child compiles
+    params: Optional[dict[str, Any]] = None
+    matrix: Optional[dict[str, Any]] = None
+    depends_on: Optional[list[str]] = None
+    trigger: Optional[str] = None
+    conditions: Optional[str] = None
+
+
+@dataclasses.dataclass
+class V1Dag(Spec):
+    kind: Literal["dag"] = "dag"
+    operations: list[V1OperationRef] = dataclasses.field(default_factory=list)
+    concurrency: Optional[int] = None
+    early_stopping: Optional[list[dict]] = None
+    environment: Optional[V1Environment] = None
+
+
+V1RunKind = Union[
+    V1Job, V1Service, V1JAXJob, V1TFJob, V1PyTorchJob, V1MPIJob, V1XGBoostJob,
+    V1PaddleJob, V1DaskJob, V1RayJob, V1TunerJob, V1Dag,
+]
+
+# the union as a field: the member is picked by `kind`
+V1RunKindField = Annotated[V1RunKind, Tagged("kind")]
+
+RUN_KINDS: dict[str, type] = {
+    "job": V1Job, "service": V1Service, "jaxjob": V1JAXJob, "tfjob": V1TFJob,
+    "pytorchjob": V1PyTorchJob, "mpijob": V1MPIJob, "xgboostjob": V1XGBoostJob,
+    "paddlejob": V1PaddleJob, "daskjob": V1DaskJob, "rayjob": V1RayJob,
+    "tuner": V1TunerJob, "dag": V1Dag,
+}
+
+
+def run_num_slices(run) -> int:
+    """Slice count of a run's `tpu:` block (1 when absent)."""
+    env = getattr(run, "environment", None)
+    tpu = env.resources.tpu if env and env.resources else None
+    return tpu.num_slices if tpu is not None else 1
+
+
+def parse_run(data: dict) -> V1RunKind:
+    kind = data.get("kind")
+    if kind not in RUN_KINDS:
+        raise ValueError(f"unknown run kind {kind!r}; one of {sorted(RUN_KINDS)}")
+    return RUN_KINDS[kind].from_dict(data)

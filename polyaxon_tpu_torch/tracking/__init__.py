@@ -1,5 +1,6 @@
-"""Run tracking: the device memory readings the trainer publishes."""
+"""Run tracking: the host and device readings the trainer publishes and
+the background `SystemMonitor` an `observability:` block starts."""
 
-from .monitors import device_metrics
+from .monitors import SystemMonitor, device_metrics, host_metrics
 
-__all__ = ["device_metrics"]
+__all__ = ["SystemMonitor", "device_metrics", "host_metrics"]

@@ -1,7 +1,11 @@
 """The port stands alone: no module of `polyaxon_tpu_torch/` nor
-`chip_smoke.py` imports JAX, its libraries, the JAX package or
-`transformers` (the HF converter reads checkpoints by duck typing), and
-every entry point defaults to the card and raises without one."""
+`chip_smoke.py` imports JAX, its libraries, the JAX package,
+`transformers` (the HF converter reads checkpoints by duck typing), or
+the packages the card's machine does not have (`yaml`, `click`,
+`pydantic`, `psutil`: the port reads YAML with its own `yaml_lite`, parses
+its CLI with argparse, validates its specs by hand and reads host metrics
+from /proc), and every entry point defaults to the card and raises
+without one."""
 
 import ast
 import os
@@ -20,7 +24,8 @@ from polyaxon_tpu_torch.serving.batching import ServingConfig
 from polyaxon_tpu_torch.serving.server import ModelServer
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "polyaxon_tpu", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "polyaxon_tpu", "transformers",
+             "yaml", "click", "pydantic", "psutil")
 SOURCES = sorted((REPO / "polyaxon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -52,7 +57,9 @@ def test_import_walk_sees_the_package():
             "router.py", "eventlog.py", "timeline.py", "local.py", "lifecycle.py",
             "base.py", "files.py", "dataloader.py", "settings.py", "queue.py",
             "layers.py", "mlp.py", "encoder.py", "vit.py", "bert.py", "seq2seq.py",
-            "resnet.py", "moe.py", "convert_hf.py"} <= names
+            "resnet.py", "moe.py", "convert_hf.py", "yaml_lite.py", "reader.py",
+            "resolver.py", "interpolation.py", "executor.py", "run_client.py", "main.py",
+            "__main__.py", "operation.py", "component.py", "matrix.py"} <= names
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -191,7 +198,12 @@ def test_chip_smoke_fails_alone(tmp_path):
 STORE_AND_SPECS = ("store/eventlog.py", "store/timeline.py", "store/local.py",
                    "store/framing.py", "schemas/lifecycle.py", "schemas/base.py",
                    "schemas/run_kinds.py", "settings.py", "scheduler/queue.py",
-                   "data/files.py", "native/dataloader.py")
+                   "data/files.py", "native/dataloader.py", "schemas/io.py",
+                   "schemas/termination.py", "schemas/environment.py", "schemas/matrix.py",
+                   "schemas/component.py", "schemas/operation.py", "polyaxonfile/yaml_lite.py",
+                   "polyaxonfile/reader.py", "compiler/interpolation.py",
+                   "compiler/contexts.py", "compiler/resolver.py", "client/run_client.py",
+                   "cli/main.py", "retry.py")
 
 
 @pytest.mark.parametrize("rel", STORE_AND_SPECS)
@@ -243,3 +255,29 @@ def test_from_run_defaults_to_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ModelServer.from_run("r", store=store)
+
+
+def test_cli_run_needs_the_card_unless_told_otherwise(monkeypatch, tmp_path, capsys):
+    """With POLYAXON_TORCH_DEVICE unset and no card, `run` fails on the
+    device before any run exists: nothing carries on on the CPU."""
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.compiler import compile_operation
+    from polyaxon_tpu_torch.polyaxonfile import read_polyaxonfile
+    from polyaxon_tpu_torch.runtime.executor import Executor
+    from polyaxon_tpu_torch.store import RunStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("POLYAXON_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("POLYAXON_HOME", str(tmp_path))
+    mnist = str(REPO / "examples" / "mnist.yaml")
+    assert main(["run", "-f", mnist, "-P", "steps=1"]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("Error: ") and "cuda" in err and "device='cpu'" in err
+    assert RunStore(tmp_path).list_runs() == []
+    compiled = compile_operation(read_polyaxonfile(mnist))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Executor(RunStore(tmp_path)).execute(compiled)
+    assert RunStore(tmp_path).list_runs() == []
+    monkeypatch.setenv("POLYAXON_TORCH_DEVICE", "tpu")
+    assert main(["version"]) == 1
+    assert "POLYAXON_TORCH_DEVICE='tpu'" in capsys.readouterr().err
