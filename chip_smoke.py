@@ -11,7 +11,9 @@ the rest of the model zoo through the Trainer at the widths of the repo's
 BASELINE configurations.
 
 1. build     — nvcc the kernel sources, all at once, with their ptxas
-               reports; then the SASS of each library (`cuobjdump
+               reports, and g++ the gang's launcher (`native/
+               launcher.cpp`: two workers must see their rendezvous
+               environment); then the SASS of each library (`cuobjdump
                --dump-sass`): the HGMMA (wgmma) instructions of each kernel
                instance, which every bf16 flash instance and both
                instances of int8_matmul's prefill kernel must have and no
@@ -34,6 +36,19 @@ BASELINE configurations.
                whole autograd chain (forward kernel, both backward
                kernels) against autograd through the plain forward, with a
                cotangent on lse;
+2b. ring-hops — ring attention's hops at llama3-1b attention width (B=1,
+               S=8192, H=32, KV=8, D=64, bf16, causal) over a ring of
+               n=4 (2048-token chunks), in one process: each hop shape
+               (the causal own chunk, a non-causal other chunk) through
+               the flash kernels against their plain versions (the
+               backward with a cotangent on lse, as the merge gives it),
+               with times, bounds and SDPA's; then every rank's hops
+               through `parallel.ring.flash_hop` (what `_ring_body_flash`
+               runs), the K/V chunks sliced where the ring would receive
+               them, held against `flash_attention` on the whole sequence
+               in o, dq, dk and dv (RING_TOL, per row), with n^2 launches
+               of each kernel (masked hops are computed, as in the
+               reference);
 3. forward   — the full-sequence forward on [1, 4096] tokens through the
                flash kernel (one launch per layer); its bf16 logits must
                sit as close to an f32 copy of the same weights as the bf16
@@ -148,6 +163,13 @@ BASELINE configurations.
                loss, flash attention, with a profiler window over one step;
                every loss finite, the last below the first, each kernel
                launched the expected number of times per step;
+5b. train-mesh — a one-rank `nccl` process group, then the train program
+               with `attention: ring` through `Trainer(..., mesh_axes=
+               {data, fsdp, model, context: 1})`, the mesh path (DTensor
+               parameters, ring attention dispatching to flash at n=1), at
+               the same width and depth: its per-step losses against
+               `train`'s (TRAIN_MESH_TOL), the launches `train` counts,
+               its step time beside `train`'s and its peak memory;
 6. train-vs-einsum — 3 steps from the same weights with `attention:
                flash` and `attention: xla` at [1, 2048]: per-step loss and
                grad_norm distances (step 0 from the same weights moves with
@@ -246,8 +268,8 @@ that launches one fails there.
 
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
-(phases 3-4, then 4b, then 4c, then each config of 4e, then 4d, then
-phases 5, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
+(2b's ring drive, phases 3-4, then 4b, then 4c, then each config of 4e,
+then 4d, then phases 5, 5b, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
 8 and each configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The `wall` line
@@ -342,6 +364,20 @@ TRAIN_PROGRAM = {
 # the forward kernel once in the forward and once more when remat
 # recomputes the forward for the backward, and each backward kernel once
 PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}  # x n_layers
+# train-mesh: the train program on a one-rank mesh; its per-step losses
+# against train's, relative (the same kernels and products in the same
+# order: only the mesh path's f32 sums of the metrics differ)
+TRAIN_MESH_AXES = {"data": 1, "fsdp": 1, "model": 1, "context": 1}
+TRAIN_MESH_TOL = 1e-4
+TRAIN_REFERENCE: dict = {}  # train's losses and step time, for train-mesh
+# ring-hops: llama3-1b attention over a ring of RING["n"] chunks
+RING = dict(B=1, S=8192, H=32, KV=8, D=64, n=4, causal=True, dtype="bfloat16")
+# the ring's hops against whole-sequence flash, per row: o carries one
+# bf16 rounding of each hop's o_i (merged in f32) beyond the whole
+# kernel's; dq, dk and dv each add up n bf16 hop gradients (a query chunk
+# meets n key chunks, a key chunk n query chunks). Read on the card (NVIDIA
+# H100 80GB HBM3, 700 W): o 0.0095, dq 0.0153, dk 0.0161, dv 0.0137
+RING_TOL = {"o": 2.0 ** -6, "dq": 2.0 ** -5, "dk": 2.0 ** -5, "dv": 2.0 ** -5}
 EINSUM_TOKENS = 2048  # the einsum path keeps [32, S, S] scores per layer
 EINSUM_STEPS = 3
 # flash vs einsum training, both bf16, from the same weights (per-step
@@ -688,11 +724,13 @@ def hgmma_counts(library: Path) -> dict[str, int]:
 
 
 def phase_build() -> None:
-    """nvcc every kernel source at once (one compiler per source); then
-    the SASS of each library must hold HGMMA in every bf16 instance and none
-    in an f32 one."""
+    """nvcc every kernel source at once (one compiler per source), with the
+    gang's launcher (g++) beside them; then the SASS of each library must
+    hold HGMMA in every bf16 instance and none in an f32 one, and the
+    launcher must inject the rendezvous environment."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from polyaxon_tpu_torch.native import launcher_path
     from polyaxon_tpu_torch.ops import _build
 
     names = sorted({Path(src).stem for src, _ in KERNEL_ROWS.values()})
@@ -702,8 +740,20 @@ def phase_build() -> None:
         path = _build.build(name)
         return name, path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        launcher = pool.submit(launcher_path)
         built = list(pool.map(build, names))
+        launcher = launcher.result()
+    gang = subprocess.run(
+        [launcher, "--num-workers", "2", "--coordinator", "127.0.0.1:29511", "--",
+         "/bin/sh", "-c", 'echo "$RANK/$WORLD_SIZE@$MASTER_ADDR:$MASTER_PORT"'],
+        capture_output=True, text=True, timeout=60,
+    )
+    ranks = sorted(ln for ln in gang.stdout.splitlines() if "@" in ln)
+    emit({"phase": "build", "source": "launcher", "binary": str(Path(launcher).relative_to(HERE)),
+          "workers": ranks})
+    check(gang.returncode == 0 and ranks == ["0/2@127.0.0.1:29511", "1/2@127.0.0.1:29511"],
+          f"the launcher's workers saw {ranks} (exit {gang.returncode})")
     counts = {}
     for name, path, seconds in built:
         _build.load(name)
@@ -1134,6 +1184,199 @@ def phase_int8_kernel() -> dict:
               "device": device_line()})
     torch.cuda.empty_cache()
     return decode
+
+
+def ring_drive(q, k, v, n: int, causal: bool):
+    """Every rank's hops of a ring of `n` in one process: rank idx's query
+    chunk against each K/V chunk the ring brings it, through
+    `parallel.ring.flash_hop` in `_ring_body_flash`'s order, the chunks
+    sliced where the ring would receive them; the ranks' outputs
+    concatenated along the sequence."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.ring import flash_hop
+
+    s, scale = q.shape[1] // n, q.shape[-1] ** -0.5
+    outs = []
+    for idx in range(n):
+        qi = q[:, idx * s:(idx + 1) * s]
+        o = lse = None
+        for t in range(n):
+            src = (idx - t) % n
+            kc, vc = (x[:, src * s:(src + 1) * s] for x in (k, v))
+            o, lse = flash_hop(qi, kc, vc, o, lse, scale=scale, causal=causal and t == 0,
+                               keep=not causal or t == 0 or src < idx)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def phase_ring_hops(kernels) -> dict:
+    """The ring's hop shapes through the kernels against their plain
+    versions, with times; then the ring drive against whole-sequence flash.
+    Returns the drive's launches (the counters zeroed just before it)."""
+    import torch
+    from torch.nn import functional as F
+
+    from polyaxon_tpu_torch.ops import flash_attention as fa
+
+    r = RING
+    dtype = getattr(torch, r["dtype"])
+    B, S, H, KV, D, n = r["B"], r["S"], r["H"], r["KV"], r["D"], r["n"]
+    s, scale = S // n, D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    rows = []
+    for causal in (True, False):  # the own chunk, then another rank's
+        qh, kh, vh, doh = q[:, :s], k[:, s:2 * s], v[:, s:2 * s], do[:, :s]
+        if causal:
+            kh, vh = k[:, :s], v[:, :s]
+        with torch.no_grad():
+            o, lse = fa.flash_attention_lse(qh, kh, vh, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_reference(qh, kh, vh, causal=causal)
+        dlse = torch.randn((B, H, s), generator=gen, device="cuda")
+        delta = ((doh.float() * o.float()).sum(-1).transpose(1, 2) - dlse).contiguous()
+        got = (fa.FLASH_DQ(qh, kh, vh, doh, lse, delta, causal=causal, scale=scale),
+               *fa.FLASH_DKV(qh, kh, vh, doh, lse, delta, causal=causal, scale=scale))
+        want = fa.flash_attention_bwd_reference(qh, kh, vh, o, lse, doh, delta, causal=causal)
+        torch.cuda.synchronize()
+        errs = {"o": row_rel_err(o, o_ref), "lse": (lse - lse_ref).abs().max().item(),
+                **{g: row_rel_err(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, want)}}
+        tol_o, tol_lse = TOL[r["dtype"]]
+        tol_b = BWD_TOL[r["dtype"]]
+        check(errs["o"] <= tol_o and errs["lse"] <= tol_lse
+              and all(errs[g] <= tol_b for g in ("dq", "dk", "dv")),
+              f"ring hop (causal={causal}) disagrees with the plain version: {errs}")
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_() for t in (qh, kh, vh))
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                                      enable_gqa=True)
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, (lq, lk, lv), doh.transpose(1, 2))
+
+        fwd_bound = attention_bound(B, s, H, KV, D, causal, dtype)
+        bwd_bound = backward_bound(B, s, H, KV, D, causal, dtype)
+        lib_fwd_ms = cuda_ms(lib_fwd, reps=10)
+        lib_bwd_ms = cuda_ms(lib_fwd_bwd, reps=10) - lib_fwd_ms
+        plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            qh, kh, vh, o, lse, doh, delta, causal=causal), reps=3, warmup=1)
+        timed = {
+            "flash_fwd": (lambda: fa.flash_attention_lse(qh, kh, vh, causal=causal),
+                          fwd_bound, cuda_ms(lambda: fa.flash_attention_reference(
+                              qh, kh, vh, causal=causal), reps=3, warmup=1), lib_fwd_ms),
+            "flash_dq": (lambda: fa.FLASH_DQ(qh, kh, vh, doh, lse, delta, causal=causal,
+                                             scale=scale),
+                         bwd_bound["flash_dq"], plain_bwd_ms, lib_bwd_ms),
+            "flash_dkv": (lambda: fa.FLASH_DKV(qh, kh, vh, doh, lse, delta, causal=causal,
+                                               scale=scale),
+                          bwd_bound["flash_dkv"], plain_bwd_ms, lib_bwd_ms),
+        }
+        for name, (fn, bound, plain_ms, lib_ms) in timed.items():
+            ms = cuda_ms(fn, reps=10)
+            row = {"phase": "ring-hop", "kernel": name, "causal": causal,
+                   "shape": [B, s, H, KV, D], "dtype": r["dtype"], "errors": errs,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_covers": "SDPA forward" if name == "flash_fwd"
+                   else "SDPA backward (dq, dk and dv)",
+                   "plain_covers": "forward" if name == "flash_fwd" else "dq, dk and dv",
+                   "bound_ms": bound[0], "bound_by": bound[1], "x_bound": ms / bound[0],
+                   "launches_per_ring": (1 if causal else n - 1) * n}
+            emit(row)
+            rows.append(row)
+        del lq, lk, lv, o, lse, o_ref, lse_ref, got, want, delta, dlse
+    # the whole sequence through the kernels, the yardstick of the drive
+    qf, kf, vf = (t.detach().requires_grad_() for t in (q, k, v))
+    whole = fa.flash_attention(qf, kf, vf, causal=r["causal"])
+    whole.backward(do)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    for kern in kernels:  # the ring's hops start here
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = ring_drive(qr, kr, vr, n, r["causal"])
+    out.backward(do)
+    torch.cuda.synchronize()
+    drive_ms = (time.perf_counter() - t0) * 1e3
+    launches = {kern.name: kern.launches for kern in kernels}  # ... and end here
+    errs = {"o": row_rel_err(out, whole), "dq": row_rel_err(qr.grad, qf.grad),
+            "dk": row_rel_err(kr.grad, kf.grad), "dv": row_rel_err(vr.grad, vf.grad)}
+    expected = {"flash_fwd": n * n, "flash_dq": n * n, "flash_dkv": n * n}
+    emit({"phase": "ring-hops", **r, "s_local": s, "row_rel_err": errs, "tol": RING_TOL,
+          "launches": launches, "expected_launches": expected,
+          "drive_wall_ms": drive_ms})
+    check(all(errs[x] <= RING_TOL[x] for x in errs),
+          f"the ring's hops disagree with whole-sequence flash: {errs} (tol {RING_TOL})")
+    check(all(launches.get(name, 0) == m for name, m in expected.items()),
+          f"ring launches {launches}, expected {expected}")
+    del q, k, v, do, qf, kf, vf, qr, kr, vr, whole, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_mesh() -> dict:
+    """The train program on a one-rank `nccl` mesh (`attention: ring`, which
+    dispatches to flash at n=1) against train's losses; returns the
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.native import free_port
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.parallel.ring import set_current_mesh
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    program = json.loads(json.dumps(TRAIN_PROGRAM))
+    program["model"]["config"]["attention"] = "ring"
+    for key in ("profileStart", "profileStop"):
+        program["train"].pop(key)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        stamps = []
+        trainer = Trainer(program, mesh_axes=TRAIN_MESH_AXES,
+                          log_fn=lambda step, m: stamps.append(time.perf_counter()))
+        cfg = trainer.module.cfg
+        for kern in KERNELS:  # the mesh path starts here
+            kern.launches = 0
+        result = trainer.run()
+        torch.cuda.synchronize()
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+        step_s = statistics.median(gaps[1:])
+        losses = [h["loss"] for h in result.history]
+        ref = TRAIN_REFERENCE["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        expected = {k: PER_STEP[k] * cfg.n_layers * TRAIN_STEPS for k in PER_STEP}
+        emit({
+            "phase": "train-mesh", "mesh_axes": TRAIN_MESH_AXES, "backend": "nccl",
+            "attention": "ring", "n_layers": cfg.n_layers, "steps": TRAIN_STEPS,
+            "tokens_per_step": TRAIN_TOKENS, "losses": losses, "train_losses": ref,
+            "max_rel_loss_vs_train": rel, "tol": TRAIN_MESH_TOL,
+            "median_step_seconds": step_s,
+            "train_median_step_seconds": TRAIN_REFERENCE["step_s"],
+            "step_time_vs_train": step_s / TRAIN_REFERENCE["step_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "train_peak_mem_gb": TRAIN_REFERENCE["peak_mem_gb"],
+            "launches": launches, "expected_launches": expected,
+        })
+        check(len(losses) == len(ref) and rel <= TRAIN_MESH_TOL,
+              f"train-mesh losses {losses} against train's {ref}: {rel} > {TRAIN_MESH_TOL}")
+        check(launches == expected, f"train-mesh launches {launches}, expected {expected}")
+        del trainer, result
+    finally:
+        set_current_mesh(None)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_forward(model) -> None:
@@ -2903,6 +3146,8 @@ def phase_train() -> dict:
     check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
     check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
           f"the loss did not fall: {losses}")
+    TRAIN_REFERENCE.update(losses=losses, step_s=step_s,
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(launches == expected, f"kernel launches {launches}, expected {expected}")
     prof = trainer.profile
     check(prof is not None, "the profile window produced no profiler")
@@ -3980,6 +4225,8 @@ def main(argv: list) -> int:
             "int8_matmul": phase_int8_kernel()}
     phase_autograd_chain()
     stamp("build+kernels")
+    launches_ring = phase_ring_hops(KERNELS)
+    stamp("ring-hops")
     with torch.inference_mode():
         model = build_model(
             "transformer_lm", {"preset": PRESET, "attention": "flash"},
@@ -3993,6 +4240,8 @@ def main(argv: list) -> int:
         phase_forward(model)
         phase_serve(model)
         launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        for name, n in launches_ring.items():
+            launches[name] += n
         for kern in KERNELS:  # the batched serving path starts here
             kern.launches = 0
         batched = phase_serve_batched(model)
@@ -4063,8 +4312,12 @@ def main(argv: list) -> int:
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
     for name, n in phase_train().items():
         launches[name] += n
-    phase_train_vs_einsum()
     stamp("train")
+    for name, n in phase_train_mesh().items():
+        launches[name] += n
+    stamp("train-mesh")
+    phase_train_vs_einsum()
+    stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
                        (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo")):
         for name, n in phase().items():

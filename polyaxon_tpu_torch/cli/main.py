@@ -12,8 +12,10 @@ port runs, with their flags, output lines and exit codes.
 
 Runs go to the card unless `POLYAXON_TORCH_DEVICE=cpu`. An error exits 1
 with `Error: <message>` on stderr, a usage error exits 2 (as click's do).
-What is not ported is refused with an error naming ROADMAP.md: a gang or
-a multi-device mesh, a sweep, a schedule, joins, a dag, connections, a
+A jaxjob over several devices runs as a gang of one worker per device
+(`runtime/executor.py`). What is not ported is refused with an error
+naming ROADMAP.md: a gang for a zoo model or a replica over several
+devices, a sweep, a schedule, joins, a dag, connections, a
 remote control plane (`streams_url`), `--queue` clones and `serve --mesh`.
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
@@ -98,7 +100,7 @@ def cmd_run(a):
     process by the local executor."""
     from .. import settings
     from ..device import env_device, resolve_device
-    from ..runtime.executor import Executor, refusal
+    from ..runtime.executor import Executor, gang_device_error, refusal
 
     try:
         op = read_polyaxonfile(a.fpath, params=_params_to_dict(a.params))
@@ -125,6 +127,9 @@ def cmd_run(a):
             resolve_device(env_device())
         except (RuntimeError, ValueError) as e:
             raise ClickException(str(e))
+        short = gang_device_error(compiled, env_device())
+        if short is not None:
+            raise ClickException(short)
     echo(f"run {compiled.run_uuid[:8]} ({compiled.name}) created")
     status = Executor(store).execute(compiled)
     echo(f"run {compiled.run_uuid[:8]} finished: {status}")

@@ -49,6 +49,18 @@ applies it), drawn from the `dropout_generator` handed to `forward`.
 `fused_lm_loss` / `fused_loss_chunk` are read by the model bundle's fused
 loss (`models/registry.py`), with `forward(return_features=True)`.
 
+Under the trainer's mesh (`parallel/`, bound by `parallel.ring.
+set_current_mesh`) the full-sequence forward runs on the rank's shards:
+the batch over the batch axes, the sequence over `context` (RoPE at the
+chunk's global positions), and Megatron tensor parallelism over `model`
+when the trainer hands the forward its `model` slices of the projections
+(`TRANSFORMER_RULES`, `TENSOR_PARALLEL`): each rank projects its own heads
+and hidden units, `parallel.collectives.copy_to` enters each split block
+and `reduce_from` sums its row-parallel output, and a vocabulary-split LM
+head leaves the logits split for the vocab-parallel loss. The `constrain`
+calls mark the reference's layout hints; on local shards they are the
+identity.
+
 Config fields this port does not serve yet raise NotImplementedError
 instead of being ignored: pipeline_stages and scan_layers.
 """
@@ -66,6 +78,10 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
+from ..parallel.collectives import axis_group, axis_index, copy_to, reduce_from
+from ..parallel.mesh import axis_sizes
+from ..parallel.ring import current_mesh
+from ..parallel.sharding import constrain
 from .layers import dropout
 from .lora import lora_delta, run_proj
 from .moe import MoEFeedForward
@@ -84,7 +100,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dropout_rate: float = 0.0
-    attention: str = "auto"  # auto | xla | flash (ring | ulysses: not ported)
+    attention: str = "auto"  # auto | xla | flash | ring | ulysses
     attention_block: int = 512  # kv block size handed to the flash backend
     lora_rank: int = 0
     lora_alpha: float = 16.0
@@ -131,6 +147,8 @@ def check_ported(cfg: TransformerConfig) -> None:
         "pipeline_stages": cfg.pipeline_stages > 1,
         "scan_layers": bool(cfg.scan_layers),
         "n_experts with quant='int8'": cfg.n_experts > 0 and cfg.quant == "int8",
+        "n_experts under a mesh with an expert axis": (
+            cfg.n_experts > 0 and axis_sizes(current_mesh()).get("expert", 1) > 1),
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
@@ -222,6 +240,32 @@ def _proj(cfg: TransformerConfig, name: str, in_f: int, out_f: int, **factory):
     return nn.Linear(in_f, out_f, bias=False, **factory)
 
 
+# logical axes the batch dim may be split over (constrain degrades the
+# ones the live mesh lacks)
+BATCH = ("batch", "data", "fsdp")
+
+
+def _model_group(local: int, full: int):
+    """The bound mesh's `model` group when this rank holds `local` of a
+    `full`-wide projection (a tensor-parallel slice), else None."""
+    if local == full:
+        return None
+    group = axis_group(current_mesh(), "model")
+    if group is None:
+        raise ValueError(
+            f"a {local}-wide slice of a {full}-wide projection needs a bound "
+            "mesh with a model axis (parallel.ring.set_current_mesh)"
+        )
+    return group
+
+
+def context_offset(seq: int) -> int:
+    """Global position of this rank's first token when the bound mesh
+    splits the sequence over `context` (chunks of `seq` in rank order)."""
+    mesh = current_mesh()
+    return axis_index(mesh, "context") * seq if axis_sizes(mesh).get("context", 1) > 1 else 0
+
+
 def _per_row(pos) -> bool:
     """True for per-row write frontiers ([B] tensor or array), False for
     one scalar position."""
@@ -268,22 +312,32 @@ class Attention(nn.Module):
                 adapter_ix=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim
+        # under tensor parallelism the projections hold this rank's heads
+        group = None if cache is not None else _model_group(
+            self.q_proj.weight.shape[0], cfg.n_heads * hd)
+        x = copy_to(x, group)
         q, k, v = project(x, (self.q_proj, self.k_proj, self.v_proj), adapter_ix)
-        q = q.view(B, S, nh, hd)
-        k = k.view(B, S, nkv, hd)
-        v = v.view(B, S, nkv, hd)
+        q = q.view(B, S, -1, hd)
+        k = k.view(B, S, -1, hd)
+        v = v.view(B, S, -1, hd)
         if cache is not None:
             return run_proj(self.o_proj, self._decode(q, k, v, cos, sin, cache, plan),
                             adapter_ix)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        # heads on the model axis (column-parallel QKV output)
+        q = constrain(q, BATCH, "context", "model", None)
+        k = constrain(k, BATCH, "context", "model", None)
+        v = constrain(v, BATCH, "context", "model", None)
+        offset = context_offset(S)
+        q = apply_rope(q, cos, sin, offset=offset)
+        k = apply_rope(k, cos, sin, offset=offset)
         # GQA expansion is the dispatch's concern (flash reads grouped kv)
         out = dot_product_attention(
             q, k, v, causal=True, backend=cfg.attention,
             block_kv=cfg.attention_block,
         )
-        return run_proj(self.o_proj, out.reshape(B, S, nh * hd), adapter_ix)
+        out = constrain(out.reshape(B, S, -1), BATCH, "context", "model")
+        return reduce_from(run_proj(self.o_proj, out, adapter_ix), group)
 
     def _decode(self, q, k, v, cos, sin, cache, plan: _DecodePlan):
         """Prefill (S > 1) or step (S == 1): rope, write this call's K/V
@@ -373,13 +427,17 @@ class FeedForward(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, **factory):
         super().__init__()
+        self.ffn_dim = cfg.ffn_dim
         self.gate_proj = _proj(cfg, "gate_proj", cfg.dim, cfg.ffn_dim, **factory)
         self.up_proj = _proj(cfg, "up_proj", cfg.dim, cfg.ffn_dim, **factory)
         self.down_proj = _proj(cfg, "down_proj", cfg.ffn_dim, cfg.dim, **factory)
 
     def forward(self, x, adapter_ix=None):
-        gate, up = project(x, (self.gate_proj, self.up_proj), adapter_ix)
-        return run_proj(self.down_proj, F.silu(gate) * up, adapter_ix)
+        # column-parallel gate/up, row-parallel down under tensor parallelism
+        group = _model_group(self.gate_proj.weight.shape[0], self.ffn_dim)
+        gate, up = project(copy_to(x, group), (self.gate_proj, self.up_proj), adapter_ix)
+        h = constrain(F.silu(gate) * up, BATCH, "context", "model")
+        return reduce_from(run_proj(self.down_proj, h, adapter_ix), group)
 
 
 class Block(nn.Module):
@@ -398,6 +456,7 @@ class Block(nn.Module):
     def forward(self, x, cos, sin, *, cache=None, plan=None, generator=None,
                 adapter_ix=None):
         rate = self.cfg.dropout_rate if self.training else 0.0
+        x = constrain(x, BATCH, "context", None)
         h = self.attention(self.attention_norm(x), cos, sin, cache=cache, plan=plan,
                            adapter_ix=adapter_ix)
         if rate:
@@ -552,7 +611,7 @@ class Transformer(nn.Module):
             plan = self._decode_plan(
                 S, cache, pos, pad, pages, kv_layout, prefix_len, prefix_lens
             )
-        x = self.embed(tokens.to(self.device))
+        x = constrain(self.embed(tokens.to(self.device)), BATCH, "context", None)
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
@@ -564,7 +623,9 @@ class Transformer(nn.Module):
             return x
         if self.lm_head is None:
             return F.linear(x.float(), self.embed.weight.float())
-        return self.lm_head(x)
+        # a vocabulary split over `model`: each rank's logits slice
+        group = _model_group(self.lm_head.weight.shape[0], self.cfg.vocab_size)
+        return self.lm_head(copy_to(x, group))
 
     def _decode_plan(self, S, cache, pos, pad, pages, kv_layout, prefix_len,
                      prefix_lens) -> _DecodePlan:
@@ -675,6 +736,39 @@ class Transformer(nn.Module):
             S=S, win=win, mask=mask[:, None], offset=offset, positions=positions,
             write=write, keep=keep, pages=pages if paged else None, kv_int8=kv_int8,
         )
+
+
+# The reference's TRANSFORMER_RULES in the port's names and layouts:
+# nn.Linear `weight` is [out, in] where flax's `kernel` is [in, out], so
+# each kernel rule's entries are swapped; the embedding ([vocab, dim]) and
+# the LoRA factors (lora_a [in, r], lora_b [r, out]) keep the reference's
+# orientation. Megatron TP: column-parallel q/k/v/gate/up (out on
+# `model`), row-parallel o/down (in on `model`), fsdp on the other dim.
+TRANSFORMER_RULES = (
+    (r"embed\.weight$", (None, ("model", "fsdp"))),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", ("model", "fsdp")),
+    (r"(o_proj|down_proj)\.weight$", ("fsdp", "model")),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.lora_a$", ("fsdp", None)),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.lora_b$", (None, "model")),
+    (r"(o_proj|down_proj)\.lora_a$", ("model", None)),
+    (r"(o_proj|down_proj)\.lora_b$", (None, "fsdp")),
+    (r"lm_head\.weight$", ("model", "fsdp")),
+)
+
+# How the forward consumes each parameter over `model`: the tensor dim it
+# keeps split (a rank's heads, hidden units or vocabulary slice), or
+# "partial" for a parameter replicated over `model` but used inside a split
+# block, whose per-rank gradients are partial sums. The rest is gathered
+# whole for the forward.
+TENSOR_PARALLEL = (
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", 0),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.lora_b$", 1),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.lora_a$", "partial"),
+    (r"(o_proj|down_proj)\.weight$", 1),
+    (r"(o_proj|down_proj)\.lora_a$", 0),
+    (r"(o_proj|down_proj)\.lora_b$", "partial"),
+    (r"lm_head\.weight$", 0),
+)
 
 
 PRESETS: dict[str, dict] = {

@@ -6,7 +6,15 @@ Backends:
           mask, f32 softmax, probs cast to q's dtype, kv repeated for GQA.
           (The name is kept from the reference so configs carry over.)
   flash — `ops/flash_attention.py`: the hand-written kernel on CUDA.
-  ring / ulysses — multi-GPU context parallelism, not ported yet.
+  ring / ulysses — context parallelism over the bound mesh's `context`
+          axis (`parallel/ring.py`, `parallel/ulysses.py`); without one,
+          the flash dispatch.
+
+Under a bound mesh (`parallel.ring.set_current_mesh`) q/k/v are the rank's
+local blocks: batch over the batch axes, heads over `model` (each rank runs
+the kernel on its own heads), sequence over `context`. With a context axis
+of size > 1 every backend attends through the ring, the only one of them
+that sees the whole sequence.
 """
 
 from __future__ import annotations
@@ -39,6 +47,14 @@ def resolve_auto_backend(
     return "flash" if blocks_ok and head_ok else "xla"
 
 
+def _context_split() -> bool:
+    """True when the bound mesh splits the sequence over `context`."""
+    from ..parallel.mesh import axis_sizes
+    from ..parallel.ring import current_mesh
+
+    return axis_sizes(current_mesh()).get("context", 1) > 1
+
+
 def dot_product_attention(
     q, k, v, *, causal: bool, backend: str = "xla", block_kv: int = 512
 ):
@@ -51,13 +67,20 @@ def dot_product_attention(
         backend = resolve_auto_backend(
             q.shape[1], block_kv, q.shape[-1], device=q.device
         )
+    if backend in ("ring", "ulysses") or _context_split():
+        from ..parallel.ring import ring_attention
+        from ..parallel.ulysses import ulysses_attention
+
+        fn = ulysses_attention if backend == "ulysses" else ring_attention
+        return fn(q, k, v, causal=causal, block_kv=block_kv)
+    return local_attention(q, k, v, causal=causal, backend=backend, block_kv=block_kv)
+
+
+def local_attention(q, k, v, *, causal: bool, backend: str = "xla", block_kv: int = 512):
+    """The `flash` or `xla` backend on the tensors as given (a rank's own
+    batch and heads over its whole sequence)."""
     if backend == "flash":
         return flash_attention(q, k, v, causal=causal, block_kv=block_kv)
-    if backend in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention backend {backend!r} is multi-GPU context parallelism, "
-            "not ported yet (ROADMAP.md, parallelism)"
-        )
     if backend != "xla":
         raise ValueError(f"unknown attention backend {backend!r}")
     if k.shape[2] != q.shape[2]:

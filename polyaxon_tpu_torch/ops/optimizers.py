@@ -24,6 +24,12 @@ adamw and lion, sgd's `accumulator_dtype`, adafactor's `dtype_momentum`,
 given as a torch dtype or a name such as "bfloat16"). The `mask` and
 `weight_decay_mask` options, callables or pytrees with no YAML form, are
 refused with NotImplementedError.
+
+Sharded parameters (DTensors, under the trainer's mesh) keep sharded
+states. The element-wise rules update each rank's local shards; lamb's
+norms and adafactor's means run as DTensor reductions over the whole
+tensor. `global_norm` sums each shard's squares and all-reduces them over
+the mesh dims that shard the tensor, never over one that replicates it.
 """
 
 from __future__ import annotations
@@ -136,9 +142,43 @@ def build_schedule(
 
 
 # ------------------------------------------------------------------ clipping
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage), or `t` itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _splits(placement) -> bool:
+    """True for a placement that splits the tensor over its mesh dim
+    (`Shard`, and `_StridedShard`, which is not a `Shard`)."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return placement.is_shard() or isinstance(placement, _StridedShard)
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of squares of every element, f32."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+    """optax.global_norm: sqrt of the sum of squares of every element, f32.
+    A DTensor adds its local shard's squares, all-reduced over the mesh
+    dims that shard it (those that replicate it count it once)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    total = 0
+    sharded: dict = {}
+    for t in tensors:
+        if isinstance(t, DTensor):
+            dims = tuple(i for i, pl in enumerate(t.placements) if _splits(pl))
+            entry = sharded.setdefault((id(t.device_mesh), dims), (t.device_mesh, dims, []))
+            entry[2].append(t.to_local().float().pow(2).sum())
+        else:
+            total = total + t.float().pow(2).sum()
+    for mesh, dims, sums in sharded.values():
+        part = torch.stack(sums).sum()
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        total = total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -150,6 +190,7 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
     norm = global_norm(grads)
     keep = norm < max_norm
     for g in grads:
+        g = _local(g)
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
@@ -172,6 +213,10 @@ class _OptaxRule(torch.optim.Optimizer):
         for group in self.param_groups:
             for p in group["params"]:
                 self._init_state(p, self.state[p], group)
+
+    # the update of each element reads only that element: on sharded
+    # parameters it runs on the local shards
+    elementwise = True
 
     def _init_state(self, p, state, group) -> None:
         pass
@@ -204,8 +249,12 @@ class _OptaxRule(torch.optim.Optimizer):
         self.count += 1
         for group in self.param_groups:
             for p in group["params"]:
-                if p.grad is not None:
-                    self._update(p, p.grad.to(p.dtype), self.state[p], group, lr)
+                if p.grad is None:
+                    continue
+                g, state = p.grad.to(p.dtype), self.state[p]
+                if self.elementwise:
+                    p, g, state = _local(p), _local(g), {k: _local(v) for k, v in state.items()}
+                self._update(p, g, state, group, lr)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -313,6 +362,8 @@ class Lamb(Adam):
     per parameter by the trust ratio ||p|| / ||update||, which is 1 where
     either norm is zero."""
 
+    elementwise = False
+
     def __init__(self, params, schedule, *, b1=0.9, b2=0.999, eps=1e-6,
                  eps_root=0.0, weight_decay=0.0, mask=None, grad_clip_norm=None):
         _refuse_mask("lamb", mask=mask)
@@ -369,6 +420,8 @@ class Adafactor(_OptaxRule):
     debiased) and weight decay (not scaled by the learning rate). The
     factored estimate v_row ⊗ v_col / mean(v_row) is the same for a matrix
     and its transpose."""
+
+    elementwise = False
 
     def __init__(self, params, schedule, *, min_dim_size_to_factor=128, decay_rate=0.8,
                  decay_offset=0, multiply_by_parameter_scale=True, clipping_threshold=1.0,

@@ -19,7 +19,8 @@ the oldest steps after each write.
 
 Restore loads into the tensors of a target of the same structure
 (`copy_`), on their device and in place, so whatever holds those tensors
-(the optimizer's parameters and state) keeps them. A step whose restore
+(the optimizer's parameters and state) keeps them; a DTensor target (the
+trainer's mesh) takes its rank's shard of the full tensor. A step whose restore
 raises is quarantined: renamed to `<step>.corrupt`, the rename fsynced
 through the parent directory.
 
@@ -332,6 +333,16 @@ def _check(target, loaded, where: str) -> None:
 
 
 def _copy_into(target, loaded):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(target, DTensor):
+        # a sharded target (the trainer's mesh) takes its rank's shard of the
+        # full tensor the checkpoint holds
+        from ..parallel.sharding import local_shard
+
+        local = target.to_local()
+        local.copy_(local_shard(loaded.to(local.device), target.device_mesh, target.placements))
+        return target
     if isinstance(target, torch.Tensor):
         return target.copy_(loaded)
     if isinstance(target, dict):

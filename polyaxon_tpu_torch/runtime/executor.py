@@ -12,19 +12,26 @@ SIGTERM (`runtime/preemption.py`) restarting from the newest checkpoint
 without costing retry budget, init entries, sidecars and `pathRef` hooks.
 
 The device comes from `device=`, else `POLYAXON_TORCH_DEVICE` (the card
-unless it says `cpu`). Refused with `NotImplementedError` before the run
-is created, each naming ROADMAP.md: a gang (`replicas > 1`), a mesh with
-an axis above 1 on the devices at hand, the `dag` kind, a `matrix:`,
-`schedule:` or `joins:`, named `connections:`, an artifacts init, a
-notifier hook and an elastic grant. A mesh that resolves to one device
-runs as the single-device program: it computes the same thing.
+unless it says `cpu`). A jaxjob over more than one device runs as a gang
+(`_run_distributed`): the native supervisor starts one worker process per
+device (`runtime/worker.py`, `gang_size`), and they train on one mesh.
+With fewer visible GPUs than workers the gang is refused before the run
+exists, naming both counts; the CPU (`gloo`) is used only when asked for.
+A mesh that resolves to one device runs as the single-device program: it
+computes the same thing. Refused with `NotImplementedError` before the run
+is created, each naming ROADMAP.md: a gang or mesh for a model other than
+the transformer LM, a replica over several devices, the `dag` kind, a
+`matrix:`, `schedule:` or `joins:`, named `connections:`, an artifacts
+init, a notifier hook and an elastic grant.
 """
 
 from __future__ import annotations
 
 import gc
+import math
 import os
 import subprocess
+import sys
 import threading
 import time
 import traceback
@@ -48,6 +55,33 @@ class StopRequested(Exception):
     boundary."""
 
 
+def gang_size(run) -> int:
+    """Worker processes a jaxjob runs on, one device each: `replicas` when
+    above 1 (the mesh resolves over them), else the devices its mesh fixes
+    (a -1 axis filling to 1)."""
+    replicas = int(run.replicas or 1)
+    if replicas > 1:
+        return replicas
+    sizes = run.mesh.axis_sizes() if run.mesh else {}
+    return math.prod(v for v in sizes.values() if v != -1)
+
+
+def gang_device_error(compiled: CompiledOperation, device) -> Optional[str]:
+    """Why a gang cannot get one GPU per worker here, or None (the CPU
+    under `gloo` is used only when `device` asks for it)."""
+    import torch
+
+    run = compiled.run
+    if run.kind != "jaxjob" or run.program is None or torch.device(device).type != "cuda":
+        return None
+    world = gang_size(run)
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world > 1 and visible < world:
+        return (f"the gang has {world} workers, one GPU each, but {visible} GPU(s) "
+                "are visible; set POLYAXON_TORCH_DEVICE=cpu to run it on the CPU")
+    return None
+
+
 def refusal(compiled: CompiledOperation) -> Optional[str]:
     """Why the port cannot run `compiled` in this process (one card), or
     None."""
@@ -68,16 +102,22 @@ def refusal(compiled: CompiledOperation) -> Optional[str]:
     for hook in op.hooks or ():
         if not hook.path_ref:
             return f"a notifier hook (connections/notifier.py) {_ROADMAP}"
-    if run.kind == "jaxjob":
+    if run.kind == "jaxjob" and gang_size(run) > 1:
+        from ..parallel.mesh import resolve_axis_sizes
+
         replicas = int(run.replicas or 1)
-        if replicas > 1:
-            return (f"replicas: {replicas} (a gang of processes: runtime/worker.py, "
-                    f"runtime/health.py) {_ROADMAP}")
-        # on one device a -1 axis fills to 1: only a fixed axis above 1 is
-        # more than the single-device program
         sizes = run.mesh.axis_sizes() if run.mesh else {}
-        if any(v > 1 for v in sizes.values()):
-            return f"mesh {sizes} (more than one device) {_ROADMAP}"
+        where = f"replicas: {replicas}, mesh {sizes}"
+        model = run.program.model.name if run.program is not None else None
+        if model is not None and model not in ("transformer_lm", "llama"):
+            return (f"{where}: model {model!r} on a mesh (the zoo's sharding rules, "
+                    f"models/encoder.py ENCODER_RULES and the like) {_ROADMAP}")
+        try:
+            resolve_axis_sizes(sizes or None, gang_size(run))
+        except ValueError as e:
+            return (f"{where}: a worker of the port drives one device, so a replica "
+                    f"over several devices (the reference's multi-chip hosts; {e}) "
+                    f"{_ROADMAP}")
     return None
 
 
@@ -105,6 +145,9 @@ class Executor:
             from ..device import resolve_device
 
             resolve_device(self.device)  # no card where one is asked for: raise, run nothing
+            short = gang_device_error(compiled, self.device)
+            if short is not None:
+                raise RuntimeError(short)
         store = self.store
         run_uuid = compiled.run_uuid
         fingerprint = spec_fingerprint(compiled)
@@ -444,6 +487,9 @@ class Executor:
         program = run.program
         if resume and tspec is not None:
             program = program.copy(train=tspec.copy(resume=True))
+        world = gang_size(run)
+        if world > 1:
+            return self._run_distributed(compiled, world, program, ckpt_dir)
 
         def log_fn(step: int, metrics: dict):
             store.log_metrics(run_uuid, step, metrics)
@@ -494,6 +540,60 @@ class Executor:
         })
         store.append_log(run_uuid, f"done: {result.steps_per_sec:.2f} steps/s, "
                                    f"final {result.final_metrics}")
+
+    def _run_distributed(self, compiled: CompiledOperation, world: int, program, ckpt_dir):
+        """A gang under the native supervisor: `world` worker processes
+        (`runtime.worker`), one device each, with torch.distributed's
+        rendezvous environment injected by the launcher; gang semantics
+        restart all or nothing. Exit 75 (a worker checkpointed on SIGTERM)
+        or 143 (the launcher itself was SIGTERMed) is a preemption."""
+        import json
+        import tempfile
+
+        from ..native import launcher_path, pick_port
+        from ..retry import Preempted
+        from ..schemas.run_kinds import run_num_slices
+
+        run = compiled.run
+        store, run_uuid = self.store, compiled.run_uuid
+        payload = {
+            "runUuid": run_uuid,
+            "program": program.to_dict(),
+            "mesh": run.mesh.axis_sizes() if run.mesh else None,
+            "slices": run_num_slices(run),
+        }
+        if ckpt_dir is not None:
+            payload["checkpointDir"] = ckpt_dir
+        with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as spec_file:
+            json.dump(payload, spec_file)
+        term = compiled.component.termination
+        root = str(Path(__file__).resolve().parents[2])
+        path = os.environ.get("PYTHONPATH")
+        cmd = [
+            launcher_path(),
+            "--num-workers", str(world),
+            "--coordinator", f"127.0.0.1:{pick_port(run_uuid)}",
+            "--max-restarts", "0",  # retries are execute()'s
+            *(["--timeout", str(int(term.timeout))] if term and term.timeout else []),
+            "--env", f"POLYAXON_PROGRAM_SPEC={spec_file.name}",
+            "--env", f"POLYAXON_HOME={store.home}",
+            "--env", f"POLYAXON_TORCH_DEVICE={self.device}",
+            "--env", f"PYTHONPATH={root + (os.pathsep + path if path else '')}",
+            "--", sys.executable, "-m", "polyaxon_tpu_torch.runtime.worker",
+        ]
+        store.set_status(run_uuid, V1Statuses.RUNNING)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            for line in iter(proc.stdout.readline, ""):
+                store.append_log(run_uuid, "[launcher] " + line.rstrip("\n"))
+            code = proc.wait()
+        finally:
+            os.unlink(spec_file.name)
+        if code in (75, 143):
+            raise Preempted(f"distributed gang preempted (exit code {code})")
+        if code != 0:
+            raise ExecutionError(f"distributed gang exited with code {code}")
 
     def _spawn_container(self, compiled, c, extra_env: Optional[dict] = None) -> subprocess.Popen:
         """One launch recipe for main containers and services."""

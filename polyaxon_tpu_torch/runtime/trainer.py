@@ -81,8 +81,24 @@ the same step function, metrics and loop, for every model of the registry
 threads and its corpus mmap) when the run is over.
 
 `donate_state` is accepted and has nothing to do: PyTorch updates the
-weights and optimizer state in place. Mesh axes are not in this slice and
-raise NotImplementedError (see ROADMAP.md).
+weights and optimizer state in place.
+
+`mesh_axes` (and `slices`) train on a device mesh over the ranks of the
+`torch.distributed` world (`parallel/`), whatever its sizes, as the
+reference's jit with shardings does (a world of one needs no process
+group of the caller's: the trainer starts one). Each rank builds the same
+host batch and takes its slice (`make_global_batch`): the batch over
+data x fsdp, the sequence of token batches over `context`. The
+parameters are DTensors placed by the model's rules, gathered for the
+forward (`parallel/params.py`), and the optimizer runs on their shards.
+The loss is each rank's share of the mean over the global count of
+counted tokens, so the gradients' reductions make the global mean's; the
+vocabulary-split LM head gets the vocab-parallel loss. Rank 0 alone
+writes metrics, events, logs, spans, the profile and checkpoints, which
+hold the full tensors in the single-device format (a mesh, another mesh
+or one device resumes from them). This slice meshes the transformer LM;
+the zoo's rules, MoE, pipeline stages and the expert axis are refused
+with NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -98,6 +114,7 @@ from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import (
@@ -115,6 +132,11 @@ from ..models.layers import collecting
 from ..ops.losses import accuracy as accuracy_metric
 from ..ops.losses import build_loss
 from ..ops.optimizers import build_optimizer, global_norm
+from ..parallel.collectives import all_reduce, axis_group, axis_index
+from ..parallel.mesh import BATCH_AXES, axis_sizes, build_mesh, local_batch_slice
+from ..parallel.params import ShardedParameters, full_tensors
+from ..parallel.ring import set_current_mesh
+from ..parallel.sharding import batch_sharding, make_global_batch
 from ..retry import Preempted
 from ..schemas.run_kinds import V1ObservabilitySpec, V1Program, V1TrainSpec
 from ..telemetry import MetricsRegistry, SpanTracer, get_registry, now, train_step_flops
@@ -186,6 +208,7 @@ class Trainer:
         *,
         device="cuda",
         mesh_axes: Optional[dict[str, int]] = None,
+        slices: int = 1,
         log_fn: Optional[Callable[[int, dict], None]] = None,
         event_fn: Optional[Callable[[str, dict], None]] = None,
         checkpoint_dir: Optional[str] = None,
@@ -197,14 +220,16 @@ class Trainer:
         self.program = program
         tspec = program.train or V1TrainSpec()
         self.tspec = tspec
-        if mesh_axes:
-            raise NotImplementedError(
-                "mesh_axes (multi-GPU parallelism) is not ported to PyTorch yet "
-                "(see ROADMAP.md)"
-            )
         if tspec.checkpoint_every and not checkpoint_dir:
             raise ValueError("train.checkpointEvery needs a checkpoint_dir to save into")
         self.device = resolve_device(device)
+        self.mesh = None
+        if mesh_axes is not None or int(slices) > 1:
+            self.mesh = self._bind_mesh(program, mesh_axes, int(slices))
+        # rank 0 alone writes metrics, events, logs, spans and profiles
+        self.is_writer = self.mesh is None or dist.get_rank() == 0
+        if not self.is_writer:
+            log_fn = event_fn = artifacts_dir = None
         self.artifacts_dir = artifacts_dir
         self.log_fn = log_fn or (lambda step, m: None)
         self.event_fn = event_fn
@@ -232,6 +257,12 @@ class Trainer:
             with torch.no_grad():
                 for p in self.module.parameters():
                     p.data = p.data.to(self.param_dtype)
+        self.sharded = None
+        if self.mesh is not None:
+            from ..models.transformer import TENSOR_PARALLEL, TRANSFORMER_RULES
+
+            self.sharded = ShardedParameters(
+                self.module, self.mesh, TRANSFORMER_RULES, TENSOR_PARALLEL)
         dspec = program.data  # none: the reference's image default
         self._data_args = (
             (dspec.name, int(dspec.batch_size), dspec.config) if dspec
@@ -239,6 +270,8 @@ class Trainer:
         )
         self.data = build_data(*self._data_args, seed=int(tspec.seed))
         self._validate_data_shape()
+        if self.mesh is not None:
+            self._validate_mesh_fit()
         self.is_classification = self.bundle.task == "classification"
         self.steps = int(tspec.steps)
         self.step = 0
@@ -274,16 +307,82 @@ class Trainer:
         if grad_accum < 1:
             raise ValueError(f"train.gradAccum must be >= 1, got {grad_accum}")
         batch = self.data.batch_size
-        if batch % grad_accum:
+        shards = local_batch_slice(self.mesh)
+        if batch % shards:
+            raise ValueError(
+                f"global batch {batch} not divisible by batch-sharded mesh axes ({shards})"
+            )
+        # each microbatch keeps the batch-sharded split: microbatch =
+        # global / (accum * shards)
+        micro = batch // shards
+        if micro % grad_accum:
             requested = grad_accum
-            grad_accum = next(g for g in range(requested, batch + 1) if batch % g == 0)
+            grad_accum = next(g for g in range(requested, micro + 1) if micro % g == 0)
             self._event("grad_accum_adjusted", {
                 "requested": requested, "effective": grad_accum,
-                "global_batch": batch, "batch_shards": 1,
+                "global_batch": batch, "batch_shards": shards,
             })
         self.grad_accum = grad_accum
+        if self.mesh is not None:
+            extra = ({"1": "context"} if self.bundle.task in ("lm", "mlm")
+                     and axis_sizes(self.mesh).get("context", 1) > 1 else None)
+            self._batch_placements = batch_sharding(self.mesh, extra)
         self.profile = None
         self._profiling = False
+
+    def _bind_mesh(self, program, mesh_axes, slices):
+        """The mesh over the world (a world of one started here when no
+        process group exists), bound for the model's collectives; refuses
+        what this slice does not mesh."""
+        name = program.model.name
+        config = program.model.config or {}
+        sizes = dict(mesh_axes or {})
+        refused = {
+            f"model {name!r} (the zoo's sharding rules)": name not in ("transformer_lm", "llama"),
+            "n_experts (MoE)": bool(config.get("n_experts")),
+            "a pipeline axis": sizes.get("pipeline", 1) not in (1, -1),
+            "an expert axis": sizes.get("expert", 1) not in (1, -1),
+        }
+        bad = [what for what, hit in refused.items() if hit]
+        if bad:
+            raise NotImplementedError(
+                f"{bad} on a mesh are not ported to PyTorch yet (see ROADMAP.md)"
+            )
+        if not dist.is_initialized():
+            if math.prod(v for v in sizes.values() if v != -1) > 1 or slices > 1:
+                raise RuntimeError(
+                    f"mesh {sizes} (slices={slices}) needs a torch.distributed world: "
+                    "run one process per device (runtime/worker.py)"
+                )
+            dist.init_process_group(
+                "nccl" if self.device.type == "cuda" else "gloo",
+                store=dist.HashStore(), rank=0, world_size=1,
+            )
+        mesh = build_mesh(sizes or None, slices=slices,
+                          device_type="cuda" if self.device.type == "cuda" else "cpu")
+        set_current_mesh(mesh)
+        return mesh
+
+    def _validate_mesh_fit(self):
+        """Every mesh axis must divide the model or data dimension it
+        splits (the reference's `_validate_mesh_fit`), plus the hidden width
+        the port splits over `model`."""
+        sizes, cfg = axis_sizes(self.mesh), getattr(self.module, "cfg", None)
+
+        def check(axis: int, dim: int, what: str):
+            if axis > 1 and dim % axis != 0:
+                raise ValueError(
+                    f"mesh axis mismatch: {what} ({dim}) is not divisible by "
+                    f"the mesh's {axis}-way split — adjust the mesh or the model"
+                )
+
+        model = sizes.get("model", 1)
+        check(model, cfg.n_heads, "n_heads")
+        check(model, cfg.n_kv_heads, "n_kv_heads")
+        check(model, cfg.ffn_dim, "hidden_dim")
+        ctx = sizes.get("context", 1)
+        seq = self.data.meta.get("seq_len") or cfg.seq_len
+        check(ctx, int(seq), "data seq_len")
 
     def _validate_data_shape(self):
         """A stream that declares its feature shape (the classification
@@ -307,6 +406,9 @@ class Trainer:
         """name → the tensor the forward uses: the master itself, or its
         cast to the compute dtype (differentiable back to the master)."""
         params = dict(self.module.named_parameters())
+        if self.sharded is not None:
+            cast = self.compute_dtype if self.compute_dtype != self.param_dtype else None
+            return self.sharded.views(params, cast)
         if self.compute_dtype == self.param_dtype:
             return params
         return {
@@ -327,6 +429,7 @@ class Trainer:
         if seed is not None and "dropout" in self.bundle.rngs:
             gen = torch.Generator(device=self.device)
             kwargs["dropout_generator"] = gen.manual_seed(seed)
+        set_current_mesh(self.mesh)  # re-bind: another Trainer may have run here
         with collecting() as box:
             out = functional_call(self.module, params, (inputs,), kwargs)
         aux = box.aux_loss(self.device) if self.bundle.aux_losses else None
@@ -344,13 +447,49 @@ class Trainer:
             )
         else:
             out, aux, box = self._apply(params, inputs, seed)
-        if self.fused_loss is not None:  # `out` carries features
+        if self.mesh is not None:
+            loss = self._mesh_loss(params, out, batch)
+        elif self.fused_loss is not None:  # `out` carries features
             loss = self.fused_loss(params, out, batch)
         else:
             loss = self.loss_fn(out, batch)
         if aux is not None:
             loss = loss + aux
         return loss, out, box
+
+    # ------------------------------------------------------------- mesh
+    def _data_groups(self) -> list:
+        """The groups whose ranks hold other tokens: the batch axes and
+        `context`."""
+        return [axis_group(self.mesh, ax) for ax in (*BATCH_AXES, "context")]
+
+    def _mesh_loss(self, params, out, batch):
+        """This rank's share of the masked-LM mean over the global count
+        of labelled tokens; vocab-parallel where the LM head is split over
+        `model`. The shares add up to the loss."""
+        from ..models.transformer import _model_group
+        from ..ops.losses import fused_linear_masked_lm, masked_lm
+        from ..parallel.collectives import copy_to
+
+        labels = batch["labels"]
+        count = all_reduce((labels != -100).sum().float(), self._data_groups())
+        cfg = self.module.cfg
+        name = "embed.weight" if cfg.tie_embeddings else "lm_head.weight"
+        local_v = params[name].shape[0]
+        group = _model_group(local_v, cfg.vocab_size)
+        vocab = None if group is None else (group, axis_index(self.mesh, "model") * local_v)
+        if self.fused_loss is not None:  # `out` carries features
+            return fused_linear_masked_lm(
+                copy_to(out, group), params[name].T, labels,
+                chunk_size=cfg.fused_loss_chunk, count=count, vocab=vocab,
+            )
+        return masked_lm(out, batch, count=count, vocab=vocab)
+
+    def _global(self, share: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' shares (their global mean)."""
+        if self.mesh is None:
+            return share
+        return all_reduce(share.detach().float().clone(), self._data_groups())
 
     def _update_state(self, box) -> None:
         if "batch_stats" in self.bundle.mutable:
@@ -388,8 +527,10 @@ class Trainer:
             for p in masters:
                 if p.grad is not None:
                     p.grad.div_(A)
+        if self.sharded is not None:
+            self.sharded.reduce_grads(self.module)
         metrics = {
-            "loss": loss.float(),
+            "loss": self._global(loss).float(),
             "learning_rate": float(np.float32(self.sched(step))),
             "grad_norm": global_norm(p.grad for p in masters if p.grad is not None),
         }
@@ -404,7 +545,9 @@ class Trainer:
         self.module.eval()
         params = self._compute_params()
         out, _, _ = self._apply(params, self._inputs(batch), None)
-        if self.fused_loss is not None:
+        if self.mesh is not None:
+            loss = self._global(self._mesh_loss(params, out, batch))
+        elif self.fused_loss is not None:
             loss = self.fused_loss(params, out, batch).float()
         else:
             loss = self.loss_fn(out, batch).float()
@@ -418,11 +561,18 @@ class Trainer:
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Load weights (e.g. `models.convert.params_from_jax` of the JAX
-        package's parameters) into the masters, cast to their dtype."""
+        package's parameters) into the masters, cast to their dtype; on a
+        mesh each rank keeps its shard of the full tensors."""
+        if self.sharded is not None:
+            self.sharded.load_full(self.module, state_dict)
+            return
         self.module.load_state_dict(state_dict)
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        if self.mesh is not None:  # this rank's slice of the host batch
+            batch = make_global_batch(batch, self.mesh, self._batch_placements)
+        return {k: v.to(self.device) for k, v in batch.items()}
 
     # -------------------------------------------------------------- loop
     def run(self) -> TrainResult:
@@ -490,7 +640,7 @@ class Trainer:
                 # durations add up to the step span's
                 with self.tracer.span("step", step=step) as step_span:
                     inject("trainer.step", step=step)
-                    if preemption.requested():
+                    if self._preemption_requested():
                         self._preempt_exit(step, start_step)
                     if prof_start is not None and step == prof_start and self.artifacts_dir:
                         self._start_profiler()
@@ -629,7 +779,8 @@ class Trainer:
             out["tokens_per_sec"] = sps * self._tokens_per_step
         if self._flops_per_step and self.device.type == "cuda":
             mfu = _mfu_of(
-                sps * self._flops_per_step, torch.cuda.get_device_name(self.device)
+                sps * self._flops_per_step, torch.cuda.get_device_name(self.device),
+                n_devices=dist.get_world_size() if self.mesh is not None else 1,
             )
             if mfu is not None:
                 out["mfu"] = mfu
@@ -655,6 +806,16 @@ class Trainer:
             self.event_fn(kind, body)
         except Exception:  # noqa: BLE001
             pass
+
+    def _preemption_requested(self) -> bool:
+        """The SIGTERM flag; on a mesh, raised on any rank (every rank then
+        stops at the same step and joins the checkpoint's gathers)."""
+        flag = preemption.requested()
+        if self.mesh is None or dist.get_world_size() == 1:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def _preempt_exit(self, step: int, start_step: int):
         """SIGTERM landed: flush a checkpoint of the `step` steps done and
@@ -704,8 +865,14 @@ class Trainer:
 
     def save(self, step: int, wait: bool = False) -> bool:
         """Save the state as `step` (asynchronous unless `wait`); False when
-        `step` is not newer than the newest saved step."""
-        return self._checkpoint_tiers().save(step, self.checkpoint_state(), wait=wait)
+        `step` is not newer than the newest saved step. On a mesh every
+        rank gathers the full tensors and rank 0 writes them."""
+        state = self.checkpoint_state()
+        if self.mesh is not None:
+            state = full_tensors(state)
+            if not self.is_writer:
+                return False
+        return self._checkpoint_tiers().save(step, state, wait=wait)
 
     def restore(self) -> int:
         """Load the newest intact step across both tiers (the durable copy

@@ -55,10 +55,10 @@ def train_step_flops(
     return float((6 * n_params + 12 * n_layers * dim * seq_len) * tokens)
 
 
-def mfu(flops_per_sec: float, device_name: str) -> Optional[float]:
-    """Model FLOPs utilization of one card against its peak bf16 rate; None
-    when the peak is unknown."""
+def mfu(flops_per_sec: float, device_name: str, n_devices: int = 1) -> Optional[float]:
+    """Model FLOPs utilization of `n_devices` cards against their peak bf16
+    rate; None when the peak is unknown."""
     peak = peak_bf16_flops(device_name)
     if not peak or flops_per_sec <= 0:
         return None
-    return flops_per_sec / peak
+    return flops_per_sec / (peak * max(1, n_devices))

@@ -58,9 +58,12 @@ def test_resolve_auto_backend(seq, block_kv, head_dim, device, expected):
 
 @pytest.mark.parametrize("backend", ["ring", "ulysses"])
 def test_context_parallel_backends_not_ported(backend):
+    """Context parallelism is ported (`parallel/`,
+    tests/test_torch_context_parallel.py); without a bound mesh the ring
+    and ulysses backends are the flash dispatch, as in the reference."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(S=16))
-    with pytest.raises(NotImplementedError):
-        dot_product_attention(q, k, v, causal=True, backend=backend)
+    out = dot_product_attention(q, k, v, causal=True, backend=backend)
+    assert torch.equal(out, dot_product_attention(q, k, v, causal=True, backend="flash"))
 
 
 def test_bad_backend_and_heads_raise():

@@ -59,7 +59,12 @@ def test_import_walk_sees_the_package():
             "layers.py", "mlp.py", "encoder.py", "vit.py", "bert.py", "seq2seq.py",
             "resnet.py", "moe.py", "convert_hf.py", "yaml_lite.py", "reader.py",
             "resolver.py", "interpolation.py", "executor.py", "run_client.py", "main.py",
-            "__main__.py", "operation.py", "component.py", "matrix.py"} <= names
+            "__main__.py", "operation.py", "component.py", "matrix.py",
+            "mesh.py", "sharding.py", "collectives.py", "params.py", "ring.py",
+            "ulysses.py", "worker.py", "health.py"} <= names
+    parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
+    assert {"mesh.py", "sharding.py", "collectives.py", "params.py", "ring.py",
+            "ulysses.py"} <= parallel
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
