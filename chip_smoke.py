@@ -370,6 +370,14 @@ PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}  # x n_layers
 TRAIN_MESH_AXES = {"data": 1, "fsdp": 1, "model": 1, "context": 1}
 TRAIN_MESH_TOL = 1e-4
 TRAIN_REFERENCE: dict = {}  # train's losses and step time, for train-mesh
+# train-stages: the train program with pipeline_stages 4 (the blocks'
+# weights stacked [4, 4, ...]) on a one-rank {pipeline: 1} mesh, where the
+# stages run as a plain loop over stages and layers from train's initial
+# weights; its losses against train's, relative, as train-mesh's (the same
+# kernels and products on slices of the stacked weights: the mesh path's
+# f32 sums of the metrics and of the clipping norm differ)
+STAGES = 4
+STAGES_MESH_AXES = {"pipeline": 1}
 # ring-hops: llama3-1b attention over a ring of RING["n"] chunks
 RING = dict(B=1, S=8192, H=32, KV=8, D=64, n=4, causal=True, dtype="bfloat16")
 # the ring's hops against whole-sequence flash, per row: o carries one
@@ -472,6 +480,26 @@ ZOO_CASES = [
 # sit as close to an f32 copy as the einsum path does (FORWARD_REL_SLACK)
 ZOO_BERT_ROWS = 8
 BERT_FLASH_VS_XLA = 2.5e-2
+# train-zoo-mesh: each ZOO_CASES configuration again on a one-rank `nccl`
+# mesh under its sharding rules (DTensor parameters), ZOO_STEPS steps so
+# the schedules decay as train-zoo's do, from the same seeded weights and
+# stream. ResNet-50 takes BatchNorm's statistics through the global
+# reduction (sums of x and x^2 over a global count) and the MoE runs under
+# an expert axis of 1. Losses against train-zoo's, relative: the f32 MLP
+# within 1e-5 (the mesh's loss is a sum over a count where train-zoo's is
+# a mean, and the clipping norm reduces over DTensor shards: the last f32
+# bits); the bf16 (mixed) models within 2e-3 (a last-bit f32 difference
+# in a BatchNorm statistic or an update flips some bf16 roundings
+# downstream, 2^-8 each, averaged over the batch). Running statistics
+# (ResNet-50's 106 buffers, max over channels relative to each buffer's
+# largest) within 2^-7: a flipped bf16 rounding moves a channel's
+# statistic by up to 2^-8 of it, and six steps of momentum compound a few
+# (read: 2.2e-4 to 1.4e-3 over three runs); a statistic of the wrong count
+# or of a part of the batch sits 1e-1 or more away
+ZOO_MESH_AXES = {"data": 1, "fsdp": 1, "model": 1}
+ZOO_MESH_TOL = {"float32": 1e-5, "mixed": 2e-3}
+ZOO_MESH_STATS_TOL = 2.0 ** -7
+ZOO_REFERENCE: dict = {}  # train-zoo's losses, statistics, step time, memory
 # serve-batched: three server configs on the full model under one traffic,
 # two waves of 8 concurrent greedy requests of SERVE_NEW tokens, 8 of the
 # 16 prompts behind one shared SERVE_PREFIX-token system prefix
@@ -546,7 +574,10 @@ INT8_TF_TOKENS = 2048
 # 2000-token rows need more than is free, so the idle prefix is demoted to
 # the spill tier (RAM in `tenants`, disk in `tenants-int8`) and wave 2
 # restores it.
-TENANT_RANK, TENANT_NEW, TENANT_SLOTS, TENANT_SEED, TENANT_BURST = 16, 32, 2, 8, 4
+# 8 new tokens a row: the same pages, sheds, spills and restores as 32
+# give, with a quarter of their decode steps and of the solo references'
+# steps, so the script keeps within half its time limit
+TENANT_RANK, TENANT_NEW, TENANT_SLOTS, TENANT_SEED, TENANT_BURST = 16, 8, 2, 8, 4
 TENANT_ADAPTERS = {"a1": "seed:1", "a2": "seed:2", "a3": "seed:3"}
 TENANTS = [
     {"name": "acme", "adapter": "a1"},
@@ -799,6 +830,10 @@ KERNEL_CASES = [
     # self-attention (causal, G=1), and the MoE model's attention at 2048
     # tokens (causal GQA 32/8)
     dict(case="bert-base-b32-s512", B=32, S=512, H=12, KV=12, D=64, causal=False,
+         dtype="bfloat16", block_q=128, block_kv=512),
+    # a rank's share of BERT-base's heads under examples/bert.yaml's
+    # `model: 2` (6 of 12)
+    dict(case="bert-base-model2-b32-s512", B=32, S=512, H=6, KV=6, D=64, causal=False,
          dtype="bfloat16", block_q=128, block_kv=512),
     dict(case="seq2seq-small-enc-b32-s128", B=32, S=128, H=8, KV=8, D=64, causal=False,
          dtype="bfloat16", block_q=128, block_kv=128),
@@ -1325,19 +1360,15 @@ def phase_train_mesh() -> dict:
     dispatches to flash at n=1) against train's losses; returns the
     launches."""
     import torch
-    import torch.distributed as dist
 
-    from polyaxon_tpu_torch.native import free_port
     from polyaxon_tpu_torch.ops.flash_attention import KERNELS
-    from polyaxon_tpu_torch.parallel.ring import set_current_mesh
     from polyaxon_tpu_torch.runtime import Trainer
 
     program = json.loads(json.dumps(TRAIN_PROGRAM))
     program["model"]["config"]["attention"] = "ring"
     for key in ("profileStart", "profileStop"):
         program["train"].pop(key)
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
-                            rank=0, world_size=1)
+    one_rank_group()
     try:
         torch.cuda.reset_peak_memory_stats()
         stamps = []
@@ -1372,8 +1403,7 @@ def phase_train_mesh() -> dict:
         check(launches == expected, f"train-mesh launches {launches}, expected {expected}")
         del trainer, result
     finally:
-        set_current_mesh(None)
-        dist.destroy_process_group()
+        leave_group()
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4082,6 +4112,11 @@ def zoo_case(case: dict) -> dict:
           f"move: {sorted(set(stats) - set(moved))[:5]}")
     if case["tag"] == "resnet50":
         check(len(stats) == 2 * 53, f"resnet50 has {len(stats)} running buffers, not 106")
+    ZOO_REFERENCE[case["tag"]] = {
+        "losses": losses, "step_s": step_s, "peak_mem_gb": line["peak_mem_gb"],
+        "stats": {k: v.detach().cpu().clone() for k, v in trainer.module.named_buffers()
+                  if "running" in k},
+    }
     del trainer, result
     gc.collect()
     torch.cuda.empty_cache()
@@ -4150,6 +4185,189 @@ def phase_train_zoo() -> dict:
         for name, n in zoo_case(case)["launches"].items():
             launches[name] = launches.get(name, 0) + n
     bert_flash_vs_xla()
+    return launches
+
+
+def one_rank_group():
+    """A one-rank `nccl` world for a phase on a mesh (the card machine has
+    one GPU; the collectives of a size-1 mesh dim are skipped)."""
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.native import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+
+
+def leave_group() -> None:
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.parallel.ring import set_current_mesh
+
+    set_current_mesh(None)
+    dist.destroy_process_group()
+
+
+def zoo_mesh_case(case: dict) -> dict:
+    """ZOO_CASES[tag] on ZOO_MESH_AXES (the MoE with an expert axis of 1)
+    for ZOO_STEPS steps, against train-zoo's run of it; the flash kernels'
+    counts are set to 0 just before the run and read just after."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    ref = ZOO_REFERENCE[case["tag"]]
+    program = {**case["program"], "train": {
+        **case["program"]["train"], "steps": ZOO_STEPS, "logEvery": 1}}
+    axes = dict(ZOO_MESH_AXES)
+    if program["model"]["config"].get("n_experts"):
+        axes["expert"] = 1
+    stamps = []
+    trainer = Trainer(program, mesh_axes=axes,
+                      log_fn=lambda step, m: stamps.append(time.perf_counter()))
+    dtensors = sum(isinstance(p, DTensor) for p in trainer.module.parameters())
+    n_params = sum(1 for _ in trainer.module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS:  # this configuration's mesh path starts here
+        kern.launches = 0
+    result = trainer.run()
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    losses = [h["loss"] for h in result.history]
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(gaps[1:])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    stats = {k: v.detach().cpu() for k, v in trainer.module.named_buffers() if "running" in k}
+    stats_rel = max(((stats[k] - v).abs().max() / v.abs().max()).item()
+                    for k, v in ref["stats"].items()) if ref["stats"] else 0.0
+    tol = ZOO_MESH_TOL[program["train"]["precision"]]
+    line = {
+        "phase": "train-zoo-mesh", "model": case["tag"], "mesh_axes": axes,
+        "backend": "nccl", "steps": ZOO_STEPS, "dtensor_params": f"{dtensors}/{n_params}",
+        "losses": losses, "train_zoo_losses": ref["losses"],
+        "max_rel_loss_vs_train_zoo": loss_rel,
+        "batch_stats": len(stats), "max_rel_batch_stats_vs_train_zoo": stats_rel,
+        "tol": tol, "stats_tol": ZOO_MESH_STATS_TOL, "median_step_seconds": step_s,
+        "train_zoo_median_step_seconds": ref["step_s"],
+        "step_time_vs_train_zoo": step_s / ref["step_s"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_zoo_peak_mem_gb": ref["peak_mem_gb"],
+        "launches": launches,
+    }
+    emit(line)
+    check(dtensors == n_params, f"{case['tag']}: {dtensors} of {n_params} parameters "
+          "are DTensors on the mesh")
+    check(len(losses) == ZOO_STEPS and loss_rel <= tol,
+          f"{case['tag']} on the mesh: losses {losses} against train-zoo's "
+          f"{ref['losses']}: {loss_rel} > {tol}")
+    check(set(stats) == set(ref["stats"]) and stats_rel <= ZOO_MESH_STATS_TOL,
+          f"{case['tag']} on the mesh: running statistics {stats_rel} from train-zoo's "
+          f"(limit {ZOO_MESH_STATS_TOL})")
+    want = {k.name: case["launches"].get(k.name, 0) * ZOO_STEPS for k in KERNELS}
+    check(launches == want, f"{case['tag']} on the mesh: launches {launches}, "
+          f"expected {want}")
+    del trainer, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_train_zoo_mesh() -> dict:
+    """Each ZOO_CASES configuration on a one-rank mesh (`zoo_mesh_case`);
+    returns the kernel launches summed over the runs."""
+    launches: dict = {}
+    one_rank_group()
+    try:
+        for case in ZOO_CASES:
+            for name, n in zoo_mesh_case(case)["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    finally:
+        leave_group()
+    return launches
+
+
+def stacked_state(state: dict, n_layers: int, stages: int) -> dict:
+    """A state dict of the block list (`layers.{i}.*`) → the pipelined
+    model's (`pipeline.stages.*`, [stages, layers per stage, ...])."""
+    import torch
+
+    out = {k: v for k, v in state.items() if not k.startswith("layers.")}
+    names = [k.split(".", 2)[2] for k in state if k.startswith("layers.0.")]
+    for name in names:
+        stack = torch.stack([state[f"layers.{i}.{name}"] for i in range(n_layers)])
+        out[f"pipeline.stages.{name}"] = stack.reshape(
+            stages, n_layers // stages, *stack.shape[1:])
+    return out
+
+
+def phase_train_stages() -> dict:
+    """The train program with STAGES pipeline stages on a one-rank
+    {pipeline: 1} mesh, from train's initial weights, against train's
+    losses; returns the launches."""
+    import torch
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    program = json.loads(json.dumps(TRAIN_PROGRAM))
+    program["model"]["config"]["pipeline_stages"] = STAGES
+    for key in ("profileStart", "profileStop"):
+        program["train"].pop(key)
+    one_rank_group()
+    try:
+        stamps = []
+        trainer = Trainer(program, mesh_axes=STAGES_MESH_AXES,
+                          log_fn=lambda step, m: stamps.append(time.perf_counter()))
+        cfg = trainer.module.cfg
+        # train's initial weights: its model from the same seed, stacked
+        plain = build_model("transformer_lm", TRAIN_PROGRAM["model"]["config"],
+                            device="cuda", seed=int(program["train"].get("seed", 0)))
+        trainer.load_state_dict(stacked_state(plain.module.state_dict(), cfg.n_layers,
+                                              STAGES))
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in KERNELS:  # the pipelined path starts here
+            kern.launches = 0
+        result = trainer.run()
+        torch.cuda.synchronize()
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+        step_s = statistics.median(gaps[1:])
+        losses = [h["loss"] for h in result.history]
+        ref = TRAIN_REFERENCE["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        expected = {k: PER_STEP[k] * cfg.n_layers * TRAIN_STEPS for k in PER_STEP}
+        stacked = trainer.module.pipeline.stages.attention.q_proj.weight
+        emit({
+            "phase": "train-stages", "mesh_axes": STAGES_MESH_AXES, "backend": "nccl",
+            "pipeline_stages": STAGES, "n_layers": cfg.n_layers,
+            "stacked_q_proj": list(stacked.shape), "steps": TRAIN_STEPS,
+            "tokens_per_step": TRAIN_TOKENS, "losses": losses, "train_losses": ref,
+            "max_rel_loss_vs_train": rel, "tol": TRAIN_MESH_TOL,
+            "median_step_seconds": step_s,
+            "train_median_step_seconds": TRAIN_REFERENCE["step_s"],
+            "step_time_vs_train": step_s / TRAIN_REFERENCE["step_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "train_peak_mem_gb": TRAIN_REFERENCE["peak_mem_gb"],
+            "launches": launches, "expected_launches": expected,
+        })
+        check(list(stacked.shape[:2]) == [STAGES, cfg.n_layers // STAGES],
+              f"stacked weights {list(stacked.shape)}")
+        check(len(losses) == len(ref) and rel <= TRAIN_MESH_TOL,
+              f"train-stages losses {losses} against train's {ref}: {rel} > "
+              f"{TRAIN_MESH_TOL}")
+        check(launches == expected, f"train-stages launches {launches}, expected {expected}")
+        del trainer, result
+    finally:
+        leave_group()
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4316,10 +4534,14 @@ def main(argv: list) -> int:
     for name, n in phase_train_mesh().items():
         launches[name] += n
     stamp("train-mesh")
+    for name, n in phase_train_stages().items():
+        launches[name] += n
+    stamp("train-stages")
     phase_train_vs_einsum()
     stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
-                       (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo")):
+                       (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo"),
+                       (phase_train_zoo_mesh, "train-zoo-mesh")):
         for name, n in phase().items():
             launches[name] += n
         stamp(tag)

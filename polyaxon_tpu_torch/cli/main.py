@@ -119,7 +119,10 @@ def cmd_run(a):
                                      base_dir=None)
     except CompilationError as e:
         raise ClickException(str(e))
-    why = refusal(compiled)
+    try:
+        why = refusal(compiled)
+    except ValueError as e:  # a replica over no whole number of devices
+        raise ClickException(str(e))
     if why is not None:
         raise NotImplementedError(why)
     if compiled.run.kind == "jaxjob" and compiled.run.program is not None:

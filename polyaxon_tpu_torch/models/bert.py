@@ -32,6 +32,7 @@ class Bert(nn.Module):
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=dtype)
         self.seq_len = seq_len
+        self.split_widths = (n_heads, dim * mlp_ratio)
         self.embed = nn.Embedding(vocab_size, dim, **factory)
         self.pos_embed = nn.Parameter(torch.empty(1, seq_len, dim, **factory))
         self.embed_norm = LayerNorm(dim, **factory)

@@ -14,6 +14,9 @@ nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
     layer_{i}/moe/router/kernel [D, E]      → layers.{i}.moe.router.weight [E, D]
     layer_{i}/moe/{gate,up,down}_kernel     → the same names, as they are
                                               ([E, D, F], [E, D, F], [E, F, D])
+    pipeline/stages/<block>/... [P, Lp, ...] → pipeline.stages.<block>.* (a
+                                              pipelined config: the kernels'
+                                              last two dims swapped)
 
 A zoo model's tree (`params_from_jax(params_np)` with no config: the MLP,
 ResNet, ViT, BERT, seq2seq, a lone MoE feed-forward) maps by its module
@@ -54,6 +57,7 @@ _MOMENTS = ("mu", "nu", "trace", "ema", "sum_of_squares", "v_row", "v_col", "v")
 # as it is, True transposed, or a permutation of its axes)
 Layout = dict[str, tuple[tuple[str, ...], Any]]
 _HWIO_TO_OIHW = (3, 2, 0, 1)
+_STACKED_T = (0, 1, 3, 2)
 _ZOO_NAMES = {"embedding": "weight", "scale": "weight"}
 _STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -127,25 +131,31 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
     p = _unwrap(params_np)
     layout: Layout = {"embed.weight": (("embed", "embedding"), False)}
 
-    def dense(prefix: str, path: tuple[str, ...]) -> None:
-        layout[f"{prefix}.weight"] = ((*path, "kernel"), True)
+    def dense(prefix: str, path: tuple[str, ...], how) -> None:
+        layout[f"{prefix}.weight"] = ((*path, "kernel"), how)
         for name in ("lora_a", "lora_b", "scale"):
             if name in _at(p, path):
                 layout[f"{prefix}.{name}"] = ((*path, name), False)
 
-    for i in range(cfg.n_layers):
-        pre, layer = f"layers.{i}", f"layer_{i}"
+    def block(pre: str, layer: tuple[str, ...], how) -> None:
         for name in _ATTN:
-            dense(f"{pre}.attention.{name}", (layer, "attention", name))
+            dense(f"{pre}.attention.{name}", (*layer, "attention", name), how)
         if getattr(cfg, "n_experts", 0) > 0:
-            layout[f"{pre}.moe.router.weight"] = ((layer, "moe", "router", "kernel"), True)
+            layout[f"{pre}.moe.router.weight"] = ((*layer, "moe", "router", "kernel"), how)
             for name in ("gate_kernel", "up_kernel", "down_kernel"):
-                layout[f"{pre}.moe.{name}"] = ((layer, "moe", name), False)
+                layout[f"{pre}.moe.{name}"] = ((*layer, "moe", name), False)
         else:
             for name in _MLP:
-                dense(f"{pre}.mlp.{name}", (layer, "mlp", name))
+                dense(f"{pre}.mlp.{name}", (*layer, "mlp", name), how)
         for norm in ("attention_norm", "mlp_norm"):
-            layout[f"{pre}.{norm}.scale"] = ((layer, norm, "scale"), False)
+            layout[f"{pre}.{norm}.scale"] = ((*layer, norm, "scale"), False)
+
+    if getattr(cfg, "pipeline_stages", 0) > 1:
+        # the stacked [P, Lp, in, out] kernels turn on their last two dims
+        block("pipeline.stages", ("pipeline", "stages"), _STACKED_T)
+    else:
+        for i in range(cfg.n_layers):
+            block(f"layers.{i}", (f"layer_{i}",), True)
     layout["final_norm.scale"] = (("final_norm", "scale"), False)
     if not cfg.tie_embeddings:
         layout["lm_head.weight"] = (("lm_head", "kernel"), True)
@@ -237,8 +247,8 @@ def opt_state_from_jax(
                 if how and field in ("v_row", "v_col"):
                     if how is not True:
                         raise NotImplementedError(
-                            f"{name}: adafactor's factored state of a conv kernel "
-                            "is not carried across"
+                            f"{name}: adafactor's factored state of a conv or "
+                            "stage-stacked kernel is not carried across"
                         )
                     source = _adafactor_source(field, p, groups[id(p)])
                 if source not in moments:

@@ -16,7 +16,12 @@ them (`flax.linen` defaults, not torch's):
   `dtype=jnp.float32`). BatchNorm's running statistics are the buffers
   `running_mean` and `running_var` (flax `batch_stats` `mean`/`var`):
   running = 0.9 running + 0.1 batch, with the biased batch variance, and no
-  `num_batches_tracked`. In eval mode it normalises by them.
+  `num_batches_tracked`. In eval mode it normalises by them. Under the
+  trainer's mesh the batch statistics are the global batch's, as GSPMD
+  takes them in the reference: the ranks that split the batch add up
+  their sums of x and x^2 (`parallel.collectives.sum_over`, whose backward
+  sums the gradients the same way), so every rank holds the same running
+  statistics.
 - `gelu` is flax's `nn.gelu`, the tanh approximation.
 
 What a forward sows (flax `self.sow("losses", ...)`: the MoE aux loss) and
@@ -167,6 +172,28 @@ def _fast_stats(x32: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def _batch_stats(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """BatchNorm's per-channel mean and variance of NCHW `x32`: on a bound
+    mesh with batch axes, over the global batch (the ranks' sums of x and
+    x^2 added up, differentiably, and divided by the global count; a mesh
+    whose batch axes have size 1 takes the same sums without a
+    collective)."""
+    from ..parallel.collectives import axis_group, sum_over
+    from ..parallel.mesh import BATCH_AXES
+    from ..parallel.ring import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or not set(BATCH_AXES) & set(mesh.mesh_dim_names):
+        return _fast_stats(x32, (0, 2, 3))
+    groups = [g for g in (axis_group(mesh, ax) for ax in BATCH_AXES) if g is not None]
+    count = x32.numel() // x32.shape[1]
+    for g in groups:
+        count *= torch.distributed.get_world_size(g)
+    sums = sum_over(torch.stack([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3))]), groups)
+    mean = sums[0] / count
+    return mean, (sums[1] / count - mean * mean).clamp_min(0.0)
+
+
 class LayerNorm(nn.Module):
     """flax nn.LayerNorm over the last axis."""
 
@@ -206,7 +233,7 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         x32 = x.float()
         if self.training:
-            mean, var = _fast_stats(x32, (0, 2, 3))
+            mean, var = _batch_stats(x32)
             m = self.momentum
             new_mean = m * self.running_mean + (1 - m) * mean.detach()
             new_var = m * self.running_var + (1 - m) * var.detach()

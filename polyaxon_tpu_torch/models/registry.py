@@ -38,7 +38,18 @@ class ModelBundle:
     - `aux_losses`: the forward sows auxiliary losses (the MoE balance
       loss), which the trainer adds to the training loss;
     - `input_shape`: one example's input, the shape `example_inputs` gives
-      the reference (flat or NHWC images, token ids).
+      the reference (flat or NHWC images, token ids);
+    - `sharding_rules`: (name regex, logical axes) per parameter, the
+      reference's rules in the port's names and layouts
+      (`parallel/sharding.py`), for training on a mesh;
+    - `split`: mesh axis → (name regex, dim or "partial"), how the forward
+      keeps parameters split over that axis (`parallel/params.py`): the
+      tensor-parallel blocks over `model`, the experts over `expert`, the
+      stages over `pipeline`; the rest is gathered for the forward;
+    - `split_widths`: the widths the `model` split cuts (heads, hidden
+      units); a `model` axis that does not divide all of them gets no
+      tensor parallelism: the forward gathers the weights and computes the
+      same function whole on each rank.
     """
 
     name: str
@@ -51,6 +62,9 @@ class ModelBundle:
     mutable: tuple = ()
     aux_losses: bool = False
     input_shape: tuple = ()
+    sharding_rules: tuple = ()
+    split: dict = dataclasses.field(default_factory=dict)
+    split_widths: tuple = ()
 
 
 def register(name: str):
@@ -82,9 +96,10 @@ def build_model(
 
 @register("transformer_lm")
 def build_transformer(config: dict, **kw) -> ModelBundle:
-    from .transformer import Transformer, _make_config
+    from .transformer import Transformer, _make_config, sharding
 
     cfg = _make_config(config)
+    rules, split = sharding(cfg)
     fused = None
     if cfg.fused_lm_loss:
         from ..ops.losses import fused_linear_masked_lm
@@ -106,6 +121,8 @@ def build_transformer(config: dict, **kw) -> ModelBundle:
         fused_loss=fused,
         aux_losses=cfg.n_experts > 0,
         input_shape=(cfg.seq_len,),
+        sharding_rules=rules,
+        split=split,
     )
 
 
@@ -139,7 +156,11 @@ def build_mlp(config: dict, **kw) -> ModelBundle:
         dropout_rate=float(config.get("dropout_rate", 0.0)),
         **kw,
     )
-    return ModelBundle("mlp", module, input_shape=(input_dim,))
+    # the reference's rules: the hidden layers' output dim over `model`
+    # (gathered for the forward: the next layer reads it whole), fsdp on
+    # the input dim
+    rules = ((r"dense_\d+\.weight$", ("model", "fsdp")), (r"head\.weight$", (None, "fsdp")))
+    return ModelBundle("mlp", module, input_shape=(input_dim,), sharding_rules=rules)
 
 
 @register("vit")
@@ -162,8 +183,16 @@ def build_vit(config: dict, **kw) -> ModelBundle:
         attention=str(base.get("attention", "xla")),
         **kw,
     )
+    from .encoder import ENCODER_RULES, ENCODER_TENSOR_PARALLEL
+
     size = module.image_size
-    return ModelBundle("vit", module, input_shape=(size, size, 3))
+    # patch_embed's output channels on `model` (an OIHW conv: dim 0) are
+    # gathered for the forward: the position add reads them whole
+    rules = ENCODER_RULES + ((r"patch_embed\.weight$", ("model", None, None, None)),
+                             (r"head\.weight$", (None, "fsdp")))
+    return ModelBundle("vit", module, input_shape=(size, size, 3), sharding_rules=rules,
+                       split={"model": ENCODER_TENSOR_PARALLEL},
+                       split_widths=module.split_widths)
 
 
 @register("bert")
@@ -185,8 +214,16 @@ def build_bert(config: dict, **kw) -> ModelBundle:
         attention=str(base.get("attention", "xla")),
         **kw,
     )
+    from .encoder import ENCODER_RULES, ENCODER_TENSOR_PARALLEL
+
+    # mlm_transform's output on `model` is gathered for the forward: the
+    # LayerNorm and the tied head read it whole
+    rules = ENCODER_RULES + ((r"embed\.weight$", (None, ("model", "fsdp"))),
+                             (r"mlm_transform\.weight$", ("model", "fsdp")))
     return ModelBundle("bert", module, loss="masked_lm", task="mlm",
-                       input_shape=(module.seq_len,))
+                       input_shape=(module.seq_len,), sharding_rules=rules,
+                       split={"model": ENCODER_TENSOR_PARALLEL},
+                       split_widths=module.split_widths)
 
 
 @register("seq2seq")
@@ -206,8 +243,13 @@ def build_seq2seq(config: dict, **kw) -> ModelBundle:
         attention=str(base.get("attention", "xla")),
         **kw,
     )
+    from .encoder import ENCODER_RULES, ENCODER_TENSOR_PARALLEL
+
+    rules = ENCODER_RULES + ((r"embed\.weight$", (None, ("model", "fsdp"))),)
     return ModelBundle("seq2seq", module, loss="masked_lm", task="mlm",
-                       input_shape=(module.src_len + module.tgt_len,))
+                       input_shape=(module.src_len + module.tgt_len,), sharding_rules=rules,
+                       split={"model": ENCODER_TENSOR_PARALLEL},
+                       split_widths=module.split_widths)
 
 
 @register("resnet")
@@ -224,8 +266,12 @@ def build_resnet(config: dict, **kw) -> ModelBundle:
         **kw,
     )
     size = int(config.get("image_size", 224))
+    # the 3x3 convs' output channels over fsdp (OIHW: dim 0) and the head
+    # over `model`, both gathered for the forward
+    rules = ((r"conv2\.weight$", ("fsdp", None, None, None)),
+             (r"head\.weight$", ("model", "fsdp")))
     return ModelBundle("resnet", module, input_shape=(size, size, 3), rngs=(),
-                       mutable=("batch_stats",))
+                       mutable=("batch_stats",), sharding_rules=rules)
 
 
 @register("resnet50")

@@ -20,8 +20,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
-from ..ops.attention import dot_product_attention
-from .encoder import EncoderBlock
+from ..parallel.collectives import copy_to
+from ..parallel.ring import model_group as _model_group
+from .encoder import EncoderBlock, row_parallel, split_attention
 from .layers import numbered, Dense, LayerNorm, dropout, gelu, seeded_init
 
 PRESETS = {
@@ -46,14 +47,7 @@ class CrossAttention(nn.Module):
             self.add_module(name, Dense(dim, dim, **factory))
 
     def forward(self, x, memory):
-        B, T, _ = x.shape
-        S = memory.shape[1]
-        hd = self.dim // self.n_heads
-        q = self.q_proj(x).reshape(B, T, self.n_heads, hd)
-        k = self.k_proj(memory).reshape(B, S, self.n_heads, hd)
-        v = self.v_proj(memory).reshape(B, S, self.n_heads, hd)
-        out = dot_product_attention(q, k, v, causal=False, backend="xla")
-        return self.o_proj(out.reshape(B, T, self.dim))
+        return split_attention(self, x, memory)
 
 
 class DecoderBlock(nn.Module):
@@ -65,19 +59,14 @@ class DecoderBlock(nn.Module):
         for name in _PROJ:
             self.add_module(name, Dense(dim, dim, **factory))
         self.cross = CrossAttention(dim, n_heads, **factory)
+        self.mlp_dim = mlp_dim
         self.fc1 = Dense(dim, mlp_dim, **factory)
         self.fc2 = Dense(mlp_dim, dim, **factory)
         for name in ("norm1", "norm2", "norm3"):
             self.add_module(name, LayerNorm(dim, **factory))
 
     def _self_attn(self, h):
-        B, T, _ = h.shape
-        hd = self.dim // self.n_heads
-        q = self.q_proj(h).reshape(B, T, self.n_heads, hd)
-        k = self.k_proj(h).reshape(B, T, self.n_heads, hd)
-        v = self.v_proj(h).reshape(B, T, self.n_heads, hd)
-        out = dot_product_attention(q, k, v, causal=True, backend=self.backend)
-        return self.o_proj(out.reshape(B, T, self.dim))
+        return split_attention(self, h, causal=True, backend=self.backend)
 
     def forward(self, x, memory, generator=None):
         def drop(h):
@@ -87,7 +76,9 @@ class DecoderBlock(nn.Module):
 
         x = x + drop(self._self_attn(self.norm1(x)))
         x = x + drop(self.cross(self.norm2(x), memory))
-        return x + drop(self.fc2(gelu(self.fc1(self.norm3(x)))))
+        h = self.norm3(x)
+        group = _model_group(self.fc1.weight.shape[0], self.mlp_dim)
+        return x + drop(row_parallel(self.fc2, gelu(self.fc1(copy_to(h, group))), group))
 
 
 class Seq2Seq(nn.Module):
@@ -99,6 +90,7 @@ class Seq2Seq(nn.Module):
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=dtype)
         self.src_len, self.tgt_len = src_len, tgt_len
+        self.split_widths = (n_heads, dim * mlp_ratio)
         self.embed = nn.Embedding(vocab_size, dim, **factory)
         self.src_pos = nn.Parameter(torch.empty(1, src_len, dim, **factory))
         self.tgt_pos = nn.Parameter(torch.empty(1, tgt_len, dim, **factory))

@@ -61,8 +61,18 @@ head leaves the logits split for the vocab-parallel loss. The `constrain`
 calls mark the reference's layout hints; on local shards they are the
 identity.
 
+`pipeline_stages > 1` replaces the block list by `PipelinedLayers`
+(`pipeline.stages.*`): each block parameter stacked to [P, Lp, ...], the
+reference's `pipeline/stages/...` tree. Under a mesh with a `pipeline` axis
+the stages run the GPipe schedule (`parallel/pipeline.py`) over
+`pipeline_microbatches` microbatches (P by default); without one (or with
+one of size 1) the same weights run as a plain loop over stages and
+layers, the reference's nested scan. As in the reference, the pipelined
+stack refuses dropout and MoE (ValueError in `_make_config`), and the
+KV-cache decode and `adapter_ix` (ValueError in `forward`).
+
 Config fields this port does not serve yet raise NotImplementedError
-instead of being ignored: pipeline_stages and scan_layers.
+instead of being ignored: scan_layers.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.nn import functional as F
 
 from ..device import resolve_device
@@ -81,6 +92,7 @@ from ..ops.attention import dot_product_attention
 from ..parallel.collectives import axis_group, axis_index, copy_to, reduce_from
 from ..parallel.mesh import axis_sizes
 from ..parallel.ring import current_mesh
+from ..parallel.ring import model_group as _model_group
 from ..parallel.sharding import constrain
 from .layers import dropout
 from .lora import lora_delta, run_proj
@@ -118,7 +130,8 @@ class TransformerConfig:
     # MoE: replace the dense FFN with n_experts switch-routed experts
     n_experts: int = 0
     capacity_factor: float = 1.25
-    pipeline_stages: int = 0  # not ported: must stay <= 1
+    pipeline_stages: int = 0  # > 1: GPipe stages over the mesh's pipeline axis
+    pipeline_microbatches: int = 0  # 0 = pipeline_stages
     # the speculative draft model's overrides of this config
     # (models/draft.py), a sorted (key, value) tuple; () = the defaults
     draft: tuple = ()
@@ -144,11 +157,8 @@ def check_ported(cfg: TransformerConfig) -> None:
     if cfg.quant not in ("none", "int8"):
         raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
     refused = {
-        "pipeline_stages": cfg.pipeline_stages > 1,
         "scan_layers": bool(cfg.scan_layers),
         "n_experts with quant='int8'": cfg.n_experts > 0 and cfg.quant == "int8",
-        "n_experts under a mesh with an expert axis": (
-            cfg.n_experts > 0 and axis_sizes(current_mesh()).get("expert", 1) > 1),
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
@@ -243,20 +253,6 @@ def _proj(cfg: TransformerConfig, name: str, in_f: int, out_f: int, **factory):
 # logical axes the batch dim may be split over (constrain degrades the
 # ones the live mesh lacks)
 BATCH = ("batch", "data", "fsdp")
-
-
-def _model_group(local: int, full: int):
-    """The bound mesh's `model` group when this rank holds `local` of a
-    `full`-wide projection (a tensor-parallel slice), else None."""
-    if local == full:
-        return None
-    group = axis_group(current_mesh(), "model")
-    if group is None:
-        raise ValueError(
-            f"a {local}-wide slice of a {full}-wide projection needs a bound "
-            "mesh with a model axis (parallel.ring.set_current_mesh)"
-        )
-    return group
 
 
 def context_offset(seq: int) -> int:
@@ -471,6 +467,55 @@ class Block(nn.Module):
         return x + h
 
 
+class PipelinedLayers(nn.Module):
+    """The block stack with stage-stacked weights [P, Lp, ...]: `stages` is
+    one `Block` whose every parameter carries the two leading dims, and a
+    layer's forward is that block called on its slices
+    (`torch.func.functional_call`)."""
+
+    def __init__(self, cfg: TransformerConfig, **factory):
+        super().__init__()
+        P = cfg.pipeline_stages
+        if cfg.n_layers % P:
+            raise ValueError(f"n_layers {cfg.n_layers} not divisible by pipeline_stages {P}")
+        self.cfg, self.per_stage = cfg, cfg.n_layers // P
+        self.stages = Block(cfg, **factory)
+        self._names = [name for name, _ in self.stages.named_parameters()]
+        for name in self._names:
+            owner, _, leaf = name.rpartition(".")
+            mod = self.stages.get_submodule(owner)
+            p = getattr(mod, leaf)
+            setattr(mod, leaf, nn.Parameter(
+                p.detach().expand(P, self.per_stage, *p.shape).clone(),
+                requires_grad=p.requires_grad))
+
+    def _stage(self, params: dict, h, cos, sin):
+        """One stage: its Lp layers in order; `params`: name → [Lp, ...]."""
+        for i in range(self.per_stage):
+            h = functional_call(self.stages, {n: t[i] for n, t in params.items()},
+                                (h, cos, sin))
+        return h
+
+    def forward(self, x, cos, sin):
+        stacked = {}
+        for name in self._names:
+            owner, _, leaf = name.rpartition(".")
+            stacked[name] = getattr(self.stages.get_submodule(owner), leaf)
+        group = axis_group(current_mesh(), "pipeline")
+        if group is not None:
+            from ..parallel.pipeline import pipeline_apply
+
+            return pipeline_apply(
+                lambda params, h: self._stage(params, h, cos, sin), stacked, x,
+                group=group, stages=self.cfg.pipeline_stages,
+                n_micro=self.cfg.pipeline_microbatches or self.cfg.pipeline_stages,
+            )
+        # no pipeline axis: the same weights as a plain loop over stages
+        for s in range(self.cfg.pipeline_stages):
+            x = self._stage({n: t[s] for n, t in stacked.items()}, x, cos, sin)
+        return x
+
+
 class Transformer(nn.Module):
     """The flagship LM. Weights are `dtype` (norm scales stay f32) on
     `device`, drawn from `seed` with a torch.Generator; load the JAX
@@ -490,7 +535,11 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=dtype)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **factory)
-        self.layers = nn.ModuleList(Block(cfg, **factory) for _ in range(cfg.n_layers))
+        if cfg.pipeline_stages > 1:
+            self.layers = nn.ModuleList()
+            self.pipeline = PipelinedLayers(cfg, **factory)
+        else:
+            self.layers = nn.ModuleList(Block(cfg, **factory) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=dev)
         self.lm_head = (
             None if cfg.tie_embeddings
@@ -589,6 +638,15 @@ class Transformer(nn.Module):
                     f"adapter_ix must be [B]={tokens.shape[0]}, got "
                     f"{tuple(adapter_ix.shape)}"
                 )
+        if self.cfg.pipeline_stages > 1:
+            if adapter_ix is not None:
+                raise ValueError("adapter_ix is not supported with pipeline_stages > 1")
+            if cache is not None:
+                raise ValueError(
+                    "KV-cache decode is not supported with pipeline_stages > 1 (the "
+                    "stage-stacked weights have no per-layer cache slots); generate "
+                    "with a non-pipelined copy of the params"
+                )
         if cache is None:
             misplaced = {
                 "pad": pad is not None, "pages": pages is not None,
@@ -612,6 +670,8 @@ class Transformer(nn.Module):
                 S, cache, pos, pad, pages, kv_layout, prefix_len, prefix_lens
             )
         x = constrain(self.embed(tokens.to(self.device)), BATCH, "context", None)
+        if self.cfg.pipeline_stages > 1:
+            x = self.pipeline(x, self.rope_cos, self.rope_sin)
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
@@ -770,6 +830,45 @@ TENSOR_PARALLEL = (
     (r"lm_head\.weight$", 0),
 )
 
+# The pipelined stack (`pipeline.stages.*`, [P, Lp, ...]): the reference's
+# PIPELINE_RULES, the stage dim on `pipeline` and the block rules on the
+# trailing dims, listed before the base rules so they match first; each
+# rank runs its own stage (all of the stacked parameters, norm scales
+# included, are split over `pipeline` for the forward).
+PIPELINE_RULES = tuple(
+    (r"stages\..*" + pat, ("pipeline", None, *axes))
+    for pat, axes in TRANSFORMER_RULES
+    if "embed" not in pat and "lm_head" not in pat
+)
+PIPELINE_TENSOR_PARALLEL = tuple(
+    (r"stages\..*" + pat, how + 2 if isinstance(how, int) else how)
+    for pat, how in TENSOR_PARALLEL if "lm_head" not in pat
+)
+
+# With experts, the reference keeps fsdp off the embedding and the LM head
+# (its edge rules; first match wins).
+MOE_EDGE_RULES = (
+    (r"embed\.weight$", (None, ("model",))),
+    (r"lm_head\.weight$", ("model", None)),
+)
+
+
+def sharding(cfg: TransformerConfig) -> tuple[tuple, dict]:
+    """(the parameter rules, the forward's splits by mesh axis) of
+    `Transformer(cfg)`, as the reference's builder composes its rules."""
+    rules, split = TRANSFORMER_RULES, {"model": TENSOR_PARALLEL}
+    if cfg.pipeline_stages > 1:
+        rules = PIPELINE_RULES + rules
+        split = {"model": PIPELINE_TENSOR_PARALLEL + TENSOR_PARALLEL,
+                 "pipeline": ((r"^pipeline\.stages\.", 0),)}
+    if cfg.n_experts > 0:
+        from .moe import MOE_RULES, MOE_SPLIT
+
+        rules = MOE_EDGE_RULES + MOE_RULES + rules
+        split = {"model": MOE_SPLIT["model"] + split["model"],
+                 "expert": MOE_SPLIT["expert"]}
+    return rules, split
+
 
 PRESETS: dict[str, dict] = {
     "tiny": dict(
@@ -819,4 +918,16 @@ def _make_config(config: dict) -> TransformerConfig:
     base: dict = dict(PRESETS.get(preset, {}))
     base.update({k: v for k, v in config.items() if v is not None})
     fields = {f.name for f in dataclasses.fields(TransformerConfig)}
-    return TransformerConfig(**{k: v for k, v in base.items() if k in fields})
+    cfg = TransformerConfig(**{k: v for k, v in base.items() if k in fields})
+    if cfg.pipeline_stages > 1:
+        # the reference's pipelined stack has no dropout rngs and cannot
+        # sow the MoE aux loss: it refuses both rather than change the
+        # training objective
+        if cfg.dropout_rate > 0:
+            raise ValueError("pipeline_stages > 1 does not support dropout_rate > 0")
+        if cfg.n_experts > 0:
+            raise ValueError(
+                "pipeline_stages > 1 does not support MoE (n_experts > 0): the "
+                "load-balancing aux loss cannot be sown through the pipelined stack"
+            )
+    return cfg

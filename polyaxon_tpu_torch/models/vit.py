@@ -32,6 +32,7 @@ class ViT(nn.Module):
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=dtype)
         self.image_size, self.patch = image_size, patch
+        self.split_widths = (n_heads, dim * mlp_ratio)
         self.patch_embed = Conv(3, dim, patch, stride=patch, padding="VALID", **factory)
         n_tokens = (image_size // patch) ** 2
         self.pos_embed = nn.Parameter(torch.empty(1, n_tokens, dim, **factory))

@@ -12,11 +12,12 @@ PyTorch matrix products (the reference leaves them to XLA), with the chunk
 logits as f32 products of the operands, as `preferred_element_type=f32`
 gives them there.
 
-Under a mesh (`runtime/trainer.py`) `masked_lm`, `accuracy` and the fused
-loss take two options. `count`: the global number of counted positions
-(summed over the ranks that split the batch and the sequence), so a rank
-returns its share of the global mean and the shares add up to it, not to
-a mean of per-rank means. `vocab=(group, start)`: the logits (or the lm
+Under a mesh (`runtime/trainer.py`) every loss, `accuracy` and the fused
+loss take `count`: the global number of counted positions, examples or
+elements (summed over the ranks that split the batch and the sequence),
+so a rank returns its share of the global mean and the shares add up to
+it, not to a mean of per-rank means. `masked_lm`, `accuracy` and the
+fused loss also take `vocab=(group, start)`: the logits (or the lm
 head) are this rank's slice [start, start + V_local) of a vocabulary split
 over `group` (the `model` axis); the logsumexp's max and sum are
 all-reduced over it and the target logit comes from the rank that owns it.
@@ -67,8 +68,9 @@ def _cross_entropy(logits, labels, vocab=None):
 
 
 @register_loss("softmax_cross_entropy")
-def softmax_cross_entropy(logits, batch):
-    return _cross_entropy(logits, batch["labels"]).mean()
+def softmax_cross_entropy(logits, batch, *, count=None):
+    losses = _cross_entropy(logits, batch["labels"])
+    return losses.mean() if count is None else losses.sum() / count
 
 
 @register_loss("masked_lm")
@@ -84,9 +86,10 @@ def masked_lm(logits, batch, *, count=None, vocab=None):
 
 
 @register_loss("mse")
-def mse(logits, batch):
+def mse(logits, batch, *, count=None):
     target = batch["labels"].float()
-    return ((logits.float() - target) ** 2).mean()
+    err = (logits.float() - target) ** 2
+    return err.mean() if count is None else err.sum() / count
 
 
 def accuracy(logits, batch, *, count=None, vocab=None) -> torch.Tensor:

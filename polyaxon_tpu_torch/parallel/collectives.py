@@ -13,7 +13,12 @@ is the collective's transpose:
   all-to-all;
 - `copy_to(x, group)` / `reduce_from(x, group)`: Megatron's f and g, the
   identity whose backward all-reduces, and the all-reduce whose backward
-  is the identity; the pair around a tensor-parallel block.
+  is the identity; the pair around a tensor-parallel block;
+- `sum_over(x, groups)`: the all-reduce every member goes on to use,
+  whose backward all-reduces too (BatchNorm's global statistics);
+- `broadcast_from(x, group, src)`: one member's value on all of them,
+  whose backward sums the cotangents onto that member (the pipeline's
+  last stage).
 
 `group=None` (no such axis on the mesh, or an axis of size 1) makes each of
 them the identity.
@@ -157,3 +162,56 @@ def reduce_from(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """All-reduce (sum) forward, identity backward: the members' partial
     outputs of a block summed into the whole."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return all_reduce(x.contiguous().clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.groups), None
+
+
+def sum_over(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum of `x` over the members of each group (an all-reduce), when
+    every member goes on to use the sum: the backward sums the members'
+    cotangents the same way (SyncBatchNorm's statistics)."""
+    groups = [g for g in groups if g is not None]
+    return _SumOver.apply(x, groups) if groups else x
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.group, ctx.src = group, src
+        out = x.contiguous().clone()
+        dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if dist.get_rank(ctx.group) != ctx.src:
+            g = torch.zeros_like(g)
+        return g, None, None
+
+
+def broadcast_from(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Member `src`'s `x` on every member of `group`; the backward sums the
+    members' cotangents onto `src` (the others' `x` gets zeros)."""
+    return x if group is None else _BroadcastFrom.apply(x, group, src)
+
+
+def exclusive_prefix(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the members of `group` ranked before this one
+    (zeros on the first); not differentiable."""
+    if group is None:
+        return torch.zeros_like(t)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    me = dist.get_rank(group)
+    return sum(parts[:me], torch.zeros_like(t))

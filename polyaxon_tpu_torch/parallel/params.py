@@ -6,17 +6,21 @@ DTensor, gathered for the forward by `redistribute`).
   rule (`sharding.param_shardings`), so a rank keeps exactly the shard the
   reference's device keeps; the optimizer's states follow it;
 - the forward's view (`views`): the parameter redistributed to its
-  compute placements, gathered over every axis but `model` where the
-  forward keeps a tensor-parallel split (`TENSOR_PARALLEL` rules of the
-  model: the dim kept split, or "partial"), and cast to the compute
-  dtype first when asked, so the gather moves the narrow type;
+  compute placements, gathered over every axis but those where the
+  forward keeps a split (`split`: per axis, the model's rules of the dim
+  it keeps split, or "partial"): `model` (tensor parallelism, the
+  model's `TENSOR_PARALLEL`), `expert` (each rank's experts) and
+  `pipeline` (each rank's stage), and cast to the compute dtype first
+  when asked, so the gather moves the narrow type;
 - its gradient: the local view's gradient is declared `Partial` over the
-  axes that split the data (data, fsdp, context: each rank saw other
-  tokens) and over `model` for "partial" parameters; autograd's
-  redistribute back to the storage placements reduce-scatters it over
-  `fsdp`, and `reduce_grads` all-reduces what is still partial once the
-  step's backward passes are done. A mesh dim of size 1 costs no
-  collective.
+  axes whose ranks add up to the loss (data, fsdp, context: each rank saw
+  other tokens; pipeline: each rank holds its share of the loss), and
+  over `model` for "partial" parameters; over `model` and `expert`, whose
+  ranks see the same tokens and compute the same loss, it is the same on
+  every rank (`SAME_TOKENS`). Autograd's redistribute back to the storage
+  placements reduce-scatters it over `fsdp`, and `reduce_grads`
+  all-reduces what is still partial once the step's backward passes are
+  done. A mesh dim of size 1 costs no collective.
 """
 
 from __future__ import annotations
@@ -31,7 +35,13 @@ from .mesh import axis_sizes
 from .sharding import local_shard, param_shardings, shard_tensor
 
 
-def _tensor_parallel(name: str, rules: Iterable) -> object:
+# axes whose ranks hold the same tokens and compute the same loss: a
+# parameter the forward does not split over one of them gets the same
+# gradient on each of its ranks
+SAME_TOKENS = ("model", "expert")
+
+
+def _split_rule(name: str, rules: Iterable) -> object:
     for pattern, how in rules:
         if re.search(pattern, name):
             return how
@@ -40,34 +50,41 @@ def _tensor_parallel(name: str, rules: Iterable) -> object:
 
 class ShardedParameters:
     """Replace `module`'s parameters by DTensors on `mesh` per `rules`
-    (the module must hold the same full values on every rank)."""
+    (the module must hold the same full values on every rank). `split`:
+    mesh axis → ((name regex, how), ...), how the forward keeps a
+    parameter split over that axis: the tensor dim it keeps split (when
+    the axis divides it), or "partial" (replicated, but used inside a
+    split block: its per-rank gradients are partial sums)."""
 
-    def __init__(self, module: nn.Module, mesh, rules, tensor_parallel=()):
+    def __init__(self, module: nn.Module, mesh, rules, split=None):
         from torch.distributed.tensor import Partial, Replicate, Shard
 
         self.mesh = mesh
         names = list(mesh.mesh_dim_names)
         sizes = axis_sizes(mesh)
-        model = names.index("model") if sizes.get("model", 1) > 1 else None
         named = list(module.named_parameters())
         self.storage = param_shardings(named, rules, mesh)
         self.compute: dict[str, list] = {}
         self.grad: dict[str, list] = {}
         for name, p in named:
-            store = self.storage[name]
-            how = _tensor_parallel(name, tensor_parallel)
             compute = [Replicate() for _ in names]
-            grad = [Partial() if sizes[n] > 1 else Replicate() for n in names]
-            if model is not None:
-                if isinstance(how, int) and store[model] == Shard(how):
-                    compute[model] = grad[model] = Shard(how)
-                elif how != "partial":
-                    grad[model] = Replicate()
+            grad = [Replicate() if sizes[n] == 1 or n in SAME_TOKENS else Partial()
+                    for n in names]
+            for axis, table in (split or {}).items():
+                if sizes.get(axis, 1) == 1:
+                    continue
+                i = names.index(axis)
+                how = _split_rule(name, table)
+                if how == "partial":
+                    grad[i] = Partial()
+                elif isinstance(how, int) and p.shape[how] % sizes[axis] == 0:
+                    compute[i] = grad[i] = Shard(how)
             self.compute[name], self.grad[name] = compute, grad
             owner, _, leaf = name.rpartition(".")
             mod = module.get_submodule(owner) if owner else module
             setattr(mod, leaf, nn.Parameter(
-                shard_tensor(p.detach(), mesh, store), requires_grad=p.requires_grad))
+                shard_tensor(p.detach(), mesh, self.storage[name]),
+                requires_grad=p.requires_grad))
 
     def views(self, params: dict, dtype=None) -> dict:
         """name → the local tensor the forward reads, differentiable back

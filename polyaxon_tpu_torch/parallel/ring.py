@@ -52,6 +52,20 @@ def current_mesh():
     return getattr(_MESH_STATE, "mesh", None)
 
 
+def model_group(local: int, full: int):
+    """The bound mesh's `model` group when this rank holds `local` of a
+    `full`-wide projection (a tensor-parallel slice), else None."""
+    if local == full:
+        return None
+    group = axis_group(current_mesh(), "model")
+    if group is None:
+        raise ValueError(
+            f"a {local}-wide slice of a {full}-wide projection needs a bound "
+            "mesh with a model axis (parallel.ring.set_current_mesh)"
+        )
+    return group
+
+
 def _chunk_attention(q, k, v, scale: float, full: bool, same: bool):
     """One KV chunk's contribution: (o unnormalized [B,S,H,D] f32, m, l
     [B,H,S,1]). `full`: every key is visible; `same`: the rank's own chunk

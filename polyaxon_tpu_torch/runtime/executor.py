@@ -14,15 +14,19 @@ without costing retry budget, init entries, sidecars and `pathRef` hooks.
 The device comes from `device=`, else `POLYAXON_TORCH_DEVICE` (the card
 unless it says `cpu`). A jaxjob over more than one device runs as a gang
 (`_run_distributed`): the native supervisor starts one worker process per
-device (`runtime/worker.py`, `gang_size`), and they train on one mesh.
-With fewer visible GPUs than workers the gang is refused before the run
-exists, naming both counts; the CPU (`gloo`) is used only when asked for.
-A mesh that resolves to one device runs as the single-device program: it
-computes the same thing. Refused with `NotImplementedError` before the run
-is created, each naming ROADMAP.md: a gang or mesh for a model other than
-the transformer LM, a replica over several devices, the `dag` kind, a
-`matrix:`, `schedule:` or `joins:`, named `connections:`, an artifacts
-init, a notifier hook and an elastic grant.
+device (`runtime/worker.py`), and they train on one mesh. Where the
+reference runs `replicas` processes that each drive all of a host's
+devices, a replica of k devices here is k workers (`replica_devices`: the
+mesh's fixed devices, or the `tpu:` chips, over `replicas`), `replicas x
+k` in all (`gang_size`); a spec from which no whole k follows is refused
+(ValueError), naming both numbers. With fewer visible GPUs than workers
+the gang is refused before the run exists, naming the counts; the CPU
+(`gloo`) is used only when asked for. A mesh that resolves to one device
+runs as the single-device program: it computes the same thing. Refused
+with `NotImplementedError` before the run is created, each naming
+ROADMAP.md: a gang of a config its workers would refuse (`scan_layers`),
+the `dag` kind, a `matrix:`, `schedule:` or `joins:`, named
+`connections:`, an artifacts init, a notifier hook and an elastic grant.
 """
 
 from __future__ import annotations
@@ -55,15 +59,39 @@ class StopRequested(Exception):
     boundary."""
 
 
-def gang_size(run) -> int:
-    """Worker processes a jaxjob runs on, one device each: `replicas` when
-    above 1 (the mesh resolves over them), else the devices its mesh fixes
-    (a -1 axis filling to 1)."""
+def replica_devices(run) -> int:
+    """Devices one replica of a jaxjob drives (k): with `replicas` above
+    1, the devices the mesh fixes (no -1 axis) over `replicas`, else the
+    chips of `environment.resources.tpu` over `replicas` (1 without a
+    `tpu:` block); a single replica drives the devices its mesh fixes (a
+    -1 axis filling to 1). A spec from which no whole k follows raises
+    ValueError naming both numbers."""
     replicas = int(run.replicas or 1)
-    if replicas > 1:
-        return replicas
     sizes = run.mesh.axis_sizes() if run.mesh else {}
-    return math.prod(v for v in sizes.values() if v != -1)
+    fixed = math.prod(v for v in sizes.values() if v != -1)
+    if replicas == 1:
+        return fixed
+    if sizes and -1 not in sizes.values():
+        total, what = fixed, f"the mesh {sizes} fixes {fixed} devices"
+    else:
+        env = getattr(run, "environment", None)
+        tpu = env.resources.tpu if env and env.resources else None
+        if tpu is None:
+            return 1
+        total, what = tpu.total_chips, f"environment.resources.tpu has {tpu.total_chips} chips"
+    if total % replicas:
+        raise ValueError(
+            f"{what}, which do not split into replicas: {replicas} (each replica "
+            "drives a whole number of devices)"
+        )
+    return total // replicas
+
+
+def gang_size(run) -> int:
+    """Worker processes a jaxjob runs on, one device each: `replicas`
+    times the devices of a replica (`replica_devices`); the mesh resolves
+    over all of them."""
+    return int(run.replicas or 1) * replica_devices(run)
 
 
 def gang_device_error(compiled: CompiledOperation, device) -> Optional[str]:
@@ -77,8 +105,9 @@ def gang_device_error(compiled: CompiledOperation, device) -> Optional[str]:
     world = gang_size(run)
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if world > 1 and visible < world:
-        return (f"the gang has {world} workers, one GPU each, but {visible} GPU(s) "
-                "are visible; set POLYAXON_TORCH_DEVICE=cpu to run it on the CPU")
+        return (f"the gang has {world} workers (replicas: {int(run.replicas or 1)} x "
+                f"{replica_devices(run)} devices each), one GPU each, but {visible} "
+                "GPU(s) are visible; set POLYAXON_TORCH_DEVICE=cpu to run it on the CPU")
     return None
 
 
@@ -102,22 +131,17 @@ def refusal(compiled: CompiledOperation) -> Optional[str]:
     for hook in op.hooks or ():
         if not hook.path_ref:
             return f"a notifier hook (connections/notifier.py) {_ROADMAP}"
-    if run.kind == "jaxjob" and gang_size(run) > 1:
-        from ..parallel.mesh import resolve_axis_sizes
+    if run.kind == "jaxjob" and run.program is not None and gang_size(run) > 1:
+        model = run.program.model
+        if model.name in ("transformer_lm", "llama"):
+            # what a gang's workers would refuse, refused before it starts
+            from ..models.transformer import _make_config, check_ported
 
-        replicas = int(run.replicas or 1)
-        sizes = run.mesh.axis_sizes() if run.mesh else {}
-        where = f"replicas: {replicas}, mesh {sizes}"
-        model = run.program.model.name if run.program is not None else None
-        if model is not None and model not in ("transformer_lm", "llama"):
-            return (f"{where}: model {model!r} on a mesh (the zoo's sharding rules, "
-                    f"models/encoder.py ENCODER_RULES and the like) {_ROADMAP}")
-        try:
-            resolve_axis_sizes(sizes or None, gang_size(run))
-        except ValueError as e:
-            return (f"{where}: a worker of the port drives one device, so a replica "
-                    f"over several devices (the reference's multi-chip hosts; {e}) "
-                    f"{_ROADMAP}")
+            try:
+                check_ported(_make_config(dict(model.config or {})))
+            except NotImplementedError as e:
+                sizes = run.mesh.axis_sizes() if run.mesh else {}
+                return f"replicas: {int(run.replicas or 1)}, mesh {sizes}: {e}"
     return None
 
 
@@ -578,6 +602,7 @@ class Executor:
             "--env", f"POLYAXON_PROGRAM_SPEC={spec_file.name}",
             "--env", f"POLYAXON_HOME={store.home}",
             "--env", f"POLYAXON_TORCH_DEVICE={self.device}",
+            "--env", f"POLYAXON_REPLICA_DEVICES={replica_devices(run)}",
             "--env", f"PYTHONPATH={root + (os.pathsep + path if path else '')}",
             "--", sys.executable, "-m", "polyaxon_tpu_torch.runtime.worker",
         ]

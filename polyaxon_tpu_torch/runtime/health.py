@@ -16,11 +16,13 @@ class SliceHealthError(RuntimeError):
     pass
 
 
-def check_slice(expected_devices: Optional[int] = None, device=None) -> dict:
+def check_slice(expected_devices: Optional[int] = None, device=None,
+                processes: Optional[int] = None) -> dict:
     """→ {"devices": world size, "platform", "device_kind",
     "all_reduce_ok": True, "process_count"}; raises SliceHealthError on
     any failure. `device`: where this rank's tensor lives (the current
-    CUDA device under `nccl`, else the CPU)."""
+    CUDA device under `nccl`, else the CPU). `processes`: the reference's
+    process count, one per replica (default: one per rank)."""
     if not dist.is_initialized():
         raise SliceHealthError("torch.distributed is not initialized")
     n = dist.get_world_size()
@@ -44,5 +46,5 @@ def check_slice(expected_devices: Optional[int] = None, device=None) -> dict:
         "device_kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
                         else "cpu"),
         "all_reduce_ok": True,
-        "process_count": n,
+        "process_count": n if processes is None else processes,
     }

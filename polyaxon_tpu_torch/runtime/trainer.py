@@ -86,18 +86,24 @@ weights and optimizer state in place.
 `mesh_axes` (and `slices`) train on a device mesh over the ranks of the
 `torch.distributed` world (`parallel/`), whatever its sizes, as the
 reference's jit with shardings does (a world of one needs no process
-group of the caller's: the trainer starts one). Each rank builds the same
-host batch and takes its slice (`make_global_batch`): the batch over
-data x fsdp, the sequence of token batches over `context`. The
-parameters are DTensors placed by the model's rules, gathered for the
-forward (`parallel/params.py`), and the optimizer runs on their shards.
-The loss is each rank's share of the mean over the global count of
-counted tokens, so the gradients' reductions make the global mean's; the
-vocabulary-split LM head gets the vocab-parallel loss. Rank 0 alone
-writes metrics, events, logs, spans, the profile and checkpoints, which
-hold the full tensors in the single-device format (a mesh, another mesh
-or one device resumes from them). This slice meshes the transformer LM;
-the zoo's rules, MoE, pipeline stages and the expert axis are refused
+group of the caller's: the trainer starts one), for every model of the
+registry. Each rank builds the same host batch and takes its slice
+(`make_global_batch`): the batch over data x fsdp, the sequence of the
+flagship's token batches over `context`. The parameters are DTensors
+placed by the model's rules (`ModelBundle.sharding_rules`), gathered for
+the forward but where it keeps them split (`ModelBundle.split`: tensor
+parallelism over `model`, the experts over `expert`, the stages over
+`pipeline`; `parallel/params.py`), and the optimizer runs on their
+shards. The loss is each rank's share of the mean over the global count
+(of labelled tokens, or of examples), so the gradients' reductions make
+the global mean's; the ranks of `pipeline` each hold an equal share of
+the same loss; the vocabulary-split LM head gets the vocab-parallel
+loss. BatchNorm takes its statistics over the global batch
+(`models/layers.py`), so the running statistics are the same on every
+rank. Rank 0 alone writes metrics, events, logs, spans, the profile and
+checkpoints, which hold the full tensors in the single-device format (a
+mesh, another mesh or one device resumes from them). A `context` axis
+over a zoo model (its attention needs the whole sequence) is refused
 with NotImplementedError (see ROADMAP.md).
 """
 
@@ -259,10 +265,12 @@ class Trainer:
                     p.data = p.data.to(self.param_dtype)
         self.sharded = None
         if self.mesh is not None:
-            from ..models.transformer import TENSOR_PARALLEL, TRANSFORMER_RULES
-
+            split = dict(self.bundle.split)
+            model = axis_sizes(self.mesh).get("model", 1)
+            if any(w % model for w in self.bundle.split_widths):
+                split.pop("model", None)  # no tensor parallelism: gathered
             self.sharded = ShardedParameters(
-                self.module, self.mesh, TRANSFORMER_RULES, TENSOR_PARALLEL)
+                self.module, self.mesh, self.bundle.sharding_rules, split)
         dspec = program.data  # none: the reference's image default
         self._data_args = (
             (dspec.name, int(dspec.batch_size), dspec.config) if dspec
@@ -332,22 +340,8 @@ class Trainer:
 
     def _bind_mesh(self, program, mesh_axes, slices):
         """The mesh over the world (a world of one started here when no
-        process group exists), bound for the model's collectives; refuses
-        what this slice does not mesh."""
-        name = program.model.name
-        config = program.model.config or {}
+        process group exists), bound for the model's collectives."""
         sizes = dict(mesh_axes or {})
-        refused = {
-            f"model {name!r} (the zoo's sharding rules)": name not in ("transformer_lm", "llama"),
-            "n_experts (MoE)": bool(config.get("n_experts")),
-            "a pipeline axis": sizes.get("pipeline", 1) not in (1, -1),
-            "an expert axis": sizes.get("expert", 1) not in (1, -1),
-        }
-        bad = [what for what, hit in refused.items() if hit]
-        if bad:
-            raise NotImplementedError(
-                f"{bad} on a mesh are not ported to PyTorch yet (see ROADMAP.md)"
-            )
         if not dist.is_initialized():
             if math.prod(v for v in sizes.values() if v != -1) > 1 or slices > 1:
                 raise RuntimeError(
@@ -365,8 +359,9 @@ class Trainer:
 
     def _validate_mesh_fit(self):
         """Every mesh axis must divide the model or data dimension it
-        splits (the reference's `_validate_mesh_fit`), plus the hidden width
-        the port splits over `model`."""
+        splits (the reference's `_validate_mesh_fit`: heads over `model`,
+        the sequence over `context`, layers over `pipeline`, experts over
+        `expert`), plus the hidden width the port splits over `model`."""
         sizes, cfg = axis_sizes(self.mesh), getattr(self.module, "cfg", None)
 
         def check(axis: int, dim: int, what: str):
@@ -376,13 +371,30 @@ class Trainer:
                     f"the mesh's {axis}-way split — adjust the mesh or the model"
                 )
 
+        ctx = sizes.get("context", 1)
+        if cfg is None:  # the zoo
+            if ctx > 1:
+                raise NotImplementedError(
+                    f"a context axis over model {self.bundle.name!r} (its attention "
+                    "reads the whole sequence) is not ported to PyTorch yet "
+                    "(see ROADMAP.md)"
+                )
+            return
         model = sizes.get("model", 1)
         check(model, cfg.n_heads, "n_heads")
         check(model, cfg.n_kv_heads, "n_kv_heads")
         check(model, cfg.ffn_dim, "hidden_dim")
-        ctx = sizes.get("context", 1)
         seq = self.data.meta.get("seq_len") or cfg.seq_len
         check(ctx, int(seq), "data seq_len")
+        check(sizes.get("pipeline", 1), cfg.n_layers, "n_layers")
+        exp = sizes.get("expert", 1)
+        if exp > 1:
+            if cfg.n_experts == 0:
+                raise ValueError(
+                    "mesh declares an expert axis but the model has no "
+                    "experts (set model.config.n_experts)"
+                )
+            check(exp, cfg.n_experts, "n_experts")
 
     def _validate_data_shape(self):
         """A stream that declares its feature shape (the classification
@@ -459,21 +471,37 @@ class Trainer:
 
     # ------------------------------------------------------------- mesh
     def _data_groups(self) -> list:
-        """The groups whose ranks hold other tokens: the batch axes and
-        `context`."""
-        return [axis_group(self.mesh, ax) for ax in (*BATCH_AXES, "context")]
+        """The groups whose ranks' loss shares add up to the loss: the
+        batch axes and `context` (their ranks hold other tokens), and
+        `pipeline` (its ranks hold equal shares of the same loss)."""
+        return [axis_group(self.mesh, ax) for ax in (*BATCH_AXES, "context", "pipeline")]
+
+    def _count(self, out, batch) -> torch.Tensor:
+        """The global count the loss averages over, summed over
+        `_data_groups`: the labelled tokens (masked LM), the examples
+        (cross-entropy) or the elements (mse)."""
+        labels = batch["labels"]
+        if self.loss_name == "masked_lm":
+            local = (labels != -100).sum().float()
+        elif self.loss_name == "mse":
+            local = torch.tensor(float(out.numel()), device=out.device)
+        else:
+            local = torch.tensor(float(labels.shape[0]), device=labels.device)
+        return all_reduce(local, self._data_groups())
 
     def _mesh_loss(self, params, out, batch):
-        """This rank's share of the masked-LM mean over the global count
-        of labelled tokens; vocab-parallel where the LM head is split over
-        `model`. The shares add up to the loss."""
+        """This rank's share of the loss's mean over the global count;
+        for the transformer LM vocab-parallel where the LM head is split
+        over `model`. The shares add up to the loss."""
         from ..models.transformer import _model_group
         from ..ops.losses import fused_linear_masked_lm, masked_lm
         from ..parallel.collectives import copy_to
 
+        count = self._count(out, batch)
+        cfg = getattr(self.module, "cfg", None)
+        if cfg is None or self.bundle.task != "lm":
+            return self.loss_fn(out, batch, count=count)
         labels = batch["labels"]
-        count = all_reduce((labels != -100).sum().float(), self._data_groups())
-        cfg = self.module.cfg
         name = "embed.weight" if cfg.tie_embeddings else "lm_head.weight"
         local_v = params[name].shape[0]
         group = _model_group(local_v, cfg.vocab_size)
@@ -490,6 +518,12 @@ class Trainer:
         if self.mesh is None:
             return share
         return all_reduce(share.detach().float().clone(), self._data_groups())
+
+    def _accuracy(self, out, batch) -> torch.Tensor:
+        """Accuracy, on a mesh this rank's share of the global one."""
+        if self.mesh is None:
+            return accuracy_metric(out, batch)
+        return accuracy_metric(out, batch, count=self._count(out, batch))
 
     def _update_state(self, box) -> None:
         if "batch_stats" in self.bundle.mutable:
@@ -508,7 +542,7 @@ class Trainer:
             loss.backward()
             self._update_state(box)  # after the backward's recompute, if any
             loss = loss.detach()
-            acc = accuracy_metric(out.detach(), batch) if self.is_classification else None
+            acc = self._accuracy(out.detach(), batch) if self.is_classification else None
         else:
             A = self.grad_accum
             micro = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:]) for k, v in batch.items()}
@@ -521,7 +555,7 @@ class Trainer:
                 self._update_state(box)  # the next microbatch sees these stats
                 loss = loss + loss_i.detach()
                 if self.is_classification:
-                    acc = acc + accuracy_metric(out.detach(), mb)
+                    acc = acc + self._accuracy(out.detach(), mb)
             loss = loss / A
             acc = acc / A if self.is_classification else None
             for p in masters:
@@ -535,7 +569,7 @@ class Trainer:
             "grad_norm": global_norm(p.grad for p in masters if p.grad is not None),
         }
         if acc is not None:
-            metrics["accuracy"] = acc
+            metrics["accuracy"] = self._global(acc)
         self.optimizer.step()
         self.step += 1
         return metrics
@@ -553,7 +587,7 @@ class Trainer:
             loss = self.loss_fn(out, batch).float()
         metrics = {"eval.loss": loss}
         if self.is_classification:
-            metrics["eval.accuracy"] = accuracy_metric(out, batch)
+            metrics["eval.accuracy"] = self._global(self._accuracy(out, batch))
         # cross-entropy family: loss is mean nats per token
         if "cross_entropy" in self.loss_name or self.loss_name == "masked_lm":
             metrics["eval.perplexity"] = torch.exp(loss)
@@ -562,9 +596,13 @@ class Trainer:
     def load_state_dict(self, state_dict: dict) -> None:
         """Load weights (e.g. `models.convert.params_from_jax` of the JAX
         package's parameters) into the masters, cast to their dtype; on a
-        mesh each rank keeps its shard of the full tensors."""
+        mesh each rank keeps its shard of the full tensors (and the whole
+        of the buffers)."""
         if self.sharded is not None:
             self.sharded.load_full(self.module, state_dict)
+            buffers = dict(self.module.named_buffers())  # BatchNorm's statistics
+            self.module.load_state_dict(
+                {k: v for k, v in state_dict.items() if k in buffers}, strict=False)
             return
         self.module.load_state_dict(state_dict)
 

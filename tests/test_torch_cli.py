@@ -220,10 +220,19 @@ def _op_file(tmp_path, name, body):
 JOB = "component:\n  kind: component\n  run: {kind: job, container: {command: ['true']}}\n"
 
 
+def _with_scan_layers(example: str) -> str:
+    """An example's text with `scan_layers: true` in its model config."""
+    text = (REPO / "examples" / example).read_text()
+    return re.sub(r"(\n( +)config:\n)", r"\1\2  scan_layers: true\n", text, count=1)
+
+
+# A gang (replicas over several devices) runs, the zoo's included
+# (tests/test_torch_worker_replicas.py); one of a config its workers would
+# refuse is refused before it starts.
 @pytest.mark.parametrize("argv,what", [
-    (["run", "-f", str(REPO / "examples" / "bert.yaml")], "replicas: 8"),
-    (["run", "-f", str(REPO / "examples" / "resnet50.yaml")], "replicas: 2"),
-    (["run", "-f", str(REPO / "examples" / "llama_lora.yaml")], "replicas: 8"),
+    (["run", "-f", "@scan-longcontext"], "replicas: 8"),
+    (["run", "-f", "@scan-replicas2"], "replicas: 2"),
+    (["run", "-f", "@scan-llama_lora"], "replicas: 8"),
     (["run", "-f", str(REPO / "examples" / "vit_hyperband.yaml")], "matrix"),
     (["run", "-f", "@sched"], "schedule"),
     (["run", "-f", "@joins"], "joins"),
@@ -237,6 +246,12 @@ def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, wha
         "@joins": _op_file(tmp_path, "joins", "kind: operation\njoins: [{query: 'x'}]\n" + JOB),
         "@conn": _op_file(tmp_path, "conn", "kind: operation\n" + JOB.replace(
             "kind: job,", "kind: job, connections: [s3],")),
+        "@scan-longcontext": _op_file(tmp_path, "scan-lc", _with_scan_layers("longcontext.yaml")),
+        "@scan-llama_lora": _op_file(tmp_path, "scan-ll", _with_scan_layers("llama_lora.yaml")),
+        "@scan-replicas2": _op_file(tmp_path, "scan-r2", (
+            "kind: operation\ncomponent:\n  kind: component\n  run:\n    kind: jaxjob\n"
+            "    replicas: 2\n    mesh: {data: -1}\n    program:\n      model:\n"
+            "        name: transformer_lm\n        config: {preset: tiny, scan_layers: true}\n")),
     }
     code, out, err = homes.ours(*[files.get(a, a) for a in argv])
     assert code == 1 and out == ""

@@ -282,9 +282,15 @@ def test_job_and_service_containers(stores):
     assert "8123" in stores[0].read_logs(uid)
 
 
+# a gang of a config its workers would refuse (scan_layers) is refused
+# before it starts; the zoo's gangs and replicas over several devices run
+# (tests/test_torch_worker_replicas.py, tests/test_torch_zoo_mesh.py)
+SCAN_LM = {**LM, "config": {**LM["config"], "scan_layers": True}}
+
+
 @pytest.mark.parametrize("doc,what", [
-    (op(dict(program(MLP, MNIST, 2), replicas=2)), "replicas: 2"),
-    (op(dict(program(MLP, MNIST, 2), mesh={"data": 2})), "mesh"),
+    (op(dict(program(SCAN_LM, LM_DATA, 2), replicas=2)), "replicas: 2"),
+    (op(dict(program(SCAN_LM, LM_DATA, 2), mesh={"data": 2})), "mesh"),
     (op({"kind": "job", "container": {"command": ["true"]}, "connections": ["s3"]}),
      "connections"),
     (op({"kind": "job", "container": {"command": ["true"]},

@@ -64,7 +64,7 @@ def test_import_walk_sees_the_package():
             "ulysses.py", "worker.py", "health.py"} <= names
     parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
     assert {"mesh.py", "sharding.py", "collectives.py", "params.py", "ring.py",
-            "ulysses.py"} <= parallel
+            "ulysses.py", "pipeline.py"} <= parallel
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
@@ -79,6 +79,9 @@ def test_default_device_is_the_card(monkeypatch):
         Transformer(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         build_model("transformer_lm", dict(dim=32, n_layers=1, n_heads=2, vocab_size=16))
+    with pytest.raises(RuntimeError, match="cuda"):  # the pipelined stack too
+        Transformer(_make_config(dict(dim=32, n_layers=2, n_heads=2, n_kv_heads=1,
+                                      vocab_size=16, seq_len=16, pipeline_stages=2)))
     with pytest.raises(RuntimeError, match="cuda"):
         ModelServer(Transformer(cfg, device="cpu"))
     # the multi-tenant server (stacked adapter slots, the registry and its

@@ -239,14 +239,16 @@ def test_program_without_data_raises():
 
 def test_mesh_axes_raise():
     """A mesh over more than one device needs the caller's world (one
-    process per device: tests/test_torch_trainer_mesh.py), and the zoo's
-    rules on a mesh are not ported."""
+    process per device: tests/test_torch_trainer_mesh.py); a zoo model on
+    a mesh of one trains under its rules (tests/test_torch_zoo_mesh.py
+    holds the larger meshes)."""
     with pytest.raises(RuntimeError, match="torch.distributed world"):
         Trainer(program(), device="cpu", mesh_axes={"data": 2})
     zoo = {"model": {"name": "mlp", "config": {"input_dim": 784}},
            "data": {"name": "mnist", "batchSize": 8}, "train": {"steps": 1}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(zoo, device="cpu", mesh_axes={"data": 1})
+    trainer = Trainer(zoo, device="cpu", mesh_axes={"data": 1})
+    assert trainer.sharded is not None and trainer.bundle.sharding_rules
+    assert np.isfinite(trainer.run().history[-1]["loss"])
 
 
 def test_fused_loss_refuses_another_loss():

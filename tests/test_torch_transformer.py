@@ -113,14 +113,14 @@ def test_features_match_jax():
 )
 def test_make_config_matches_jax(config):
     """Every field the port keeps equals the reference's, the training
-    fields (dropout, fused loss), int8 `quant`, the draft model's overrides
-    and the MoE capacity factor included; the pipeline tuning field is not
-    carried."""
+    fields (dropout, fused loss), int8 `quant`, the draft model's overrides,
+    the MoE capacity factor and the pipeline's stages and microbatches
+    included."""
     ours = dataclasses.asdict(_make_config(config))
     ref = dataclasses.asdict(jax_make_config(config))
     assert ours == {name: ref[name] for name in ours}
     assert {"dropout_rate", "fused_lm_loss", "fused_loss_chunk", "quant", "draft"} <= set(ours)
-    assert "capacity_factor" in ours and "pipeline_microbatches" not in ours
+    assert {"capacity_factor", "pipeline_stages", "pipeline_microbatches"} <= set(ours)
 
 
 @pytest.mark.parametrize(
@@ -156,11 +156,18 @@ def test_unknown_preset_raises():
     ids=lambda f: next(iter(f)),
 )
 def test_unported_config_fields_raise(field):
-    """Pipelines and scanned layers are still refused; int8 `quant` is
-    ported: it builds the int8 projections (and refuses an unknown kind),
-    and so are `adapter_slots`: each LoRA pair stacked to [slots, ...], and
-    `n_experts`: each block's FFN an MoE under `moe` (int8 projections of
-    it are refused)."""
+    """Scanned layers are still refused; int8 `quant` is ported: it builds
+    the int8 projections (and refuses an unknown kind), and so are
+    `adapter_slots`: each LoRA pair stacked to [slots, ...], `n_experts`:
+    each block's FFN an MoE under `moe` (int8 projections of it are
+    refused), and `pipeline_stages`: the blocks' weights stacked to
+    [stages, layers per stage, ...] under `pipeline.stages`
+    (tests/test_torch_trainer_pipeline.py runs them)."""
+    if "pipeline_stages" in field:
+        model = Transformer(_make_config({**SMALL, **field}), device="cpu")
+        q = model.pipeline.stages.attention.q_proj.weight
+        assert len(model.layers) == 0 and q.shape[:2] == (2, SMALL["n_layers"] // 2)
+        return
     if "n_experts" in field:
         from polyaxon_tpu_torch.models.moe import MoEFeedForward
 

@@ -72,30 +72,125 @@ def run_world(n: int, cases: list, timeout: float = 300.0) -> list:
 
 # ------------------------------------------------------------------ cases
 def _np(t):
-    return t.detach().float().cpu().numpy()
+    return t.detach().float().cpu().numpy().copy()  # never a view of live storage
 
 
 def trainer_run(program, mesh_axes=None, slices=1, state=None, checkpoint_dir=None,
-                restore=False):
+                restore=False, shards=()):
     """Train `program` on the mesh; (losses, grad norms, eval metrics by
-    step, the final parameters in full). `state`: full starting weights."""
+    step, the final parameters in full, the buffers, the rank's local
+    shards of the parameters named in `shards` before training). `state`:
+    full starting weights (and buffers)."""
+    import torch
+
     from polyaxon_tpu_torch.parallel.params import full_tensors
     from polyaxon_tpu_torch.runtime import Trainer
 
     trainer = Trainer(program, device="cpu", mesh_axes=mesh_axes, slices=slices,
                       checkpoint_dir=checkpoint_dir)
     if state is not None:
-        trainer.load_state_dict({k: __import__("torch").from_numpy(v) for k, v in state.items()})
+        trainer.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     if restore:
         trainer.restore()
+    named = dict(trainer.module.named_parameters())
+    local = {n: _np(named[n].to_local()) for n in shards}
     result = trainer.run()
     trainer.close()
     params = full_tensors(dict(trainer.module.named_parameters()))
     return {
         "history": result.history,
         "params": {k: _np(v) for k, v in params.items()},
+        "buffers": {k: _np(v) for k, v in trainer.module.named_buffers()
+                    if "running" in k},
+        "shards": local,
         "step": trainer.step,
     }
+
+
+def moe_step(program, mesh_axes, state):
+    """One forward and backward of the MoE transformer on the mesh, on the
+    stream's first batch: the global loss and aux loss, the tokens past
+    their expert's capacity in each layer (summed over the ranks that hold
+    other tokens), and the full gradients of the MoE parameters."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.collectives import all_reduce
+    from polyaxon_tpu_torch.parallel.params import full_tensors
+    from polyaxon_tpu_torch.runtime import Trainer
+    from polyaxon_tpu_torch.runtime.trainer import step_seed
+
+    trainer = Trainer(program, device="cpu", mesh_axes=mesh_axes)
+    trainer.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    batch = trainer._to_device(next(trainer.data.iterator))
+    dropped = []
+    for i, layer in enumerate(trainer.module.layers):
+        layer.moe.register_forward_hook(
+            lambda mod, args, out: dropped.append((out.abs().sum(-1) == 0).sum().float()))
+    trainer.module.train()
+    loss, _, box = trainer._loss(batch, step_seed(0, 0))
+    loss.backward()
+    if trainer.sharded is not None:
+        trainer.sharded.reduce_grads(trainer.module)
+    groups = trainer._data_groups() if trainer.mesh is not None else []
+    grads = {n: _np(full_tensors(p.grad)) for n, p in trainer.module.named_parameters()
+             if ".moe." in n}
+    trainer.close()
+    return {
+        "loss": float(trainer._global(loss)),
+        "aux": float(trainer._global(box.aux_loss("cpu"))),
+        "dropped": [float(all_reduce(d, groups)) for d in dropped],
+        "grads": grads,
+    }
+
+
+def forward_grads(program, mesh_axes, state, tokens):
+    """The logits of `tokens` (this rank's batch slice) and the full
+    gradients of their mean, through the Trainer's forward on the mesh.
+    The ranks of `pipeline` hold equal shares of the loss, so each takes
+    the mean over their count."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.mesh import axis_sizes
+    from polyaxon_tpu_torch.parallel.params import full_tensors
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    trainer = Trainer(program, device="cpu", mesh_axes=mesh_axes)
+    trainer.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    params = trainer._compute_params()
+    logits, _, _ = trainer._apply(params, torch.from_numpy(tokens), None)
+    (logits.float().mean() / axis_sizes(trainer.mesh).get("pipeline", 1)).backward()
+    if trainer.sharded is not None:
+        trainer.sharded.reduce_grads(trainer.module)
+    grads = {n: _np(full_tensors(p.grad)) for n, p in trainer.module.named_parameters()}
+    trainer.close()
+    return {"logits": _np(logits), "grads": grads}
+
+
+def trainer_error(program, mesh_axes):
+    """(type name, message) of what building a Trainer on the mesh
+    raises, or None."""
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    try:
+        Trainer(program, device="cpu", mesh_axes=mesh_axes).close()
+    except Exception as e:  # noqa: BLE001 — handed back to the test
+        return type(e).__name__, str(e)
+    return None
+
+
+def trainer_step_error(program, mesh_axes):
+    """(type name, message) of what the Trainer's first step on the mesh
+    raises, or None."""
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    trainer = Trainer(program, device="cpu", mesh_axes=mesh_axes)
+    try:
+        trainer.run()
+    except Exception as e:  # noqa: BLE001 — handed back to the test
+        return type(e).__name__, str(e)
+    finally:
+        trainer.close()
+    return None
 
 
 def param_layout(program, mesh_axes, state, slices=1):
@@ -104,7 +199,6 @@ def param_layout(program, mesh_axes, state, slices=1):
     rank layout."""
     import torch
 
-    from polyaxon_tpu_torch.models.transformer import TRANSFORMER_RULES
     from polyaxon_tpu_torch.parallel.sharding import param_specs
     from polyaxon_tpu_torch.runtime import Trainer
 
@@ -113,7 +207,7 @@ def param_layout(program, mesh_axes, state, slices=1):
     trainer.close()
     named = list(trainer.module.named_parameters())
     return {
-        "specs": param_specs(named, TRANSFORMER_RULES, trainer.mesh),
+        "specs": param_specs(named, trainer.bundle.sharding_rules, trainer.mesh),
         "shards": {n: _np(p.to_local()) for n, p in named},
         "ranks": trainer.mesh.mesh.numpy(),
     }
