@@ -92,11 +92,25 @@ BASELINE configurations.
                per config, the decode weight bytes before and after
                quantization, then profiles an int8 decode step (which
                must launch int8_matmul 4 times a layer: q/k/v grouped, o,
-               gate/up grouped, down) and a verify window at B=8,
-               frontier 2112. After the kernel
+               gate/up grouped, down, counted by the wrapper and by the
+               kernels on the device in all 33 timed and profiled runs;
+               torch.profiler's trace drops events) and a verify window at
+               B=8, frontier 2112. After the kernel
                counts are read: int8 against bf16 teacher-forced on 2048
                tokens, the argmax agreeing at >= 0.75 of the positions
                past a near-tie;
+4f. serve-mesh — the step and int8 configs on decode meshes
+               (`parallel.mesh.decode_mesh`, `serving/mesh.py`), 4 of
+               serve-batched's prompts, one at a time: (a) on a one-rank
+               `nccl` mesh beside a one-device server, rows equal bit for
+               bit, forward commands = prefill chunks + decode steps,
+               64 int8 launches a forward, a logits gather a sampled
+               forward; (b) meanwhile two processes of this script
+               (`--serve-mesh-rank`) on the one card under `gloo`,
+               `{model: 2}`: rows against (a)'s one-device rows (the
+               near-tie rule), 64 int8 launches a forward on each rank,
+               step ms, TTFT, the collectives' share, weight and pool
+               bytes a rank;
 4d. serve-tenants — multi-tenant serving on `llama3-1b` with rank-16 LoRA
                on all seven projections (random bf16 weights from seed 0)
                and three adapters (`seed:1..3`) behind three tenants, two
@@ -544,6 +558,11 @@ INT8_PREFILL_ROWS = (256, 2048)  # the prefill-layer lines
 INT8_LAYER = {"qkv": (2048, (2048, 512, 512)), "o": (2048, (2048,)),
               "gate_up": (2048, (8192, 8192)), "down": (8192, (2048,))}
 INT8_GROUPS = ("qkv", "gate_up")  # timed beside their single projections
+# the same layer on a rank of a `model: 2` decode mesh (serve-mesh (b)):
+# q/k/v and gate/up hold half their rows, o and down half their columns
+INT8_SHARD_LAYER = {"qkv": (2048, (1024, 256, 256)), "o": (1024, (2048,)),
+                    "gate_up": (2048, (4096, 4096)), "down": (4096, (2048,))}
+INT8_SHARD_ROWS = (INT8_DECODE_M, 256)  # the decode kernel's row and a prefill chunk's
 INT8_COLD_BYTES = 160 << 20  # weight copies cycled per timing: past the 50 MB L2
 # serve-fast: the step config with speculation (n-gram drafts, K = 4), with
 # a 2-layer draft model (layer truncation; the half-depth "auto" draft was
@@ -566,6 +585,28 @@ BEAM_PROMPT, BEAMS = 300, 4
 # reference's own floor, tests/test_generate.py:346-347)
 INT8_AGREE = 0.75
 INT8_TF_TOKENS = 2048
+# serve-mesh: the step config on a decode mesh. (a) one `nccl` rank,
+# `ModelServer(mesh=decode_mesh({batch: 1, model: 1}))`, the step and int8
+# configs beside a one-device server of the same config: 4 of
+# serve-batched's first wave (2 behind the shared prefix, 2 not), MESH_NEW
+# new tokens each, posted one at a time (concurrent requests make the scheduler's steps depend on
+# their arrival order), equal to the one-device rows bit for bit (where
+# they part from serve-batched's / serve-fast's concurrent rows is
+# reported). (b) two
+# processes on the one card under `gloo`, `{model: 2}`, int8 then bf16, on
+# the first MESH_B_PROMPTS of them, MESH_B_NEW new tokens each (a step
+# takes ~0.19 s there: 34 collectives through host memory, two processes
+# time-sliced on one card), held against (a)'s one-device rows
+# under the near-tie rule (two halves' sum rounds unlike one product)
+MESH_PROMPTS = (0, 1, 4, 5)
+MESH_NEW = 32  # (a)'s new tokens a row (held against serve-batched's first 32)
+MESH_B_PROMPTS, MESH_B_NEW = 2, 16
+MESH_POOL_PAGES = 256  # 32768 slots: the rows' pages and the prefix's, with room
+MESH_CONFIGS = {
+    "step": {**SERVE_CONFIGS["step"], "kv_pool_pages": MESH_POOL_PAGES},
+    "int8": {**FAST_CONFIGS["int8"], "kv_pool_pages": MESH_POOL_PAGES},
+}
+MESH_B_TIMEOUT_S = 420
 # serve-tenants: llama3-1b with rank-16 LoRA on all seven projections (alpha
 # 16), three synthetic adapters (`seed:<n>`, 22.5 MB each in bf16) behind
 # three tenants, two adapter slots beyond the checkpoint's own, so the
@@ -1167,14 +1208,14 @@ def int8_case(M: int, K: int, Ns, dt: str, tag: str, launch=None,
     return res
 
 
-def int8_layer(rows: dict, M: int) -> dict:
+def int8_layer(rows: dict, M: int, names=INT8_LAYER) -> dict:
     """One layer's four launches at M rows, bf16 (INT8_LAYER), summed from
     the kernel phase's rows."""
     keys = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")
-    layer = {k: sum(rows[(name, M)][k] for name in INT8_LAYER) for k in keys}
-    layer["max_abs_err"] = max(rows[(name, M)]["max_abs_err"] for name in INT8_LAYER)
+    layer = {k: sum(rows[(name, M)][k] for name in names) for k in keys}
+    layer["max_abs_err"] = max(rows[(name, M)]["max_abs_err"] for name in names)
     layer["x_bound"] = layer["ms"] / layer["bound_ms"]
-    by_ops = sum(rows[(name, M)]["bound_ms"] for name in INT8_LAYER
+    by_ops = sum(rows[(name, M)]["bound_ms"] for name in names
                  if rows[(name, M)]["bound_by"] == "operations")
     layer["bound_by"] = "operations" if 2 * by_ops > layer["bound_ms"] else "bytes"
     return layer
@@ -1217,6 +1258,15 @@ def phase_int8_kernel() -> dict:
               "tflops": flops / layer["ms"] / 1e9, "cublas_ms": layer["library_ms"],
               "plain_ms": layer["plain_ms"], "host_ms": layer["host_ms"],
               "device": device_line()})
+    shard = {}
+    for name, (K, Ns) in INT8_SHARD_LAYER.items():
+        for M in INT8_SHARD_ROWS:
+            shard[(name, M)] = int8_case(M, K, Ns, "bfloat16", f"{name}-model2")
+    for M in INT8_SHARD_ROWS:
+        layer = int8_layer(shard, M, INT8_SHARD_LAYER)
+        emit({"phase": "kernel-int8-shard-layer", "mesh": {"model": 2}, "M": M,
+              "kernel": "int8_gemv_kernel" if M <= 8 else "int8_wgmma_kernel",
+              "launches": len(INT8_SHARD_LAYER), **layer, "device": device_line()})
     torch.cuda.empty_cache()
     return decode
 
@@ -2026,25 +2076,34 @@ def profile_fast_step(model, qmodel) -> None:
             temperature=0.0, top_k=None, eos_id=None),
     }
     # the int8 step's projections: one grouped q/k/v, o, one grouped
-    # gate/up and down a layer
-    before = INT8_MATMUL.launches
+    # gate/up and down a layer; counted by the wrapper where it launches and
+    # by the kernels themselves on the device (torch.profiler's trace can
+    # drop events: launch_gate_probe, PERF.md)
+    before, on_card = INT8_MATMUL.launches, INT8_MATMUL.device_launches()
     steps["int8"]()
     torch.cuda.synchronize()
     int8_launches = INT8_MATMUL.launches - before
+    ran = INT8_MATMUL.device_launches() - on_card
     want = len(INT8_LAYER) * qmodel.cfg.n_layers
-    check(int8_launches == want,
-          f"an int8 decode step launched int8_matmul {int8_launches} times, not {want}")
+    check(int8_launches == want and ran == want,
+          f"an int8 decode step launched int8_matmul {int8_launches} times and the card ran "
+          f"{ran} of its kernels, not {want}")
     for name, fn in steps.items():
+        on_card = INT8_MATMUL.device_launches()
         line = profile_step(fn, {
             "phase": "serve-fast-profile", "path": name, "batch": B,
             "window_tokens": 1 if name == "int8" else K + 1, "frontier": S,
             "window_slots": n_pages * layout.page_tokens,
             **({"int8_matmul_launches_a_step": int8_launches} if name == "int8" else {}),
         })
-        if name == "int8" and line["kernel_ms_total"] != "not measured":
-            check(line["int8_kernel_launches"] == want,
-                  f"the profiled int8 step ran {line['int8_kernel_launches']} int8 kernels, "
-                  f"not {want}")
+        if name == "int8":
+            # profile_step ran the step 10 x 3 + 2 times timed, then once profiled
+            ran = INT8_MATMUL.device_launches() - on_card
+            runs = 10 * 3 + 2 + 1
+            emit({"phase": "serve-fast-profile-launches", "device_int8_launches": ran,
+                  "runs": runs, "profiler_int8_launches": line["int8_kernel_launches"]})
+            check(ran == want * runs,
+                  f"the card ran {ran} int8 kernels in {runs} int8 steps, not {want * runs}")
     del int8_pool, pool
     torch.cuda.empty_cache()
 
@@ -2125,6 +2184,265 @@ def check_int8_rows(qmodel, waves: list, answers: list) -> None:
     emit({"phase": "serve-fast-int8-rows", "config": "int8", "rows": len(prompts),
           "rows_diverged": len(divergences), "divergences": divergences,
           "seconds": time.perf_counter() - t0})
+
+
+def mesh_b_rank(rank: int, port: int, spec_path: str, out_path: str) -> int:
+    """One process of serve-mesh (b): rank `rank` of a two-rank `gloo`
+    world on the one card, `{model: 2}`. Each rank builds the bf16 preset
+    (seed 0) and serves the int8 then the step config on the mesh; rank 0
+    posts the spec's prompts one at a time over HTTP, the other follows.
+    Writes its rows (rank 0), its int8 launches and decode forwards, its
+    weight and pool bytes, and (rank 0) the step ms, TTFT and the share of
+    the forwards' host time spent inside collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.mesh import MeshModule
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    timed = {"collective_s": 0.0, "forward_s": 0.0}
+
+    def timing(fn, key):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                timed[key] += time.perf_counter() - t0
+        return wrapped
+
+    dist.all_reduce = timing(dist.all_reduce, "collective_s")
+    dist.all_gather = timing(dist.all_gather, "collective_s")
+    MeshModule.__call__ = timing(MeshModule.__call__, "forward_s")
+    out = {"rank": rank, "configs": {}}
+    with torch.inference_mode():
+        model = build_model("transformer_lm", {"preset": PRESET}, device="cuda",
+                            dtype=torch.bfloat16, seed=0).module.eval()
+        mesh = decode_mesh({"model": 2})
+        for name in ("int8", "step"):
+            INT8_MATMUL.launches = 0
+            timed.update(collective_s=0.0, forward_s=0.0)
+            server = ModelServer(model, None, ServingConfig(**SERVE_BASE, **MESH_CONFIGS[name]),
+                                 model_name=PRESET, device="cuda", mesh=mesh)
+            row = {"weight_bytes": server.mesh_shard_bytes}
+            if server.is_follower:
+                server.follow()
+                w = server._world
+                row["pool_bytes"] = sum(t.numel() * t.element_size()
+                                        for c in w.caches.values() for layer in c for t in layer)
+            else:
+                url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+                try:
+                    row["rows"] = [_http(url + "/generate", {"tokens": [p], "maxNewTokens":
+                                                             spec["new"]})["tokens"][0]
+                                   for p in spec["prompts"]]
+                    stats = _http(url + "/statsz")
+                finally:
+                    server.stop()
+                w = server._world
+                row.update(pool_bytes=stats["kv"]["kv_pool_bytes_per_rank"],
+                           ttft_ms_p50=stats["ttft_ms"]["p50"],
+                           decode_step_ms_p50=stats["decode_step_ms"]["p50"],
+                           collective_s=timed["collective_s"], forward_s=timed["forward_s"],
+                           collective_share=timed["collective_s"] / timed["forward_s"])
+            row.update(forwards=w.ops.get("forward", 0), int8_launches=INT8_MATMUL.launches)
+            out["configs"][name] = row
+            del server
+            gc.collect()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_b(prompts: list) -> dict:
+    """serve-mesh (b)'s two processes (`mesh_b_rank`), started now; their
+    start-up overlaps (a)."""
+    from polyaxon_tpu_torch.native import free_port
+
+    d = ARTIFACTS / "serve_mesh"
+    d.mkdir(parents=True, exist_ok=True)
+    spec = d / "spec.json"
+    spec.write_text(json.dumps({"prompts": prompts, "new": MESH_B_NEW}))
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        out = d / f"rank{rank}.json"
+        out.unlink(missing_ok=True)
+        log = open(d / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-mesh-rank", str(rank),
+             "--serve-mesh-port", str(port), "--serve-mesh-spec", str(spec),
+             "--serve-mesh-out", str(out)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(HERE)), log, out))
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def finish_mesh_b(started: dict) -> list:
+    """Wait for (b)'s processes for what is left of MESH_B_TIMEOUT_S; their
+    results by rank. A failed or late rank fails the phase with its log's
+    tail (phase_serve_mesh ends what is still running)."""
+    results = []
+    for rank, (proc, log, out) in enumerate(started["procs"]):
+        left = MESH_B_TIMEOUT_S - (time.perf_counter() - started["t0"])
+        try:
+            code = proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            code = "timeout"
+        if code != 0:
+            check(False, f"serve-mesh (b) rank {rank} exited {code}:\n"
+                  f"{Path(log.name).read_text()[-3000:]}")
+        results.append(json.loads(out.read_text()))
+    return results
+
+
+def phase_serve_mesh(model, batched: dict, int8_rows: list, kernels) -> dict:
+    """serve-mesh (see MESH_PROMPTS): (a) on one `nccl` rank in this
+    process, (b) in two more. The kernel counters are set to 0 just before
+    each mesh server's drive and read just after; (a)'s int8 launches must
+    be 64 a forward (16 layers x q/k/v, o, gate/up, down) and the mesh's
+    forward commands the prefill chunks plus decode steps it ran; each
+    rank of (b) launches 64 a forward too. Returns the counts of (a)."""
+    t_phase = time.perf_counter()
+    wave = batched["waves"][0]
+    prompts = [wave[i] for i in MESH_PROMPTS]
+    started = start_mesh_b(prompts[:MESH_B_PROMPTS])
+    try:
+        return _serve_mesh_parts(model, batched, int8_rows, kernels, prompts, started,
+                                 t_phase)
+    finally:
+        for proc, log, _ in started["procs"]:  # (b) ends with the phase, whatever happened
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _serve_mesh_parts(model, batched, int8_rows, kernels, prompts, started, t_phase):
+    """phase_serve_mesh's (a), then (b)'s results once its processes end."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    per_forward = len(INT8_LAYER) * model.cfg.n_layers
+    served = {"step": [batched["step"][i] for i in MESH_PROMPTS],
+              "int8": [int8_rows[i] for i in MESH_PROMPTS]}
+    served = {name: [None if r is None else r[:len(p) + MESH_NEW]
+                     for r, p in zip(rows, prompts)] for name, rows in served.items()}
+    launches = {k.name: 0 for k in kernels}
+    plain, one_device = {}, {}
+
+    def drive(server):
+        url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+        try:
+            t0 = time.perf_counter()
+            rows = [_http(url + "/generate", {"tokens": [p], "maxNewTokens": MESH_NEW})
+                    ["tokens"][0] for p in prompts]
+            return rows, time.perf_counter() - t0, _http(url + "/statsz")
+        finally:
+            server.stop()
+
+    one_rank_group()
+    try:
+        for name, config in MESH_CONFIGS.items():
+            cfg = ServingConfig(**SERVE_BASE, **config)
+            alone = ModelServer(model, None, cfg, model_name=PRESET, device=model.device)
+            plain[name], _, alone_stats = drive(alone)
+            one_device[name] = alone.module  # the int8 module: (b)'s reference path
+            del alone
+            server = ModelServer(model, None, cfg, model_name=PRESET, device=model.device,
+                                 mesh=decode_mesh({"batch": 1, "model": 1}))
+            for k in kernels:  # the mesh's path starts here
+                k.launches = 0
+            rows, wall, stats = drive(server)
+            counts = {k.name: k.launches for k in kernels}  # ... and ends here
+            for k, n in counts.items():
+                launches[k] += n
+            w = server._world
+            forwards = w.ops.get("forward", 0)
+            chunks = int(server._m_prefill_chunks.value)
+            steps = server._m_decode_step.summary()["count"]
+            check(rows == plain[name], f"serve-mesh (a) {name}: the one-rank mesh's rows "
+                  "differ from the one-device server's")
+            check(forwards == chunks + steps and forwards > 0,
+                  f"serve-mesh (a) {name}: {forwards} forward commands for {chunks} prefill "
+                  f"chunks and {steps} decode steps")
+            check(w.logit_gathers == steps + len(prompts),
+                  f"serve-mesh (a) {name}: {w.logit_gathers} logit gathers, not "
+                  f"{steps} steps + {len(prompts)} final chunks")
+            want = per_forward * forwards if config.get("quantize") else 0
+            check(counts["int8_matmul"] == want,
+                  f"serve-mesh (a) {name}: {counts['int8_matmul']} int8 launches for "
+                  f"{forwards} forwards, not {want}")
+            # serve-batched's / serve-fast's rows of these prompts came out of
+            # concurrent waves, whose steps group rows by arrival order
+            # (their own gate held them to the near-tie rule): where they
+            # part from the one-device order's rows is reported, not gated
+            parted = [next((j - len(p) for j, (a, b) in enumerate(zip(row, ref)) if a != b),
+                           None) for p, row, ref in zip(prompts, rows, served[name])
+                      if ref is not None]
+            emit({"phase": "serve-mesh", "part": "a", "config": name, "device": device_line(),
+                  "mesh": stats["mesh"], "rows": len(rows), "equal_one_device": True,
+                  "rows_equal_served": parted.count(None),
+                  "served_parts_at": [j for j in parted if j is not None],
+                  "commands": w.commands, "ops": w.ops, "logit_gathers": w.logit_gathers,
+                  "int8_launches_a_forward": counts["int8_matmul"] / forwards,
+                  "wall_seconds": wall, "ttft_ms_p50": stats["ttft_ms"]["p50"],
+                  "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+                  "one_device_decode_step_ms_p50": alone_stats["decode_step_ms"]["p50"],
+                  "one_device_ttft_ms_p50": alone_stats["ttft_ms"]["p50"],
+                  "weight_bytes": server.mesh_shard_bytes,
+                  "pool_bytes": stats["kv"]["kv_pool_bytes_per_rank"]})
+            del server
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        leave_group()
+    # (b): the two processes' rows against (a)'s one-device rows
+    ranks = finish_mesh_b(started)
+    for name in ("int8", "step"):
+        rows0 = ranks[0]["configs"][name]
+        divergences = []
+        for i, row in enumerate(rows0["rows"]):
+            d = compare_rows(one_device[name], row,
+                             plain[name][i][:len(prompts[i]) + MESH_B_NEW], len(prompts[i]))
+            if d is not None:
+                divergences.append({"row": i, **d})
+        for r in ranks:
+            c = r["configs"][name]
+            want = per_forward * c["forwards"] if name == "int8" else 0
+            check(c["forwards"] > 0 and c["int8_launches"] == want,
+                  f"serve-mesh (b) {name}: rank {r['rank']} launched int8_matmul "
+                  f"{c['int8_launches']} times for {c['forwards']} forwards, not {want}")
+        check(ranks[1]["configs"][name]["forwards"] == rows0["forwards"],
+              f"serve-mesh (b) {name}: the follower ran another count of forwards")
+        emit({"phase": "serve-mesh", "part": "b", "config": name, "device": device_line(),
+              "mesh": {"model": 2}, "backend": "gloo", "rows": len(rows0["rows"]),
+              "rows_diverged": len(divergences), "divergences": divergences,
+              "decode_step_ms_p50": rows0["decode_step_ms_p50"],
+              "ttft_ms_p50": rows0["ttft_ms_p50"],
+              "collective_share": rows0["collective_share"],
+              "forwards": rows0["forwards"],
+              "int8_launches_a_forward": [r["configs"][name]["int8_launches"]
+                                          / r["configs"][name]["forwards"] for r in ranks],
+              "weight_bytes": [r["configs"][name]["weight_bytes"] for r in ranks],
+              "pool_bytes": [r["configs"][name]["pool_bytes"] for r in ranks]})
+    emit({"phase": "serve-mesh-wall", "seconds": time.perf_counter() - t_phase})
+    del one_device
+    return launches
 
 
 def lora_card_case(base: str, dt: str, shape: str, M: tuple, ix: list,
@@ -4188,6 +4506,172 @@ def phase_train_zoo() -> dict:
     return launches
 
 
+def bn_stats_probe() -> dict:
+    """ResNet-50's BatchNorm statistics, two ways, on the same activations
+    of one train step on a one-rank mesh (ZOO_MESH_AXES): the mesh path's
+    `_batch_stats` (global sums over the count) against one device's
+    `_fast_stats` (f32 means). Emits, over the 53 BatchNorms, the largest
+    difference of the means and of the variances in units of the f32 ulp
+    of the larger value."""
+    import torch
+
+    from polyaxon_tpu_torch.models import layers
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    case = next(c for c in ZOO_CASES if c["tag"] == "resnet50")
+    program = {**case["program"], "train": {**case["program"]["train"], "steps": 1}}
+    diffs = []
+    plain = layers._batch_stats
+
+    from polyaxon_tpu_torch.parallel.ring import current_mesh
+
+    bound = []
+
+    def both(x32):
+        bound.append(current_mesh() is not None)
+        mean, var = plain(x32)
+        fmean, fvar = layers._fast_stats(x32, (0, 2, 3))
+        row = {}
+        for name, a, b in (("mean", mean, fmean), ("var", var, fvar)):
+            a, b = a.detach().float(), b.detach().float()
+            ulp = torch.finfo(torch.float32).eps * torch.maximum(a.abs(), b.abs()).clamp_min(
+                torch.finfo(torch.float32).tiny)
+            row[name] = {"max_abs": float((a - b).abs().max()),
+                         "max_ulps": float(((a - b).abs() / ulp).max()),
+                         "rel_to_max": float((a - b).abs().max() / b.abs().max())}
+        diffs.append(row)
+        return mean, var
+
+    one_rank_group()
+    layers._batch_stats = both
+    try:
+        Trainer(program, mesh_axes=dict(ZOO_MESH_AXES)).run()
+        torch.cuda.synchronize()
+    finally:
+        layers._batch_stats = plain
+        leave_group()
+    line = {"phase": "bn-stats-probe", "device": device_line(), "batchnorms": len(diffs),
+            "mesh_path": all(bound),
+            **{f"{k}_{m}": max(d[k][m] for d in diffs)
+               for k in ("mean", "var") for m in ("max_abs", "max_ulps", "rel_to_max")}}
+    emit(line)
+    return line
+
+
+def bn_drift_probe(steps=(2, 3)) -> list:
+    """ResNet-50 (train-zoo's configuration) after k steps on one device
+    (twice) and on a one-rank mesh (ZOO_MESH_AXES), for each k of `steps`:
+    the losses, and the largest relative difference of the parameters and
+    of the BatchNorm running statistics from the first run's. The second
+    one-device run tells the mesh path's differences from the card's own
+    run-to-run ones."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.params import full_tensors
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    case = next(c for c in ZOO_CASES if c["tag"] == "resnet50")
+    rows = []
+    for k in steps:
+        program = {**case["program"], "train": {**case["program"]["train"], "steps": k,
+                                                "logEvery": 1}}
+        out = {}
+        for where in ("one", "again", "mesh"):
+            if where == "mesh":
+                one_rank_group()
+            try:
+                trainer = Trainer(program, mesh_axes=dict(ZOO_MESH_AXES) if where == "mesh"
+                                  else None)
+                result = trainer.run()
+                params = full_tensors(dict(trainer.module.named_parameters()))
+                out[where] = {
+                    "losses": [h["loss"] for h in result.history],
+                    "params": {n: t.detach().float().clone() for n, t in params.items()},
+                    "stats": {n: t.detach().float().clone()
+                              for n, t in trainer.module.named_buffers() if "running" in n},
+                }
+                trainer.close()
+                del trainer
+            finally:
+                if where == "mesh":
+                    leave_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def rel(a: dict, b: dict) -> float:
+            return max(float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30))
+                       for n in b)
+
+        one = out["one"]
+        row = {"steps": k, "losses_one": one["losses"]}
+        for other in ("again", "mesh"):  # one device twice, then the mesh
+            o = out[other]
+            moved = sorted(((float((o["params"][n] - t).abs().max()), n)
+                            for n, t in one["params"].items()), reverse=True)
+            row[other] = {
+                "losses": o["losses"],
+                "params_rel": rel(o["params"], one["params"]),
+                "params_equal": all(torch.equal(o["params"][n], t)
+                                    for n, t in one["params"].items()),
+                "params_most_moved": [n for d, n in moved[:3] if d > 0],
+                "stats_rel": rel(o["stats"], one["stats"]),
+                "stats_equal": all(torch.equal(o["stats"][n], t)
+                                   for n, t in one["stats"].items())}
+        rows.append(row)
+    emit({"phase": "bn-drift-probe", "device": device_line(), "rows": rows})
+    return rows
+
+
+def launch_gate_probe(repeats: int) -> list:
+    """serve-fast's profiled int8 decode step (profile_fast_step's: the
+    int8 module on an int8 pool, B=PROFILE_BATCH at frontier
+    PROFILE_SLOTS), `repeats` times: each time the wrapper's launch count
+    for the step and the int8 kernels (and all kernels) in its
+    torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+    from polyaxon_tpu_torch.models.quant import quantize_module
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+
+    with torch.inference_mode():
+        model = build_model("transformer_lm", {"preset": PRESET}, device="cuda",
+                            dtype=torch.bfloat16, seed=0).module.eval()
+        qmodel, _ = quantize_module(model)
+        del model
+        B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, qmodel.device
+        tok = torch.randint(0, qmodel.cfg.vocab_size, (B, 1),
+                            generator=torch.Generator().manual_seed(4)).to(dev)
+        layout = PagedKVLayout(128, 1 + B * -(-S // 128), kv_quant="int8")
+        n_pages = layout.pages_for(S)
+        tables = 1 + torch.arange(B * n_pages, device=dev).reshape(B, n_pages)
+        pool = make_paged_cache(qmodel, layout)
+        pad = torch.zeros(B, dtype=torch.long, device=dev)
+
+        def step():
+            return qmodel(tok, cache=pool, pos=S - 1, pad=pad, pages=tables,
+                          kv_layout=layout)
+
+        step()
+        torch.cuda.synchronize()
+        rows = []
+        for i in range(repeats):
+            before, on_card = INT8_MATMUL.launches, INT8_MATMUL.device_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            rows.append({"repeat": i, "wrapper": INT8_MATMUL.launches - before,
+                         "device": INT8_MATMUL.device_launches() - on_card,
+                         "profiler_int8": sum(e.count for e in kernels if "int8_" in e.key),
+                         "profiler_all": sum(e.count for e in kernels)})
+    emit({"phase": "launch-gate-probe", "device": device_line(), "rows": rows})
+    return rows
+
+
 def one_rank_group():
     """A one-rank `nccl` world for a phase on a mesh (the card machine has
     one GPU; the collectives of a size-1 mesh dim are skipped)."""
@@ -4399,6 +4883,16 @@ def main(argv: list) -> int:
                         help="run this train-zoo configuration alone")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0])
     parser.add_argument("--lrs", type=float, nargs="+", default=[])
+    parser.add_argument("--launch-gate", type=int, default=0, metavar="N",
+                        help="profile serve-fast's int8 decode step N times, logging "
+                             "the wrapper's and the profiler's int8 launch counts")
+    parser.add_argument("--serve-mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-mesh-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-mesh-spec", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-mesh-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--bn-stats", action="store_true",
+                        help="ResNet-50's BatchNorm statistics, mesh path against "
+                             "one device's, on one step's activations")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4422,6 +4916,18 @@ def main(argv: list) -> int:
 
     if args.zoo:
         zoo_probe(args.zoo, args.seeds, args.lrs)
+        print(device_line(), flush=True)
+        return 0
+    if args.serve_mesh_rank is not None:  # a process of serve-mesh (b)
+        return mesh_b_rank(args.serve_mesh_rank, args.serve_mesh_port, args.serve_mesh_spec,
+                           args.serve_mesh_out)
+    if args.launch_gate or args.bn_stats:
+        if args.launch_gate:
+            phase_build()
+            launch_gate_probe(args.launch_gate)
+        if args.bn_stats:
+            bn_stats_probe()
+            bn_drift_probe()
         print(device_line(), flush=True)
         return 0
 
@@ -4481,9 +4987,17 @@ def main(argv: list) -> int:
             launches[name] += n
         check_int8_rows(qmodel, batched["waves"], int8_answers)
         int8_teacher_forced(model, qmodel)
-        del qmodel, batched, model, warm
+        del qmodel
         torch.cuda.empty_cache()
         stamp("serve-fast")
+        mesh = phase_serve_mesh(model, batched, int8_answers, KERNELS)
+        emit({"phase": "serve-mesh-launches", "launches": mesh})
+        check(mesh["int8_matmul"] > 0, "serve-mesh never launched int8_matmul")
+        for name, n in mesh.items():
+            launches[name] += n
+        del batched, model, warm
+        torch.cuda.empty_cache()
+        stamp("serve-mesh")
         # the fleet at the preset's width with FLEET_LAYERS layers (a cut)
         fmodel = build_model(
             "transformer_lm", {"preset": PRESET, "attention": "flash",

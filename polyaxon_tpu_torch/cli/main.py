@@ -13,10 +13,12 @@ port runs, with their flags, output lines and exit codes.
 Runs go to the card unless `POLYAXON_TORCH_DEVICE=cpu`. An error exits 1
 with `Error: <message>` on stderr, a usage error exits 2 (as click's do).
 A jaxjob over several devices runs as a gang of one worker per device
-(`runtime/executor.py`). What is not ported is refused with an error
+(`runtime/executor.py`), and so does `serve --mesh`/`--mesh-model` (or a
+run spec's `serving.meshAxes`): one process per device of the decode mesh,
+rank 0 binding the port. What is not ported is refused with an error
 naming ROADMAP.md: a gang for a zoo model or a replica over several
 devices, a sweep, a schedule, joins, a dag, connections, a
-remote control plane (`streams_url`), `--queue` clones and `serve --mesh`.
+remote control plane (`streams_url`) and `--queue` clones.
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
 it so).
@@ -681,11 +683,153 @@ def _serve_overrides(a) -> dict:
     return overrides
 
 
-def _wait_for_signal() -> None:
+def _wait_for_signal(done=None) -> None:
+    """Until SIGINT or SIGTERM (or, with `done`, until it returns True)."""
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    stop.wait()
+    while not stop.wait(0.5 if done else None):
+        if done():
+            return
+
+
+# set on the processes of a serve gang (`_serve_gang`)
+_MESH_RANK_ENV = "POLYAXON_SERVE_MESH"
+# what a decode mesh does not serve yet, by the flag that asks for it
+_MESH_REFUSED = (
+    ("speculate", "--speculate"), ("draft_model", "--draft-model"),
+    ("adaptive_draft", "--adaptive-draft"), ("adapters", "--adapter"),
+    ("tenants", "--tenant-quota"), ("adapter_slots", "--adapter-slots"),
+    ("spill_ram_bytes", "--spill-ram-bytes"), ("spill_dir", "--spill-dir"),
+    ("role", "--role"),
+)
+
+
+def _mesh_axes(a) -> Optional[dict]:
+    """--mesh axis=N[,...] with --mesh-model N over it (the reference's
+    parsing), or None."""
+    axes = None
+    if a.mesh:
+        try:
+            axes = {k.strip(): int(v) for k, v in (part.split("=", 1)
+                                                   for part in a.mesh.split(","))}
+        except ValueError:
+            raise ClickException(f"--mesh expects axis=N[,axis=N...], got {a.mesh!r}")
+    if a.mesh_model is not None:
+        axes = {**(axes or {}), "model": a.mesh_model}
+    return axes
+
+
+def _mesh_processes(axes) -> int:
+    """The processes of a decode mesh (one a device): a -1 axis takes the
+    visible GPUs on the card, 1 on the CPU."""
+    from ..device import env_device, visible_gpus
+    from ..parallel.mesh import decode_axis_sizes
+    from ..serving.batching import normalize_mesh_axes
+
+    axes = normalize_mesh_axes(axes)
+    if axes is None:
+        return 1
+    visible = visible_gpus() if env_device().startswith("cuda") else 0
+    fixed = 1
+    for _, n in axes:
+        fixed *= n if n != -1 else 1
+    try:
+        sizes = decode_axis_sizes(dict(axes), max(visible, fixed))
+    except ValueError as e:
+        raise ClickException(str(e))
+    return sizes["batch"] * sizes["model"]
+
+
+def _serve_gang(a, uid: str, axes: dict, n: int, overrides: dict) -> int:
+    """`serve` on a decode mesh of `n` processes under the native gang
+    launcher: each runs `serve` as one rank (`_serve_rank`); rank 0 binds
+    the port, the others follow it. The launcher's event lines are echoed;
+    SIGINT/SIGTERM drains the gang."""
+    import subprocess
+
+    from ..native import free_port, launcher_path
+
+    argv = _serve_child_argv(uid, a.port, overrides) + [
+        "--host", a.host, "--mesh", ",".join(f"{k}={v}" for k, v in axes.items())]
+    if a.expected_devices is not None:
+        argv += ["--expected-devices", str(a.expected_devices)]
+    cmd = [launcher_path(), "--num-workers", str(n),
+           "--coordinator", f"127.0.0.1:{free_port()}", "--max-restarts", "0",
+           "--env", f"{_MESH_RANK_ENV}=1", "--", *argv]
+    echo(f"starting a decode mesh of {n} processes {axes}...")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=_child_env())
+
+    def relay():
+        for line in iter(proc.stdout.readline, ""):
+            echo(line.rstrip("\n"))
+
+    reader = threading.Thread(target=relay, daemon=True)
+    reader.start()
+    try:
+        _wait_for_signal(done=lambda: proc.poll() is not None)
+    finally:
+        echo("draining...")
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        reader.join(timeout=10)
+    # 143: the launcher drained the gang on our SIGTERM
+    return 0 if code in (0, 143) else code
+
+
+def _serve_rank(a, overrides: dict) -> int:
+    """One process of a serve gang: join the world on this rank's device
+    (`runtime.worker.init_process_group`), restore this rank's shards
+    (`ModelServer.from_run`), then serve (rank 0) or follow rank 0 (the
+    rest, which leave SIGINT/SIGTERM to rank 0's stop)."""
+    from ..runtime.worker import init_process_group
+    from ..serving.server import ModelServer, ServingError
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = init_process_group(rank, world, int(os.environ.get("LOCAL_RANK", rank)))
+    if rank != 0:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, signal.SIG_IGN)
+    try:
+        server = ModelServer.from_run(a.uid, config_overrides=overrides or None,
+                                      mesh_axes=_mesh_axes(a),
+                                      expected_devices=a.expected_devices, device=device)
+    except (ServingError, KeyError, ValueError) as e:
+        raise ClickException(str(e.args[0]) if e.args else str(e))
+    if server.is_follower:
+        server.follow()
+        return 0
+    return _serve_until_signal(a, server)
+
+
+def _serve_until_signal(a, server) -> int:
+    bound = server.start(host=a.host, port=a.port)
+    cfg = server.config
+    mode = (f"batching max_batch={cfg.max_batch} max_wait_ms={cfg.max_wait_ms}"
+            if cfg.batching else "per-request (no batching)")
+    if cfg.batching and cfg.kv_pool_pages:
+        mode += f" kv_pool={cfg.kv_pool_pages}x{cfg.kv_page_tokens}tok"
+    mesh = server.stats()["mesh"]
+    if mesh.get("axes"):
+        mode += " mesh=" + ",".join(f"{k}={v}" for k, v in mesh["axes"].items())
+    echo(f"serving {server.model_name} (step {server.step}) "
+         f"on http://{a.host}:{bound} [{mode}] — "
+         "POST /generate, GET /healthz, GET /readyz, GET /statsz, "
+         "GET /tracez, GET /sloz")
+    try:
+        _wait_for_signal()
+    finally:
+        # graceful drain: /readyz flips to 503 and admission closes; work
+        # in flight gets drain_grace_s to finish
+        echo("draining...")
+        server.stop()
+    return 0
 
 
 def cmd_serve(a):
@@ -694,15 +838,18 @@ def cmd_serve(a):
     from ..device import env_device
     from ..serving.server import ModelServer, ServingError
 
-    if a.mesh or a.mesh_model is not None:
-        raise NotImplementedError(
-            f"serve --mesh/--mesh-model (a decode mesh, parallel/mesh.py) {_ROADMAP}"
-        )
-    if a.expected_devices is not None:
-        raise NotImplementedError(
-            f"serve --expected-devices (slice health, runtime/health.py) {_ROADMAP}"
-        )
     overrides = _serve_overrides(a)
+    if os.environ.get(_MESH_RANK_ENV) == "1":
+        return _serve_rank(a, overrides)
+    axes = _mesh_axes(a)
+    if axes:
+        refused = [flag for field, flag in _MESH_REFUSED if overrides.get(field)
+                   and (field != "role" or overrides[field] != "both")]
+        if refused:
+            raise NotImplementedError(
+                f"serve --mesh with {', '.join(refused)} (a decode mesh, "
+                f"serving/mesh.py) {_ROADMAP}"
+            )
     pool_counts = None
     if a.pools:
         try:
@@ -719,29 +866,24 @@ def cmd_serve(a):
         and a.role is None and _run_spec_pools(a.uid) is not None
     )
     if a.route or (a.replicas or 0) > 1 or pool_counts is not None or spec_wants_pools:
-        return _serve_fleet(a, overrides, pool_counts)
+        return _serve_fleet(a, overrides, pool_counts, axes)
+    if axes is None:
+        axes = _run_spec_mesh(a.uid)
+    n = _mesh_processes(axes)
+    if n > 1:
+        store = RunStore()
+        try:
+            uuid = store.resolve(a.uid)
+        except KeyError as e:
+            raise _uerr(e)
+        return _serve_gang(a, uuid, axes, n, overrides)
     try:
         server = ModelServer.from_run(a.uid, config_overrides=overrides or None,
+                                      mesh_axes=axes, expected_devices=a.expected_devices,
                                       device=env_device())
     except (ServingError, KeyError, ValueError) as e:
         raise ClickException(str(e.args[0]) if e.args else str(e))
-    bound = server.start(host=a.host, port=a.port)
-    cfg = server.config
-    mode = (f"batching max_batch={cfg.max_batch} max_wait_ms={cfg.max_wait_ms}"
-            if cfg.batching else "per-request (no batching)")
-    if cfg.batching and cfg.kv_pool_pages:
-        mode += f" kv_pool={cfg.kv_pool_pages}x{cfg.kv_page_tokens}tok"
-    echo(f"serving {server.model_name} (step {server.step}) "
-         f"on http://{a.host}:{bound} [{mode}] — "
-         "POST /generate, GET /healthz, GET /readyz, GET /statsz, "
-         "GET /tracez, GET /sloz")
-    try:
-        _wait_for_signal()
-    finally:
-        # graceful drain: /readyz flips to 503 and admission closes; work
-        # in flight gets drain_grace_s to finish
-        echo("draining...")
-        server.stop()
+    return _serve_until_signal(a, server)
 
 
 def _serve_child_argv(uid, port, overrides):
@@ -807,6 +949,17 @@ def _serving_spec(store: RunStore, uuid: str):
     return V1JAXJob.from_dict(run).program.serving
 
 
+def _run_spec_mesh(uid) -> Optional[dict]:
+    """The run spec's serving.meshAxes, or None (an unknown uid falls
+    through to the one-replica path, whose own errors are better placed)."""
+    try:
+        store = RunStore()
+        spec = _serving_spec(store, store.resolve(uid))
+    except Exception:  # noqa: BLE001
+        return None
+    return dict(spec.mesh_axes) if spec is not None and spec.mesh_axes else None
+
+
 def _run_spec_pools(uid):
     """(prefill, decode) from the run spec's serving.pools, or None (an
     unknown uid or a templated count falls through to the one-replica
@@ -822,7 +975,7 @@ def _run_spec_pools(uid):
     return (int(ps.prefill), int(ps.decode))
 
 
-def _serve_fleet(a, overrides, pools):
+def _serve_fleet(a, overrides, pools, mesh_axes=None):
     """`serve --replicas N --route` / `--pools P:D`: one-replica children
     behind the port's router."""
     from ..serving.replicas import ReplicaSetManager, SubprocessReplica
@@ -849,18 +1002,23 @@ def _serve_fleet(a, overrides, pools):
             int(serving_spec.replicas)
             if serving_spec is not None and isinstance(serving_spec.replicas, int) else 1
         )
-    if serving_spec is not None and serving_spec.mesh_axes:
-        raise NotImplementedError(
-            f"a run spec's serving.meshAxes (a decode mesh, parallel/mesh.py) {_ROADMAP}"
-        )
+    if mesh_axes is None and serving_spec is not None and serving_spec.mesh_axes:
+        mesh_axes = dict(serving_spec.mesh_axes)
+    # each replica child serves its own decode mesh (a gang of its own)
+    mesh_argv = []
+    if mesh_axes:
+        mesh_argv = ["--mesh", ",".join(f"{k}={v}" for k, v in mesh_axes.items())]
+    if a.expected_devices is not None:
+        mesh_argv += ["--expected-devices", str(a.expected_devices)]
 
     def factory(i):
         slot_overrides = overrides
         if pools is not None:
             # slots past the declared pools (autoscale growth) decode
             slot_overrides = {**overrides, "role": "prefill" if i < pools[0] else "decode"}
-        return SubprocessReplica(lambda p: _serve_child_argv(uuid, p, slot_overrides),
-                                 env=_child_env())
+        return SubprocessReplica(
+            lambda p: _serve_child_argv(uuid, p, slot_overrides) + mesh_argv,
+            env=_child_env())
 
     registry = MetricsRegistry()
     manager = ReplicaSetManager(factory, replicas=n, name=f"serve-{uuid[:8]}",

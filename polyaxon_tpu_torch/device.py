@@ -42,3 +42,8 @@ def env_device() -> str:
     except RuntimeError as e:
         raise ValueError(f"{ENV_DEVICE}={name!r} is not a torch device: {e}") from None
     return name
+
+
+def visible_gpus() -> int:
+    """The CUDA devices this process sees (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

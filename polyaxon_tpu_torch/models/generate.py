@@ -173,9 +173,13 @@ def make_paged_cache(module, layout: PagedKVLayout) -> list:
     and f32 scales [pool_pages, page_tokens, n_kv_heads]. Batch-size
     independent, so one pool serves every group shape. Zeros, not empty
     memory: scratch-page slots are masked to -1e30 in the scores, but a NaN
-    there would still reach probs @ V."""
+    there would still reach probs @ V. On a decode mesh the pool holds this
+    rank's kv heads (`local_kv_heads`), and rank 0's stand-in
+    (`serving.mesh.MeshModule`) makes one on every rank."""
+    if hasattr(module, "make_paged_cache"):
+        return module.make_paged_cache(layout)
     cfg = module.cfg
-    shape = (layout.pool_pages, layout.page_tokens, cfg.n_kv_heads, cfg.head_dim)
+    shape = (layout.pool_pages, layout.page_tokens, module.local_kv_heads, cfg.head_dim)
     dev = module.device
     if layout.kv_quant == "int8":
         return [
@@ -188,6 +192,23 @@ def make_paged_cache(module, layout: PagedKVLayout) -> list:
         tuple(torch.zeros(shape, dtype=module.dtype, device=dev) for _ in range(2))
         for _ in range(cfg.n_layers)
     ]
+
+
+@torch.inference_mode()
+def copy_pool_pages(cache, *, table_row, start: int, count: int, new_ids,
+                    page_tokens: int) -> None:
+    """Pool-to-pool copy: gather `count` slots of one row's window (from
+    slot `start`, through its page table `table_row`) and scatter them,
+    page-aligned, into the pages `new_ids`, in every layer, in place."""
+    dev = cache[0][0].device
+    slots = int(start) + torch.arange(int(count), device=dev)
+    table_row = torch.as_tensor(np.asarray(table_row), dtype=torch.long, device=dev)
+    src_pages, src_off = table_row[slots // page_tokens], slots % page_tokens
+    dst = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
+    for layer in cache:
+        for pool in layer:  # k, v (and their scales on an int8 pool)
+            vals = pool[src_pages, src_off]  # a copy: sources stay intact
+            pool[dst] = vals.reshape(len(new_ids), page_tokens, *pool.shape[2:])
 
 
 def _as_long(x, device):

@@ -89,8 +89,10 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
-from ..parallel.collectives import axis_group, axis_index, copy_to, reduce_from
-from ..parallel.mesh import axis_sizes
+from ..parallel.collectives import (
+    all_gather_cat, axis_group, axis_index, copy_to, reduce_from,
+)
+from ..parallel.mesh import axis_sizes, batch_rows, is_decode_mesh
 from ..parallel.ring import current_mesh
 from ..parallel.ring import model_group as _model_group
 from ..parallel.sharding import constrain
@@ -292,6 +294,10 @@ class _DecodePlan:
     keep: Optional[torch.Tensor] = None
     pages: Optional[torch.Tensor] = None
     kv_int8: bool = False
+    # on a decode mesh with `batch` > 1: (the batch group, B), when this
+    # group's rows' K/V are exchanged so that every group writes all B rows
+    # (`write`/`keep` are then over all of them, the rest over its own)
+    exchange: Optional[tuple] = None
 
 
 class Attention(nn.Module):
@@ -310,16 +316,16 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         hd = cfg.head_dim
         # under tensor parallelism the projections hold this rank's heads
-        group = None if cache is not None else _model_group(
-            self.q_proj.weight.shape[0], cfg.n_heads * hd)
+        # (training and the decode on a serving mesh alike)
+        group = _model_group(self.q_proj.weight.shape[0], cfg.n_heads * hd)
         x = copy_to(x, group)
         q, k, v = project(x, (self.q_proj, self.k_proj, self.v_proj), adapter_ix)
         q = q.view(B, S, -1, hd)
         k = k.view(B, S, -1, hd)
         v = v.view(B, S, -1, hd)
         if cache is not None:
-            return run_proj(self.o_proj, self._decode(q, k, v, cos, sin, cache, plan),
-                            adapter_ix)
+            out = self._decode(q, k, v, cos, sin, cache, plan)
+            return reduce_from(run_proj(self.o_proj, out, adapter_ix), group)
         # heads on the model axis (column-parallel QKV output)
         q = constrain(q, BATCH, "context", "model", None)
         k = constrain(k, BATCH, "context", "model", None)
@@ -338,15 +344,21 @@ class Attention(nn.Module):
     def _decode(self, q, k, v, cos, sin, cache, plan: _DecodePlan):
         """Prefill (S > 1) or step (S == 1): rope, write this call's K/V
         into the cache in place, then attend the plan's window. Slot s of
-        row b holds its true position s - pad[b]."""
-        B, S, nh, hd = q.shape
-        nkv = self.cfg.n_kv_heads
+        row b holds its true position s - pad[b]. q/k/v hold this rank's
+        heads; under a plan's `exchange` this group's rows' K/V are
+        gathered into all B rows before the write."""
+        S, nkv, hd = q.shape[1], k.shape[2], q.shape[3]
         if plan.positions is None:
             q = apply_rope(q, cos, sin, offset=plan.offset)
             k = apply_rope(k, cos, sin, offset=plan.offset)
         else:
             q = apply_rope_at(q, cos, sin, plan.positions)
             k = apply_rope_at(k, cos, sin, plan.positions)
+        if plan.exchange is not None:
+            group, n = plan.exchange
+            k = all_gather_cat(k, group, 0)[:n]
+            v = all_gather_cat(v, group, 0)[:n]
+        B = k.shape[0]  # the rows written; plan.pages holds the rows read
         if plan.kv_int8:
             k_all, v_all = self._int8_pool(k, v, cache, plan)
             return self._attend(q, k_all, v_all, plan)
@@ -371,8 +383,9 @@ class Attention(nn.Module):
                 # the row's whole window out of the pool; unallocated tail
                 # entries alias the scratch page, masked dead below
                 rows = plan.pages.reshape(-1)
-                k_all = cache_k.index_select(0, rows).view(B, plan.win, nkv, hd)
-                v_all = cache_v.index_select(0, rows).view(B, plan.win, nkv, hd)
+                R = plan.pages.shape[0]
+                k_all = cache_k.index_select(0, rows).view(R, plan.win, nkv, hd)
+                v_all = cache_v.index_select(0, rows).view(R, plan.win, nkv, hd)
         return self._attend(q, k_all, v_all, plan)
 
     def _int8_pool(self, k, v, cache, plan: _DecodePlan):
@@ -382,6 +395,7 @@ class Attention(nn.Module):
         fresh slots are read back dequantized like the history, so a slot
         has one value whichever path wrote it."""
         B, S, nkv, hd = k.shape
+        R = plan.pages.shape[0]  # the rows read (this group's under an exchange)
         pool_k, pool_v, pool_ks, pool_vs = cache
         rows = plan.pages.reshape(-1)
         out = []
@@ -392,8 +406,8 @@ class Attention(nn.Module):
             pool.view(-1, nkv, hd).index_copy_(0, plan.write, xq)
             pool_s.view(-1, nkv).index_copy_(0, plan.write, xs)
             out.append(dequantize_kv(
-                pool.index_select(0, rows).view(B, plan.win, nkv, hd),
-                pool_s.index_select(0, rows).view(B, plan.win, nkv),
+                pool.index_select(0, rows).view(R, plan.win, nkv, hd),
+                pool_s.index_select(0, rows).view(R, plan.win, nkv),
                 x.dtype,
             ))
         return out
@@ -402,7 +416,7 @@ class Attention(nn.Module):
         """Masked softmax attention of q [B, S, nh, hd] over the window
         k_all/v_all [B, win, nkv, hd], scores in f32."""
         B, S, nh, hd = q.shape
-        nkv = self.cfg.n_kv_heads
+        nkv = k_all.shape[2]
         # scores straight against the grouped cache; head h = kv * G + g
         G = nh // nkv
         scores = torch.einsum(
@@ -564,6 +578,8 @@ class Transformer(nn.Module):
         MoE router and expert kernels) truncated-normal LeCun (std
         1/sqrt(fan_in)), LoRA A N(0, 0.01) and B zero, norm scales one. Same distributions as the reference's
         initializers, different draws (torch.Generator vs jax.random)."""
+        if self.device.type == "meta":  # shapes only: restored into (from_run)
+            return
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
         for mod in self.modules():
@@ -581,11 +597,25 @@ class Transformer(nn.Module):
             if isinstance(mod, MoEFeedForward):
                 mod.reset_with(gen)
 
+    @property
+    def local_kv_heads(self) -> int:
+        """The kv heads this module's projections hold: n_kv_heads, or this
+        rank's share of them on a decode mesh."""
+        if not len(self.layers):
+            return self.cfg.n_kv_heads
+        return self.layers[0].attention.k_proj.weight.shape[0] // self.cfg.head_dim
+
     def make_cache(self, batch: int) -> list:
         """Zeroed dense KV cache: per layer (k, v), each
-        [batch, seq_len, n_kv_heads, head_dim] in the model's dtype."""
+        [batch, seq_len, n_kv_heads, head_dim] in the model's dtype. On a
+        decode mesh (`parallel.mesh.decode_mesh`, bound by
+        `set_current_mesh`) it holds this rank's kv heads and this `batch`
+        group's rows of a batch of `batch`."""
         cfg = self.cfg
-        shape = (batch, cfg.seq_len, cfg.n_kv_heads, cfg.head_dim)
+        mesh = current_mesh()
+        if is_decode_mesh(mesh) and mesh.size(0) > 1:
+            batch = batch_rows(batch, mesh.size(0), mesh.get_local_rank("batch"))[0]
+        shape = (batch, cfg.seq_len, self.local_kv_heads, cfg.head_dim)
         return [
             (
                 torch.zeros(shape, dtype=self.dtype, device=self.device),
@@ -625,7 +655,14 @@ class Transformer(nn.Module):
         every query. `adapter_ix` [B] gives each row's adapter slot on a
         slot-stacked model (`adapter_slots > 0`; None = slot 0 for all
         rows). In training mode dropout draws from `dropout_generator` (on
-        the model's device)."""
+        the model's device).
+
+        On a decode mesh (`parallel.mesh.decode_mesh` bound, this rank's
+        shards from `serving.mesh.ServingWorld.shard`) the decode runs this
+        `batch` group's rows (`parallel.mesh.batch_rows`) on this rank's
+        heads, and returns the LAST position's whole logits [B, 1, vocab]
+        of all B rows, gathered over `model` and `batch`: what the sampler
+        reads."""
         if adapter_ix is not None:
             if self.cfg.adapter_slots <= 0:
                 raise ValueError(
@@ -665,11 +702,20 @@ class Transformer(nn.Module):
         if cache is None and S > self.cfg.seq_len:
             raise ValueError(f"sequence {S} exceeds the model's seq_len {self.cfg.seq_len}")
         plan = None
-        if cache is not None:
+        mesh = current_mesh() if cache is not None else None
+        serving = is_decode_mesh(mesh)
+        B = tokens.shape[0]
+        if serving and mesh.size(0) > 1:
+            tokens, plan = self._batch_share(mesh, tokens, cache, pos, pad, pages, kv_layout,
+                                             prefix_len, prefix_lens)
+        elif cache is not None:
             plan = self._decode_plan(
                 S, cache, pos, pad, pages, kv_layout, prefix_len, prefix_lens
             )
-        x = constrain(self.embed(tokens.to(self.device)), BATCH, "context", None)
+        x = self.embed(tokens.to(self.device))
+        if self.embed.weight.shape[1] != self.cfg.dim:  # the hidden dim on `model`
+            x = all_gather_cat(x, _model_group(self.embed.weight.shape[1], self.cfg.dim), -1)
+        x = constrain(x, BATCH, "context", None)
         if self.cfg.pipeline_stages > 1:
             x = self.pipeline(x, self.rope_cos, self.rope_sin)
         for i, layer in enumerate(self.layers):
@@ -682,10 +728,66 @@ class Transformer(nn.Module):
         if return_features:
             return x
         if self.lm_head is None:
-            return F.linear(x.float(), self.embed.weight.float())
-        # a vocabulary split over `model`: each rank's logits slice
-        group = _model_group(self.lm_head.weight.shape[0], self.cfg.vocab_size)
-        return self.lm_head(copy_to(x, group))
+            w = self.embed.weight
+            if w.shape[1] != self.cfg.dim:  # partial sums over the hidden dim
+                group = _model_group(w.shape[1], self.cfg.dim)
+                lo = axis_index(mesh, "model") * w.shape[1]
+                logits = reduce_from(F.linear(x[..., lo:lo + w.shape[1]].float(), w.float()),
+                                     group)
+            else:
+                logits = F.linear(x.float(), w.float())
+        else:
+            # a vocabulary split over `model`: each rank's logits slice
+            group = _model_group(self.lm_head.weight.shape[0], self.cfg.vocab_size)
+            logits = self.lm_head(copy_to(x, group))
+        if not serving:
+            return logits
+        return self._gather_logits(mesh, logits[:, -1:], B)
+
+    def _gather_logits(self, mesh, logits, B: int):
+        """The whole logits of all B rows on a decode mesh: this rank's
+        vocabulary slice gathered over `model` (its group even at size 1,
+        so the path is the same on every mesh), then the `batch` groups'
+        rows."""
+        if logits.shape[-1] != self.cfg.vocab_size or mesh.size(1) == 1:
+            logits = all_gather_cat(logits, mesh.get_group("model"), -1)
+        if mesh.size(0) > 1:
+            logits = all_gather_cat(logits, mesh.get_group("batch"), 0)[:B]
+        world = getattr(self, "mesh_world", None)
+        if world is not None:
+            world.logit_gathers += 1
+        return logits
+
+    def _batch_share(self, mesh, tokens, cache, pos, pad, pages, kv_layout,
+                     prefix_len, prefix_lens):
+        """This `batch` group's share of a decode forward of B rows: (its
+        rows of `tokens`, its plan). A dense cache holds the
+        group's rows only; on the paged pool the plan writes all B rows
+        (their K/V exchanged over `batch`, `_DecodePlan.exchange`) and
+        reads the group's."""
+        dev = self.device
+        B, S = tokens.shape
+        _, rows = batch_rows(B, mesh.size(0), mesh.get_local_rank("batch"))
+        rows = rows.to(dev)
+
+        def own(v):
+            return None if v is None else torch.as_tensor(v, device=dev)[rows]
+
+        if pages is None:
+            pos = own(np.asarray(pos)) if _per_row(pos) else pos
+            pad, prefix_lens = own(pad), own(prefix_lens)
+            plan = self._decode_plan(S, cache, pos, pad, None, kv_layout, prefix_len,
+                                     prefix_lens)
+            return tokens.to(dev)[rows], plan
+        plan = self._decode_plan(S, cache, pos, pad, pages, kv_layout, prefix_len,
+                                 prefix_lens)
+        plan.pages = plan.pages[rows]
+        if plan.positions is not None:
+            plan.positions = plan.positions[rows]
+        if plan.mask.shape[0] > 1:
+            plan.mask = plan.mask[rows]
+        plan.exchange = (mesh.get_group("batch"), B)
+        return tokens.to(dev)[rows], plan
 
     def _decode_plan(self, S, cache, pos, pad, pages, kv_layout, prefix_len,
                      prefix_lens) -> _DecodePlan:

@@ -98,6 +98,17 @@ using bf16 = __nv_bfloat16;
 using hopper::opt_in_smem;
 
 constexpr int MAX_MEMBERS = 4;
+
+// the launches the card has run: block (0, 0, 0) of each launch adds one
+// (read by polyaxon_int8_device_launches; a count that no host-side trace
+// can drop)
+__device__ unsigned long long g_device_launches = 0;
+
+__device__ __forceinline__ void count_device_launch() {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+    atomicAdd(&g_device_launches, 1ull);
+  }
+}
 constexpr int MAX_SPLITS = 4;  // K splits of a tile: the blocks of one cluster
 
 // The projections of one launch: up to four (Wq, scale, y) sets sharing x
@@ -214,6 +225,7 @@ template <int BN>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 int8_wgmma_kernel(const __grid_constant__ TmaMaps maps, const Group g, int M, int K,
                   int splits) {
+  count_device_launch();
   using P = Pf<BN>;
   constexpr int S = P::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -396,6 +408,7 @@ __device__ __forceinline__ int gv_w_offset(int r, int u) {
 __global__ void __launch_bounds__(GV_THREADS)
 int8_gemv_kernel(const bf16* __restrict__ x, long long ldx, const Group g, int M, int K,
                  int splits) {
+  count_device_launch();
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t = lane & 3;
@@ -517,6 +530,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
 int8_fma_kernel(const float* __restrict__ x, long long ldx,
                 const int8_t* __restrict__ w, const float* __restrict__ scale,
                 float* __restrict__ y, long long ldy, int M, int N, int K) {
+  count_device_launch();
   __shared__ __align__(16) float As[FBK][BM + FPAD];
   __shared__ __align__(16) float Bs[FBK][BN + FPAD];
   const int tid = threadIdx.x;
@@ -755,6 +769,12 @@ extern "C" int polyaxon_int8_plan(int dtype, int M, int K, int members, int N0, 
   *tile_n = p.tile_n;
   *splits = p.splits;
   return 0;
+}
+
+// The kernel launches the current device has run since the library was
+// loaded (int8_fma_kernel counts once a member). Returns a cudaError.
+extern "C" int polyaxon_int8_device_launches(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_device_launches, sizeof(*out));
 }
 
 // One launch for x [M, K] against `members` (1-4) sets (w_i int8 [N_i, K],

@@ -145,6 +145,22 @@ class Int8MatmulKernel(_CudaKernel):
             *Ns, *[0] * len(pad), sum(Ns), _stream(x2),
         )
 
+    def device_launches(self) -> int:
+        """The launches the current CUDA device has run, by a counter the
+        kernels keep on the device (one a bf16 launch, one a member for
+        f32): unlike a profiler's trace it drops none. Synchronizes."""
+        from ._build import load
+
+        fn = load(self.lib).polyaxon_int8_device_launches
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        fn.restype = ctypes.c_int
+        torch.cuda.synchronize()
+        n = ctypes.c_ulonglong()
+        err = fn(ctypes.byref(n))
+        if err:
+            raise RuntimeError(f"polyaxon_int8_device_launches failed: cudaError {err}")
+        return n.value
+
     def plan(self, M: int, K: int, Ns, dtype=torch.bfloat16) -> tuple[int, int]:
         """(prefill tile width, K splits) that a launch takes for x [M, K]
         against outputs of widths `Ns` on the current CUDA device: (0, 1)

@@ -18,7 +18,10 @@ is the collective's transpose:
   whose backward all-reduces too (BatchNorm's global statistics);
 - `broadcast_from(x, group, src)`: one member's value on all of them,
   whose backward sums the cotangents onto that member (the pipeline's
-  last stage).
+  last stage);
+- `all_gather_cat(x, group, dim)`: the members' `x` concatenated along
+  `dim` in member order (not differentiable: the serving decode's
+  embedding, logits and K/V exchange).
 
 `group=None` (no such axis on the mesh, or an axis of size 1) makes each of
 them the identity.
@@ -204,6 +207,17 @@ def broadcast_from(x: torch.Tensor, group, src: int) -> torch.Tensor:
     """Member `src`'s `x` on every member of `group`; the backward sums the
     members' cotangents onto `src` (the others' `x` gets zeros)."""
     return x if group is None else _BroadcastFrom.apply(x, group, src)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The members' `x` (one shape) concatenated along `dim` in member
+    order; `x` itself when `group` is None."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def exclusive_prefix(t: torch.Tensor, group) -> torch.Tensor:

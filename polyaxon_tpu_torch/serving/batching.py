@@ -174,8 +174,8 @@ class ServingConfig:
     Multi-tenant serving: `adapters`, `tenants`, `adapter_slots`; the
     spill tier: `spill_ram_bytes`, `spill_dir`, `spill_dir_bytes`.
     Disaggregated pools: `role`. Per-request traces: `trace`,
-    `trace_ring`. `mesh_axes` (not ported yet) raises NotImplementedError
-    when set (see ROADMAP.md)."""
+    `trace_ring`. `mesh_axes`: the decode mesh (`normalize_mesh_axes`),
+    served by `ModelServer` over `parallel.mesh.decode_mesh`."""
 
     max_batch: int = 8
     max_wait_ms: float = 5.0
@@ -212,7 +212,7 @@ class ServingConfig:
     # per-request span traces and the tail-sampling ring behind /tracez
     trace: bool = True
     trace_ring: int = 256
-    mesh_axes: Optional[tuple[tuple[str, int], ...]] = None  # not ported
+    mesh_axes: Optional[tuple[tuple[str, int], ...]] = None
     # chunked prefill + step scheduling: slice prefill into
     # prefill_chunk_tokens-wide device steps interleaved with decode;
     # max_step_tokens bounds the tokens of one device step (all decode
@@ -250,13 +250,6 @@ class ServingConfig:
     # of the prefill pool degrades instead of failing
     role: str = "both"
 
-    def __post_init__(self):
-        if self.mesh_axes:
-            raise NotImplementedError(
-                "ServingConfig field mesh_axes (meshes) is not ported to "
-                "PyTorch yet (see ROADMAP.md)"
-            )
-
     def ladders(self, seq_len: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
         pl = self.prompt_buckets or bucket_ladder(min(32, seq_len), seq_len)
         nl = self.max_new_buckets or bucket_ladder(min(16, seq_len), seq_len)
@@ -266,8 +259,8 @@ class ServingConfig:
 def normalize_mesh_axes(spec) -> Optional[tuple[tuple[str, int], ...]]:
     """dict or pair-tuple → the frozen `ServingConfig.mesh_axes` form,
     sorted; a mesh of all-1 axes is the single-card path and normalizes to
-    None (the reference's normalizer; any other mesh is refused by
-    `ServingConfig` as not ported)."""
+    None (the reference's normalizer): `ModelServer` then serves on one
+    device, and any other mesh on `parallel.mesh.decode_mesh`."""
     if not spec:
         return None
     pairs = sorted(

@@ -66,7 +66,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..models.generate import make_paged_cache
+from ..models.generate import copy_pool_pages, make_paged_cache
 from ..models.quant import kv_pool_bytes
 from ..chaos.injector import inject
 from ..models.kv_pages import (
@@ -78,6 +78,7 @@ from ..models.kv_pages import (
     page_hashes,
 )
 from .batching import ServingError, ShedError, choose_buckets
+from .mesh import MeshCache
 from ..telemetry import now as _now
 from .spill import SpillManager, SpillPayload
 
@@ -353,21 +354,16 @@ class KVCacheManager:
         return t
 
     # -------------------------------------------------------------- harvest
-    @torch.inference_mode()
     def _copy_pages(self, table_row, start: int, count: int, new_ids) -> None:
-        """Pool-to-pool copy: gather `count` slots of one row's window
-        (from slot `start`) and scatter them, page-aligned, into the freshly
-        allocated pages `new_ids`, in every layer, in place."""
-        dev = self.cache[0][0].device
-        pt = self.layout.page_tokens
-        slots = start + torch.arange(count, device=dev)
-        table_row = torch.as_tensor(np.asarray(table_row), dtype=torch.long, device=dev)
-        src_pages, src_off = table_row[slots // pt], slots % pt
-        dst = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
-        for layer in self.cache:
-            for pool in layer:  # k, v (and their scales on an int8 pool)
-                vals = pool[src_pages, src_off]  # a copy: sources stay intact
-                pool[dst] = vals.reshape(len(new_ids), pt, *pool.shape[2:])
+        """Pool-to-pool copy of `count` slots of one row's window into the
+        freshly allocated pages `new_ids` (`models.generate.
+        copy_pool_pages`), on every rank of a decode mesh."""
+        args = dict(table_row=np.asarray(table_row), start=int(start), count=int(count),
+                    new_ids=np.asarray(new_ids), page_tokens=self.layout.page_tokens)
+        if isinstance(self.cache, MeshCache):
+            self.module.copy_pages(self.cache, **args)
+        else:
+            copy_pool_pages(self.cache, **args)
 
     def harvest(self, rows) -> int:
         """Index each completed row's page-aligned prompt prefix, in its
@@ -765,6 +761,15 @@ class KVCacheManager:
         cfg = self.module.cfg
         return kv_pool_bytes(
             self.layout, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+            self.cache[0][0].element_size(),
+        )
+
+    def rank_pool_bytes(self) -> int:
+        """Device bytes of the pool on each rank: the whole pool on one
+        device, this rank's kv heads' share on a decode mesh."""
+        cfg = self.module.cfg
+        return kv_pool_bytes(
+            self.layout, cfg.n_layers, self.module.local_kv_heads, cfg.head_dim,
             self.cache[0][0].element_size(),
         )
 

@@ -107,8 +107,19 @@ ship falls back to local decode. An adapter row's pages travel in its
 adapter's prefix namespace and land in the same namespace there.
 
 `ModelServer.from_run` serves the newest checkpoint of a run of the run
-store (`store/local.py`) with the knobs its spec pins. Not ported yet
-(ROADMAP.md), refused by name: meshes (ServingConfig raises).
+store (`store/local.py`) with the knobs its spec pins.
+
+A decode mesh (`mesh=`, or `config.mesh_axes` through
+`parallel.mesh.decode_mesh`): one process per device joins an initialized
+torch.distributed world (`nccl` on the card, `gloo` on the CPU; a mesh of
+one rank starts its own) and constructs the server with the same
+arguments. Each rank keeps its shards (`serving/mesh.py`); rank 0 is the
+server and drives the others, which run `follow()` until rank 0 stops. The
+batched, paged, chunked and int8 paths serve on a mesh; adapters and
+tenants, speculation, beam search, the spill tier and the prefill/decode
+roles are refused there by name (ROADMAP.md). `expected_devices` makes
+`/readyz` answer 503 "degraded slice" when the world has fewer devices
+(`runtime.health.check_slice`, run through the mesh's command loop).
 """
 
 from __future__ import annotations
@@ -189,6 +200,7 @@ from .handoff import (
     payload_to_wire,
 )
 from .kv import KVCacheManager
+from .mesh import MeshModule, ServingWorld, shard_bytes
 from .spill import SpillManager
 from .steps import RowStep, StepScheduler
 from .tenancy import DEFAULT_TENANT, TenantAdmission, TenantSpec
@@ -258,7 +270,7 @@ def _new_request_id() -> str:
 _STAGE_BYTES = 64 << 20  # the pinned staging buffer of a restore to the card
 
 
-def _restore_params(ckpt_dir: Path, module) -> dict:
+def _restore_params(ckpt_dir: Path, module, shard: tuple = (0, 1)) -> dict:
     """Read ONLY the params subtree ("model") of the newest step's
     `state.pt` (`runtime/checkpoint.py`'s layout) into `module`, the
     counterpart of the reference's Orbax partial restore.
@@ -269,9 +281,15 @@ def _restore_params(ckpt_dir: Path, module) -> dict:
     pinned staging buffer. Into an int8 module (`cfg.quant == "int8"`)
     each projection weight goes to the device alone, is quantized there
     (`models.quant.quantize_kernel`) and dropped, so no fp copy of the
-    module ever exists on the device. Returns what it measured: the step,
-    the bytes read, and seconds spent reading (mmap to staging), moving
-    to the device and quantizing."""
+    module ever exists on the device. On a decode mesh `shard` is this
+    rank's (index, count) on `model` and `module` holds its shards
+    (`serving.mesh.ServingWorld.shard`): each param's slice is read and
+    moved, and an int8 o/down projection, whose shards keep the full-K
+    scales, is quantized whole on the device before its columns are
+    kept. Returns what it measured: the step, the bytes read, and seconds
+    spent reading (mmap to staging), moving to the device and quantizing."""
+    from .mesh import shard_slice, split_dim
+
     from ..models import quant
     from ..runtime.checkpoint import STATE_FILE, _steps_on_disk
 
@@ -312,7 +330,7 @@ def _restore_params(ckpt_dir: Path, module) -> dict:
             dst.copy_(src)
             times["to_device_s"] += time.perf_counter() - t
             return
-        flat_src, flat_dst = src.reshape(-1), dst.view(-1)
+        flat_src, flat_dst = src.reshape(-1), dst.view(-1)  # a column slice: copied
         per = _STAGE_BYTES // src.element_size()
         for i in range(0, flat_src.numel(), per):
             part = flat_src[i:i + per]
@@ -325,17 +343,23 @@ def _restore_params(ckpt_dir: Path, module) -> dict:
             times["to_device_s"] += time.perf_counter() - t1
 
     n_bytes = 0
+    index, count = shard
     with torch.no_grad():
         for name, value in state.items():
-            n_bytes += value.numel() * value.element_size()
+            dim = split_dim(name) if count > 1 else None
             if not is_target(name):
+                value = shard_slice(value, dim, index, count)
+                n_bytes += value.numel() * value.element_size()
                 to_device(value, own[name])
                 continue
+            if dim == 0:  # output rows: their scales are their own
+                value = shard_slice(value, dim, index, count)
+            n_bytes += value.numel() * value.element_size()
             w = torch.empty(value.shape, dtype=value.dtype, device=dev)
             to_device(value, w)
             t = time.perf_counter()
             q, s = quant.quantize_kernel(w)
-            own[name].copy_(q)
+            own[name].copy_(shard_slice(q, dim, index, count) if dim == 1 else q)
             own[f"{quant._split(name)[0]}.scale"].copy_(s)
             del w, q, s
             if dev.type == "cuda":
@@ -375,6 +399,8 @@ class ModelServer:
         history: Optional[dict] = None,
         regression_rules: Optional[list] = None,
         event_sink=None,
+        mesh=None,
+        expected_devices: Optional[int] = None,
     ):
         """`params`: None (keep the module's weights), a torch state_dict,
         or the JAX package's nested numpy param dict. `slos`: objective
@@ -382,7 +408,10 @@ class ModelServer:
         windows); `debug_dir`: where a breach writes its flight-recorder
         bundle; `history`: {"dir", "interval_s", "max_bytes",
         "segment_bytes"}; `regression_rules`: rule dicts over the history;
-        `event_sink`: called with each perf_regression event."""
+        `event_sink`: called with each perf_regression event. `mesh`: a
+        decode mesh (`parallel.mesh.decode_mesh`; default: one from
+        `config.mesh_axes`, none without). `expected_devices`: /readyz reports a degraded slice
+        below that many devices."""
         self.config = config or ServingConfig()
         cfg = self.config
         # the reference's cross-field rules: an ignored kv_quant would have an
@@ -415,8 +444,13 @@ class ModelServer:
                 "prefix cache (set kv_pool_pages, keep prefix_cache on)"
             )
         self.device = resolve_device(device)
-        module = module.to(self.device).eval()
+        if module.device.type != "meta":  # a meta module is restored into (from_run)
+            module = module.to(self.device)
+        module = module.eval()
         _refuse_moe_paths(module, cfg)
+        self._world: Optional[ServingWorld] = None
+        if mesh is not None or cfg.mesh_axes:
+            self._world = self._join_mesh(mesh, cfg)
         if params is not None:
             if all(isinstance(v, torch.Tensor) for v in params.values()):
                 state = params
@@ -449,6 +483,16 @@ class ModelServer:
                 raise ValueError("adapter_slots must be >= 1 when adapters are configured")
             module = stack_adapter_params(module, slots=n_hot + 1)
             self._adapter_slots_active = True
+        self.mesh_shard_bytes = None
+        if self._world is not None:
+            self._world.shard(module)
+            self.mesh_shard_bytes = shard_bytes(module)
+            if not self._world.leader:
+                # a follower keeps its shards and runs rank 0's commands
+                # (`follow`); everything else is rank 0's
+                self.module = module
+                return
+            module = MeshModule(module, self._world)
         if cfg.tenants or self._adapter_sources:
             self._tenancy = TenantAdmission(cfg.tenants)
             for pairs in cfg.tenants or ():
@@ -474,6 +518,8 @@ class ModelServer:
         self.model_name = model_name
         self.step = step
         self.restore_info: Optional[dict] = None  # set by from_run
+        self.expected_devices = expected_devices
+        self._health_cache: Optional[tuple] = None
         self._draining = False
         # ONE metrics pipeline: /statsz and /metricsz both render from it
         self.telemetry = registry or MetricsRegistry()
@@ -518,6 +564,17 @@ class ModelServer:
             help="Unfinished requests admitted to the coalescer queue",
         )
         self._m_queue_depth.set(0)
+        self._m_mesh_devices = t.gauge(
+            "serving.mesh_devices",
+            help="Devices in this replica's decode mesh (1 = single-chip)",
+        )
+        self._m_mesh_model = t.gauge(
+            "serving.mesh_model",
+            help="Tensor-parallel (`model` axis) degree of the decode mesh",
+        )
+        w = self._world
+        self._m_mesh_devices.set(w.size if w is not None else 1)
+        self._m_mesh_model.set(w.sizes["model"] if w is not None else 1)
         self._m_kv_total = t.gauge(
             "serving.kv_pages_total",
             help="KV page pool capacity (0 = dense per-group caches)",
@@ -814,6 +871,53 @@ class ModelServer:
         self._handoff_idle = threading.Event()
         self._handoff_idle.set()
 
+    def _join_mesh(self, mesh, cfg: ServingConfig) -> ServingWorld:
+        """This process's place on the decode mesh `mesh`, else on one from
+        `cfg.mesh_axes` over the initialized world (a mesh of one rank
+        starts a one-rank group itself). What is not ported on a mesh is
+        refused by name."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import decode_axis_sizes, decode_mesh
+
+        refused = {
+            "speculation (speculate, draft_model, adaptive_draft)": bool(
+                cfg.speculate or cfg.draft_model is not None or cfg.adaptive_draft),
+            "adapter slots and tenants": bool(
+                cfg.adapters or cfg.tenants or cfg.adapter_slots),
+            "the KV spill tier": bool(cfg.spill_ram_bytes or cfg.spill_dir),
+            f"the {cfg.role!r} handoff role": cfg.role != "both",
+        }
+        bad = [name for name, hit in refused.items() if hit]
+        if bad:
+            raise NotImplementedError(
+                f"{', '.join(bad)} on a decode mesh is not ported to PyTorch yet "
+                "(see ROADMAP.md)"
+            )
+        if mesh is None:
+            axes = dict(cfg.mesh_axes)
+            if not dist.is_initialized():
+                decode_axis_sizes(axes, 1)  # more ranks need their world started
+                dist.init_process_group(
+                    "nccl" if self.device.type == "cuda" else "gloo",
+                    store=dist.HashStore(), rank=0, world_size=1,
+                )
+            mesh = decode_mesh(axes)
+        return ServingWorld(mesh, self.device)
+
+    @property
+    def is_follower(self) -> bool:
+        """True on a rank of a decode mesh other than rank 0."""
+        return self._world is not None and not self._world.leader
+
+    def follow(self) -> int:
+        """A follower's loop (`serving.mesh.ServingWorld.follow`): run rank
+        0's commands on this rank's shards until rank 0 stops. Returns the
+        commands run."""
+        if not self.is_follower:
+            raise RuntimeError("follow() runs on the followers of a decode mesh")
+        return self._world.follow(self.module)
+
     @classmethod
     def from_run(
         cls,
@@ -822,6 +926,7 @@ class ModelServer:
         mesh_axes: Optional[dict] = None,
         config: Optional[ServingConfig] = None,
         config_overrides: Optional[dict] = None,
+        expected_devices: Optional[int] = None,
         *,
         device="cuda",
     ):
@@ -840,7 +945,10 @@ class ModelServer:
         `config` replaces the serving knobs wholesale; absent, the spec's
         `program.serving` provides them. `config_overrides` (field → value)
         layer single knobs over that base. `mesh_axes` layers like an
-        override, and a mesh is refused by `ServingConfig` (not ported).
+        override: on a decode mesh every rank of the world calls
+        `from_run` alike; the module is built on the `meta` device, each
+        rank gets empty shards and reads only its slices of the
+        checkpoint, and the followers then run `follow()`.
         The run's observability block wires the SLO engine, the metrics
         history under `<outputs>/telemetry/history/` and the regression
         rules, whose events land in the run's event log. What the restore
@@ -885,10 +993,13 @@ class ModelServer:
             model_config["quant"] = "int8"
         dev = resolve_device(device)
         module = build_model(
-            program.model.name, model_config, device=dev,
+            program.model.name, model_config,
+            device="meta" if config.mesh_axes else dev,
             dtype=param_dtype_for(precision), seed=int(tspec.seed) if tspec else 0,
         ).module.eval()
-        info = _restore_params(ckpt_dir, module)
+        info = None
+        if not config.mesh_axes:
+            info = _restore_params(ckpt_dir, module)
         slos = history = rules = None
         obs = program.observability
         if obs is not None and obs.slos:
@@ -904,8 +1015,9 @@ class ModelServer:
             None,
             config,
             model_name=program.model.name,
-            step=info["step"],
+            step=info["step"] if info else 0,
             device=dev,
+            expected_devices=expected_devices,
             slos=slos,
             debug_dir=str(store.outputs_dir(uuid) / "debug") if (slos or rules) else None,
             history=history,
@@ -914,6 +1026,11 @@ class ModelServer:
                 (lambda kind, body: store.log_event(uuid, kind, body)) if rules else None
             ),
         )
+        if info is None:  # a decode mesh: this rank's shards
+            w = server._world
+            info = _restore_params(ckpt_dir, server.module if server.is_follower
+                                   else server.module.module, (w.model_index, w.sizes["model"]))
+            server.step = info["step"]
         server.restore_info = {
             **info, "run": uuid, "seconds": time.perf_counter() - t_start,
         }
@@ -1267,6 +1384,11 @@ class ModelServer:
         max_beams = min(32, cfg.vocab_size)
         if not 1 <= num_beams <= max_beams:
             raise ServingError(f"numBeams must be in [1, {max_beams}]")
+        if num_beams > 1 and self._world is not None:
+            raise NotImplementedError(
+                "beam search (numBeams > 1) on a decode mesh is not ported to "
+                "PyTorch yet (see ROADMAP.md)"
+            )
         # deadline: body deadlineMs wins, then the config default; absolute
         # monotonic time from here on
         deadline_ms = _float(body, "deadlineMs", self.config.default_deadline_ms)
@@ -2013,10 +2135,32 @@ class ModelServer:
         """(ready, reason) for /readyz; lands on the serving.ready gauge."""
         if self._httpd is None or self._draining:
             ready, reason = False, "draining" if self._draining else "stopped"
+        elif self.expected_devices is not None:
+            ready, reason = self._device_health()
         else:
             ready, reason = True, "ok"
         self._m_ready.set(1 if ready else 0)
         return ready, reason
+
+    def _device_health(self) -> tuple:
+        """`check_slice` against `expected_devices`, cached for 5 s. On a
+        decode mesh its all-reduce is a command of the mesh (every rank
+        runs it in the commands' order, never beside a step); one device
+        without a mesh is one device."""
+        from ..runtime.health import SliceHealthError
+
+        now = time.monotonic()
+        if self._health_cache is not None and now - self._health_cache[0] < 5.0:
+            return self._health_cache[1], self._health_cache[2]
+        try:
+            n = self.module.health()["devices"] if self._world is not None else 1
+            if n < self.expected_devices:
+                raise SliceHealthError(f"expected {self.expected_devices} devices, found {n}")
+            out = (True, f"ok ({n} devices)")
+        except Exception as e:  # noqa: BLE001 — a failed probe is a degraded slice
+            out = (False, f"degraded slice: {e}")
+        self._health_cache = (now, out[0], out[1])
+        return out
 
     def kv_heads(self) -> dict:
         """GET /kvz: the prefix chain hashes this replica can serve warm
@@ -2066,6 +2210,13 @@ class ModelServer:
         kv = {"enabled": False}
         if self._kv is not None:
             kv = {"enabled": True, **self._kv.stats(), "ttft_ms": ttft}
+            if self._world is not None:  # the pages stay whole-model
+                kv["kv_pool_bytes_per_rank"] = self._kv.rank_pool_bytes()
+        mesh = {"enabled": False, "devices": 1}
+        if self._world is not None:
+            w = self._world
+            mesh = {"enabled": w.size > 1, "devices": w.size,
+                    "axes": {k: int(v) for k, v in w.sizes.items()}}
         chunked = {"enabled": False}
         if isinstance(c, StepScheduler):
             chunked = {
@@ -2155,11 +2306,14 @@ class ModelServer:
             "max_wait_ms": self.config.max_wait_ms,
             "tracing": {"enabled": bool(self.config.trace), **self.traces.stats()},
             "slo": slo,
+            "mesh": mesh,
         }
 
     # ------------------------------------------------------------ http
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Serve in a background thread; returns the bound port."""
+        if self.is_follower:
+            raise RuntimeError("rank 0 serves a decode mesh; its followers run follow()")
         server = self
         if self._coalescer is not None:
             self._coalescer.start()
@@ -2394,6 +2548,8 @@ class ModelServer:
         in-flight work for up to the drain budget (config.drain_grace_s
         unless overridden) while the HTTP server still answers, fail what
         remains fast, then stop the HTTP server."""
+        if self.is_follower:  # rank 0's stop ends the follower's loop
+            return
         grace = self.config.drain_grace_s if drain_grace_s is None else drain_grace_s
         self._draining = True
         self._m_ready.set(0)
@@ -2414,6 +2570,9 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        if self._world is not None:
+            # the followers' loops end with rank 0's last command
+            self._world.stop()
         self._draining = False  # a restarted server admits again
 
 

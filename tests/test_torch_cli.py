@@ -237,8 +237,10 @@ def _with_scan_layers(example: str) -> str:
     (["run", "-f", "@sched"], "schedule"),
     (["run", "-f", "@joins"], "joins"),
     (["run", "-f", "@conn"], "connections"),
-    (["serve", "-uid", "x", "--mesh", "model=2"], "--mesh"),
-    (["serve", "-uid", "x", "--mesh-model", "2"], "--mesh"),
+    # a decode mesh serves (tests/test_torch_serving_mesh.py); what it
+    # does not serve yet is refused by its flag
+    (["serve", "-uid", "x", "--mesh", "model=2", "--speculate"], "--speculate"),
+    (["serve", "-uid", "x", "--mesh-model", "2", "--role", "prefill"], "--role"),
 ])
 def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, what):
     files = {

@@ -33,6 +33,7 @@ import http.client
 import json
 import threading
 import time
+import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -294,8 +295,17 @@ def _replay_hit(url, rid):
     """From the port router's stitched /tracez of `rid`: the pages the
     prefill replica (r0) exported, and the decode replica's (r1) kv_plan
     on the replay — whether its admission hit the prefix cache, and for
-    how many tokens."""
-    t = json.loads(_get(url, f"/tracez?id={rid}"))
+    how many tokens. The router records a trace a beat after it answers,
+    so a 404 is asked again for a few seconds."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        try:
+            t = json.loads(_get(url, f"/tracez?id={rid}"))
+            break
+        except urllib.error.HTTPError as e:
+            if e.code != 404 or time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
     export = [s for s in t["spans"] if s["name"] == "kv_export"
               and s["attrs"].get("replica") == "r0"]
     plan = [s for s in t["spans"] if s["name"] == "kv_plan"

@@ -282,14 +282,18 @@ def test_kv_pool_exhaustion_sheds_503(lm):
         server.stop()
 
 
-def test_unported_options_are_refused_by_name(tmp_path):
-    """Meshes are still refused by name; speculation, int8 weights and the
-    int8 pool (tests/test_torch_serving_fast.py), tenants, adapters and the
-    spill tier (tests/test_torch_tenancy.py, tests/test_torch_spill.py),
-    the disaggregated roles (tests/test_torch_handoff.py) and `from_run`
-    (tests/test_torch_from_run.py) are served now."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(mesh_axes=(("model", 2),))
+def test_unported_options_are_refused_by_name(tmp_path, lm):
+    """Every option is served now: meshes (tests/test_torch_serving_mesh.py),
+    speculation, int8 weights and the int8 pool
+    (tests/test_torch_serving_fast.py), tenants, adapters and the spill tier
+    (tests/test_torch_tenancy.py, tests/test_torch_spill.py), the
+    disaggregated roles (tests/test_torch_handoff.py) and `from_run`
+    (tests/test_torch_from_run.py). What a mesh does not serve yet is
+    refused by name."""
+    assert ServingConfig(mesh_axes=(("model", 2),)).mesh_axes == (("model", 2),)
+    with pytest.raises(NotImplementedError, match="speculation.*decode mesh.*ROADMAP"):
+        ModelServer(lm[2], None, ServingConfig(mesh_axes=(("model", 2),), speculate=True),
+                    device="cpu")
     for field in ({"role": "prefill"}, {"role": "decode"},
                   {"speculate": True}, {"kv_quant": "int8"}, {"quantize": True},
                   {"draft_model": ()}, {"adaptive_draft": True},

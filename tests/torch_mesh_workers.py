@@ -315,6 +315,152 @@ def health(expected_devices=None):
         return f"SliceHealthError: {e}"
 
 
+def _serving_lm(model_config, state):
+    """The port's Transformer on the CPU from a numpy state dict."""
+    import torch
+
+    from polyaxon_tpu_torch.models import build_model
+
+    module = build_model("transformer_lm", model_config, device="cpu").module
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return module.eval()
+
+
+def _serve_one(server, inline, http):
+    """Rank 0's answers of one server: `inline` bodies through
+    `generate`, `http` bodies posted at once over HTTP, /statsz,
+    /metricsz and /readyz."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    out = {"inline": [server.generate(b)["tokens"] for b in inline]}
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+
+    def call(path, body=None):
+        req = urllib.request.Request(
+            url + path, data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                data = resp.read()
+                code = resp.status
+        except urllib.error.HTTPError as e:
+            data, code = e.read(), e.code
+        return code, (data.decode() if path == "/metricsz" else json.loads(data))
+
+    answers = [None] * len(http)
+
+    def one(i):
+        answers[i] = call("/generate", http[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(http))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    out["http"] = answers
+    out["stats"] = call("/statsz")[1]
+    out["metrics"] = call("/metricsz")[1]
+    out["readyz"] = call("/readyz")
+    return out
+
+
+def serve_mesh(model_config, state, mesh_axes, configs, inline=(), http=(),
+               expected_devices=None):
+    """One ModelServer a config ((name, ServingConfig kwargs) pairs) on the
+    decode mesh of `mesh_axes`, every rank from `state`: rank 0 answers
+    (`_serve_one`) and stops it, the followers follow. → rank 0: {name:
+    answers}; a follower: {name: (commands run, its shard bytes)}."""
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    mesh = decode_mesh(mesh_axes)
+    out = {}
+    for name, kwargs in configs:
+        server = ModelServer(_serving_lm(model_config, state), None,
+                             ServingConfig(**kwargs), device="cpu", mesh=mesh,
+                             expected_devices=expected_devices)
+        if server.is_follower:
+            out[name] = (server.follow(), server.mesh_shard_bytes)
+            continue
+        try:
+            out[name] = {**_serve_one(server, inline, http),
+                         "shard_bytes": server.mesh_shard_bytes,
+                         "sent": dict(server._world.ops),
+                         "logit_gathers": server._world.logit_gathers}
+        finally:
+            server.stop()
+    return out
+
+
+def serve_from_run(home, run, mesh_axes, inline=(), http=()):
+    """`ModelServer.from_run` of the port run `run` in the store at `home`
+    on the decode mesh of `mesh_axes`: rank 0's answers, or a follower's
+    (commands run, shard bytes, what its restore read)."""
+    from polyaxon_tpu_torch.serving.server import ModelServer
+    from polyaxon_tpu_torch.store import RunStore
+
+    server = ModelServer.from_run(run, store=RunStore(home), mesh_axes=mesh_axes,
+                                  device="cpu")
+    if server.is_follower:
+        return server.follow(), server.mesh_shard_bytes, server.restore_info["bytes_read"]
+    try:
+        return {**_serve_one(server, inline, http), "step": server.step,
+                "bytes_read": server.restore_info["bytes_read"]}
+    finally:
+        server.stop()
+
+
+def mesh_error(mesh_axes):
+    """What `decode_mesh(mesh_axes)` raises on this world."""
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+
+    try:
+        decode_mesh(mesh_axes)
+    except ValueError as e:
+        return f"ValueError: {e}"
+    return None
+
+
+def serve_follower_fails(model_config, state, body, out):
+    """A {model: 2} server whose follower fails its first decode forward:
+    rank 0 writes what its `generate` raised (and how long it took) to
+    `out`; the follower's process ends with the error."""
+    import json
+    import time
+
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.models.transformer import Transformer
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(_serving_lm(model_config, state), None,
+                         ServingConfig(batching=False), device="cpu",
+                         mesh=decode_mesh({"model": 2}))
+    if server.is_follower:
+        def boom(*a, **k):
+            raise RuntimeError(f"rank {dist.get_rank()}: injected forward failure")
+
+        Transformer.forward = boom
+        server.follow()
+        return None
+    t0 = time.monotonic()
+    try:
+        server.generate(body)
+        error = None
+    except Exception as e:  # noqa: BLE001
+        error = f"{type(e).__name__}: {e}"
+    with open(out, "w") as f:
+        json.dump({"error": error, "seconds": time.monotonic() - t0,
+                   "broken": server._world.broken is not None}, f)
+    return error
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
