@@ -96,9 +96,12 @@ BASELINE configurations.
                kernels on the device in all 33 timed and profiled runs;
                torch.profiler's trace drops events) and a verify window at
                B=8, frontier 2112. After the kernel
-               counts are read: int8 against bf16 teacher-forced on 2048
-               tokens, the argmax agreeing at >= 0.75 of the positions
-               past a near-tie;
+               counts are read: every other int8 row of each wave
+               (INT8_HELD: 2 behind the shared prefix, the second wave's
+               on prefix hits, and 2 without) against the int8 module's
+               own on a direct int8 pool (the near-tie rule), and int8
+               against bf16 teacher-forced on 2048 tokens, the argmax
+               agreeing at >= 0.75 of the positions past a near-tie;
 4f. serve-mesh — the step and int8 configs on decode meshes
                (`parallel.mesh.decode_mesh`, `serving/mesh.py`), 4 of
                serve-batched's prompts, one at a time: (a) on a one-rank
@@ -221,8 +224,9 @@ BASELINE configurations.
                read). Then 8 greedy requests of 32 new tokens over HTTP,
                streamed and timed at the client, prompts of 128-2048
                corpus tokens, which must launch int8_matmul; after the
-               counts are read each row is held against the int8 module's
-               rows on a direct pool (the near-tie rule). Prints from_run's
+               counts are read every other row (RUN_HELD, 128 to 1773
+               tokens) is held against the int8 module's rows on a direct
+               pool (the near-tie rule). Prints from_run's
                seconds (read, to-device, quantize), the bytes read, the
                peak, TTFT and decode tokens/s. Then the same run served by
                the CLI in a child process, `python -m polyaxon_tpu_torch
@@ -240,6 +244,23 @@ BASELINE configurations.
                `python -m polyaxon_tpu_torch run -f examples/mnist.yaml -P
                steps=20` as a child process. Prints the run's steps/s, the
                launches, the serve child's answers and the seconds;
+7d. sweep    — `main(["run", "-f", "examples/lm_asha.yaml"])`, the file as
+               shipped (ASHA, 16 trials of a 4-layer LM at 50-400 steps,
+               concurrency 4): exit 0, the sweep succeeded, the trials are
+               the ones the search manager gives when fed their own losses
+               (16), each succeeded with a finite loss, `best` is the
+               least loss, the placement is one group of one GPU (no
+               topology: the YAML's 2x4 is not this pool), `ops ls
+               --sweep` lists the trials. Prints the wall seconds, trials
+               per hour and the mean seconds a trial spends outside its
+               training steps. Its trials attend by einsum (seq 256);
+7e. pipeline — a `dag` Polyaxonfile written by the phase: a `search` node
+               (a grid over PIPELINE_LRS on 7c's program, 6 steps each)
+               and `train-best` after it, taking `{{ ops.search.outputs.
+               best.lr }}`: the DAG succeeds, train-best's spec carries
+               the winner's lr, and each of the three training runs
+               launches PER_STEP's flash kernels for 2 layers and 6 steps.
+               Prints the wall seconds and each node's;
 8. train-rules — the remat policies `nothing`, `dots` and
                `dots_no_batch`, 4 steps each at the preset's width with 4
                layers (RULES_LAYERS, a cut; median step seconds, peak
@@ -284,7 +305,7 @@ Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (2b's ring drive, phases 3-4, then 4b, then 4c, then each config of 4e,
 then 4d, then phases 5, 5b, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
-8 and each configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
+7d, 7e, 8 and each configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The `wall` line
 gives the seconds of each group of phases. The last lines are the kernels JSON line, the card's name
@@ -2169,19 +2190,25 @@ def phase_serve_fast(model, batched: dict) -> tuple:
     return qmodel, int8_answers
 
 
+# the int8 rows held against the direct path: every other row of each
+# wave of 8 (2 behind the shared prefix, which the second wave's find in
+# the prefix cache, and 2 without); all 16 took 40-49 s of the script
+INT8_HELD = tuple(range(0, 16, 2))
+
+
 def check_int8_rows(qmodel, waves: list, answers: list) -> None:
-    """The int8 server's rows held against the int8 module's own rows on a
-    direct int8 pool (int8_pool_rows): equal, or diverging only at a
-    near-tie of that reference path."""
+    """The int8 server's INT8_HELD rows held against the int8 module's own
+    rows on a direct int8 pool (int8_pool_rows): equal, or diverging only
+    at a near-tie of that reference path."""
     t0 = time.perf_counter()
     prompts = [p for wave in waves for p in wave]
-    reference, gaps = int8_pool_rows(qmodel, prompts)
+    reference, gaps = int8_pool_rows(qmodel, [prompts[i] for i in INT8_HELD])
     divergences = []
-    for i, (p, row) in enumerate(zip(prompts, answers)):
-        d = compare_rows(qmodel, row, reference[i], len(p), gaps=gaps[i])
+    for j, i in enumerate(INT8_HELD):
+        d = compare_rows(qmodel, answers[i], reference[j], len(prompts[i]), gaps=gaps[j])
         if d is not None:
             divergences.append({"row": i, **d})
-    emit({"phase": "serve-fast-int8-rows", "config": "int8", "rows": len(prompts),
+    emit({"phase": "serve-fast-int8-rows", "config": "int8", "rows": list(INT8_HELD),
           "rows_diverged": len(divergences), "divergences": divergences,
           "seconds": time.perf_counter() - t0})
 
@@ -3850,6 +3877,9 @@ CORPUS_TOKENS, CORPUS_SEED = 1 << 24, 0
 RUN_SERVING = {"quantize": True, "kvPoolPages": 256, "chunkedPrefill": True, "maxBatch": 8}
 RUN_OVERRIDES = {"max_queue": 16}
 RUN_PROMPTS, RUN_NEW, RUN_PROMPT_SEED = 8, 32, 5
+# the served rows held against the direct path: every other one, 128 to
+# 1773 tokens (all 8 took 36-39 s of the script)
+RUN_HELD = tuple(range(0, RUN_PROMPTS, 2))
 RESTORE_SLACK = 1.10
 
 
@@ -3893,8 +3923,8 @@ def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
     card, whose int8 weight and scale the served module holds); the card's
     peak over from_run stays under the params' bytes plus 10%; the config is
     the spec's pins plus the override. Then 8 greedy requests over HTTP,
-    each row held against the int8 module's own rows on a direct pool
-    (int8_pool_rows; the near-tie rule). The kernel counts are zeroed
+    the RUN_HELD rows held against the int8 module's own rows on a direct
+    pool (int8_pool_rows; the near-tie rule). The kernel counts are zeroed
     before from_run and read after the requests (the served path only),
     then put back as they were. Returns the served path's launches."""
     import threading
@@ -3990,11 +4020,13 @@ def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
     check(launches["int8_matmul"] > 0, "the served run never launched int8_matmul")
     rows = [timed[i]["row"] for i in range(RUN_PROMPTS)]
     t1 = time.perf_counter()
-    reference, gaps = int8_pool_rows(server.module, prompts, new=RUN_NEW, kv_quant="none")
-    divergences = []
     for i, (p, row) in enumerate(zip(prompts, rows)):
         check(len(row) == len(p) + RUN_NEW, f"serve-run row {i} has {len(row)} tokens")
-        d = compare_rows(server.module, row, reference[i], len(p), gaps=gaps[i])
+    reference, gaps = int8_pool_rows(server.module, [prompts[i] for i in RUN_HELD],
+                                     new=RUN_NEW, kv_quant="none")
+    divergences = []
+    for j, i in enumerate(RUN_HELD):
+        d = compare_rows(server.module, rows[i], reference[j], len(prompts[i]), gaps=gaps[j])
         if d is not None:
             divergences.append({"row": i, **d})
     for k in kernels:  # put back the counts of the phase around this one
@@ -4015,6 +4047,7 @@ def phase_serve_run(store, uuid: str, p_params: dict, corpus: Path) -> dict:
         "decode_tokens_per_s_p50": statistics.median(decode),
         "decode_tokens_per_s": decode, "wall_s": wall,
         "kv": stats.get("kv"), "launches": launches,
+        "rows_held": list(RUN_HELD),
         "rows_diverged": len(divergences), "divergences": divergences,
         "rows_check_s": time.perf_counter() - t1,
     }
@@ -4164,11 +4197,33 @@ def _cli(main, argv: list) -> tuple:
     return code, out.getvalue()
 
 
-def phase_cli() -> dict:
-    """The port's CLI (phase 7c); returns the run's kernel launches."""
+@contextlib.contextmanager
+def _cli_home(tag: str):
+    """A fresh POLYAXON_HOME under ARTIFACTS and no POLYAXON_TORCH_DEVICE
+    (the card, as a user runs it) for the length of the block; yields the
+    home. Removed after."""
     import os
     import shutil
     import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix=f"{tag}-", dir=ARTIFACTS))
+    saved = {k: os.environ.get(k) for k in ("POLYAXON_HOME", "POLYAXON_TORCH_DEVICE")}
+    os.environ["POLYAXON_HOME"] = str(root / "home")
+    os.environ.pop("POLYAXON_TORCH_DEVICE", None)
+    try:
+        yield root
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_cli() -> dict:
+    """The port's CLI (phase 7c); returns the run's kernel launches."""
+    import os
 
     from polyaxon_tpu_torch.cli.main import main
     from polyaxon_tpu_torch.ops.flash_attention import KERNELS
@@ -4176,11 +4231,7 @@ def phase_cli() -> dict:
 
     t0 = time.perf_counter()
     check(CLI_SERVE.get("requests") == CLI_SERVE_REQUESTS, "serve-run's serve child did not run")
-    root = Path(tempfile.mkdtemp(prefix="cli-", dir=ARTIFACTS))
-    saved = {k: os.environ.get(k) for k in ("POLYAXON_HOME", "POLYAXON_TORCH_DEVICE")}
-    os.environ["POLYAXON_HOME"] = str(root / "home")
-    os.environ.pop("POLYAXON_TORCH_DEVICE", None)  # the card, as a user runs it
-    try:
+    with _cli_home("cli") as root:
         examples = sorted((HERE / "examples").glob("*.yaml"))
         for f in examples:
             code, out = _cli(main, ["check", "-f", str(f)])
@@ -4223,13 +4274,6 @@ def phase_cli() -> dict:
         check(proc.returncode == 0 and "finished: V1Statuses.SUCCEEDED" in proc.stdout,
               f"python -m polyaxon_tpu_torch run mnist exited {proc.returncode}: "
               f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "cli", "device": device_line(), "examples_checked": len(examples),
           "layers": CLI_LAYERS, "steps": CLI_STEPS,
           "steps_per_sec": summary["steps_per_sec"], "run_s": run_s,
@@ -4237,6 +4281,186 @@ def phase_cli() -> dict:
           "monitor_samples": samples,
           "launches": launches, "expected_launches": expected,
           "mnist_subprocess_s": mnist_s, "serve": CLI_SERVE,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# 7d. the sweep: examples/lm_asha.yaml as shipped
+SWEEP_EXAMPLE = "lm_asha.yaml"
+# 7e. the pipeline: a grid of two learning rates on 7c's program, then the winner
+PIPELINE_LRS = (1.0e-3, 1.0e-6)
+
+
+def _summary_json(out: str) -> dict:
+    """The sweep's JSON summary that `run` prints after the trials' lines."""
+    return json.loads(out[out.index("{\n"):])
+
+
+def _train_seconds(store, uuid: str) -> float:
+    """A run's seconds inside its training steps: its steps over the
+    steps/s of its run_summary (the step loop's own clock)."""
+    summary = next(e for e in store.read_events(uuid) if e["kind"] == "run_summary")
+    steps = [m["step"] for m in store.read_metrics(uuid) if "loss" in m]
+    return max(steps) / summary["steps_per_sec"]
+
+
+def _run_seconds(store, uuid: str) -> float:
+    """A run's seconds from its first status condition to its last."""
+    conds = store.get_status(uuid)["conditions"]
+    return conds[-1]["ts"] - conds[0]["ts"]
+
+
+def phase_sweep() -> dict:
+    """The port's Polytune (phase 7d); returns the sweep's kernel launches."""
+    import torch
+
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.polyaxonfile.reader import read_polyaxonfile
+    from polyaxon_tpu_torch.schemas.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.store import RunStore
+    from polyaxon_tpu_torch.tuner import SweepDriver, build_manager
+    from polyaxon_tpu_torch.tuner.placement import device_pool, sub_slices
+
+    kernels = (*KERNELS, INT8_MATMUL)
+    path = HERE / "examples" / SWEEP_EXAMPLE
+    op = read_polyaxonfile(path)
+    matrix = op.matrix
+    t0 = time.perf_counter()
+    with _cli_home("sweep") as root:
+        groups = sub_slices(matrix.concurrency, device_pool())
+        check(groups == [[torch.device("cuda", 0)]] and SweepDriver(op)._topology() is None,
+              f"the sweep's placement: {groups}")
+        for kern in kernels:  # the sweep starts here
+            kern.launches = 0
+        t1 = time.perf_counter()
+        code, out = _cli(main, ["run", "-f", str(path)])
+        wall = time.perf_counter() - t1
+        launches = {kern.name: kern.launches for kern in kernels}  # ... and ends here
+        check(code == 0, f"run -f {SWEEP_EXAMPLE} exited {code}: {out[-2000:]}")
+        summary = _summary_json(out)
+        trials = summary["trials"]
+        check(summary["status"] == "succeeded", f"the sweep settled {summary['status']}")
+        for t in trials:
+            check(t["status"] == str(V1Statuses.SUCCEEDED) and t["objective"] is not None
+                  and math.isfinite(t["objective"]), f"trial {t}")
+        # the search manager fed the trials' own losses gives these trials
+        # (the JAX package's manager gives the same: tests/test_torch_tuner.py)
+        mgr, expected, it = build_manager(matrix), [], iter(trials)
+        while not mgr.done:
+            observed = []
+            for sug in mgr.suggest():
+                expected.append({**sug.run_params(), matrix.resource.name: int(sug.resource)})
+                observed.append((sug, -next(it)["objective"]))
+            mgr.observe(observed)
+        check([t["params"] for t in trials] == expected
+              and len(trials) == matrix.max_iterations == 16,
+              f"{len(trials)} trials, the manager gives {len(expected)}")
+        best = min(trials, key=lambda t: t["objective"])
+        check(summary["best"]["uuid"] == best["uuid"], "best is not the least loss")
+        code, listed = _cli(main, ["ops", "ls", "--sweep", summary["sweep"][:8]])
+        check(code == 0 and sorted(line[:8] for line in listed.splitlines())
+              == sorted(t["uuid"][:8] for t in trials), f"ops ls --sweep: {listed}")
+        store = RunStore(root / "home")
+        train_s = [_train_seconds(store, t["uuid"]) for t in trials]
+        trial_s = [_run_seconds(store, t["uuid"]) for t in trials]
+    steps = [t["params"][matrix.resource.name] for t in trials]
+    emit({"phase": "sweep", "device": device_line(), "example": SWEEP_EXAMPLE,
+          "trials": len(trials), "groups": [[str(d) for d in g] for g in groups],
+          "steps": steps, "best": summary["best"], "wall_s": wall,
+          "trials_per_hour": len(trials) * 3600.0 / wall,
+          "train_s": sum(train_s), "trial_s_mean": statistics.mean(trial_s),
+          "outside_steps_s_mean": (wall - sum(train_s)) / len(trials),
+          "launches": launches,
+          "launches_of": "every trial, summed: the counters are per process, shared by "
+                         "trial threads (one card runs one trial at a time)",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def pipeline_polyaxonfile() -> dict:
+    """The pipeline phase's `dag` operation: 7c's component with the
+    learning rate as an input, swept by `search`, then `train-best`."""
+    from polyaxon_tpu_torch.polyaxonfile import yaml_lite
+
+    doc = yaml_lite.safe_load(CLI_POLYAXONFILE.format(preset=PRESET, layers=CLI_LAYERS,
+                                                      tokens=TRAIN_TOKENS))
+    component = doc["component"]
+    component["inputs"].append({"name": "lr", "type": "float", "value": PIPELINE_LRS[0]})
+    component["run"]["program"]["optimizer"]["learningRate"] = "{{ params.lr }}"
+    return {"version": 1.1, "kind": "operation", "name": "pipeline", "component": {
+        "kind": "component", "name": "pipeline", "run": {"kind": "dag", "operations": [
+            {"name": "search", "component": component, "params": {"steps": CLI_STEPS},
+             "matrix": {"kind": "grid", "params": {
+                 "lr": {"kind": "choice", "value": list(PIPELINE_LRS)}}}},
+            {"name": "train-best", "dependsOn": ["search"], "component": component,
+             "params": {"lr": "{{ ops.search.outputs.best.lr }}", "steps": CLI_STEPS}},
+        ]}}}
+
+
+def phase_pipeline() -> dict:
+    """A sweep node feeding a training node through the port's DAG (phase
+    7e); returns the pipeline's kernel launches."""
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.runtime.executor import Executor
+    from polyaxon_tpu_torch.store import RunStore
+
+    kernels = (*KERNELS, INT8_MATMUL)
+    expected = {k: PER_STEP.get(k, 0) * CLI_LAYERS * CLI_STEPS for k in
+                (kern.name for kern in kernels)}
+    runs: list = []  # (name, kind, launches) of each execution, in order
+    execute = Executor.execute
+
+    def counted(self, compiled):  # each run's own launches (they run one at a time)
+        before = {kern.name: kern.launches for kern in kernels}
+        status = execute(self, compiled)
+        runs.append((compiled.name, compiled.run.kind, compiled.run_uuid,
+                     {kern.name: kern.launches - before[kern.name] for kern in kernels}))
+        return status
+
+    t0 = time.perf_counter()
+    with _cli_home("pipeline") as root:
+        spec = root / "pipeline.json"
+        spec.write_text(json.dumps(pipeline_polyaxonfile(), indent=1))
+        Executor.execute = counted
+        try:
+            for kern in kernels:  # the pipeline starts here
+                kern.launches = 0
+            t1 = time.perf_counter()
+            code, out = _cli(main, ["run", "-f", str(spec)])
+            wall = time.perf_counter() - t1
+            launches = {kern.name: kern.launches for kern in kernels}  # ... and ends here
+        finally:
+            Executor.execute = execute
+        check(code == 0 and out.rstrip().endswith("finished: V1Statuses.SUCCEEDED"),
+              f"the pipeline exited {code}: {out[-2000:]}")
+        store = RunStore(root / "home")
+        by_name = {r["name"]: r["uuid"] for r in store.list_runs()}
+        sweep = by_name["search-sweep"]
+        best = next(e for e in store.read_events(sweep)
+                    if e["kind"] == "sweep_summary")["best_params"]
+        train_best = store.read_spec(by_name["train-best"])["params"]
+        check(best is not None and train_best["lr"] == best["lr"],
+              f"train-best's lr {train_best.get('lr')}, the sweep's winner {best}")
+        trained = [(name, uuid, n) for name, kind, uuid, n in runs if kind == "jaxjob"]
+        check(len(trained) == len(PIPELINE_LRS) + 1
+              and all(n == expected for _, _, n in trained),
+              f"the pipeline's runs launched {trained}, each should launch {expected}")
+        node_s = {"search": _run_seconds(store, sweep),
+                  "train-best": _run_seconds(store, by_name["train-best"])}
+        losses = {uuid: [m["loss"] for m in store.read_metrics(uuid) if "loss" in m][-1]
+                  for _, uuid, _ in trained}
+        check(all(math.isfinite(v) for v in losses.values()), f"losses {losses}")
+        trial_lrs = [store.read_spec(u)["params"]["lr"] for _, u, _ in trained[:-1]]
+        run_s = [_run_seconds(store, u) for _, u, _ in trained]
+    emit({"phase": "pipeline", "device": device_line(), "lrs": trial_lrs,
+          "best_lr": best["lr"], "final_losses": list(losses.values()),
+          "wall_s": wall, "node_s": node_s, "run_s": run_s,
+          "launches": launches, "per_run": expected,
+          "launches_of": "the three training runs, summed; each launched per_run",
           "seconds": time.perf_counter() - t0})
     return launches
 
@@ -5054,6 +5278,7 @@ def main(argv: list) -> int:
     phase_train_vs_einsum()
     stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
+                       (phase_sweep, "sweep"), (phase_pipeline, "pipeline"),
                        (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo"),
                        (phase_train_zoo_mesh, "train-zoo-mesh")):
         for name, n in phase().items():

@@ -15,10 +15,12 @@ with `Error: <message>` on stderr, a usage error exits 2 (as click's do).
 A jaxjob over several devices runs as a gang of one worker per device
 (`runtime/executor.py`), and so does `serve --mesh`/`--mesh-model` (or a
 run spec's `serving.meshAxes`): one process per device of the decode mesh,
-rank 0 binding the port. What is not ported is refused with an error
-naming ROADMAP.md: a gang for a zoo model or a replica over several
-devices, a sweep, a schedule, joins, a dag, connections, a
-remote control plane (`streams_url`) and `--queue` clones.
+rank 0 binding the port. `run` resolves `joins:` first, and a `matrix:`
+runs as a sweep (`tuner/driver.py::run_sweep`, its JSON summary printed);
+a `dag` runs through the executor. What is not ported is refused with an
+error naming ROADMAP.md: a gang of a config its workers would refuse, a
+schedule, connections, a remote control plane (`streams_url`) and
+`--queue` clones.
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
 it so).
@@ -98,8 +100,9 @@ def cmd_version(a):
 
 
 def cmd_run(a):
-    """Submit a polyaxonfile for execution: compiled, then run in this
-    process by the local executor."""
+    """Submit a polyaxonfile for execution: joins resolved, a `matrix:`
+    run as a sweep (its JSON summary printed), anything else compiled and
+    run in this process by the local executor."""
     from .. import settings
     from ..device import env_device, resolve_device
     from ..runtime.executor import Executor, gang_device_error, refusal
@@ -116,6 +119,25 @@ def cmd_run(a):
             f"transport, streams/) {_ROADMAP}; unset streams_url to execute locally"
         )
     store = RunStore()
+    if op.schedule is not None:
+        raise NotImplementedError(f"`schedule:` (scheduler/schedules.py) {_ROADMAP}")
+    if op.joins:
+        from ..scheduler import JoinError, resolve_joins
+
+        try:
+            op = resolve_joins(op, store)
+        except JoinError as e:
+            raise ClickException(str(e))
+    if op.matrix is not None:
+        from ..tuner.driver import run_sweep
+
+        try:
+            resolve_device(env_device())
+        except (RuntimeError, ValueError) as e:
+            raise ClickException(str(e))
+        results = run_sweep(op, store=store, project=a.project)
+        echo(json.dumps(results, indent=1, default=str))
+        return
     try:
         compiled = compile_operation(op, project=a.project, artifacts_root=str(store.runs_dir),
                                      base_dir=None)

@@ -4,29 +4,37 @@ card.
 
 Create the run → walk its lifecycle (compiled → queued → scheduled →
 starting → running → succeeded/failed/stopped) → execute it (a native
-program through the port's `Trainer`, or a container command, a job or a
+program through the port's `Trainer`, a `dag` through
+`scheduler/dag.py::execute_dag`, or a container command, a job or a
 service, as a local subprocess) → metrics, events and logs into the
 store. Around the body: a cache hit on the spec fingerprint, retries with
 backoff from `termination:`, a stop landing at the next log point, a
 SIGTERM (`runtime/preemption.py`) restarting from the newest checkpoint
 without costing retry budget, init entries, sidecars and `pathRef` hooks.
 
-The device comes from `device=`, else `POLYAXON_TORCH_DEVICE` (the card
-unless it says `cpu`). A jaxjob over more than one device runs as a gang
-(`_run_distributed`): the native supervisor starts one worker process per
-device (`runtime/worker.py`), and they train on one mesh. Where the
-reference runs `replicas` processes that each drive all of a host's
+The device comes from `device=`, else the first of `devices=` (a sweep
+trial's group, `tuner/placement.py`; giving both is a ValueError), else
+`POLYAXON_TORCH_DEVICE` (the card unless it says `cpu`). An in-process
+program trains under its CUDA device (`torch.cuda.device`): the hand
+kernels launch on the calling thread's current device. A jaxjob over
+more than one device runs as a gang (`_run_distributed`): the native
+supervisor starts one worker process per device (`runtime/worker.py`),
+and they train on one mesh; with a group, the workers see only the
+group's GPUs. Where the reference runs `replicas` processes that each drive all of a host's
 devices, a replica of k devices here is k workers (`replica_devices`: the
 mesh's fixed devices, or the `tpu:` chips, over `replicas`), `replicas x
 k` in all (`gang_size`); a spec from which no whole k follows is refused
-(ValueError), naming both numbers. With fewer visible GPUs than workers
-the gang is refused before the run exists, naming the counts; the CPU
-(`gloo`) is used only when asked for. A mesh that resolves to one device
-runs as the single-device program: it computes the same thing. Refused
+(ValueError), naming both numbers. With fewer GPUs than workers (in the
+group, or visible) the gang is refused before the run exists, naming the
+counts; the CPU (`gloo`) is used only when asked for. A mesh that resolves
+to one device runs as the single-device program: it computes the same
+thing. As the reference's, `execute` does not read `matrix:` or `joins:`:
+the CLI resolves joins (`scheduler/joins.py::resolve_joins`) and sends a
+matrix to `tuner/driver.py::run_sweep` before anything compiles. Refused
 with `NotImplementedError` before the run is created, each naming
 ROADMAP.md: a gang of a config its workers would refuse (`scan_layers`),
-the `dag` kind, a `matrix:`, `schedule:` or `joins:`, named
-`connections:`, an artifacts init, a notifier hook and an elastic grant.
+`schedule:`, named `connections:`, an artifacts init, a notifier hook and
+an elastic grant.
 """
 
 from __future__ import annotations
@@ -94,35 +102,51 @@ def gang_size(run) -> int:
     return int(run.replicas or 1) * replica_devices(run)
 
 
-def gang_device_error(compiled: CompiledOperation, device) -> Optional[str]:
+def gang_device_error(compiled: CompiledOperation, device,
+                      devices: Optional[list] = None) -> Optional[str]:
     """Why a gang cannot get one GPU per worker here, or None (the CPU
-    under `gloo` is used only when `device` asks for it)."""
+    under `gloo` is used only when `device` asks for it). With `devices`
+    (a sweep trial's group) the group's GPUs are counted, else the visible
+    ones."""
     import torch
 
     run = compiled.run
     if run.kind != "jaxjob" or run.program is None or torch.device(device).type != "cuda":
         return None
     world = gang_size(run)
-    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if world > 1 and visible < world:
+    if devices is not None:
+        have = sum(torch.device(d).type == "cuda" for d in devices)
+        where = "in the trial's device group"
+    else:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        where = "visible"
+    if world > 1 and have < world:
         return (f"the gang has {world} workers (replicas: {int(run.replicas or 1)} x "
-                f"{replica_devices(run)} devices each), one GPU each, but {visible} "
-                "GPU(s) are visible; set POLYAXON_TORCH_DEVICE=cpu to run it on the CPU")
+                f"{replica_devices(run)} devices each), one GPU each, but {have} "
+                f"GPU(s) are {where}; set POLYAXON_TORCH_DEVICE=cpu to run it on the CPU")
     return None
+
+
+def device_scope(device):
+    """The context an in-process program runs in: `torch.cuda.device(device)`
+    for a CUDA device where CUDA is available (the hand kernels launch on
+    the calling thread's current device), else nothing."""
+    import contextlib
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def refusal(compiled: CompiledOperation) -> Optional[str]:
     """Why the port cannot run `compiled` in this process (one card), or
     None."""
     op, run = compiled.operation, compiled.run
-    if op.matrix is not None:
-        return f"running a `matrix:` sweep (tuner/driver.py::run_sweep) {_ROADMAP}"
     if op.schedule is not None:
         return f"`schedule:` (scheduler/schedules.py) {_ROADMAP}"
-    if op.joins:
-        return f"`joins:` (scheduler/joins.py) {_ROADMAP}"
-    if run.kind == "dag":
-        return f"the `dag` kind (scheduler/dag.py) {_ROADMAP}"
     if getattr(run, "connections", None):
         return f"named `connections:` (connections/) {_ROADMAP}"
     for init in getattr(run, "init", None) or ():
@@ -146,11 +170,17 @@ def refusal(compiled: CompiledOperation) -> Optional[str]:
 
 
 class Executor:
-    def __init__(self, store: Optional[RunStore] = None, device=None):
+    def __init__(self, store: Optional[RunStore] = None, device=None,
+                 devices: Optional[list] = None):
         from ..device import env_device
 
+        if device is not None and devices is not None:
+            raise ValueError("give `device=` (one device) or `devices=` (a group), not both")
         self.store = store or RunStore()
-        self.device = device if device is not None else env_device()
+        self.devices = list(devices) if devices is not None else None
+        if device is None:
+            device = str(self.devices[0]) if self.devices else env_device()
+        self.device = device
 
     def execute(self, compiled: CompiledOperation) -> str:
         """Run to completion; returns the final status. Retries per the
@@ -158,10 +188,6 @@ class Executor:
         resumes from the run's outputs). With `cache:` on, a succeeded run
         with the same spec fingerprint short-circuits: its metrics and
         events are copied in and the run succeeds at once."""
-        from ..compiler.resolver import spec_fingerprint
-        from ..retry import PERMANENT, PREEMPTED, RetryPolicy, classify
-        from ..telemetry import get_registry
-
         why = refusal(compiled)
         if why is not None:
             raise NotImplementedError(why)
@@ -169,9 +195,13 @@ class Executor:
             from ..device import resolve_device
 
             resolve_device(self.device)  # no card where one is asked for: raise, run nothing
-            short = gang_device_error(compiled, self.device)
+            short = gang_device_error(compiled, self.device, self.devices)
             if short is not None:
                 raise RuntimeError(short)
+        from ..compiler.resolver import spec_fingerprint
+        from ..retry import PERMANENT, PREEMPTED, RetryPolicy, classify
+        from ..telemetry import get_registry
+
         store = self.store
         run_uuid = compiled.run_uuid
         fingerprint = spec_fingerprint(compiled)
@@ -365,6 +395,11 @@ class Executor:
                 self._run_service(compiled, timeout=timeout)
             elif run.kind in ("job", "jaxjob") and run.container is not None:
                 self._run_container(compiled, timeout=timeout)
+            elif run.kind == "dag":
+                from ..scheduler.dag import execute_dag
+
+                self.store.set_status(compiled.run_uuid, V1Statuses.RUNNING)
+                execute_dag(compiled, self)
             else:
                 raise ExecutionError(f"cannot execute run kind {run.kind!r} locally")
         finally:
@@ -529,8 +564,10 @@ class Executor:
                 preemption.trigger()
 
         # SIGTERM = a preemption notice for the length of this attempt: the
-        # step loop checkpoints at the next boundary and raises Preempted
-        with preemption.scoped():
+        # step loop checkpoints at the next boundary and raises Preempted.
+        # Only this in-process path enters the device: a gang, a container
+        # or a dag's supervisor never starts CUDA here
+        with preemption.scoped(), device_scope(self.device):
             trainer = Trainer(
                 program,
                 device=self.device,
@@ -590,6 +627,7 @@ class Executor:
             payload["checkpointDir"] = ckpt_dir
         with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as spec_file:
             json.dump(payload, spec_file)
+        group = visible_group(self.devices)
         term = compiled.component.termination
         root = str(Path(__file__).resolve().parents[2])
         path = os.environ.get("PYTHONPATH")
@@ -603,6 +641,7 @@ class Executor:
             "--env", f"POLYAXON_HOME={store.home}",
             "--env", f"POLYAXON_TORCH_DEVICE={self.device}",
             "--env", f"POLYAXON_REPLICA_DEVICES={replica_devices(run)}",
+            *(["--env", f"CUDA_VISIBLE_DEVICES={group}"] if group else []),
             "--env", f"PYTHONPATH={root + (os.pathsep + path if path else '')}",
             "--", sys.executable, "-m", "polyaxon_tpu_torch.runtime.worker",
         ]
@@ -686,6 +725,22 @@ class Executor:
         code = proc.wait()
         if code != 0:
             raise ExecutionError(f"container command exited with code {code}")
+
+
+def visible_group(devices: Optional[list]) -> Optional[str]:
+    """`CUDA_VISIBLE_DEVICES` for a gang on `devices` (a sweep trial's
+    group): their indices mapped through this process's own
+    `CUDA_VISIBLE_DEVICES`, so the workers see only the group's GPUs (and
+    `runtime/worker.py` splits them per replica). None without a CUDA
+    group."""
+    import torch
+
+    cuda = [torch.device(d) for d in devices or () if torch.device(d).type == "cuda"]
+    if not cuda:
+        return None
+    ids = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = ids.split(",") if ids else None
+    return ",".join(ids[d.index or 0] if ids else str(d.index or 0) for d in cuda)
 
 
 def _context_env(compiled: CompiledOperation, store: RunStore) -> dict[str, str]:

@@ -1,7 +1,6 @@
 """The search-space and search-algorithm specs (`matrix:`), an own copy of
-`polyaxon_tpu/schemas/matrix.py`: the schema only, so that `check`
-validates a sweep. Running a sweep (`tuner/driver.py::run_sweep`) is not
-ported (ROADMAP.md)."""
+`polyaxon_tpu/schemas/matrix.py`. The search managers read them
+(`tuner/managers.py`) and `tuner/driver.py::run_sweep` runs the sweep."""
 
 from __future__ import annotations
 
@@ -79,6 +78,13 @@ class V1HpLinSpace(Spec):
         if missing:
             raise ValueError(f"linspace needs start/stop/num, missing {missing}")
 
+    def to_list(self) -> list[float]:
+        start, stop, num = self.value["start"], self.value["stop"], int(self.value["num"])
+        if num == 1:
+            return [start]
+        step = (stop - start) / (num - 1)
+        return [start + i * step for i in range(num)]
+
 
 @dataclasses.dataclass(kw_only=True)
 class V1HpLogSpace(Spec):
@@ -89,6 +95,14 @@ class V1HpLogSpace(Spec):
         missing = {"start", "stop", "num"} - set(self.value)
         if missing:
             raise ValueError(f"logspace needs start/stop/num, missing {missing}")
+
+    def to_list(self) -> list[float]:
+        base = self.value.get("base", 10.0)
+        start, stop, num = self.value["start"], self.value["stop"], int(self.value["num"])
+        if num == 1:
+            return [base**start]
+        step = (stop - start) / (num - 1)
+        return [base ** (start + i * step) for i in range(num)]
 
 
 @dataclasses.dataclass(kw_only=True)

@@ -7,6 +7,9 @@
   lines, and the `ops` verbs, `config`, `events` and `timeline` read the
   runs alike (uuids, times and measured numbers masked);
 - `ops resume` of a stopped run continues from its newest checkpoint;
+- `run` of a `matrix:` prints the reference's trial lines and JSON summary,
+  `ops ls --sweep` lists the trials, `run` of a `joins:` file collects
+  their losses, and `ops delete` of the sweep needs `--cascade`;
 - each refusal is a clean `Error:` naming ROADMAP.md, exit 1, and a usage
   error exits 2;
 - `serve -uid` answers `/generate` with the greedy tokens of
@@ -233,9 +236,7 @@ def _with_scan_layers(example: str) -> str:
     (["run", "-f", "@scan-longcontext"], "replicas: 8"),
     (["run", "-f", "@scan-replicas2"], "replicas: 2"),
     (["run", "-f", "@scan-llama_lora"], "replicas: 8"),
-    (["run", "-f", str(REPO / "examples" / "vit_hyperband.yaml")], "matrix"),
     (["run", "-f", "@sched"], "schedule"),
-    (["run", "-f", "@joins"], "joins"),
     (["run", "-f", "@conn"], "connections"),
     # a decode mesh serves (tests/test_torch_serving_mesh.py); what it
     # does not serve yet is refused by its flag
@@ -245,7 +246,6 @@ def _with_scan_layers(example: str) -> str:
 def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, what):
     files = {
         "@sched": _op_file(tmp_path, "sched", "kind: operation\nschedule: {kind: cron}\n" + JOB),
-        "@joins": _op_file(tmp_path, "joins", "kind: operation\njoins: [{query: 'x'}]\n" + JOB),
         "@conn": _op_file(tmp_path, "conn", "kind: operation\n" + JOB.replace(
             "kind: job,", "kind: job, connections: [s3],")),
         "@scan-longcontext": _op_file(tmp_path, "scan-lc", _with_scan_layers("longcontext.yaml")),
@@ -258,6 +258,104 @@ def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, wha
     code, out, err = homes.ours(*[files.get(a, a) for a in argv])
     assert code == 1 and out == ""
     assert err.startswith("Error: ") and what in err and "ROADMAP.md" in err, err
+
+
+SWEEP = """\
+kind: operation
+name: cli-sweep
+matrix:
+  kind: grid
+  params:
+    lr: {kind: choice, value: [0.05, 1.0e-9]}
+component:
+  kind: component
+  name: cli-sweep
+  inputs:
+  - {name: lr, type: float, value: 0.001}
+  run:
+    kind: jaxjob
+    program:
+      model: {name: mlp, config: {input_dim: 16, num_classes: 4, hidden: [16]}}
+      data: {name: synthetic, batchSize: 8, config: {shape: [16], num_classes: 4}}
+      optimizer: {name: adamw, learningRate: "{{ params.lr }}"}
+      train: {steps: 4, logEvery: 2, precision: float32}
+"""
+
+JOINS = """\
+kind: operation
+name: cli-joins
+joins:
+- query: "project:sweeps tag:trial status:succeeded"
+  sort: metrics.loss
+  params:
+    losses: {ref: runs.outputs.loss}
+    names: {ref: runs.name}
+component:
+  kind: component
+  name: cli-joins
+  inputs:
+  - {name: losses, type: list}
+  - {name: names, type: list}
+  run: {kind: job, container: {command: ['true']}}
+"""
+
+
+def _summary(out: str) -> dict:
+    """The JSON summary `run` prints after the trials' lines."""
+    return json.loads(out[out.index("{\n"):])
+
+
+def test_run_a_sweep_and_a_join_over_its_trials_like_the_reference(homes, tmp_path):
+    """`run` of a `matrix:` prints the trials' lines and the sweep's JSON
+    summary as the reference does; `ops ls --sweep` lists its trials;
+    `run` of a `joins:` file collects the trials' losses; `ops delete`
+    of the sweep needs `--cascade`."""
+    sweep = _op_file(tmp_path, "sweep", SWEEP)
+    (code, out, err), (rcode, rout, _) = (homes.ours("run", "-f", sweep, "--project", "sweeps"),
+                                          homes.ref("run", "-f", sweep, "--project", "sweeps"))
+    assert code == rcode == 0, err
+    assert _mask(out) == _mask(rout)
+    ours, ref = _summary(out), _summary(rout)
+    assert ours["status"] == ref["status"] == "succeeded"
+    assert [t["params"] for t in ours["trials"]] == [{"lr": 0.05}, {"lr": 1e-9}]
+    assert ours["best"]["params"] == ref["best"]["params"] == {"lr": 0.05}
+    store = RunStore(homes.ours_home)
+    trials = [t["uuid"] for t in ours["trials"]]
+    assert all(store.get_status(u)["meta"]["sweep"] == ours["sweep"] for u in trials)
+    (code, out, _), (_, rout, _) = (homes.ours("ops", "ls", "--sweep", ours["sweep"][:8]),
+                                    homes.ref("ops", "ls", "--sweep", ref["sweep"][:8]))
+    assert code == 0 and _mask(out) == _mask(rout)
+    assert sorted(line[:8] for line in out.splitlines()) == sorted(u[:8] for u in trials)
+
+    joins = _op_file(tmp_path, "joins", JOINS)
+    (code, out, err), (rcode, rout, _) = (homes.ours("run", "-f", joins),
+                                          homes.ref("run", "-f", joins))
+    assert code == rcode == 0, err
+    assert _mask(out) == _mask(rout)
+    params = store.read_spec(_uid(homes, "ours", "cli-joins"))["params"]
+    losses = sorted(t["objective"] for t in ours["trials"])
+    assert params == {"losses": losses, "names": ["cli-sweep", "cli-sweep"]}
+    ref_params = RunStore(homes.ref_home).read_spec(_uid(homes, "ref", "cli-joins"))["params"]
+    assert ref_params["names"] == params["names"] and len(ref_params["losses"]) == 2
+
+    code, _, err = homes.ours("ops", "delete", "-uid", ours["sweep"], "--yes")
+    assert code == 1 and "cascade" in err
+    code, out, _ = homes.ours("ops", "delete", "-uid", ours["sweep"], "--yes", "--cascade")
+    assert code == 0 and all(u not in {r["uuid"] for r in store.list_runs()} for u in trials)
+
+
+def test_a_sweep_without_a_card_is_a_clean_error(homes, tmp_path, monkeypatch):
+    """Unset POLYAXON_TORCH_DEVICE means the card: without one, `run` of a
+    sweep exits 1 with resolve_device's error before any run exists."""
+    sweep = _op_file(tmp_path, "sweep-card", SWEEP)
+    home = tmp_path / "no-card"
+    monkeypatch.setenv("POLYAXON_HOME", str(home))
+    monkeypatch.delenv("POLYAXON_TORCH_DEVICE", raising=False)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = main(["run", "-f", sweep])
+    assert code == 1 and out.getvalue() == "" and "torch.cuda.is_available()" in err.getvalue()
+    assert RunStore(home).list_runs() == []
 
 
 def test_remote_control_plane_is_refused(homes):

@@ -14,6 +14,7 @@ the same metric keys per step:
 - a cache hit, a stop landing mid-run, a SIGTERM preemption that restarts
   from the checkpoint (budget-free), a `pathRef` hook, and a `job` and a
   `service` container;
+- a two-node `dag` through `scheduler/dag.py::execute_dag`;
 - the refusals of what is not ported, each naming ROADMAP.md.
 """
 
@@ -297,13 +298,30 @@ SCAN_LM = {**LM, "config": {**LM["config"], "scan_layers": True}}
          "init": [{"artifacts": {"run": "x"}}]}), "artifacts init"),
     (op({"kind": "job", "container": {"command": ["true"]}},
         hooks=[{"connection": "slack"}]), "notifier hook"),
-    (op({"kind": "dag", "operations": [{"name": "a"}]}), "dag"),
+    (op({"kind": "job", "container": {"command": ["true"]}},
+        schedule={"kind": "cron", "cron": "0 * * * *"}), "schedule"),
 ])
 def test_refusals_name_the_roadmap(stores, doc, what):
     compiled = compile_operation(V1Operation.from_dict(doc), run_uuid=UUID)
     with pytest.raises(NotImplementedError, match=rf"{what}.*ROADMAP\.md"):
         Executor(stores[0], device="cpu").execute(compiled)
     assert stores[0].list_runs() == []  # refused before the run exists
+
+
+def test_a_two_node_dag_runs_like_the_reference(stores):
+    """`b` after `a` through `scheduler/dag.py::execute_dag`: the DAG run's
+    story and each child's status as the reference's."""
+    job = {"kind": "component", "run": {"kind": "job", "container": {"command": ["true"]}}}
+    doc = op({"kind": "dag", "operations": [
+        {"name": "a", "component": job},
+        {"name": "b", "dependsOn": ["a"], "component": job}]})
+    assert run_both(stores, doc) == ("succeeded", "succeeded")
+    assert_same_story(stores)
+    for store in stores:
+        children = {r["name"]: store.get_status(r["uuid"])["status"]
+                    for r in store.list_runs() if r["uuid"] != UUID}
+        assert children == {"a": "succeeded", "b": "succeeded"}
+        assert "dag node b: run" in store.read_logs(UUID)
 
 
 def test_a_mesh_on_one_device_runs_the_single_device_program(stores):

@@ -65,6 +65,11 @@ def test_import_walk_sees_the_package():
     parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
     assert {"mesh.py", "sharding.py", "collectives.py", "params.py", "ring.py",
             "ulysses.py", "pipeline.py"} <= parallel
+    tuner = {p.name for p in SOURCES if p.parent.name == "tuner"}
+    assert {"__init__.py", "space.py", "early_stopping.py", "managers.py", "placement.py",
+            "driver.py"} <= tuner
+    scheduler = {p.name for p in SOURCES if p.parent.name == "scheduler"}
+    assert {"queue.py", "topology.py", "dag.py", "joins.py"} <= scheduler
     assert "jax" in _imported_roots(REPO / "tests" / "test_torch_attention.py")
 
 
