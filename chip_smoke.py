@@ -113,7 +113,16 @@ BASELINE configurations.
                `{model: 2}`: rows against (a)'s one-device rows (the
                near-tie rule), 64 int8 launches a forward on each rank,
                step ms, TTFT, the collectives' share, weight and pool
-               bytes a rank;
+               bytes a rank. Then every serving feature (MESH_FEATURES):
+               (a) beams, n-gram speculation, a 2-layer draft on int8,
+               two tenants on int8 adapters with one slot, the spill
+               tier (the demoted pages one device's bytes) and a handoff
+               from the mesh's prefill role to a one-device decode
+               replica, each bit for bit against one device, int8
+               launches on the wrapper's and the card's counts; (b)
+               speculation and the tenants under the near-tie rule; each
+               part's accept rate, forwards, commands by op, spill bytes
+               and decode step p50;
 4d. serve-tenants — multi-tenant serving on `llama3-1b` with rank-16 LoRA
                on all seven projections (random bf16 weights from seed 0)
                and three adapters (`seed:1..3`) behind three tenants, two
@@ -583,7 +592,10 @@ INT8_GROUPS = ("qkv", "gate_up")  # timed beside their single projections
 # q/k/v and gate/up hold half their rows, o and down half their columns
 INT8_SHARD_LAYER = {"qkv": (2048, (1024, 256, 256)), "o": (1024, (2048,)),
                     "gate_up": (2048, (4096, 4096)), "down": (4096, (2048,))}
-INT8_SHARD_ROWS = (INT8_DECODE_M, 256)  # the decode kernel's row and a prefill chunk's
+# a verify window of serve-mesh (b)'s speculation: 2 rows x (K + 1 = 5)
+INT8_VERIFY_M = 10
+# the decode kernel's row, a verify window's and a prefill chunk's
+INT8_SHARD_ROWS = (INT8_DECODE_M, INT8_VERIFY_M, 256)
 INT8_COLD_BYTES = 160 << 20  # weight copies cycled per timing: past the 50 MB L2
 # serve-fast: the step config with speculation (n-gram drafts, K = 4), with
 # a 2-layer draft model (layer truncation; the half-depth "auto" draft was
@@ -628,6 +640,39 @@ MESH_CONFIGS = {
     "int8": {**FAST_CONFIGS["int8"], "kv_pool_pages": MESH_POOL_PAGES},
 }
 MESH_B_TIMEOUT_S = 420
+# serve-mesh's features: every serving feature on the mesh. (a) each beside
+# a one-device server of its config, on the first MESH_FEATURE_PROMPTS
+# prompts, MESH_FEATURE_NEW new tokens, posted one at a time, rows equal
+# bit for bit: beam search (numBeams 2, inline), n-gram speculation (K =
+# 4), a 2-layer draft model on int8 weights and the int8 pool (64 int8
+# launches a forward of the target and 8 a forward of the draft, on the
+# wrapper's count and the card's), two tenants on int8 adapters
+# (MESH_ADAPTERS) with one adapter slot (acme, globex, acme: two evictions
+# and a restore), the spill tier (a MESH_SPILL_PAGES-page pool; the target
+# prompt's prefix demoted by a flood and restored on its next hit, the
+# demoted pages one device's bytes) and the prefill role handing off to a
+# one-device decode replica behind the port's router (against a one-device
+# prefill replica in its place). (b) runs `spec` and `tenants-int8` on its
+# two rows of MESH_B_NEW tokens, held against (a)'s one-device rows under
+# the near-tie rule (the tenants' TENANT_NEAR_TIE)
+MESH_FEATURE_PROMPTS, MESH_FEATURE_NEW = 2, 16
+MESH_ADAPTERS = {"a1": "seed:1", "a2": "seed:2"}
+MESH_TENANTS = [{"name": "acme", "adapter": "a1"}, {"name": "globex", "adapter": "a2"}]
+MESH_TENANT_ORDER = ("acme", "globex", "acme")
+# the CPU test's spill traffic (tests/test_torch_spill.py) at 128-token
+# pages: a 6-page-and-a-token target, six floods of its length, the target
+MESH_SPILL_PAGES, MESH_SPILL_FLOOD, MESH_SPILL_SEED = 24, 6, 12
+MESH_FEATURES = {
+    "beams": MESH_CONFIGS["step"],
+    "spec": {**MESH_CONFIGS["step"], "speculate": True, "draft_tokens": 4},
+    "draft-int8": {**MESH_CONFIGS["int8"], "speculate": True, "draft_tokens": 4,
+                   "draft_model": (("n_layers", 2),)},
+    "tenants-int8": {**MESH_CONFIGS["int8"], "adapter_slots": 1},
+    "spill": {**MESH_CONFIGS["step"], "kv_pool_pages": MESH_SPILL_PAGES,
+              "spill_ram_bytes": 1 << 30},
+    "handoff": {**MESH_CONFIGS["step"], "role": "prefill"},
+}
+MESH_B_FEATURES = ("spec", "tenants-int8")
 # serve-tenants: llama3-1b with rank-16 LoRA on all seven projections (alpha
 # 16), three synthetic adapters (`seed:<n>`, 22.5 MB each in bf16) behind
 # three tenants, two adapter slots beyond the checkpoint's own, so the
@@ -2213,10 +2258,128 @@ def check_int8_rows(qmodel, waves: list, answers: list) -> None:
           "seconds": time.perf_counter() - t0})
 
 
+def mesh_feature_config(name: str):
+    """The ServingConfig of serve-mesh's feature `name` (MESH_FEATURES)."""
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.tenancy import normalize_adapters, normalize_tenants
+
+    extra = {}
+    if name.startswith("tenants"):
+        extra = {"adapters": normalize_adapters(MESH_ADAPTERS),
+                 "tenants": normalize_tenants(MESH_TENANTS)}
+    return ServingConfig(**SERVE_BASE, **MESH_FEATURES[name], **extra)
+
+
+def mesh_feature_bodies(name: str, prompts: list, vocab: int, new: int) -> list:
+    """The bodies serve-mesh drives feature `name` with: `prompts` (one for
+    beams, their first rows for the tenants by MESH_TENANT_ORDER), or the
+    spill traffic, each with `new` new tokens."""
+    import torch
+
+    if name == "beams":
+        return [{"tokens": [prompts[1]], "maxNewTokens": new, "numBeams": 2}]
+    if name.startswith("tenants"):
+        return [{"tokens": [prompts[i % 2]], "maxNewTokens": new, "tenant": t}
+                for i, t in enumerate(MESH_TENANT_ORDER)]
+    if name == "spill":
+        gen = torch.Generator().manual_seed(MESH_SPILL_SEED)
+        pt = MESH_FEATURES["spill"]["kv_page_tokens"]
+        target, *flood = [torch.randint(0, vocab, (6 * pt + 1,), generator=gen).tolist()
+                          for _ in range(1 + MESH_SPILL_FLOOD)]
+        return [{"tokens": [t], "maxNewTokens": new} for t in [target, *flood, target]]
+    return [{"tokens": [p], "maxNewTokens": new} for p in prompts]
+
+
+def drive_mesh_feature(model, server, name: str, bodies: list) -> dict:
+    """Serve-mesh's drive of one feature on `server` (a mesh's or one
+    device's): the rows, /statsz and what the feature adds — the demoted
+    payloads of the spill tier (host tensors by chain head) and, for the
+    handoff, the replicas' handoff blocks. The handoff runs `server` as the
+    prefill replica beside a one-device decode replica of `model` behind
+    the port's router."""
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.router import P2CBalancer, Router
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    if name == "beams":  # inline, as the server runs beam search
+        rows = [server.generate(b)["tokens"][0] for b in bodies]
+        out = {"rows": rows, "stats": server.stats()}
+        server.stop()
+        return out
+    demoted = {}
+    if name == "spill":
+        put = server._kv._spill.put
+
+        def record(payload):
+            demoted[payload.hashes[-1]] = [[t.clone() for t in page] for page in payload.pages]
+            return put(payload)
+
+        server._kv._spill.put = record
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    decode = router = None
+    try:
+        target = url
+        if name == "handoff":
+            decode = ModelServer(model, None, ServingConfig(
+                **SERVE_BASE, **{**MESH_FEATURES[name], "role": "decode"}),
+                model_name=PRESET, device=model.device)
+            # no prefix affinity: the decode replica holding the adopted
+            # shared prefix would take the next prompt without a handoff
+            router = Router([url, f"http://127.0.0.1:{decode.start('127.0.0.1', 0)}"],
+                            balancer=P2CBalancer(seed=7), poll_interval_s=0.1,
+                            affinity=False)
+            target = f"http://127.0.0.1:{router.start('127.0.0.1', 0)}"
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                router.poll_once()
+                reps = router.stats()["replicas"]
+                if len(reps) == 2 and all(r["healthy"] for r in reps):
+                    break
+                time.sleep(0.05)
+        t0 = time.perf_counter()
+        rows = [_http(target + "/generate", b)["tokens"][0] for b in bodies]
+        wall = time.perf_counter() - t0
+        out = {"rows": rows, "wall_seconds": wall, "stats": _http(url + "/statsz"),
+               "demoted": demoted}
+        if decode is not None:
+            out["handoff"] = {"prefill": out["stats"]["handoff"],
+                              "decode": decode.stats()["handoff"]}
+        return out
+    finally:
+        if router is not None:
+            router.stop()
+        if decode is not None:
+            decode.stop()
+        server.stop()
+
+
+def adapter_gap(module, source: str, tokens: list) -> float:
+    """The one-device int8 path's top-2 gap over its top logit after
+    `tokens`, with the adapter of `source` in slot 0 of the slot-stacked
+    module (restored after), as tenant_references reads it."""
+    import torch
+
+    from polyaxon_tpu_torch.serving.adapters import adapter_template, ref_path, synth_adapter
+
+    template = adapter_template(module)
+    leaves = {ref_path(n): p for n, p in module.named_parameters() if ref_path(n) in template}
+    values = synth_adapter(template, int(source[len("seed:"):]))
+    with torch.inference_mode():
+        saved = {p: t[0].clone() for p, t in leaves.items()}
+        for p, t in leaves.items():
+            t[0].copy_(values[p].to(t.device, t.dtype))
+        try:
+            return top2_gap(_one_shot_logits(module, tokens, int8=True))
+        finally:
+            for p, t in leaves.items():
+                t[0].copy_(saved[p])
+
+
 def mesh_b_rank(rank: int, port: int, spec_path: str, out_path: str) -> int:
     """One process of serve-mesh (b): rank `rank` of a two-rank `gloo`
     world on the one card, `{model: 2}`. Each rank builds the bf16 preset
-    (seed 0) and serves the int8 then the step config on the mesh; rank 0
+    (seed 0) and serves the int8 then the step config on the mesh, then
+    MESH_B_FEATURES (the tenants on the preset with rank-16 LoRA); rank 0
     posts the spec's prompts one at a time over HTTP, the other follows.
     Writes its rows (rank 0), its int8 launches and decode forwards, its
     weight and pool bytes, and (rank 0) the step ms, TTFT and the share of
@@ -2286,6 +2449,38 @@ def mesh_b_rank(rank: int, port: int, spec_path: str, out_path: str) -> int:
             row.update(forwards=w.ops.get("forward", 0), int8_launches=INT8_MATMUL.launches)
             out["configs"][name] = row
             del server
+            gc.collect()
+        # the features of (b): speculation (on a model of its own: the step
+        # config's holds its shards), and the tenants on a LoRA model
+        for name in MESH_B_FEATURES:
+            INT8_MATMUL.launches = 0
+            base = build_model(
+                "transformer_lm", {"preset": PRESET, **(
+                    {"lora_rank": TENANT_RANK} if name.startswith("tenants") else {})},
+                device="cuda", dtype=torch.bfloat16, seed=0).module.eval()
+            bodies = mesh_feature_bodies(name, spec["prompts"], base.cfg.vocab_size,
+                                         spec["new"])[:MESH_B_PROMPTS]
+            server = ModelServer(base, None, mesh_feature_config(name), model_name=PRESET,
+                                 device="cuda", mesh=mesh)
+            row = {}
+            if server.is_follower:
+                row["commands"] = server.follow()
+            else:
+                url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+                try:
+                    row["rows"] = [_http(url + "/generate", b)["tokens"][0] for b in bodies]
+                    stats = _http(url + "/statsz")
+                finally:
+                    server.stop()
+                row.update(commands=server._world.commands,
+                           accept_rate=stats["speculation"]["accept_rate"],
+                           ttft_ms_p50=stats["ttft_ms"]["p50"],
+                           decode_step_ms_p50=stats["decode_step_ms"]["p50"])
+            w = server._world
+            row.update(ops=dict(w.ops), forwards=w.ops.get("forward", 0),
+                       int8_launches=INT8_MATMUL.launches)
+            out["configs"][name] = row
+            del server, base
             gc.collect()
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -2436,6 +2631,7 @@ def _serve_mesh_parts(model, batched, int8_rows, kernels, prompts, started, t_ph
             del server
             gc.collect()
             torch.cuda.empty_cache()
+        feature_refs = _serve_mesh_features(model, kernels, prompts, launches)
     finally:
         leave_group()
     # (b): the two processes' rows against (a)'s one-device rows
@@ -2467,9 +2663,140 @@ def _serve_mesh_parts(model, batched, int8_rows, kernels, prompts, started, t_ph
                                           / r["configs"][name]["forwards"] for r in ranks],
               "weight_bytes": [r["configs"][name]["weight_bytes"] for r in ranks],
               "pool_bytes": [r["configs"][name]["pool_bytes"] for r in ranks]})
+    for name in MESH_B_FEATURES:
+        ref = feature_refs[name]
+        rows0 = ranks[0]["configs"][name]
+        divergences = []
+        for i, (row, want, body) in enumerate(zip(rows0["rows"], ref["rows"], ref["bodies"])):
+            plen = len(body["tokens"][0])
+            want = want[:plen + MESH_B_NEW]
+            if name.startswith("tenants"):
+                if row == want:
+                    continue
+                j = next(k for k, (a, b) in enumerate(zip(row, want)) if a != b)
+                check(j >= plen, f"serve-mesh (b) {name}: a response changed its prompt")
+                source = MESH_ADAPTERS[{t["name"]: t["adapter"] for t in MESH_TENANTS}
+                                       [body["tenant"]]]
+                gap = adapter_gap(ref["module"], source, want[:j])
+                check(gap < TENANT_NEAR_TIE, f"serve-mesh (b) {name}: divergence at "
+                      f"generated token {j - plen} with top-2 gap {gap}: not a near-tie")
+                divergences.append({"row": i, "position": j - plen, "gap": gap})
+            else:
+                d = compare_rows(model, row, want, plen)
+                if d is not None:
+                    divergences.append({"row": i, **d})
+        per_forward_b = per_forward if "int8" in name else 0
+        for r in ranks:
+            c = r["configs"][name]
+            check(c["forwards"] > 0 and c["int8_launches"] == per_forward_b * c["forwards"],
+                  f"serve-mesh (b) {name}: rank {r['rank']} launched int8_matmul "
+                  f"{c['int8_launches']} times for {c['forwards']} forwards")
+        check(ranks[1]["configs"][name]["commands"] == rows0["commands"],
+              f"serve-mesh (b) {name}: the follower ran another count of commands")
+        emit({"phase": "serve-mesh", "part": "b", "config": name, "device": device_line(),
+              "mesh": {"model": 2}, "backend": "gloo", "rows": len(rows0["rows"]),
+              "rows_diverged": len(divergences), "divergences": divergences,
+              "near_tie": TENANT_NEAR_TIE if name.startswith("tenants") else NEAR_TIE,
+              "ops": rows0["ops"], "forwards": rows0["forwards"],
+              "accept_rate": rows0.get("accept_rate"),
+              "decode_step_ms_p50": rows0["decode_step_ms_p50"],
+              "ttft_ms_p50": rows0["ttft_ms_p50"]})
     emit({"phase": "serve-mesh-wall", "seconds": time.perf_counter() - t_phase})
-    del one_device
+    del one_device, feature_refs
     return launches
+
+
+def _serve_mesh_features(model, kernels, prompts, launches) -> dict:
+    """serve-mesh (a)'s features (MESH_FEATURES) on the one-rank mesh, each
+    beside a one-device server of its config; adds the mesh drives' kernel
+    counts to `launches`. Returns, for (b), MESH_B_FEATURES' bodies,
+    one-device rows and (for the tenants) the one-device module."""
+    import torch
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    per_layer = len(INT8_LAYER)
+    lmodel = build_model("transformer_lm", {"preset": PRESET, "attention": "flash",
+                                            "lora_rank": TENANT_RANK},
+                         device="cuda", dtype=torch.bfloat16, seed=0).module.eval()
+    refs = {}
+    for name in MESH_FEATURES:
+        base = lmodel if name.startswith("tenants") else model
+        bodies = mesh_feature_bodies(name, prompts[:MESH_FEATURE_PROMPTS],
+                                     model.cfg.vocab_size, MESH_FEATURE_NEW)
+        alone = ModelServer(base, None, mesh_feature_config(name), model_name=PRESET,
+                            device=model.device)
+        ref = drive_mesh_feature(model, alone, name, bodies)
+        if name in MESH_B_FEATURES:
+            refs[name] = {"bodies": bodies, "rows": ref["rows"], "module": alone.module}
+        del alone
+        server = ModelServer(base, None, mesh_feature_config(name), model_name=PRESET,
+                             device=model.device, mesh=decode_mesh({"batch": 1, "model": 1}))
+        torch.cuda.synchronize()
+        on_card = INT8_MATMUL.device_launches()
+        for k in kernels:  # the mesh's path starts here
+            k.launches = 0
+        got = drive_mesh_feature(model, server, name, bodies)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in kernels}  # ... and ends here
+        ran = INT8_MATMUL.device_launches() - on_card
+        for k, n in counts.items():
+            launches[k] += n
+        ops = dict(server._world.ops)
+        check(got["rows"] == ref["rows"], f"serve-mesh (a) {name}: the one-rank mesh's rows "
+              "differ from the one-device server's")
+        forwards, drafts = ops.get("forward", 0), ops.get("draft_forward", 0)
+        want = 0
+        if MESH_FEATURES[name].get("quantize"):
+            draft_layers = dict(MESH_FEATURES[name].get("draft_model") or ()).get("n_layers", 0)
+            want = per_layer * (model.cfg.n_layers * forwards + draft_layers * drafts)
+        check(forwards > 0 and counts["int8_matmul"] == want and ran == want,
+              f"serve-mesh (a) {name}: int8_matmul launched {counts['int8_matmul']} times "
+              f"and the card ran {ran} of its kernels for {forwards} forwards and {drafts} "
+              f"draft forwards, not {want}")
+        stats, one_stats = got["stats"], ref["stats"]
+        line = {"phase": "serve-mesh", "part": "a", "config": name, "device": device_line(),
+                "rows": len(got["rows"]), "equal_one_device": True, "ops": ops,
+                "commands": sum(ops.values()), "forwards": forwards, "draft_forwards": drafts,
+                "int8_launches": counts["int8_matmul"], "device_int8_launches": ran,
+                "accept_rate": stats["speculation"]["accept_rate"],
+                "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+                "one_device_decode_step_ms_p50": one_stats["decode_step_ms"]["p50"],
+                "wall_seconds": got.get("wall_seconds")}
+        if name == "beams":
+            check(ops.get("reorder", 0) > 0, "serve-mesh (a) beams: no cache reorder ran")
+        if name.startswith("tenants"):
+            ad = stats["tenancy"]["adapters"]
+            check(ad["evictions"] >= 2 and ad["restores"] >= 1,
+                  f"serve-mesh (a) {name}: {ad['evictions']} evictions, {ad['restores']} "
+                  "restores of an adapter, not 2 and 1")
+            line.update(adapter_evictions=ad["evictions"], adapter_restores=ad["restores"])
+        if name == "spill":
+            spill = stats["kv"]["spill"]
+            check(spill["restores"] >= 1, "serve-mesh (a) spill: the prefix never came back")
+            check(got["demoted"].keys() == ref["demoted"].keys() and all(
+                torch.equal(a, b) for h in got["demoted"]
+                for pa, pb in zip(got["demoted"][h], ref["demoted"][h]) for a, b in zip(pa, pb)),
+                "serve-mesh (a) spill: the demoted pages differ from one device's")
+            line.update(spill_bytes=spill["spilled_bytes"], spill_restores=spill["restores"],
+                        demoted_entries=len(got["demoted"]), demoted_equal_one_device=True)
+        if name == "handoff":
+            for tag, out in (("mesh", got), ("one device", ref)):
+                h = out["handoff"]
+                check(h["prefill"]["exports"] == len(bodies) and h["prefill"]["fallbacks"] == 0
+                      and h["decode"]["imports"] == len(bodies),
+                      f"serve-mesh (a) handoff ({tag} prefill): {h}")
+            line.update(handoff_bytes=got["handoff"]["prefill"]["bytes"],
+                        handoff_exports=got["handoff"]["prefill"]["exports"])
+        emit(line)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    del lmodel
+    return refs
 
 
 def lora_card_case(base: str, dt: str, shape: str, M: tuple, ix: list,

@@ -717,14 +717,6 @@ def _wait_for_signal(done=None) -> None:
 
 # set on the processes of a serve gang (`_serve_gang`)
 _MESH_RANK_ENV = "POLYAXON_SERVE_MESH"
-# what a decode mesh does not serve yet, by the flag that asks for it
-_MESH_REFUSED = (
-    ("speculate", "--speculate"), ("draft_model", "--draft-model"),
-    ("adaptive_draft", "--adaptive-draft"), ("adapters", "--adapter"),
-    ("tenants", "--tenant-quota"), ("adapter_slots", "--adapter-slots"),
-    ("spill_ram_bytes", "--spill-ram-bytes"), ("spill_dir", "--spill-dir"),
-    ("role", "--role"),
-)
 
 
 def _mesh_axes(a) -> Optional[dict]:
@@ -864,14 +856,6 @@ def cmd_serve(a):
     if os.environ.get(_MESH_RANK_ENV) == "1":
         return _serve_rank(a, overrides)
     axes = _mesh_axes(a)
-    if axes:
-        refused = [flag for field, flag in _MESH_REFUSED if overrides.get(field)
-                   and (field != "role" or overrides[field] != "both")]
-        if refused:
-            raise NotImplementedError(
-                f"serve --mesh with {', '.join(refused)} (a decode mesh, "
-                f"serving/mesh.py) {_ROADMAP}"
-            )
     pool_counts = None
     if a.pools:
         try:

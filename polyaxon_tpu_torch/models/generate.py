@@ -323,6 +323,53 @@ def paged_step(
 
 
 # ----------------------------------------------------------------- beam search
+@torch.inference_mode()
+def reorder_rows(cache, flat) -> None:
+    """Row r of the dense cache `cache` becomes its row `flat[r]`, in every
+    layer: the beams' reorder by parent (in place) and the prefill's tiling
+    to the beams (the rows' tensors replaced, as `flat` is longer).
+
+    On a decode mesh with `batch` > 1 a rank holds only its group's rows
+    (`parallel.mesh.batch_rows`), so a parent may sit in another group.
+    Every rank reads the same `flat`: when every group's parents are its
+    own, each reorders locally; otherwise the groups' rows are exchanged
+    over `batch` first (an all-gather of the cache), and each keeps its
+    new rows. `module.reorder_rows` (`serving.mesh.MeshModule`) runs it on
+    every rank of the mesh."""
+    from ..parallel.collectives import all_gather_cat
+    from ..parallel.mesh import batch_rows, is_decode_mesh
+    from ..parallel.ring import current_mesh
+
+    if not torch.is_tensor(flat):
+        flat = torch.as_tensor(np.asarray(flat), dtype=torch.long)
+    flat = flat.reshape(-1)
+    n = flat.numel()
+    mesh, group = current_mesh(), None
+    if is_decode_mesh(mesh) and mesh.size(0) > 1:
+        groups, me = mesh.size(0), mesh.get_local_rank("batch")
+        held = cache[0][0].shape[0]  # rows a group holds before the reorder
+        src = [flat[batch_rows(n, groups, g)[1]] for g in range(groups)]
+        if all(bool((s // held == g).all()) for g, s in enumerate(src)):
+            flat = src[me] - me * held
+        else:
+            flat, group = src[me], mesh.get_group("batch")
+    flat = flat.to(cache[0][0].device)
+    for i, layer in enumerate(cache):
+        new = tuple(all_gather_cat(c, group, 0).index_select(0, flat) for c in layer)
+        if new[0].shape == layer[0].shape:
+            for c, v in zip(layer, new):
+                c.copy_(v)
+        else:
+            cache[i] = new
+
+
+def _reorder(module, cache, flat) -> None:
+    if hasattr(module, "reorder_rows"):  # a decode mesh's stand-in: every rank
+        module.reorder_rows(cache, flat)
+    else:
+        reorder_rows(cache, flat)
+
+
 def _top_k(x, k: int):
     """jax.lax.top_k over the last dim: the k largest, descending, ties to
     the lower index (a stable sort; torch.topk leaves tie order open)."""
@@ -346,7 +393,8 @@ def beam_search(
     One prefill per batch row, its dense cache tiled to the row's beams;
     then each step expands every beam over the vocabulary, keeps the top
     `num_beams` continuations and reorders the cache by each survivor's
-    parent beam (a gather on the batch dim, written back in place).
+    parent beam (`reorder_rows`: a gather on the batch dim, written back
+    in place; on a decode mesh, a command over every rank's cache).
 
     Scoring is HF-style, as in the reference: without `eos_id` beams are
     pruned by their raw summed log-prob and `length_penalty` (dividing by
@@ -377,7 +425,7 @@ def beam_search(
     # prefill ONCE per batch row, then tile the cache to the row's beams
     cache = module.make_cache(B)
     logits = module(prompt, cache=cache, pos=0)
-    cache = [tuple(t.repeat_interleave(nb, dim=0) for t in layer) for layer in cache]
+    _reorder(module, cache, torch.arange(B).repeat_interleave(nb))
     first_logp = torch.log_softmax(logits[:, -1].float(), dim=-1)  # [B, V]
     V = first_logp.shape[-1]
     if eos_id is None:
@@ -406,9 +454,7 @@ def beam_search(
     def keep_live(parent, nxt, t):
         flat = (rows + parent).reshape(BN)
         if not torch.equal(flat, torch.arange(BN, device=device)):
-            for layer in cache:
-                for c in layer:
-                    c.copy_(c.index_select(0, flat))
+            _reorder(module, cache, flat)
         out = buf[flat]
         out[:, t + 1] = nxt.reshape(BN)
         return out

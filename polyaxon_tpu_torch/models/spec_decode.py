@@ -24,7 +24,9 @@ rewrites before any query attends them, and the live mask keeps them dead
 meanwhile. On the paged pool writes past a row's table are dropped.
 
 On a slot-stacked model every verify forward takes the rows' adapter
-slots (`adapter_ix`); the drafts, n-gram or draft model, ride slot 0.
+slots (`adapter_ix`); the drafts, n-gram or draft model, ride slot 0. On a
+decode mesh a verify forward asks for the logits of every position of its
+window (`all_positions`); the drafters stay on rank 0's host.
 
 Sampled speculation needs per-row seeds: a scalar-seed stream keys on
 absolute position and cannot be replayed once rows accept different
@@ -145,7 +147,7 @@ def spec_verify(module, cache, fed, done, pad, seeds, pos, start_g, *,
     logits = module(
         torch.as_tensor(np.asarray(fed), dtype=torch.long, device=dev), cache=cache,
         pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev),
-        pos=np.asarray(pos, np.int64), adapter_ix=adapter_ix,
+        pos=np.asarray(pos, np.int64), adapter_ix=adapter_ix, all_positions=True,
     )
     targets, accept = _verify_targets(logits, fed, seeds, start_g, done,
                                       temperature=temperature, top_k=top_k, eos_id=eos_id)
@@ -172,7 +174,8 @@ def spec_verify_paged(module, cache, fed, done, pad, pages, seeds, pos, start_g,
         torch.as_tensor(np.asarray(fed), dtype=torch.long, device=dev), cache=cache,
         pad=torch.as_tensor(np.asarray(pad), dtype=torch.long, device=dev),
         pages=torch.as_tensor(np.asarray(pages), dtype=torch.long, device=dev),
-        pos=np.asarray(pos, np.int64), kv_layout=kv_layout, adapter_ix=adapter_ix, **kw,
+        pos=np.asarray(pos, np.int64), kv_layout=kv_layout, adapter_ix=adapter_ix,
+        all_positions=True, **kw,
     )
     targets, accept = _verify_targets(logits, fed, seeds, start_g, done,
                                       temperature=temperature, top_k=top_k, eos_id=eos_id)

@@ -638,6 +638,7 @@ class Transformer(nn.Module):
         prefix_lens=None,
         adapter_ix=None,
         dropout_generator: Optional[torch.Generator] = None,
+        all_positions: bool = False,
     ):
         """tokens [B, S] → logits [B, S, vocab] (f32 with tied embeddings,
         the model dtype otherwise), or the final-norm features [B, S, dim]
@@ -662,7 +663,9 @@ class Transformer(nn.Module):
         `batch` group's rows (`parallel.mesh.batch_rows`) on this rank's
         heads, and returns the LAST position's whole logits [B, 1, vocab]
         of all B rows, gathered over `model` and `batch`: what the sampler
-        reads."""
+        reads; with `all_positions` every position's [B, S, vocab] (a
+        speculative verify window reads each). Off a mesh every position's
+        logits come back either way."""
         if adapter_ix is not None:
             if self.cfg.adapter_slots <= 0:
                 raise ValueError(
@@ -742,7 +745,7 @@ class Transformer(nn.Module):
             logits = self.lm_head(copy_to(x, group))
         if not serving:
             return logits
-        return self._gather_logits(mesh, logits[:, -1:], B)
+        return self._gather_logits(mesh, logits if all_positions else logits[:, -1:], B)
 
     def _gather_logits(self, mesh, logits, B: int):
         """The whole logits of all B rows on a decode mesh: this rank's

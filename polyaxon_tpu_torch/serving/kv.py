@@ -30,9 +30,13 @@ device pool (`models.generate.make_paged_cache`) and the coalescer:
   it), keyed by the chain hash at its position; `_demote` (the
   PrefixCache's `on_evict` hook) builds the payload from the mirror, and
   admission (`plan_row`) restores a spilled prefix longer than the cached
-  one into fresh pages before its lookup. The device write of a restore
-  waits in a queue until the decode worker's next dispatch
-  (`flush_restores`); each queued item holds its own page refs. Payload
+  one into fresh pages before its lookup. On a decode mesh the mirror
+  gathers every rank's kv heads over `model` into whole pages and a
+  restore writes each rank's heads (`serving/mesh.py`'s `pages_read` and
+  `pages_write` commands), so the payloads, the spill segments and the
+  handoff wire are a one-device server's, whatever the mesh. The device
+  write of a restore waits in a queue until the decode worker's next
+  dispatch (`flush_restores`); each queued item holds its own page refs. Payload
   leaves follow the reference's leaf order (layers by name, then
   cached_key, [its scale], cached_value, [its scale]), so a segment
   written by either package holds the same leaves in the same order.
@@ -458,16 +462,23 @@ class KVCacheManager:
         `self.leaves` order). The pages of every leaf of one dtype are
         gathered into one device buffer and copied to pinned host memory on
         the current stream, so the copy follows the write that produced
-        them; the call returns when the bytes are on the host."""
+        them; the call returns when the bytes are on the host. On a decode
+        mesh the pages come whole: every rank's kv heads gathered over
+        `model` (`serving.mesh.read_pages`, one command), so a page's bytes
+        are the ones one device's pool holds in the same layout."""
         dev = self.cache[0][0].device
-        ids = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
-        leaves = [self.cache[i][f] for i, f in self.leaves]
+        if isinstance(self.cache, MeshCache):
+            whole = self.module.read_pages(self.cache, new_ids)
+            picked = [whole[i][f] for i, f in self.leaves]
+        else:
+            ids = torch.as_tensor(np.asarray(new_ids), dtype=torch.long, device=dev)
+            picked = [self.cache[i][f].index_select(0, ids) for i, f in self.leaves]
         by_dtype: dict = {}
-        for j, leaf in enumerate(leaves):
+        for j, leaf in enumerate(picked):
             by_dtype.setdefault(leaf.dtype, []).append(j)
-        host: list = [None] * len(leaves)
+        host: list = [None] * len(picked)
         for idx in by_dtype.values():
-            stacked = torch.stack([leaves[j].index_select(0, ids) for j in idx])
+            stacked = torch.stack([picked[j] for j in idx])
             if stacked.is_cuda:
                 buf = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
                 buf.copy_(stacked)  # blocking: ordered after the harvest's write
@@ -614,9 +625,12 @@ class KVCacheManager:
         dev = self.cache[0][0].device
         for ids, vals, tag in pending:
             t0 = _now()
-            dst = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
-            for (i, f), v in zip(self.leaves, vals):
-                self.cache[i][f][dst] = v.to(dev)
+            if isinstance(self.cache, MeshCache):  # each rank its kv heads
+                self.module.write_pages(self.cache, ids, dict(zip(self.leaves, vals)))
+            else:
+                dst = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+                for (i, f), v in zip(self.leaves, vals):
+                    self.cache[i][f][dst] = v.to(dev)
             with self._lock:
                 self.pool.unref(ids)
                 if tag == "handoff":

@@ -114,10 +114,12 @@ A decode mesh (`mesh=`, or `config.mesh_axes` through
 torch.distributed world (`nccl` on the card, `gloo` on the CPU; a mesh of
 one rank starts its own) and constructs the server with the same
 arguments. Each rank keeps its shards (`serving/mesh.py`); rank 0 is the
-server and drives the others, which run `follow()` until rank 0 stops. The
-batched, paged, chunked and int8 paths serve on a mesh; adapters and
-tenants, speculation, beam search, the spill tier and the prefill/decode
-roles are refused there by name (ROADMAP.md). `expected_devices` makes
+server and drives the others, which run `follow()` until rank 0 stops.
+Every path serves on a mesh as on one device: per request, coalesced,
+paged, chunked, int8, beam search, n-gram and draft-model speculation
+(the draft sharded like the target), adapter slots and tenants, the spill
+tier and the prefill/decode roles; the spill mirror and a handoff export
+hold whole pages, every kv head, as one device's do. `expected_devices` makes
 `/readyz` answer 503 "degraded slice" when the world has fewer devices
 (`runtime.health.check_slice`, run through the mesh's command loop).
 """
@@ -350,7 +352,17 @@ def _restore_params(ckpt_dir: Path, module, shard: tuple = (0, 1)) -> dict:
             if not is_target(name):
                 value = shard_slice(value, dim, index, count)
                 n_bytes += value.numel() * value.element_size()
-                to_device(value, own[name])
+                dst = own[name]
+                if dst.dim() == value.dim() + 1:
+                    # a slot-stacked LoRA factor (serving.adapters.
+                    # stack_adapter_params, on a mesh before the restore):
+                    # lora_a in every slot, lora_b in slot 0 and zeros after
+                    if name.endswith("lora_b"):
+                        dst.zero_()
+                    for k in range(1 if name.endswith("lora_b") else dst.shape[0]):
+                        to_device(value, dst[k])
+                    continue
+                to_device(value, dst)
                 continue
             if dim == 0:  # output rows: their scales are their own
                 value = shard_slice(value, dim, index, count)
@@ -483,16 +495,30 @@ class ModelServer:
                 raise ValueError("adapter_slots must be >= 1 when adapters are configured")
             module = stack_adapter_params(module, slots=n_hot + 1)
             self._adapter_slots_active = True
+            # one adapter's whole shapes (a mesh rank holds slices of them)
+            self._adapter_template = adapter_template(module)
+        # adaptive speculation: a draft model by layer truncation of the
+        # SERVED module (after quantize, so it rides the same int8 weights)
+        # and the accept-rate controller that steers the draft width
+        self._draft_module, self._draft_derived = None, False
+        if cfg.draft_model is not None:
+            self._draft_module, self._draft_derived = build_draft(
+                module, overrides=dict(cfg.draft_model)
+            )
         self.mesh_shard_bytes = None
         if self._world is not None:
             self._world.shard(module)
             self.mesh_shard_bytes = shard_bytes(module)
+            if self._draft_module is not None:
+                self._draft_module = self._shard_draft(self._draft_module, module)
             if not self._world.leader:
                 # a follower keeps its shards and runs rank 0's commands
                 # (`follow`); everything else is rank 0's
                 self.module = module
                 return
             module = MeshModule(module, self._world)
+            if self._draft_module is not None:
+                self._draft_module = MeshModule(self._draft_module, self._world, "draft_")
         if cfg.tenants or self._adapter_sources:
             self._tenancy = TenantAdmission(cfg.tenants)
             for pairs in cfg.tenants or ():
@@ -503,14 +529,6 @@ class ModelServer:
                         "which is not configured"
                     )
         self.module = module
-        # adaptive speculation: a draft model by layer truncation of the
-        # SERVED module (after quantize, so it rides the same int8 weights)
-        # and the accept-rate controller that steers the draft width
-        self._draft_module, self._draft_derived = None, False
-        if cfg.draft_model is not None:
-            self._draft_module, self._draft_derived = build_draft(
-                module, overrides=dict(cfg.draft_model)
-            )
         self._spec_controller: Optional[AdaptiveSpecController] = None
         if cfg.adaptive_draft and cfg.speculate:
             k0 = max(1, int(cfg.draft_tokens))
@@ -819,7 +837,6 @@ class ModelServer:
         # <spill_dir>/adapters when spill_dir is set). Its lock serializes
         # that manager; slot reads and writes take self._lock inside it
         if self._adapter_slots_active:
-            self._adapter_template = adapter_template(module)
             self._adapter_leaves = {
                 ref_path(name): p for name, p in module.named_parameters()
                 if ref_path(name) in self._adapter_template
@@ -874,26 +891,11 @@ class ModelServer:
     def _join_mesh(self, mesh, cfg: ServingConfig) -> ServingWorld:
         """This process's place on the decode mesh `mesh`, else on one from
         `cfg.mesh_axes` over the initialized world (a mesh of one rank
-        starts a one-rank group itself). What is not ported on a mesh is
-        refused by name."""
+        starts a one-rank group itself)."""
         import torch.distributed as dist
 
         from ..parallel.mesh import decode_axis_sizes, decode_mesh
 
-        refused = {
-            "speculation (speculate, draft_model, adaptive_draft)": bool(
-                cfg.speculate or cfg.draft_model is not None or cfg.adaptive_draft),
-            "adapter slots and tenants": bool(
-                cfg.adapters or cfg.tenants or cfg.adapter_slots),
-            "the KV spill tier": bool(cfg.spill_ram_bytes or cfg.spill_dir),
-            f"the {cfg.role!r} handoff role": cfg.role != "both",
-        }
-        bad = [name for name, hit in refused.items() if hit]
-        if bad:
-            raise NotImplementedError(
-                f"{', '.join(bad)} on a decode mesh is not ported to PyTorch yet "
-                "(see ROADMAP.md)"
-            )
         if mesh is None:
             axes = dict(cfg.mesh_axes)
             if not dist.is_initialized():
@@ -904,6 +906,27 @@ class ModelServer:
                 )
             mesh = decode_mesh(axes)
         return ServingWorld(mesh, self.device)
+
+    def _shard_draft(self, draft, target):
+        """The draft model's shards on this rank: a draft truncated from the
+        target takes the target's shards of the layers they share; one with
+        widths of its own is split like the target, and must split."""
+        if not self._draft_derived and draft.device.type == "meta":
+            # from_run on a mesh builds on `meta`: a draft of widths of its
+            # own has nothing to read, so it is drawn here, as on one device
+            draft = type(draft)(draft.cfg, device=self._world.device,
+                                dtype=draft.dtype).eval()
+        try:
+            self._world.shard(draft, share=dict(target.state_dict())
+                              if self._draft_derived else None)
+        except ValueError as e:
+            c = draft.cfg
+            raise ValueError(
+                f"the draft model (dim {c.dim}, {c.n_heads} heads, {c.n_kv_heads} kv "
+                f"heads, ffn {c.ffn_dim}, vocab {c.vocab_size}) does not split over the "
+                f"decode mesh's model axis of {self._world.sizes['model']}: {e}"
+            ) from None
+        return draft
 
     @property
     def is_follower(self) -> bool:
@@ -916,7 +939,7 @@ class ModelServer:
         commands run."""
         if not self.is_follower:
             raise RuntimeError("follow() runs on the followers of a decode mesh")
-        return self._world.follow(self.module)
+        return self._world.follow(self.module, self._draft_module)
 
     @classmethod
     def from_run(
@@ -1313,6 +1336,9 @@ class ModelServer:
         registry's sorted path order (a demoted adapter's spill payload).
         The copy runs on the stream of the steps, after them."""
         with self._lock:
+            if self._world is not None:  # each rank's slice, gathered whole
+                return [t.to("cpu", copy=True) for t in
+                        self.module.read_slot(slot, sorted(self._adapter_template))]
             # a copy on every device: on the CPU .cpu() would return a view
             # of the slot the registry is about to overwrite
             return [self._adapter_leaves[p][slot].detach().to("cpu", copy=True)
@@ -1325,6 +1351,9 @@ class ModelServer:
         the copy is queued on the stream that runs the steps, so the next
         step reads the new weights. Only a free or idle slot is written."""
         with self._lock:
+            if self._world is not None:  # each rank writes its slice
+                self.module.write_slot(slot, adapter)
+                return
             for path, value in adapter.items():
                 leaf = self._adapter_leaves[path]
                 leaf[slot].copy_(torch.as_tensor(value).to(leaf.device, leaf.dtype))
@@ -1384,11 +1413,6 @@ class ModelServer:
         max_beams = min(32, cfg.vocab_size)
         if not 1 <= num_beams <= max_beams:
             raise ServingError(f"numBeams must be in [1, {max_beams}]")
-        if num_beams > 1 and self._world is not None:
-            raise NotImplementedError(
-                "beam search (numBeams > 1) on a decode mesh is not ported to "
-                "PyTorch yet (see ROADMAP.md)"
-            )
         # deadline: body deadlineMs wins, then the config default; absolute
         # monotonic time from here on
         deadline_ms = _float(body, "deadlineMs", self.config.default_deadline_ms)
@@ -2216,7 +2240,8 @@ class ModelServer:
         if self._world is not None:
             w = self._world
             mesh = {"enabled": w.size > 1, "devices": w.size,
-                    "axes": {k: int(v) for k, v in w.sizes.items()}}
+                    "axes": {k: int(v) for k, v in w.sizes.items()},
+                    "commands": dict(w.ops)}
         chunked = {"enabled": False}
         if isinstance(c, StepScheduler):
             chunked = {

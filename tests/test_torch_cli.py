@@ -238,10 +238,6 @@ def _with_scan_layers(example: str) -> str:
     (["run", "-f", "@scan-llama_lora"], "replicas: 8"),
     (["run", "-f", "@sched"], "schedule"),
     (["run", "-f", "@conn"], "connections"),
-    # a decode mesh serves (tests/test_torch_serving_mesh.py); what it
-    # does not serve yet is refused by its flag
-    (["serve", "-uid", "x", "--mesh", "model=2", "--speculate"], "--speculate"),
-    (["serve", "-uid", "x", "--mesh-model", "2", "--role", "prefill"], "--role"),
 ])
 def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, what):
     files = {

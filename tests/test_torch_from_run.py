@@ -192,11 +192,11 @@ def test_errors_are_the_references(jax_run, port_run, tmp_path):
     with pytest.raises(ServingError, match="no restorable checkpoint"):
         ModelServer.from_run("no-ckpt", store=store, device="cpu")
     # a mesh of two ranks needs their world (tests/test_torch_serving_mesh.py
-    # serves one); what a mesh does not serve yet is refused by name; a 1x1
-    # mesh is the single-card path
+    # serves one), whatever else the config asks for; a 1x1 mesh is the
+    # single-card path
     with pytest.raises(ValueError, match="needs 2 devices, only 1 visible"):
         ModelServer.from_run(uuid, store=store, mesh_axes={"model": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="decode mesh.*ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 devices, only 1 visible"):
         ModelServer.from_run(uuid, store=store, mesh_axes={"model": 2},
                              config_overrides={"speculate": True}, device="cpu")
     assert ModelServer.from_run(uuid, store=store, mesh_axes={"model": 1},

@@ -288,10 +288,11 @@ def test_unported_options_are_refused_by_name(tmp_path, lm):
     (tests/test_torch_serving_fast.py), tenants, adapters and the spill tier
     (tests/test_torch_tenancy.py, tests/test_torch_spill.py), the
     disaggregated roles (tests/test_torch_handoff.py) and `from_run`
-    (tests/test_torch_from_run.py). What a mesh does not serve yet is
-    refused by name."""
+    (tests/test_torch_from_run.py), and every one of them on a decode mesh
+    (tests/test_torch_serving_mesh.py): a mesh is refused only for the
+    ranks it lacks."""
     assert ServingConfig(mesh_axes=(("model", 2),)).mesh_axes == (("model", 2),)
-    with pytest.raises(NotImplementedError, match="speculation.*decode mesh.*ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 devices, only 1 visible"):
         ModelServer(lm[2], None, ServingConfig(mesh_axes=(("model", 2),), speculate=True),
                     device="cpu")
     for field in ({"role": "prefill"}, {"role": "decode"},

@@ -326,29 +326,36 @@ def _serving_lm(model_config, state):
     return module.eval()
 
 
-def _serve_one(server, inline, http):
-    """Rank 0's answers of one server: `inline` bodies through
-    `generate`, `http` bodies posted at once over HTTP, /statsz,
-    /metricsz and /readyz."""
+def _call(url, path, body=None):
+    """(status, JSON answer or /metricsz text) of one HTTP call."""
     import json
-    import threading
     import urllib.error
     import urllib.request
 
-    out = {"inline": [server.generate(b)["tokens"] for b in inline]}
+    req = urllib.request.Request(
+        url + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            data = resp.read()
+            code = resp.status
+    except urllib.error.HTTPError as e:
+        data, code = e.read(), e.code
+    return code, (data.decode() if path == "/metricsz" else json.loads(data))
+
+
+def _serve_one(server, inline, http, sequential=False):
+    """Rank 0's answers of one server: `inline` bodies through
+    `generate` (and /statsz right after them), `http` bodies posted at once
+    (or one at a time) over HTTP, /statsz, /metricsz and /readyz."""
+    import threading
+
+    out = {"inline": [server.generate(b)["tokens"] for b in inline],
+           "stats_inline": server.stats()}
     url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
 
     def call(path, body=None):
-        req = urllib.request.Request(
-            url + path, data=None if body is None else json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
-        try:
-            with urllib.request.urlopen(req, timeout=120) as resp:
-                data = resp.read()
-                code = resp.status
-        except urllib.error.HTTPError as e:
-            data, code = e.read(), e.code
-        return code, (data.decode() if path == "/metricsz" else json.loads(data))
+        return _call(url, path, body)
 
     answers = [None] * len(http)
 
@@ -358,6 +365,8 @@ def _serve_one(server, inline, http):
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(http))]
     for t in threads:
         t.start()
+        if sequential:
+            t.join(180)
     for t in threads:
         t.join(180)
     out["http"] = answers
@@ -367,27 +376,120 @@ def _serve_one(server, inline, http):
     return out
 
 
+def _spill_drive(server, bodies):
+    """Post `bodies` one at a time (a target prompt, a flood that evicts
+    its prefix into the spill tier, the target again): the answers, the
+    kv stats, and every payload the tier took, by its chain head, as
+    numpy (tokens, hashes, per page per leaf)."""
+    kv = server._kv
+    demoted = {}
+    put = kv._spill.put
+
+    def record(payload):
+        demoted[payload.hashes[-1]] = (list(payload.tokens), list(payload.hashes),
+                                       [[_np(t) for t in page] for page in payload.pages])
+        return put(payload)
+
+    kv._spill.put = record
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    answers = [_call(url, "/generate", b) for b in bodies]
+    return {"http": answers, "stats": _call(url, "/statsz")[1], "demoted": demoted}
+
+
+def _pool_drive(server, model_config, state, bodies, mesh_role, pool):
+    """The mesh replica (`server`, role `mesh_role`) beside a one-device
+    replica of the other role (ServingConfig `pool`), behind the port's
+    router: `bodies` posted through it one at a time. → the answers, both
+    replicas' /statsz handoff blocks, the pages each export put on the wire
+    (as numpy), by request, and, on a decode mesh, the adopted chains'
+    pages read back off it."""
+    import time
+
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.router import P2CBalancer, Router
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    other = ModelServer(_serving_lm(model_config, state), None,
+                        ServingConfig(**pool, role="decode" if mesh_role == "prefill"
+                                      else "prefill"), device="cpu")
+    urls = {"mesh": f"http://127.0.0.1:{server.start('127.0.0.1', 0)}",
+            "one": f"http://127.0.0.1:{other.start('127.0.0.1', 0)}"}
+    prefill = server if mesh_role == "prefill" else other
+    exported = []
+    export = prefill._kv.export_prefix
+
+    def record(tokens, namespace=""):
+        payload = export(tokens, namespace)
+        if payload is not None:
+            exported.append([[_np(t) for t in page] for page in payload.pages])
+        return payload
+
+    prefill._kv.export_prefix = record
+    order = [urls["mesh"], urls["one"]] if mesh_role == "prefill" else [urls["one"],
+                                                                         urls["mesh"]]
+    # no prefix affinity: a decode replica holding an adopted prefix would
+    # take the next prompt that shares it, without a handoff
+    router = Router(order, balancer=P2CBalancer(seed=7), poll_interval_s=0.1,
+                    affinity=False)
+    rurl = f"http://127.0.0.1:{router.start('127.0.0.1', 0)}"
+    try:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            router.poll_once()
+            reps = router.stats()["replicas"]
+            if len(reps) == 2 and all(r["healthy"] for r in reps):
+                break
+            time.sleep(0.05)
+        answers = [_call(rurl, "/generate", b) for b in bodies]
+        readback = []
+        if mesh_role == "decode":  # the adopted chains, read back off the mesh
+            for b in bodies:
+                payload = server._kv.export_prefix(b["tokens"][0])
+                readback.append([[_np(t) for t in page] for page in payload.pages])
+        return {"http": answers, "exported": exported, "readback": readback,
+                "handoff": {k: _call(u, "/statsz")[1]["handoff"] for k, u in urls.items()},
+                "stats": _call(urls["mesh"], "/statsz")[1]}
+    finally:
+        router.stop()
+        other.stop()
+
+
 def serve_mesh(model_config, state, mesh_axes, configs, inline=(), http=(),
                expected_devices=None):
-    """One ModelServer a config ((name, ServingConfig kwargs) pairs) on the
-    decode mesh of `mesh_axes`, every rank from `state`: rank 0 answers
-    (`_serve_one`) and stops it, the followers follow. → rank 0: {name:
-    answers}; a follower: {name: (commands run, its shard bytes)}."""
+    """One ModelServer a config ((name, ServingConfig kwargs[, plan])) on
+    the decode mesh of `mesh_axes`, every rank from `state`: rank 0 drives
+    it and stops it, the followers follow. A plan overrides what rank 0
+    does: "model" ((config, state) of another model), "inline", "http"
+    and "sequential" (`_serve_one`'s), or "drive": "spill" (its "http"
+    bodies one at a time, `_spill_drive`) or "prefill"/"decode" (the mesh
+    in that role beside a one-device replica behind the router, the
+    ServingConfig of which is the plan's "pool", `_pool_drive`). → rank 0:
+    {name: answers}; a follower: {name: (commands run, its shard bytes)}."""
     from polyaxon_tpu_torch.parallel.mesh import decode_mesh
     from polyaxon_tpu_torch.serving.batching import ServingConfig
     from polyaxon_tpu_torch.serving.server import ModelServer
 
     mesh = decode_mesh(mesh_axes)
     out = {}
-    for name, kwargs in configs:
-        server = ModelServer(_serving_lm(model_config, state), None,
+    for name, kwargs, *rest in configs:
+        plan = rest[0] if rest else {}
+        mcfg, mstate = plan.get("model", (model_config, state))
+        server = ModelServer(_serving_lm(mcfg, mstate), None,
                              ServingConfig(**kwargs), device="cpu", mesh=mesh,
                              expected_devices=expected_devices)
         if server.is_follower:
             out[name] = (server.follow(), server.mesh_shard_bytes)
             continue
         try:
-            out[name] = {**_serve_one(server, inline, http),
+            drive = plan.get("drive", "serve")
+            if drive == "spill":
+                answers = _spill_drive(server, plan["http"])
+            elif drive in ("prefill", "decode"):
+                answers = _pool_drive(server, mcfg, mstate, plan["http"], drive, plan["pool"])
+            else:
+                answers = _serve_one(server, plan.get("inline", inline), plan.get("http", http),
+                                     plan.get("sequential", False))
+            out[name] = {**answers,
                          "shard_bytes": server.mesh_shard_bytes,
                          "sent": dict(server._world.ops),
                          "logit_gathers": server._world.logit_gathers}
@@ -396,15 +498,16 @@ def serve_mesh(model_config, state, mesh_axes, configs, inline=(), http=(),
     return out
 
 
-def serve_from_run(home, run, mesh_axes, inline=(), http=()):
+def serve_from_run(home, run, mesh_axes, inline=(), http=(), overrides=None):
     """`ModelServer.from_run` of the port run `run` in the store at `home`
-    on the decode mesh of `mesh_axes`: rank 0's answers, or a follower's
-    (commands run, shard bytes, what its restore read)."""
+    on the decode mesh of `mesh_axes` (with ServingConfig `overrides`):
+    rank 0's answers, or a follower's (commands run, shard bytes, what its
+    restore read)."""
     from polyaxon_tpu_torch.serving.server import ModelServer
     from polyaxon_tpu_torch.store import RunStore
 
     server = ModelServer.from_run(run, store=RunStore(home), mesh_axes=mesh_axes,
-                                  device="cpu")
+                                  config_overrides=overrides, device="cpu")
     if server.is_follower:
         return server.follow(), server.mesh_shard_bytes, server.restore_info["bytes_read"]
     try:
@@ -412,6 +515,26 @@ def serve_from_run(home, run, mesh_axes, inline=(), http=()):
                 "bytes_read": server.restore_info["bytes_read"]}
     finally:
         server.stop()
+
+
+def serve_error(model_config, state, mesh_axes, kwargs):
+    """What constructing a ModelServer of ServingConfig `kwargs` on the
+    decode mesh of `mesh_axes` raises on this rank ("Type: message"), or
+    None."""
+    from polyaxon_tpu_torch.parallel.mesh import decode_mesh
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    try:
+        server = ModelServer(_serving_lm(model_config, state), None, ServingConfig(**kwargs),
+                             device="cpu", mesh=decode_mesh(mesh_axes))
+    except Exception as e:  # noqa: BLE001 — handed back to the test
+        return f"{type(e).__name__}: {e}"
+    if server.is_follower:
+        server.follow()
+    else:
+        server.stop()
+    return None
 
 
 def mesh_error(mesh_axes):
