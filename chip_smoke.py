@@ -738,6 +738,42 @@ FLEET_BREACH_SLO = {"name": "breach", "kind": "latency", "objective": 0.99,
 FLEET_PROFILE_S = 0.5
 
 
+# serve-moe: llama3-1b's full width and depth with 8 switch experts a block
+# (capacity 1.25, top-1 routing; 6.9 B parameters in bf16). The experts see
+# no pad mask and take their capacity from the S of each forward, as the
+# reference's do, so a served row is held against a direct call that
+# reproduces its padding, its prefill chunks and its prefix hit
+# (moe_direct_rows), never against an unpadded generate. serve-batched's
+# first wave on the step config, MOE_NEW new tokens a row, posted one at a
+# time (a concurrent wave's prefix hits would depend on arrival order),
+# then the same wave on int8 weights (q/k/v/o only: the router and the
+# experts stay bf16) and the int8 pool, then n-gram speculation (K = 4,
+# not adaptive) on the dense coalescer for MOE_SPEC_PROMPTS at
+# MOE_SPEC_NEW tokens, each row against a direct spec_generate of its
+# bucketed, left-padded prompt
+MOE_MODEL = {"preset": PRESET, "attention": "flash", "n_experts": 8, "capacity_factor": 1.25}
+MOE_NEW = 32
+MOE_POOL_PAGES = 512  # 8 rows of up to 17 pages and their harvests, with room
+MOE_CONFIGS = {
+    "step": {**SERVE_CONFIGS["step"], "kv_pool_pages": MOE_POOL_PAGES},
+    "int8": {**SERVE_CONFIGS["step"], "kv_pool_pages": MOE_POOL_PAGES, "quantize": True,
+             "kv_quant": "int8"},
+    "spec": {"batching": True, "speculate": True, "draft_tokens": 4},
+}
+MOE_SPEC_PROMPTS, MOE_SPEC_NEW = (0, 4), 16
+# an int8 MoE forward, from the code: q/k/v grouped (models.quant.project)
+# and o; the experts' SwiGLU is no QUANT_TARGETS projection
+MOE_INT8_PER_LAYER = 2
+# train-scan: the train program at RULES_LAYERS layers for 4 steps (mixed,
+# remat, flash), unscanned and then with scan_layers from the same initial
+# weights and stream. No clipping and element-wise AdamW: the stacked
+# parameters' gradients are the per-layer ones copied into one tensor, so
+# the losses agree bit for bit; the grad_norm metric sums the squares of
+# [L, ...] tensors instead of L separate ones (f32 sum order)
+SCAN_GRAD_NORM_TOL = 1e-5
+SCAN_SERVE_PROMPTS, SCAN_SERVE_NEW = (0, 4), 16
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -5406,6 +5442,360 @@ def phase_train_stages() -> dict:
     return launches
 
 
+def moe_direct_rows(module, prompts: list, config: dict, new: int) -> tuple:
+    """A step config's rows by direct calls, one prompt after the other as
+    the server took them: each row's prefix hit (the longest page-aligned
+    prefix an earlier row harvested, at most len - 1 tokens), its suffix
+    left-padded to its bucket (the server's ladders), the prefill chunks of
+    `prefill_chunk_tokens` over that bucket on a table of its pages (the LM
+    head on the last chunk only), then one decode step a token at B=1;
+    then the row's full prompt pages are copied into fresh pages and
+    indexed, as the server's harvest does. Returns the rows and, per row,
+    each generated token's top-2 gap (the near-tie rule reads them)."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import copy_pool_pages, make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+    from polyaxon_tpu_torch.serving.batching import ServingConfig, choose_buckets
+
+    cfg = ServingConfig(**SERVE_BASE, **config)
+    seq_len = module.cfg.seq_len
+    prompt_ladder, new_ladder = cfg.ladders(seq_len)
+    pt = cfg.kv_page_tokens
+    layout = PagedKVLayout(pt, MOE_POOL_PAGES, kv_quant=cfg.kv_quant)
+    cache = make_paged_cache(module, layout)
+    free = list(range(1, MOE_POOL_PAGES))
+    cached: dict = {}  # a page-aligned prompt prefix → its pages
+    dev = module.device
+
+    def long(x):
+        return torch.as_tensor(x, dtype=torch.long, device=dev)
+
+    rows, gaps = [], []
+    for p in prompts:
+        L, ppages = 0, ()
+        for j in range((len(p) - 1) // pt, 0, -1):
+            if tuple(p[:j * pt]) in cached:
+                L, ppages = j * pt, cached[tuple(p[:j * pt])]
+                break
+        sfx = p[L:]
+        pb, nb = choose_buckets(len(sfx), new, prompt_ladder, new_ladder, seq_len - L)
+        pad = pb - len(sfx)
+        own = [free.pop(0) for _ in range(layout.pages_for(L + pb + nb - 1) - L // pt)]
+        table = [*ppages, *own]
+        kw = dict(cache=cache, pad=long([pad]), pages=long([table]), kv_layout=layout,
+                  prefix_lens=long([L]))
+        arr = [0] * pad + sfx
+        width = min(max(1, cfg.prefill_chunk_tokens), pb)
+        for off in range(0, pb, width):
+            chunk = long([arr[off:off + width]])
+            if off + width < pb:
+                module(chunk, return_features=True, pos=L + off, **kw)
+            else:
+                logits = module(chunk, pos=L + off, **kw)[0, -1].float()
+        row, gap, pos = list(p), [], L + pb
+        for g in range(new):
+            gap.append(top2_gap(logits))
+            row.append(int(logits.argmax()))
+            if g + 1 < new:
+                logits = module(long([[row[-1]]]), pos=np.asarray([pos]), **kw)[0, -1].float()
+                pos += 1
+        rows.append(row)
+        gaps.append(gap)
+        k, lp = len(p) // pt, L // pt
+        if k > lp and tuple(p[:k * pt]) not in cached:
+            new_ids = [free.pop(0) for _ in range(k - lp)]
+            copy_pool_pages(cache, table_row=table, start=L + pad, count=(k - lp) * pt,
+                            new_ids=new_ids, page_tokens=pt)
+            for j in range(lp + 1, k + 1):
+                cached.setdefault(tuple(p[:j * pt]), (*ppages, *new_ids[:j - lp]))
+    del cache
+    return rows, gaps
+
+
+def moe_spec_direct(module, prompt: list) -> list:
+    """The speculative coalescer's row for `prompt` by a direct
+    spec_generate: the prompt left-padded to its bucket, as the dense group
+    of one row runs it."""
+    import numpy as np
+
+    from polyaxon_tpu_torch.models.spec_decode import spec_generate
+    from polyaxon_tpu_torch.serving.batching import ServingConfig, choose_buckets
+
+    cfg = ServingConfig(**SERVE_BASE, **MOE_CONFIGS["spec"])
+    seq_len = module.cfg.seq_len
+    pb, _ = choose_buckets(len(prompt), MOE_SPEC_NEW, *cfg.ladders(seq_len), seq_len)
+    arr = np.zeros((1, pb), np.int64)
+    arr[0, pb - len(prompt):] = prompt
+    out = spec_generate(module, arr, max_new_tokens=MOE_SPEC_NEW,
+                        draft_tokens=cfg.draft_tokens, prompt_lengths=[len(prompt)])
+    return out[0, pb - len(prompt):].tolist()
+
+
+def serve_moe_config(model, name: str, prompts: list, new: int, kernels) -> dict:
+    """One MoE server config: `prompts` posted one at a time (the kernel
+    counts zeroed before and read after), /statsz, no page leaked. Returns
+    the rows, the stats, the wall seconds, the launches, the forwards run
+    (prefill chunks and decode steps) and the server (stopped)."""
+    import torch
+
+    from polyaxon_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(model, None, ServingConfig(**SERVE_BASE, **MOE_CONFIGS[name]),
+                         model_name=PRESET, device=model.device)
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    try:
+        torch.cuda.synchronize()
+        for kern in kernels:  # this config's served path starts here
+            kern.launches = 0
+        on_card = INT8_MATMUL.device_launches()
+        t0 = time.perf_counter()
+        rows = [_http(url + "/generate", {"tokens": [p], "maxNewTokens": new})["tokens"][0]
+                for p in prompts]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in kernels}  # ... and ends here
+        device_int8 = INT8_MATMUL.device_launches() - on_card
+        steps = server._m_decode_step.summary()["count"]
+        stats = _http(url + "/statsz")
+    finally:
+        server.stop()
+    kv = server.stats()["kv"]
+    if kv["enabled"]:
+        check(kv["active_rows"] == 0 and kv["pages_reserved"] == 0
+              and kv["pages_used"] == 1 + kv["prefix"]["held_pages"],
+              f"serve-moe {name}: pages leaked: {kv}")
+    for p, row in zip(prompts, rows):
+        check(len(row) == len(p) + new, f"serve-moe {name}: a row of {len(row)} tokens")
+    chunks = stats["chunked"]["prefill_chunks"] if stats["chunked"]["enabled"] else 0
+    return {"rows": rows, "stats": stats, "wall": wall, "launches": launches,
+            "device_int8": device_int8, "forwards": chunks + steps, "steps": steps,
+            "server": server}
+
+
+def profile_moe_step(model) -> None:
+    """One paged decode step of the MoE model at B=PROFILE_BATCH, each
+    row's frontier at PROFILE_SLOTS - 1, as profile_decode_step profiles
+    the dense model's: where a step's time goes (device ops, idle share)."""
+    import torch
+
+    from polyaxon_tpu_torch.models.generate import make_paged_cache
+    from polyaxon_tpu_torch.models.kv_pages import PagedKVLayout
+
+    B, S, dev = PROFILE_BATCH, PROFILE_SLOTS, model.device
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, model.cfg.vocab_size, (B, 1), generator=gen).to(dev)
+    pad = torch.zeros(B, dtype=torch.long, device=dev)
+    layout = PagedKVLayout(128, 1 + B * -(-S // 128))
+    n_pages = layout.pages_for(S)
+    tables = 1 + torch.arange(B * n_pages, device=dev).reshape(B, n_pages)
+    pool = make_paged_cache(model, layout)
+    profile_step(lambda: model(tok, cache=pool, pos=S - 1, pad=pad, pages=tables,
+                               kv_layout=layout),
+                 {"phase": "serve-moe-profile", "batch": B, "frontier": S,
+                  "window_slots": n_pages * layout.page_tokens,
+                  "expert_bytes_a_step": sum(
+                      p.numel() * p.element_size() for n, p in model.named_parameters()
+                      if n.endswith("_kernel"))})
+    del pool
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe(kernels) -> dict:
+    """serve-moe (see MOE_MODEL): the step and int8 waves and the
+    speculative rows on the MoE model, each row held against its direct
+    call under the near-tie rule; returns the served paths' launches."""
+    import torch
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.models.quant import decode_weight_bytes, quantize_module
+
+    t0 = time.perf_counter()
+    model = build_model("transformer_lm", MOE_MODEL, device="cuda", dtype=torch.bfloat16,
+                        seed=0).module.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    _, bf16_bytes = decode_weight_bytes(model)
+    built_s = time.perf_counter() - t0
+    wave = serve_traffic(model.cfg.vocab_size)[0]
+    launches = {kern.name: 0 for kern in kernels}
+    lines = {}
+    for name in ("step", "int8"):
+        served = serve_moe_config(model, name, wave, MOE_NEW, kernels)
+        for k, n in served["launches"].items():
+            launches[k] += n
+        module = served["server"].module
+        _, served_bytes = decode_weight_bytes(module)
+        del served["server"], module
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        if name == "int8":
+            direct_module = quantize_module(model)[0]
+        else:
+            direct_module = model
+        ref, gaps = moe_direct_rows(direct_module, wave, MOE_CONFIGS[name], MOE_NEW)
+        del direct_module
+        torch.cuda.empty_cache()
+        direct_s = time.perf_counter() - t1
+        divergences = []
+        for i, (p, got) in enumerate(zip(wave, served["rows"])):
+            d = compare_rows(model, got, ref[i], len(p), gaps=gaps[i])
+            if d is not None:
+                divergences.append({"row": i, **d})
+        stats = served["stats"]
+        per_forward = MOE_INT8_PER_LAYER * model.cfg.n_layers
+        line = {
+            "phase": "serve-moe", "config": name, "device": device_line(),
+            "n_experts": model.cfg.n_experts, "capacity_factor": model.cfg.capacity_factor,
+            "n_layers": model.cfg.n_layers, "params": n_params,
+            "weight_bytes": bf16_bytes, "served_weight_bytes": served_bytes,
+            "requests": len(wave), "new_tokens": MOE_NEW,
+            "prompt_lens": [len(p) for p in wave], "posted": "one at a time",
+            "wall_seconds": served["wall"],
+            "decode_tokens_per_s": MOE_NEW * len(wave) / served["wall"],
+            "ttft_ms_p50": stats["ttft_ms"]["p50"], "ttft_ms_p95": stats["ttft_ms"]["p95"],
+            "decode_step_ms_p50": stats["decode_step_ms"]["p50"],
+            "decode_steps": served["steps"], "forwards": served["forwards"],
+            "prefill_chunks": stats["chunked"]["prefill_chunks"],
+            "prefix_hits": stats["kv"]["prefix"]["hits"],
+            "rows_diverged": len(divergences), "divergences": divergences,
+            "direct_seconds": direct_s, "launches": served["launches"],
+            "int8_device_launches": served["device_int8"],
+            "int8_launches_per_forward": (served["device_int8"] / served["forwards"]
+                                          if name == "int8" else 0),
+        }
+        emit(line)
+        lines[name] = line
+        check(stats["kv"]["prefix"]["hits"] >= 3, f"serve-moe {name}: the shared prefix "
+              f"was hit {stats['kv']['prefix']['hits']} times, not 3")
+        if name == "int8":
+            want = per_forward * served["forwards"]
+            check(served["launches"]["int8_matmul"] == want and served["device_int8"] == want,
+                  f"serve-moe int8: {served['launches']['int8_matmul']} int8 launches "
+                  f"(the card ran {served['device_int8']}) in {served['forwards']} forwards, "
+                  f"not {per_forward} a forward")
+            check(served_bytes < bf16_bytes, "serve-moe int8: the weights did not shrink")
+        del served
+    spec = serve_moe_config(model, "spec", [wave[i] for i in MOE_SPEC_PROMPTS], MOE_SPEC_NEW,
+                            kernels)
+    for k, n in spec["launches"].items():
+        launches[k] += n
+    del spec["server"]
+    divergences = []
+    for i, got in zip(MOE_SPEC_PROMPTS, spec["rows"]):
+        d = compare_rows(model, got, moe_spec_direct(model, wave[i]), len(wave[i]))
+        if d is not None:
+            divergences.append({"row": i, **d})
+    sp = spec["stats"]["speculation"]
+    emit({"phase": "serve-moe", "config": "spec", "device": device_line(),
+          "rows": len(MOE_SPEC_PROMPTS), "new_tokens": MOE_SPEC_NEW,
+          "draft_tokens": MOE_CONFIGS["spec"]["draft_tokens"], "proposed": sp["proposed"],
+          "accepted": sp["accepted"], "accept_rate": sp["accept_rate"],
+          "wall_seconds": spec["wall"], "rows_diverged": len(divergences),
+          "divergences": divergences, "build_seconds": built_s})
+    check(sp["proposed"] > 0, "serve-moe spec: no draft was proposed")
+    profile_moe_step(model)
+    del model, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_scan() -> dict:
+    """train-scan (see SCAN_GRAD_NORM_TOL): the train program at
+    RULES_LAYERS layers, unscanned then scanned from the same initial
+    weights; then both modules (bf16, the scanned one's weights stacked
+    from the other's) serve SCAN_SERVE_PROMPTS on the step config. Returns
+    the scanned run's launches."""
+    import torch
+
+    from polyaxon_tpu_torch.models import build_model
+    from polyaxon_tpu_torch.models.transformer import stack_layers
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    program = resume_program(None, {"n_layers": RULES_LAYERS})
+    scan_program = resume_program(None, {"n_layers": RULES_LAYERS, "scan_layers": True})
+    plain = Trainer(program)
+    init = {k: v.detach().clone() for k, v in plain.module.state_dict().items()}
+    ref = plain.run().history
+    final = {k: v.detach().clone() for k, v in plain.module.state_dict().items()}
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    scanned = Trainer(scan_program)
+    scanned.load_state_dict(stack_layers(init, RULES_LAYERS))
+    del init
+    torch.cuda.synchronize()
+    for kern in KERNELS:  # the scanned training path starts here
+        kern.launches = 0
+    got = scanned.run().history
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+    stacked = list(scanned.module.scan.block.attention.q_proj.weight.shape)
+    del scanned
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, ref_losses = [h["loss"] for h in got], [h["loss"] for h in ref]
+    norm_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                   for a, b in zip(got, ref))
+    steps = len(ref)
+    expected = {k: PER_STEP[k] * RULES_LAYERS * steps for k in PER_STEP}
+    # serving: the unscanned module with the trained weights, and the
+    # scanned one holding them stacked, on the step config
+    config = {"n_layers": RULES_LAYERS, "attention": "flash"}
+    flat = build_model("transformer_lm", {"preset": PRESET, **config}, device="cuda",
+                       dtype=torch.bfloat16, seed=0).module.eval()
+    flat.load_state_dict(final)
+    stack = build_model("transformer_lm", {"preset": PRESET, **config, "scan_layers": True},
+                        device="cuda", dtype=torch.bfloat16, seed=0).module.eval()
+    stack.load_state_dict(stack_layers(final, RULES_LAYERS))
+    del final
+    prompts = [serve_traffic(flat.cfg.vocab_size)[0][i] for i in SCAN_SERVE_PROMPTS]
+    rows = {}
+    with torch.inference_mode():
+        for tag, module in (("unscanned", flat), ("scanned", stack)):
+            server = step_server(module)
+            url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+            try:
+                rows[tag] = [_http(url + "/generate", {"tokens": [p], "maxNewTokens":
+                                                       SCAN_SERVE_NEW})["tokens"][0]
+                             for p in prompts]
+            finally:
+                server.stop()
+    del flat, stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train-scan", "device": device_line(), "n_layers": RULES_LAYERS,
+          "stacked_q_proj": stacked, "steps": steps, "tokens_per_step": TRAIN_TOKENS,
+          "losses": losses, "unscanned_losses": ref_losses,
+          "losses_bitwise_equal": losses == ref_losses,
+          "max_rel_grad_norm": norm_rel, "grad_norm_tol": SCAN_GRAD_NORM_TOL,
+          "launches": launches, "expected_launches": expected,
+          "served_rows_equal": rows["scanned"] == rows["unscanned"]})
+    check(stacked[0] == RULES_LAYERS, f"scanned q_proj {stacked}")
+    check(losses == ref_losses, f"train-scan losses {losses} differ from the unscanned "
+          f"run's {ref_losses}")
+    check(norm_rel <= SCAN_GRAD_NORM_TOL, f"train-scan grad_norm off by {norm_rel}")
+    check(launches == expected, f"train-scan launches {launches}, expected {expected}")
+    check(rows["scanned"] == rows["unscanned"],
+          "the scanned module's served rows differ from the unscanned module's")
+    return launches
+
+
+def step_server(module):
+    """A step-config server of `module` on its device."""
+    from polyaxon_tpu_torch.serving.batching import ServingConfig
+    from polyaxon_tpu_torch.serving.server import ModelServer
+
+    return ModelServer(module, None, ServingConfig(**SERVE_BASE, **SERVE_CONFIGS["step"]),
+                       model_name=PRESET, device=module.device)
+
+
 def max_abs_err(row: dict) -> float:
     """A kernel row's max |kernel - plain|: its own, the forward's o, or the
     largest of the backward's outputs."""
@@ -5590,8 +5980,17 @@ def main(argv: list) -> int:
         profile_tenant_step(lmodel, {name: out["module"] for name, out in served.items()})
         del lmodel, served
         gc.collect()
+        torch.cuda.empty_cache()
+        stamp("serve-tenants")
+        # the MoE model on the batched paths: each config's counts are set to
+        # 0 and read around its served requests, in the phase
+        moe = phase_serve_moe(KERNELS)
+        emit({"phase": "serve-moe-launches", "launches": moe})
+        check(moe["int8_matmul"] > 0, "serve-moe never launched int8_matmul")
+        for name, n in moe.items():
+            launches[name] += n
     torch.cuda.empty_cache()
-    stamp("serve-tenants")
+    stamp("serve-moe")
     check(launches["flash_fwd"] > 0, "the inference path never launched flash_fwd")
     for name, n in phase_train().items():
         launches[name] += n
@@ -5602,6 +6001,9 @@ def main(argv: list) -> int:
     for name, n in phase_train_stages().items():
         launches[name] += n
     stamp("train-stages")
+    for name, n in phase_train_scan().items():
+        launches[name] += n
+    stamp("train-scan")
     phase_train_vs_einsum()
     stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),

@@ -18,9 +18,8 @@ run spec's `serving.meshAxes`): one process per device of the decode mesh,
 rank 0 binding the port. `run` resolves `joins:` first, and a `matrix:`
 runs as a sweep (`tuner/driver.py::run_sweep`, its JSON summary printed);
 a `dag` runs through the executor. What is not ported is refused with an
-error naming ROADMAP.md: a gang of a config its workers would refuse, a
-schedule, connections, a remote control plane (`streams_url`) and
-`--queue` clones.
+error naming ROADMAP.md: a schedule, connections, a remote control plane
+(`streams_url`) and `--queue` clones.
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
 it so).

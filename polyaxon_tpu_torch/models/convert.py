@@ -17,6 +17,8 @@ nested dict of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`):
     pipeline/stages/<block>/... [P, Lp, ...] → pipeline.stages.<block>.* (a
                                               pipelined config: the kernels'
                                               last two dims swapped)
+    layers/block/<block>/... [L, ...]       → scan.block.<block>.* (a
+                                              scan_layers config: the same)
 
 A zoo model's tree (`params_from_jax(params_np)` with no config: the MLP,
 ResNet, ViT, BERT, seq2seq, a lone MoE feed-forward) maps by its module
@@ -58,6 +60,7 @@ _MOMENTS = ("mu", "nu", "trace", "ema", "sum_of_squares", "v_row", "v_col", "v")
 Layout = dict[str, tuple[tuple[str, ...], Any]]
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _STACKED_T = (0, 1, 3, 2)
+_SCANNED_T = (0, 2, 1)
 _ZOO_NAMES = {"embedding": "weight", "scale": "weight"}
 _STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -153,6 +156,9 @@ def transformer_layout(params_np: dict, cfg) -> Layout:
     if getattr(cfg, "pipeline_stages", 0) > 1:
         # the stacked [P, Lp, in, out] kernels turn on their last two dims
         block("pipeline.stages", ("pipeline", "stages"), _STACKED_T)
+    elif getattr(cfg, "scan_layers", False):
+        # nn.scan's [L, in, out] kernels, likewise
+        block("scan.block", ("layers", "block"), _SCANNED_T)
     else:
         for i in range(cfg.n_layers):
             block(f"layers.{i}", (f"layer_{i}",), True)
@@ -209,15 +215,20 @@ def _collect(node, counts: set, moments: dict) -> None:
             _collect(value, counts, moments)
 
 
-def _adafactor_source(field: str, p: torch.Tensor, group) -> str:
-    """The optax field holding a transposed 2-D parameter's `field`: each
-    factor is named by the axis it runs along, and transposing swaps which
-    axis is which for a square matrix (the dims are chosen by size)."""
+def _adafactor_source(field: str, p: torch.Tensor, group, how) -> tuple[str, list]:
+    """(the optax field holding the port's factor `field` of a parameter
+    turned by `how` from the reference's layout, the permutation of that
+    field's axes into the port's order). Each factor is named by the axis
+    it drops, and turning a kernel can change which axis is which for
+    equal sizes (the dims are chosen by size)."""
+    perm = (1, 0) if how is True else tuple(how)  # port axis a = JAX axis perm[a]
     port_d1, port_d0 = Adafactor.dims(p, group)
-    jax_d1, _ = _factored_dims(tuple(reversed(p.shape)), group["factored"],
-                               group["min_dim_size_to_factor"])
-    along = 1 - (port_d1 if field == "v_row" else port_d0)  # the same axis, in JAX's order
-    return "v_row" if jax_d1 == along else "v_col"
+    jax_shape = tuple(p.shape[perm.index(j)] for j in range(p.ndim))
+    _, jax_d0 = _factored_dims(jax_shape, group["factored"], group["min_dim_size_to_factor"])
+    dropped = perm[port_d0 if field == "v_row" else port_d1]
+    kept_jax = [j for j in range(p.ndim) if j != dropped]
+    order = [kept_jax.index(perm[a]) for a in range(p.ndim) if perm[a] != dropped]
+    return ("v_row" if dropped == jax_d0 else "v_col"), order
 
 
 def opt_state_from_jax(
@@ -243,18 +254,15 @@ def opt_state_from_jax(
                 continue  # not trained (a frozen parameter)
             state = optimizer.state[p]
             for field, dst in state.items():
-                source = field
+                source, order = field, None
                 if how and field in ("v_row", "v_col"):
-                    if how is not True:
-                        raise NotImplementedError(
-                            f"{name}: adafactor's factored state of a conv or "
-                            "stage-stacked kernel is not carried across"
-                        )
-                    source = _adafactor_source(field, p, groups[id(p)])
+                    source, order = _adafactor_source(field, p, groups[id(p)], how)
                 if source not in moments:
                     raise KeyError(f"optax state has no {source!r} tree for {name}")
                 src = torch.from_numpy(np.array(_at(moments[source], path), copy=True))
-                if src.ndim == p.ndim:
+                if order is not None:
+                    src = src.permute(*order).contiguous()
+                elif src.ndim == p.ndim:
                     src = _orient(src, how)
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(

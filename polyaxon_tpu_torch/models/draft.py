@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .generate import _host_ints, _sample_rows
+from .transformer import SCAN_BLOCK
 
 #: fields the `draft:` sub-config may NOT override — the drafter must share
 #: the target's tokenizer and propose over the same vocabulary
@@ -55,7 +56,8 @@ def draft_config(cfg):
 
 def derive_draft_params(state: dict, draft_cfg, *, base_cfg=None) -> dict:
     """The draft's state_dict by LAYER TRUNCATION of the base's: entries of
-    `layers.{i}.` with i < draft n_layers, and every non-layer entry
+    `layers.{i}.` with i < draft n_layers (a scanned stack's `scan.block.`
+    entries sliced to their first n_layers), and every non-layer entry
     (embedding, final norm, LM head) shared as it is. Valid only when the
     draft keeps the base's widths."""
     n = draft_cfg.n_layers
@@ -73,6 +75,8 @@ def derive_draft_params(state: dict, draft_cfg, *, base_cfg=None) -> dict:
         if name.startswith("layers."):
             if int(name.split(".", 2)[1]) < n:
                 out[name] = value
+        elif name.startswith(SCAN_BLOCK):  # [L, ...]: a view of the first n
+            out[name] = value[:n]
         else:
             out[name] = value
     return out

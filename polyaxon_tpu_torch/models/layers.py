@@ -96,6 +96,12 @@ def _box() -> Optional[Collected]:
     return stack[-1] if stack else None
 
 
+def sowing() -> bool:
+    """True inside `collecting()`: a sown loss is kept. An inference
+    forward (serving, generate) sows nothing and need not compute it."""
+    return _box() is not None
+
+
 def sow_loss(value: torch.Tensor) -> None:
     box = _box()
     if box is not None:

@@ -13,7 +13,14 @@ of `polyaxon_tpu/models/moe.py::MoEFeedForward`.
   `down_kernel` [E, F, D] (the reference's layout), all plain PyTorch
   products (plain XLA in the reference, outside any Pallas kernel).
 - The load-balancing loss aux_weight * E * sum_e f_e p_e is sown
-  (`layers.sow_loss`); the trainer adds it to the training loss only.
+  (`layers.sow_loss`); the trainer adds it to the training loss only. It
+  is computed only inside `layers.collecting()`: an inference forward
+  (generate, every serving path) takes no aux loss and issues no
+  collective for it.
+- There is no pad mask, as in the reference: on the serving paths a
+  row's left-pad tokens take places in their experts' queues, and C
+  comes from the S of each forward (a bucket's width, a prefill chunk, a
+  verify window; a decode step's S = 1 keeps every token).
 
 `router_noise` adds Gaussian noise to the logits in training, drawn from
 the dropout generator; its draws differ from `jax.random`'s by
@@ -33,7 +40,13 @@ batch rows, its `context` chunk of the sequence):
   (`reduce_from`); the tokens and the gates enter through `copy_to`, so
   their gradients are the experts' summed;
 - over `model` each expert's hidden units are split (column-parallel
-  gate/up, row-parallel down)."""
+  gate/up, row-parallel down), in training and on a decode mesh
+  (`serving/mesh.py`, `MOE_SPLIT["model"]`), where the experts stay whole
+  over `batch`.
+
+The stacked kernels may carry more leading dims (a scanned stack's
+[n_layers, E, ...]): `reset_with` takes the fan-in from the second to
+last dim."""
 
 from __future__ import annotations
 
@@ -46,7 +59,7 @@ from ..parallel.collectives import (
 from ..parallel.mesh import BATCH_AXES, axis_sizes
 from ..parallel.ring import current_mesh
 from ..parallel.ring import model_group as _model_group
-from .layers import Dense, lecun_normal_, sow_loss
+from .layers import Dense, lecun_normal_, sow_loss, sowing
 
 
 class MoEFeedForward(nn.Module):
@@ -68,10 +81,25 @@ class MoEFeedForward(nn.Module):
     def reset_with(self, gen: torch.Generator) -> None:
         """The expert kernels (the router, a Dense, resets itself)."""
         for w in (self.gate_kernel, self.up_kernel, self.down_kernel):
-            lecun_normal_(w, w.shape[1], gen)
+            lecun_normal_(w, w.shape[-2], gen)  # fan_in: [.., E, in, out]
 
     def capacity(self, seq: int) -> int:
         return max(1, int(self.capacity_factor * seq / self.n_experts))
+
+    def _aux_loss(self, mesh, onehot, probs):
+        """The load-balancing aux loss (Switch eq. 4): E * sum_e f_e * p_e,
+        taken only where a caller collects it (the trainer): an inference
+        forward, on a decode mesh too, issues no collective for it."""
+        B, S, E = onehot.shape
+        tokens = [axis_group(mesh, ax) for ax in (*BATCH_AXES, "context")]
+        if any(g is not None for g in tokens):
+            # over the global batch and sequence: f_e from the summed
+            # counts; p_e's sum is this rank's share, so the ranks' losses
+            # add up to the loss and its gradient
+            n = all_reduce(torch.tensor(float(B * S), device=onehot.device), tokens)
+            density = all_reduce(onehot.sum(dim=(0, 1)), tokens) / n
+            return E * torch.sum(density * (probs.sum(dim=(0, 1)) / n))
+        return E * torch.sum(onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
 
     def forward(self, x, generator=None):
         B, S, D = x.shape
@@ -87,18 +115,8 @@ class MoEFeedForward(nn.Module):
         onehot = F.one_hot(probs.argmax(-1), E).float()  # [B, S, E]
         gate = (probs * onehot).sum(-1)  # the chosen expert's probability
 
-        # load-balancing aux loss (Switch eq. 4): E * sum_e f_e * p_e
-        tokens = [axis_group(mesh, ax) for ax in (*BATCH_AXES, "context")]
-        if any(g is not None for g in tokens):
-            # over the global batch and sequence: f_e from the summed
-            # counts; p_e's sum is this rank's share, so the ranks' losses
-            # add up to the loss and its gradient
-            n = all_reduce(torch.tensor(float(B * S), device=x.device), tokens)
-            density = all_reduce(onehot.sum(dim=(0, 1)), tokens) / n
-            aux = E * torch.sum(density * (probs.sum(dim=(0, 1)) / n))
-        else:
-            aux = E * torch.sum(onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
-        sow_loss(self.aux_weight * aux)
+        if sowing():
+            sow_loss(self.aux_weight * self._aux_loss(mesh, onehot, probs))
 
         # queue place: the running count over the row, after the earlier
         # context chunks' counts

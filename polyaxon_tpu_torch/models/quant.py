@@ -2,8 +2,11 @@
 of `polyaxon_tpu/models/quant.py` (an own copy: the port imports nothing of
 the JAX package).
 
-The seven projections of each block (q/k/v/o, gate/up/down) are quantized
-to int8 with one symmetric scale per output channel:
+The seven projections of each block (q/k/v/o, gate/up/down; an MoE
+block's four attention projections, its router and stacked experts being
+no QUANT_TARGETS) are quantized to int8 with one symmetric scale per
+output channel, per layer and column on a scanned stack's [n_layers,
+out, in] weights:
 
     scale[o] = max_i |W[o, i]| / 127        (float32)
     Wq[o, i] = round(W[o, i] / scale[o])    (int8, clipped to [-127, 127])
@@ -19,7 +22,8 @@ precision. LoRA projections quantize their frozen base and keep the
 adapters (`lora_a`, `lora_b`) at checkpoint precision (`Int8LoRALinear`),
 single or slot-stacked for multi-tenant serving: `project` still runs the
 int8 products of q/k/v and gate/up as one grouped launch, and each member
-adds its own per-row adapter delta after it.
+adds its own per-row adapter delta after it. A layer launches the int8
+kernel 4 times (q/k/v, o, gate/up, down), an MoE layer twice (q/k/v, o).
 
 The same per-vector scheme backs the int8 paged KV pool: `quantize_kv`
 maps each slot's per-head K/V vector to an int8 payload plus one f32 scale,
@@ -112,7 +116,8 @@ def project(x, projs, adapter_ix=None) -> tuple:
 
 def quantize_kernel(w) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., out, in] fp weight → (int8 weight, f32 scale [..., out]): one
-    scale per output channel, amax'd over the input dim."""
+    scale per output channel, amax'd over the input dim (leading layer dims
+    of a scanned stack quantize per layer and column)."""
     w32 = torch.as_tensor(w).float()
     amax = w32.abs().amax(dim=-1)
     scale = torch.clamp_min(amax, 1e-8) / 127.0
@@ -227,11 +232,6 @@ def quantize_module(module):
     cfg = getattr(module, "cfg", None)
     if cfg is None or not hasattr(cfg, "quant"):
         raise ValueError(f"{type(module).__name__} has no quantizable decode path")
-    if getattr(cfg, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "int8 quantization of an MoE model (n_experts > 0) is not ported "
-            "to PyTorch yet (see ROADMAP.md)"
-        )
     if cfg.quant != "none":
         raise ValueError(
             f"module is already quantized (cfg.quant = {cfg.quant!r}) — "

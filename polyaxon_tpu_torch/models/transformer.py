@@ -37,11 +37,13 @@ and add each row's delta after it.
 
 `n_experts > 0` swaps each block's SwiGLU for `models.moe.MoEFeedForward`
 (top-1 switch routing, `capacity_factor`, the sown balance loss) under the
-name `moe`, on every path the dense model has: the forward, training and
-the dense-KV `generate` (prefill and each decode step route their own
-tokens, as the reference's decode does). The paged pool and int8
-projections refuse it (NotImplementedError, see ROADMAP.md), and so does
-every serving path but the per-request one (`serving/server.py`).
+name `moe`, on every path the dense model has: the forward, training, the
+dense and paged KV decode and every serving path. As in the reference the
+experts see no pad mask and take their capacity per row from the S of each
+forward (a bucket's width, a prefill chunk, a verify window), so a served
+row routes as the reference's server routes it. `adapter_ix` reaches the
+attention only; int8 quantizes the attention projections and leaves the
+router and the experts at checkpoint precision (`models/quant.py`).
 
 Training mode is `module.train()`: it turns on dropout (`dropout_rate`,
 after the attention and after the MLP of each block, as the reference
@@ -71,14 +73,24 @@ layers, the reference's nested scan. As in the reference, the pipelined
 stack refuses dropout and MoE (ValueError in `_make_config`), and the
 KV-cache decode and `adapter_ix` (ValueError in `forward`).
 
-Config fields this port does not serve yet raise NotImplementedError
-instead of being ignored: scan_layers.
+`scan_layers: true` (without pipeline stages, which take precedence as in
+the reference) replaces the block list by `ScannedLayers` (`scan.block.*`):
+one `Block` whose parameters and buffers carry a leading [n_layers] dim,
+the reference's `layers/block/...` tree of `nn.scan`, run as a loop over
+its slices through the same `functional_call` runner as the pipelined
+stack (`StackedBlocks`). It computes what the per-layer stack computes,
+bit for bit from the same weights (`stack_layers`): dropout draws from
+the one generator in layer order and each layer sows its MoE loss, which
+the trainer sums. The decode caches keep the per-layer layout of
+`make_cache` and `models.generate.make_paged_cache` (a list over the
+layers, not the reference's stacked [n_layers, ...] cache leaves).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional
 
 import numpy as np
@@ -128,7 +140,8 @@ class TransformerConfig:
     # at load, not a training config
     adapter_slots: int = 0
     tie_embeddings: bool = False
-    scan_layers: bool = False  # not ported: must stay False
+    # the blocks' weights stacked to [n_layers, ...] (ScannedLayers)
+    scan_layers: bool = False
     # MoE: replace the dense FFN with n_experts switch-routed experts
     n_experts: int = 0
     capacity_factor: float = 1.25
@@ -154,20 +167,15 @@ class TransformerConfig:
         return ((h + 127) // 128) * 128
 
 
-def check_ported(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for config fields this slice does not serve."""
-    if cfg.quant not in ("none", "int8"):
-        raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
-    refused = {
-        "scan_layers": bool(cfg.scan_layers),
-        "n_experts with quant='int8'": cfg.n_experts > 0 and cfg.quant == "int8",
-    }
-    bad = [name for name, hit in refused.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            f"TransformerConfig fields {bad} are not ported to PyTorch yet "
-            "(see ROADMAP.md)"
-        )
+# the scanned stack's parameter names: SCAN_BLOCK + the Block's names
+SCAN_BLOCK = "scan.block."
+
+
+def scanned(cfg) -> bool:
+    """True when `Transformer(cfg)` holds its blocks as `ScannedLayers`
+    (`scan.block.*`): `scan_layers` without pipeline stages, which take
+    precedence as in the reference."""
+    return cfg.scan_layers and cfg.pipeline_stages <= 1
 
 
 def rope_table(seq_len: int, head_dim: int, theta: float):
@@ -481,11 +489,50 @@ class Block(nn.Module):
         return x + h
 
 
-class PipelinedLayers(nn.Module):
+class StackedBlocks(nn.Module):
+    """One `Block` whose every parameter and buffer (an int8 projection's
+    payload and scales are buffers) carries the leading dims `lead`, the
+    reference's stacked param tree: a layer's forward is that block called
+    on its slices (`torch.func.functional_call`), so the slices' gradients
+    land in the stacked parameters."""
+
+    def _stack(self, attr: str, lead: tuple) -> None:
+        """Stack the block held as `attr` to `lead` + its shapes."""
+        self._attr = attr
+        block = self._block
+        self._names = [n for n, _ in block.named_parameters()]
+        self._names += [n for n, _ in block.named_buffers()]
+        for name in self._names:
+            owner, _, leaf = name.rpartition(".")
+            mod = block.get_submodule(owner)
+            t = getattr(mod, leaf)
+            new = t.detach().expand(*lead, *t.shape).clone()
+            if isinstance(t, nn.Parameter):
+                setattr(mod, leaf, nn.Parameter(new, requires_grad=t.requires_grad))
+            else:
+                mod._buffers[leaf] = new
+
+    @property
+    def _block(self) -> "Block":
+        return getattr(self, self._attr)
+
+    def stacked(self) -> dict:
+        """name in the block → its stacked tensor (as it is now: a mesh's
+        shards replace them)."""
+        out = {}
+        for name in self._names:
+            owner, _, leaf = name.rpartition(".")
+            out[name] = getattr(self._block.get_submodule(owner), leaf)
+        return out
+
+    def run_layer(self, params: dict, x, *args, **kwargs):
+        """The block on one layer's slices `params` (name → tensor)."""
+        return functional_call(self._block, params, (x, *args), kwargs)
+
+
+class PipelinedLayers(StackedBlocks):
     """The block stack with stage-stacked weights [P, Lp, ...]: `stages` is
-    one `Block` whose every parameter carries the two leading dims, and a
-    layer's forward is that block called on its slices
-    (`torch.func.functional_call`)."""
+    the stacked `Block`."""
 
     def __init__(self, cfg: TransformerConfig, **factory):
         super().__init__()
@@ -494,27 +541,16 @@ class PipelinedLayers(nn.Module):
             raise ValueError(f"n_layers {cfg.n_layers} not divisible by pipeline_stages {P}")
         self.cfg, self.per_stage = cfg, cfg.n_layers // P
         self.stages = Block(cfg, **factory)
-        self._names = [name for name, _ in self.stages.named_parameters()]
-        for name in self._names:
-            owner, _, leaf = name.rpartition(".")
-            mod = self.stages.get_submodule(owner)
-            p = getattr(mod, leaf)
-            setattr(mod, leaf, nn.Parameter(
-                p.detach().expand(P, self.per_stage, *p.shape).clone(),
-                requires_grad=p.requires_grad))
+        self._stack("stages", (P, self.per_stage))
 
     def _stage(self, params: dict, h, cos, sin):
         """One stage: its Lp layers in order; `params`: name → [Lp, ...]."""
         for i in range(self.per_stage):
-            h = functional_call(self.stages, {n: t[i] for n, t in params.items()},
-                                (h, cos, sin))
+            h = self.run_layer({n: t[i] for n, t in params.items()}, h, cos, sin)
         return h
 
     def forward(self, x, cos, sin):
-        stacked = {}
-        for name in self._names:
-            owner, _, leaf = name.rpartition(".")
-            stacked[name] = getattr(self.stages.get_submodule(owner), leaf)
+        stacked = self.stacked()
         group = axis_group(current_mesh(), "pipeline")
         if group is not None:
             from ..parallel.pipeline import pipeline_apply
@@ -527,6 +563,32 @@ class PipelinedLayers(nn.Module):
         # no pipeline axis: the same weights as a plain loop over stages
         for s in range(self.cfg.pipeline_stages):
             x = self._stage({n: t[s] for n, t in stacked.items()}, x, cos, sin)
+        return x
+
+
+class ScannedLayers(StackedBlocks):
+    """`scan_layers`: the reference's `nn.scan` over the blocks. `block` is
+    the stacked `Block` ([n_layers, ...] on every parameter and buffer),
+    run as a loop over its slices: layer i reads `caches[i]` (the decode
+    caches keep the per-layer layout of `Transformer.make_cache`), every
+    layer draws its dropout from the one generator in layer order and sows
+    its MoE loss, so the collected losses sum over the layers."""
+
+    def __init__(self, cfg: TransformerConfig, **factory):
+        super().__init__()
+        self.cfg = cfg
+        self.block = Block(cfg, **factory)
+        self._stack("block", (cfg.n_layers,))
+
+    def forward(self, x, cos, sin, *, caches=None, plan=None, generator=None,
+                adapter_ix=None):
+        stacked = self.stacked()
+        for i in range(self.cfg.n_layers):
+            x = self.run_layer(
+                {n: t[i] for n, t in stacked.items()}, x, cos, sin,
+                cache=None if caches is None else caches[i], plan=plan,
+                generator=generator, adapter_ix=adapter_ix,
+            )
         return x
 
 
@@ -544,7 +606,8 @@ class Transformer(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        check_ported(cfg)
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
         self.cfg = cfg
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=dtype)
@@ -552,6 +615,9 @@ class Transformer(nn.Module):
         if cfg.pipeline_stages > 1:
             self.layers = nn.ModuleList()
             self.pipeline = PipelinedLayers(cfg, **factory)
+        elif scanned(cfg):
+            self.layers = nn.ModuleList()
+            self.scan = ScannedLayers(cfg, **factory)
         else:
             self.layers = nn.ModuleList(Block(cfg, **factory) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=dev)
@@ -601,6 +667,8 @@ class Transformer(nn.Module):
     def local_kv_heads(self) -> int:
         """The kv heads this module's projections hold: n_kv_heads, or this
         rank's share of them on a decode mesh."""
+        if scanned(self.cfg):
+            return self.scan.block.attention.k_proj.weight.shape[1] // self.cfg.head_dim
         if not len(self.layers):
             return self.cfg.n_kv_heads
         return self.layers[0].attention.k_proj.weight.shape[0] // self.cfg.head_dim
@@ -721,6 +789,9 @@ class Transformer(nn.Module):
         x = constrain(x, BATCH, "context", None)
         if self.cfg.pipeline_stages > 1:
             x = self.pipeline(x, self.rope_cos, self.rope_sin)
+        elif scanned(self.cfg):
+            x = self.scan(x, self.rope_cos, self.rope_sin, caches=cache, plan=plan,
+                          generator=dropout_generator, adapter_ix=adapter_ix)
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, self.rope_cos, self.rope_sin,
@@ -817,11 +888,6 @@ class Transformer(nn.Module):
             )
         shape = tuple(cache[0][0].shape)
         if paged:
-            if self.cfg.n_experts > 0:
-                raise NotImplementedError(
-                    "the paged KV pool with an MoE model (n_experts > 0) is not "
-                    "ported to PyTorch yet (see ROADMAP.md)"
-                )
             if shape[:2] != (kv_layout.pool_pages, kv_layout.page_tokens):
                 raise ValueError(
                     f"pages need the pool of {kv_layout} (models.generate."
@@ -903,6 +969,17 @@ class Transformer(nn.Module):
         )
 
 
+def stack_layers(state: dict, n_layers: int) -> dict:
+    """A per-layer state_dict (`layers.{i}.<name>`) → the scanned module's
+    (`scan.block.<name>`, the layers stacked on a leading dim); the other
+    entries pass through. The same weights, for `scan_layers: true`."""
+    out = {k: v for k, v in state.items() if not k.startswith("layers.")}
+    for name in {k.split(".", 2)[2] for k in state if k.startswith("layers.")}:
+        out[SCAN_BLOCK + name] = torch.stack(
+            [state[f"layers.{i}.{name}"] for i in range(n_layers)])
+    return out
+
+
 # The reference's TRANSFORMER_RULES in the port's names and layouts:
 # nn.Linear `weight` is [out, in] where flax's `kernel` is [in, out], so
 # each kernel rule's entries are swapped; the embedding ([vocab, dim]) and
@@ -950,6 +1027,20 @@ PIPELINE_TENSOR_PARALLEL = tuple(
     for pat, how in TENSOR_PARALLEL if "lm_head" not in pat
 )
 
+# The scanned stack (`scan.block.*`, [L, ...]): the reference's SCAN_RULES,
+# every block rule shifted one dim right (the layer dim whole), listed
+# before the base rules; the forward keeps the same splits one dim on.
+SCAN_PREFIX = re.escape(SCAN_BLOCK) + ".*"
+SCAN_RULES = tuple(
+    (SCAN_PREFIX + pat, (None, *axes))
+    for pat, axes in TRANSFORMER_RULES
+    if "embed" not in pat and "lm_head" not in pat
+)
+SCAN_TENSOR_PARALLEL = tuple(
+    (SCAN_PREFIX + pat, how + 1 if isinstance(how, int) else how)
+    for pat, how in TENSOR_PARALLEL if "lm_head" not in pat
+)
+
 # With experts, the reference keeps fsdp off the embedding and the LM head
 # (its edge rules; first match wins).
 MOE_EDGE_RULES = (
@@ -966,12 +1057,20 @@ def sharding(cfg: TransformerConfig) -> tuple[tuple, dict]:
         rules = PIPELINE_RULES + rules
         split = {"model": PIPELINE_TENSOR_PARALLEL + TENSOR_PARALLEL,
                  "pipeline": ((r"^pipeline\.stages\.", 0),)}
+    elif scanned(cfg):
+        rules = SCAN_RULES + rules
+        split = {"model": SCAN_TENSOR_PARALLEL + TENSOR_PARALLEL}
     if cfg.n_experts > 0:
         from .moe import MOE_RULES, MOE_SPLIT
 
-        rules = MOE_EDGE_RULES + MOE_RULES + rules
-        split = {"model": MOE_SPLIT["model"] + split["model"],
-                 "expert": MOE_SPLIT["expert"]}
+        moe_rules, moe_split = MOE_RULES, MOE_SPLIT
+        if scanned(cfg):  # the reference's MoE rules under scan: one dim on
+            moe_rules = tuple((pat, (None, *axes)) for pat, axes in MOE_RULES)
+            moe_split = {ax: tuple((pat, dim + 1) for pat, dim in pairs)
+                         for ax, pairs in MOE_SPLIT.items()}
+        rules = MOE_EDGE_RULES + moe_rules + rules
+        split = {"model": moe_split["model"] + split["model"],
+                 "expert": moe_split["expert"]}
     return rules, split
 
 

@@ -21,9 +21,13 @@ reference's rules are here: sgd, adam, adamw, lamb, lion, adafactor,
 rmsprop and adagrad, each with optax 0.2.6's defaults and options, among
 them `nesterov` (adam, adamw) and the moment dtypes (`mu_dtype` of adam,
 adamw and lion, sgd's `accumulator_dtype`, adafactor's `dtype_momentum`,
-given as a torch dtype or a name such as "bfloat16"). The `mask` and
-`weight_decay_mask` options, callables or pytrees with no YAML form, are
-refused with NotImplementedError.
+given as a torch dtype or a name such as "bfloat16"). The `mask` of
+adamw, lamb and lion and adafactor's `weight_decay_mask` say which
+parameters take weight decay, as optax's do: a mapping from parameter
+names to bools, or a callable that takes the named parameters and returns
+one; the optimizer is then built over the named parameters ({name:
+tensor}), and a masked-out parameter's update leaves the decay out (its
+own param group, with the decay off).
 
 Sharded parameters (DTensors, under the trainer's mesh) keep sharded
 states. The element-wise rules update each rank's local shards; lamb's
@@ -35,6 +39,7 @@ the mesh dims that shard the tensor, never over one that replicates it.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
@@ -206,6 +211,8 @@ class _OptaxRule(torch.optim.Optimizer):
     carried by `state_dict` and `load_state_dict`."""
 
     def __init__(self, params, schedule: Schedule, grad_clip_norm, **defaults):
+        if isinstance(params, Mapping):  # named, without a mask: one group
+            params = list(params.values())
         super().__init__(params, defaults)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
@@ -308,13 +315,23 @@ def _keep(state: dict, name: str, value: torch.Tensor) -> None:
         state[name].copy_(value)
 
 
-def _refuse_mask(rule: str, **masks) -> None:
-    given = [k for k, v in masks.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"{rule} options {given} (callables or pytrees of booleans, with "
-            "no YAML form) are not ported to PyTorch yet (see ROADMAP.md)"
-        )
+def _decay_groups(params, mask, key: str, off):
+    """`params` (a list, or {name: tensor}) as param groups under a decay
+    `mask` (optax's `mask` / `weight_decay_mask`): the masked-in parameters,
+    then the masked-out ones with `key` set to `off` (no decay). A mask
+    needs the named parameters and must name every one."""
+    if mask is None:
+        return params
+    if not isinstance(params, Mapping):
+        raise ValueError(f"a {key} mask needs the named parameters ({{name: tensor}})")
+    named = dict(params)
+    flags = mask(named) if callable(mask) else mask
+    missing = sorted(set(named) - set(flags))
+    if missing:
+        raise ValueError(f"the {key} mask does not name {missing}")
+    on = [p for n, p in named.items() if flags[n]]
+    out = [p for n, p in named.items() if not flags[n]]
+    return ([{"params": on}] if on else []) + ([{"params": out, key: off}] if out else [])
 
 
 class Adam(_OptaxRule):
@@ -366,9 +383,9 @@ class Lamb(Adam):
 
     def __init__(self, params, schedule, *, b1=0.9, b2=0.999, eps=1e-6,
                  eps_root=0.0, weight_decay=0.0, mask=None, grad_clip_norm=None):
-        _refuse_mask("lamb", mask=mask)
-        super().__init__(params, schedule, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
-                         weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
+        super().__init__(_decay_groups(params, mask, "weight_decay", 0.0), schedule, b1=b1,
+                         b2=b2, eps=eps, eps_root=eps_root, weight_decay=weight_decay,
+                         grad_clip_norm=grad_clip_norm)
 
     def _update(self, p, g, state, group, lr):
         update = self._direction(p, g, state, group)
@@ -383,8 +400,8 @@ class Lion(_OptaxRule):
 
     def __init__(self, params, schedule, *, b1=0.9, b2=0.99, weight_decay=1e-3,
                  mu_dtype=None, mask=None, grad_clip_norm=None):
-        _refuse_mask("lion", mask=mask)
-        super().__init__(params, schedule, grad_clip_norm, b1=b1, b2=b2,
+        super().__init__(_decay_groups(params, mask, "weight_decay", 0.0), schedule,
+                         grad_clip_norm, b1=b1, b2=b2,
                          weight_decay=weight_decay, mu_dtype=_dtype(mu_dtype))
 
     def _init_state(self, p, state, group):
@@ -428,9 +445,9 @@ class Adafactor(_OptaxRule):
                  momentum=None, weight_decay_rate=None, eps=1e-30, factored=True,
                  dtype_momentum="float32", weight_decay_mask=None,
                  grad_clip_norm=None):
-        _refuse_mask("adafactor", weight_decay_mask=weight_decay_mask)
         super().__init__(
-            params, schedule, grad_clip_norm,
+            _decay_groups(params, weight_decay_mask, "weight_decay_rate", None), schedule,
+            grad_clip_norm,
             min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
             decay_offset=decay_offset,
             multiply_by_parameter_scale=multiply_by_parameter_scale,
@@ -576,8 +593,8 @@ class SGD(_OptaxRule):
 
 
 def _adamw(params, schedule, *, weight_decay=1e-4, mask=None, **kw):
-    _refuse_mask("adamw", mask=mask)
-    return Adam(params, schedule, weight_decay=weight_decay, **kw)
+    return Adam(_decay_groups(params, mask, "weight_decay", 0.0), schedule,
+                weight_decay=weight_decay, **kw)
 
 
 _OPTIMIZERS: dict[str, Callable[..., _OptaxRule]] = {
@@ -600,12 +617,14 @@ def build_optimizer(
     schedule: Optional[dict[str, Any]] = None,
     total_steps: int = 1000,
 ) -> tuple[torch.optim.Optimizer, Schedule]:
-    """(optimizer over `params`, its schedule). `config` holds the rule's
+    """(optimizer over `params`, its schedule). `params`: the tensors, or
+    {name: tensor} (what a decay mask names). `config` holds the rule's
     keyword arguments (optax's names) and `grad_clip_norm`."""
     if name not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r}; one of {sorted(_OPTIMIZERS)}")
     config = dict(config or {})
     grad_clip = config.pop("grad_clip_norm", None)
     sched = build_schedule(float(learning_rate), schedule, total_steps)
-    opt = _OPTIMIZERS[name](list(params), sched, grad_clip_norm=grad_clip, **config)
+    params = dict(params) if isinstance(params, Mapping) else list(params)
+    opt = _OPTIMIZERS[name](params, sched, grad_clip_norm=grad_clip, **config)
     return opt, sched

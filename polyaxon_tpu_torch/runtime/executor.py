@@ -32,9 +32,8 @@ thing. As the reference's, `execute` does not read `matrix:` or `joins:`:
 the CLI resolves joins (`scheduler/joins.py::resolve_joins`) and sends a
 matrix to `tuner/driver.py::run_sweep` before anything compiles. Refused
 with `NotImplementedError` before the run is created, each naming
-ROADMAP.md: a gang of a config its workers would refuse (`scan_layers`),
-`schedule:`, named `connections:`, an artifacts init, a notifier hook and
-an elastic grant.
+ROADMAP.md: `schedule:`, named `connections:`, an artifacts init, a
+notifier hook and an elastic grant.
 """
 
 from __future__ import annotations
@@ -143,7 +142,8 @@ def device_scope(device):
 
 def refusal(compiled: CompiledOperation) -> Optional[str]:
     """Why the port cannot run `compiled` in this process (one card), or
-    None."""
+    None. A jaxjob from which no whole number of devices a replica
+    follows raises ValueError (`replica_devices`), before any run exists."""
     op, run = compiled.operation, compiled.run
     if op.schedule is not None:
         return f"`schedule:` (scheduler/schedules.py) {_ROADMAP}"
@@ -155,17 +155,8 @@ def refusal(compiled: CompiledOperation) -> Optional[str]:
     for hook in op.hooks or ():
         if not hook.path_ref:
             return f"a notifier hook (connections/notifier.py) {_ROADMAP}"
-    if run.kind == "jaxjob" and run.program is not None and gang_size(run) > 1:
-        model = run.program.model
-        if model.name in ("transformer_lm", "llama"):
-            # what a gang's workers would refuse, refused before it starts
-            from ..models.transformer import _make_config, check_ported
-
-            try:
-                check_ported(_make_config(dict(model.config or {})))
-            except NotImplementedError as e:
-                sizes = run.mesh.axis_sizes() if run.mesh else {}
-                return f"replicas: {int(run.replicas or 1)}, mesh {sizes}: {e}"
+    if run.kind == "jaxjob" and run.program is not None:
+        gang_size(run)  # no whole number of devices a replica: ValueError, before any run
     return None
 
 

@@ -286,10 +286,10 @@ class Trainer:
 
         named = dict(self.module.named_parameters())
         pats = [re.compile(p) for p in self.bundle.trainable_patterns]
-        trainable = [
-            p for name, p in named.items()
+        trainable = {  # by name: what a decay mask names
+            name: p for name, p in named.items()
             if not pats or any(pat.search(name) for pat in pats)
-        ]
+        }
         ospec = program.optimizer
         self.optimizer, self.sched = build_optimizer(
             trainable,

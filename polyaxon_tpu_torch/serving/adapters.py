@@ -59,10 +59,14 @@ __all__ = [
 
 def ref_path(name: str) -> str:
     """A port parameter name → its slash-joined path in the reference's
-    tree: 'layers.3.mlp.up_proj.lora_a' → 'layer_3/mlp/up_proj/lora_a'."""
+    tree: 'layers.3.mlp.up_proj.lora_a' → 'layer_3/mlp/up_proj/lora_a', and
+    a scanned stack's 'scan.block.mlp.up_proj.lora_a' → 'layers/block/...'
+    (the reference's nn.scan tree)."""
     parts = name.split(".")
     if parts[0] == "layers":
         parts = [f"layer_{parts[1]}", *parts[2:]]
+    elif parts[:2] == ["scan", "block"]:
+        parts = ["layers", *parts[1:]]
     return "/".join(parts)
 
 
@@ -79,7 +83,10 @@ def stack_adapter_params(module, *, slots: int):
     same device and dtype: every ``lora_a`` broadcast to all slots (A is
     inert wherever B is zero) and every ``lora_b`` keeping the module's
     value at slot 0 with zeros in slots 1.. (the zero adapters the registry
-    hot-swaps). `module` itself is left as it is."""
+    hot-swaps). The slot axis lands at ndim-3 of the new tensor: [slots,
+    in, r] per layer, [n_layers, slots, in, r] in a scanned stack (the
+    reference's layout), so every slot read and write selects dim -3.
+    `module` itself is left as it is."""
     cfg = getattr(module, "cfg", None)
     if cfg is None or getattr(cfg, "lora_rank", 0) <= 0:
         raise ValueError(
@@ -97,9 +104,10 @@ def stack_adapter_params(module, *, slots: int):
     for name, value in module.state_dict().items():
         leaf = name.rpartition(".")[2]
         if leaf == "lora_a":
-            value = value.unsqueeze(0).expand(slots, *value.shape)
+            value = value.unsqueeze(-3).expand(*value.shape[:-2], slots, *value.shape[-2:])
         elif leaf == "lora_b":
-            value = torch.cat([value[None], value.new_zeros(slots - 1, *value.shape)])
+            zeros = value.new_zeros(*value.shape[:-2], slots - 1, *value.shape[-2:])
+            value = torch.cat([value.unsqueeze(-3), zeros], dim=-3)
         state[name] = value
     new = type(module)(
         dataclasses.replace(cfg, adapter_slots=slots), device=module.device, dtype=module.dtype
@@ -114,8 +122,9 @@ def adapter_template(module) -> dict:
     must have. Paths are sorted, and every demote and restore walks them
     in this order, so spilled payloads round-trip positionally."""
     out = {
-        path: (tuple(p.shape[1:]), dtype_name(p))
-        for path, p in _lora_params(module).items() if p.dim() == 3
+        path: (tuple(p.shape[:-3] + p.shape[-2:]), dtype_name(p))
+        for path, p in _lora_params(module).items()
+        if p.dim() == (4 if path.startswith("layers/block/") else 3)
     }
     if not out:
         raise ValueError("no slot-stacked lora_a/lora_b parameters in the module")

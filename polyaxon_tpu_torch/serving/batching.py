@@ -30,9 +30,6 @@ each row's token budget against its tenant BEFORE the global queue check
 row refused later is never charged), and the worker picks the next group's
 head by weighted fair share (smallest outstanding tokens / weight, FIFO
 within a tenant). Groups still mix tenants.
-
-Not ported: meshes, whose ServingConfig field raises NotImplementedError
-(see ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -67,13 +67,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.moe import MOE_SPLIT
+from ..models.transformer import SCAN_BLOCK
 from ..parallel.collectives import all_gather_cat
 from ..parallel.mesh import DECODE_AXES, axis_sizes
 from ..parallel.ring import set_current_mesh
 
 # name pattern -> the dim split over `model` on a decode mesh; the rest
-# (norm scales, the o/down scales: full-K, LoRA factors used whole) stays
-# whole on every rank. The LoRA factors count their dim from the end: one
+# (norm scales, the o/down scales: full-K, LoRA factors used whole, the MoE
+# router) stays whole on every rank. Each expert's hidden units split as in
+# training (`MOE_SPLIT["model"]`); the experts stay whole over `batch`.
+# The LoRA factors count their dim from the end: one
 # adapter's lora_b [r, out] and lora_a [in, r] split where the stacked
 # slots' [slots, r, out] and [slots, in, r] do (the reference's rules,
 # shifted right as its SCAN_RULES shift them)
@@ -84,6 +88,7 @@ DECODE_SPLIT = (
     (r"(o_proj|down_proj)\.lora_a$", -2),
     (r"embed\.weight$", 1),
     (r"lm_head\.weight$", 0),
+    *MOE_SPLIT["model"],
 )
 
 # the command channel's deadline: an idle server waits on it
@@ -91,10 +96,12 @@ _IDLE = datetime.timedelta(days=365)
 
 
 def split_dim(name: str) -> Optional[int]:
-    """The dim of parameter or buffer `name` split over `model`, or None."""
+    """The dim of parameter or buffer `name` split over `model`, or None.
+    A scanned block's tensors (`scan.block.*`, [n_layers, ...]) split one
+    dim on."""
     for pat, dim in DECODE_SPLIT:
         if re.search(pat, name):
-            return dim
+            return dim + 1 if dim >= 0 and name.startswith(SCAN_BLOCK) else dim
     return None
 
 
@@ -176,6 +183,8 @@ class ServingWorld:
                     continue
                 part = shard_slice(t, split_dim(name), i, n)
                 mine = share.get(name)
+                if mine is not None and name.startswith(SCAN_BLOCK):
+                    mine = mine[:part.shape[0]]  # a truncated draft's first layers
                 if mine is not None and mine.shape == part.shape:
                     new = mine
                 elif part is t and t.device == self.device:
@@ -355,7 +364,7 @@ def read_slot(module, slot: int, paths, world: ServingWorld) -> list:
     for path in paths:
         name, p = leaves[path]
         dim = split_dim(name)
-        part = p[slot].detach()
+        part = p.select(-3, slot).detach()
         out.append(part if dim is None or group is None else all_gather_cat(part, group, dim))
     return out
 
@@ -368,7 +377,7 @@ def write_slot(module, slot: int, adapter: dict, world: ServingWorld) -> None:
     for path, value in adapter.items():
         name, p = leaves[path]
         part = shard_slice(torch.as_tensor(value), split_dim(name), i, n)
-        p[slot].copy_(part.to(p.device, p.dtype))
+        p.select(-3, slot).copy_(part.to(p.device, p.dtype))
 
 
 class MeshModule:

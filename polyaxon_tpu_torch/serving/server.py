@@ -359,8 +359,8 @@ def _restore_params(ckpt_dir: Path, module, shard: tuple = (0, 1)) -> dict:
                     # lora_a in every slot, lora_b in slot 0 and zeros after
                     if name.endswith("lora_b"):
                         dst.zero_()
-                    for k in range(1 if name.endswith("lora_b") else dst.shape[0]):
-                        to_device(value, dst[k])
+                    for k in range(1 if name.endswith("lora_b") else dst.shape[-3]):
+                        to_device(value, dst.select(-3, k))
                     continue
                 to_device(value, dst)
                 continue
@@ -379,19 +379,6 @@ def _restore_params(ckpt_dir: Path, module, shard: tuple = (0, 1)) -> dict:
             times["quantize_s"] += time.perf_counter() - t
     del state
     return {"step": step, "path": str(path), "bytes_read": n_bytes, **times}
-
-
-def _refuse_moe_paths(module, cfg: ServingConfig) -> None:
-    """An MoE model (`n_experts > 0`) serves per request (`batching=False`):
-    the coalescer's left-padded groups are not carried for it yet (see
-    ROADMAP.md). The paged pool and int8 projections refuse it themselves;
-    speculation, chunked prefill and adapters run only on the batched
-    paths."""
-    if getattr(module.cfg, "n_experts", 0) > 0 and cfg.batching:
-        raise NotImplementedError(
-            "an MoE model (n_experts > 0) with batching is not ported to PyTorch "
-            "yet; serve it with batching=False (see ROADMAP.md)"
-        )
 
 
 class ModelServer:
@@ -459,7 +446,6 @@ class ModelServer:
         if module.device.type != "meta":  # a meta module is restored into (from_run)
             module = module.to(self.device)
         module = module.eval()
-        _refuse_moe_paths(module, cfg)
         self._world: Optional[ServingWorld] = None
         if mesh is not None or cfg.mesh_axes:
             self._world = self._join_mesh(mesh, cfg)
@@ -1341,7 +1327,7 @@ class ModelServer:
                         self.module.read_slot(slot, sorted(self._adapter_template))]
             # a copy on every device: on the CPU .cpu() would return a view
             # of the slot the registry is about to overwrite
-            return [self._adapter_leaves[p][slot].detach().to("cpu", copy=True)
+            return [self._adapter_leaves[p].select(-3, slot).detach().to("cpu", copy=True)
                     for p in sorted(self._adapter_template)]
 
     @torch.inference_mode()
@@ -1356,7 +1342,7 @@ class ModelServer:
                 return
             for path, value in adapter.items():
                 leaf = self._adapter_leaves[path]
-                leaf[slot].copy_(torch.as_tensor(value).to(leaf.device, leaf.dtype))
+                leaf.select(-3, slot).copy_(torch.as_tensor(value).to(leaf.device, leaf.dtype))
 
     def _adapter_ix(self, rows: list):
         """[len(rows)] adapter slots of one dispatch on the device, or None

@@ -230,12 +230,13 @@ def _with_scan_layers(example: str) -> str:
 
 
 # A gang (replicas over several devices) runs, the zoo's included
-# (tests/test_torch_worker_replicas.py); one of a config its workers would
-# refuse is refused before it starts.
+# (tests/test_torch_worker_replicas.py). A scanned config (`scan_layers`)
+# checks as the reference's does and its tiny gang runs; what is left
+# unported is refused by name.
 @pytest.mark.parametrize("argv,what", [
-    (["run", "-f", "@scan-longcontext"], "replicas: 8"),
-    (["run", "-f", "@scan-replicas2"], "replicas: 2"),
-    (["run", "-f", "@scan-llama_lora"], "replicas: 8"),
+    (["check", "-f", "@scan-longcontext"], None),
+    (["run", "-f", "@scan-replicas2"], None),
+    (["check", "-f", "@scan-llama_lora"], None),
     (["run", "-f", "@sched"], "schedule"),
     (["run", "-f", "@conn"], "connections"),
 ])
@@ -247,13 +248,32 @@ def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, wha
         "@scan-longcontext": _op_file(tmp_path, "scan-lc", _with_scan_layers("longcontext.yaml")),
         "@scan-llama_lora": _op_file(tmp_path, "scan-ll", _with_scan_layers("llama_lora.yaml")),
         "@scan-replicas2": _op_file(tmp_path, "scan-r2", (
-            "kind: operation\ncomponent:\n  kind: component\n  run:\n    kind: jaxjob\n"
-            "    replicas: 2\n    mesh: {data: -1}\n    program:\n      model:\n"
-            "        name: transformer_lm\n        config: {preset: tiny, scan_layers: true}\n")),
+            "kind: operation\nname: scan-r2\ncomponent:\n  kind: component\n  run:\n"
+            "    kind: jaxjob\n    replicas: 2\n    mesh: {data: -1}\n    program:\n"
+            "      model:\n        name: transformer_lm\n        config: {dim: 32, n_layers: 2,"
+            " n_heads: 4, n_kv_heads: 2, vocab_size: 128, seq_len: 16, scan_layers: true}\n"
+            "      data: {name: synthetic_text, batchSize: 4, config: {seq_len: 16,"
+            " vocab_size: 128}}\n      train: {steps: 2, logEvery: 1}\n")),
     }
-    code, out, err = homes.ours(*[files.get(a, a) for a in argv])
-    assert code == 1 and out == ""
-    assert err.startswith("Error: ") and what in err and "ROADMAP.md" in err, err
+    argv = [files.get(a, a) for a in argv]
+    code, out, err = homes.ours(*argv)
+    if what is not None:
+        assert code == 1 and out == ""
+        assert err.startswith("Error: ") and what in err and "ROADMAP.md" in err, err
+        return
+    assert code == 0, err
+    if argv[0] == "check":
+        rcode, rout, _ = homes.ref(*argv)
+        assert rcode == 0
+        ours, ref = json.loads(out), json.loads(rout)
+        assert ours.pop("runUuid") != ref.pop("runUuid")
+        assert ours == ref
+        return
+    uid = _uid(homes, "ours", "scan-r2")
+    status = RunStore(homes.ours_home).get_status(uid)
+    assert status["status"] == "succeeded", status
+    logs = RunStore(homes.ours_home).read_logs(uid)
+    assert '"event":"gang_done","code":0' in logs and logs.count('"worker_device"') == 2
 
 
 SWEEP = """\

@@ -283,15 +283,16 @@ def test_job_and_service_containers(stores):
     assert "8123" in stores[0].read_logs(uid)
 
 
-# a gang of a config its workers would refuse (scan_layers) is refused
-# before it starts; the zoo's gangs and replicas over several devices run
+# a scanned gang (`scan_layers`) is no longer refused: its workers build
+# the scanned stack (the CLI's tiny scanned gang runs, tests/test_torch_cli.py);
+# the zoo's gangs and replicas over several devices run
 # (tests/test_torch_worker_replicas.py, tests/test_torch_zoo_mesh.py)
 SCAN_LM = {**LM, "config": {**LM["config"], "scan_layers": True}}
 
 
 @pytest.mark.parametrize("doc,what", [
-    (op(dict(program(SCAN_LM, LM_DATA, 2), replicas=2)), "replicas: 2"),
-    (op(dict(program(SCAN_LM, LM_DATA, 2), mesh={"data": 2})), "mesh"),
+    (op(dict(program(SCAN_LM, LM_DATA, 2), replicas=2)), None),
+    (op(dict(program(SCAN_LM, LM_DATA, 2), mesh={"data": 2})), None),
     (op({"kind": "job", "container": {"command": ["true"]}, "connections": ["s3"]}),
      "connections"),
     (op({"kind": "job", "container": {"command": ["true"]},
@@ -303,6 +304,15 @@ SCAN_LM = {**LM, "config": {**LM["config"], "scan_layers": True}}
 ])
 def test_refusals_name_the_roadmap(stores, doc, what):
     compiled = compile_operation(V1Operation.from_dict(doc), run_uuid=UUID)
+    if what is None:
+        from polyaxon_tpu_torch.models import build_model
+        from polyaxon_tpu_torch.runtime.executor import gang_size, refusal
+
+        assert refusal(compiled) is None and gang_size(compiled.run) == 2
+        model = compiled.run.program.model
+        module = build_model(model.name, dict(model.config), device="cpu").module
+        assert module.scan.block.attention.q_proj.weight.shape[0] == LM["config"]["n_layers"]
+        return
     with pytest.raises(NotImplementedError, match=rf"{what}.*ROADMAP\.md"):
         Executor(stores[0], device="cpu").execute(compiled)
     assert stores[0].list_runs() == []  # refused before the run exists

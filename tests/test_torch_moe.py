@@ -9,8 +9,9 @@ against the JAX package's, on the CPU, from the same weights.
   transformer tests' tolerance), the aux loss summed over layers within
   1e-6 relative, gradients within 1e-4 relative Frobenius; dense
   `generate` gives identical greedy tokens on a left-padded batch;
-- the paged pool, int8 projections and every serving path but the
-  per-request one refuse an MoE model, naming ROADMAP.md.
+- the paged pool, int8 projections and every batched serving path take
+  an MoE model (`tests/test_torch_serving_moe.py` holds them against the
+  JAX server).
 
 `router_noise` is held at 0: its draws come from `jax.random` there and a
 torch generator here (ROADMAP.md, Queue C record 3).
@@ -173,20 +174,36 @@ def test_dense_generate_with_experts_identical(lm_pair):
 
 
 def test_serving_paths_refuse_experts(lm_pair):
+    """No serving path refuses experts any longer: the paged pool's prefill
+    gives the dense cache's logits, int8 quantizes the attention
+    projections, and every batched config serves the rows of the per-request
+    path for an unpadded body (tests/test_torch_serving_moe.py holds each
+    path against the JAX server)."""
     _, _, model = lm_pair
     layout = PagedKVLayout(pool_pages=4, page_tokens=8)
-    cache = make_paged_cache(model, layout)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros((1, 4), dtype=torch.long), cache=cache, pos=0,
-              pad=torch.zeros(1, dtype=torch.long),
-              pages=torch.zeros((1, 1), dtype=torch.long), kv_layout=layout)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_module(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(_make_config({**MOE_LM, "quant": "int8"}), device="cpu")
-    for config in (ServingConfig(), ServingConfig(kv_pool_pages=8),
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (1, 16))).long()
+    pad = torch.zeros(1, dtype=torch.long)
+    with torch.no_grad():
+        paged = model(toks, cache=make_paged_cache(model, layout), pos=0, pad=pad,
+                      pages=torch.tensor([[1, 2]]), kv_layout=layout)
+        dense = model(toks, cache=model.make_cache(1), pos=0, pad=pad)
+    torch.testing.assert_close(paged, dense, rtol=1e-6, atol=1e-6)
+    q, saved = quantize_module(model)
+    assert saved > 0 and q.cfg.quant == "int8" and q.cfg.n_experts == 4
+    assert Transformer(_make_config({**MOE_LM, "quant": "int8"}), device="cpu").cfg.n_experts
+    body = {"tokens": [toks[0, :8].tolist()], "maxNewTokens": 4}
+    want = ModelServer(model, None, ServingConfig(batching=False), device="cpu").generate(body)
+    for config in (ServingConfig(max_batch=1), ServingConfig(kv_pool_pages=8),
                    ServingConfig(batching=False, quantize=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ModelServer(model, None, config, device="cpu")
-    served = ModelServer(model, None, ServingConfig(batching=False), device="cpu")
-    assert served.module.cfg.n_experts == 4
+        served = ModelServer(model, None, config, device="cpu")
+        assert served.module.cfg.n_experts == 4
+        if not config.quantize:
+            assert served.generate(body) == want
+    # an inference forward sows nothing (no collection is open, none is left
+    # behind); inside `collecting()` each layer's aux loss is collected once
+    from polyaxon_tpu_torch.models import layers
+
+    assert layers._box() is None
+    with torch.no_grad(), collecting() as box:
+        model(toks)
+    assert len(box.losses) == MOE_LM["n_layers"] and layers._box() is None

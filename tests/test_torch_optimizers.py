@@ -144,10 +144,41 @@ def test_updates_match_optax(case):
     ("adafactor", "weight_decay_mask"),
 ])
 def test_masks_are_refused_by_name(name, key):
-    """optax takes a callable or a pytree here; neither has a YAML form, and
-    the port says so instead of failing with a bare TypeError."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.build_optimizer([torch.zeros(3)], name, 0.1, {key: lambda p: p})
+    """A decay mask names the parameters that take weight decay: as a
+    mapping from the port's names (optax: the same pytree) or a callable
+    over the named parameters, the masked-out bias gets optax's update
+    (no decay); without the names it is refused."""
+    decay = {"weight_decay_rate": 0.01} if name == "adafactor" else {"weight_decay": 0.1}
+    params, grads = _params_and_grads()
+    runs = []
+    for mask in ({"w": True, "b": False},
+                 lambda named: {n: p.ndim > 1 for n, p in named.items()}):
+        tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        optimizer, _ = opt.build_optimizer(tp, name, 0.05, {**decay, key: mask}, total_steps=5)
+        for g in grads:
+            for k, p in tp.items():
+                p.grad = torch.from_numpy(g[k])
+            optimizer.step()
+        runs.append(tp)
+    tx, _ = jax_opt.build_optimizer(name, 0.05, {**decay, key: {"w": True, "b": False}},
+                                    None, total_steps=5)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+    unmasked, _, _ = _run_both(name, decay, steps=5)
+    for k in params:
+        np.testing.assert_allclose(runs[0][k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+        assert torch.equal(runs[0][k], runs[1][k])
+    # the mask moved the bias only: the decayed kernel is the unmasked run's
+    assert torch.equal(runs[0]["w"], unmasked["w"])
+    assert not torch.equal(runs[0]["b"], unmasked["b"])
+    with pytest.raises(ValueError, match="named parameters"):
+        opt.build_optimizer([torch.zeros(3)], name, 0.1, {key: {"w": True}})
+    with pytest.raises(ValueError, match="does not name"):
+        opt.build_optimizer({"w": torch.zeros(3), "b": torch.zeros(3)}, name, 0.1,
+                            {key: {"w": True}})
 
 
 def test_moment_dtypes_are_kept_through_a_checkpoint():

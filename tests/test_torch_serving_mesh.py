@@ -14,7 +14,8 @@ the same meshes (`TRANSFORMER_RULES`, conftest's 8 virtual devices)
 answer the same bodies; greedy rows must be the same tokens on every path
 (per request, coalesced, paged, chunked prefill), int8 rows the JAX int8
 server's, sampled rows the port's single-device server's (the JAX
-package's draws differ by construction). Then: the `mesh` block of
+package's draws differ by construction), and on `{batch: 2, model: 2}` an
+MoE model's coalesced rows the JAX MoE server's on the same mesh. Then: the `mesh` block of
 /statsz and the two mesh gauges are the reference's, a follower holds
 about 1/model of the weights, a follower's failure fails rank 0's call
 instead of hanging it, `serve --mesh model=2` starts two processes that
@@ -121,6 +122,11 @@ def _spill_bodies():
 
 SPILL_BODIES = _spill_bodies()
 ROLE_BODIES = [GREEDY[0], GREEDY[2]]  # 16 shared tokens and own ones: 2 pages each
+# an MoE model on {batch: 2, model: 2} beside the JAX MoE server on the same
+# mesh (each expert's hidden units over `model`), coalesced inline
+MOE_LM = {**SMALL, "dim": 32, "n_experts": 4}
+MOE_MESH = "batch2-model2"
+MOE_BODIES = GREEDY + [TWO_ROWS]
 PROGRAM = {
     "model": {"name": "transformer_lm",
               "config": {"dim": 64, "n_layers": 2, "n_heads": 4, "n_kv_heads": 4,
@@ -136,6 +142,14 @@ PROGRAM = {
 @pytest.fixture(scope="module")
 def lm():
     module, params = jax_lm(SMALL)
+    model = torch_lm(module, params)
+    state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    return module, params, model, state
+
+
+@pytest.fixture(scope="module")
+def moe_lm():
+    module, params = jax_lm(MOE_LM)
     model = torch_lm(module, params)
     state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     return module, params, model, state
@@ -225,13 +239,13 @@ def lora_run(lora_lm, port_run):
 
 
 @pytest.fixture(scope="module")
-def served(request, lm, lora_lm):
+def served(request, lm, lora_lm, moe_lm):
     """(the 4-rank world's results, the JAX package's rows): the JAX servers
     run in a thread of this process from the start, while the runs are
     trained and then the world serves in its own processes."""
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        jax_rows = pool.submit(_jax_rows, lm, lora_lm)
-        world = _world(lm, lora_lm, request.getfixturevalue("port_run"),
+        jax_rows = pool.submit(_jax_rows, lm, lora_lm, moe_lm)
+        world = _world(lm, lora_lm, moe_lm, request.getfixturevalue("port_run"),
                        request.getfixturevalue("lora_run"))
         return world, jax_rows.result()
 
@@ -246,15 +260,18 @@ def jax_rows(served):
     return served[1]
 
 
-def _world(lm, lora_lm, port_run, lora_run):
+def _world(lm, lora_lm, moe_lm, port_run, lora_run):
     """The 4-rank world's results, by rank: [serve_mesh on each mesh,
     serve_from_run, the error of a mesh larger than the world,
     serve_from_run of the LoRA run with tenants]."""
     cfg = dict(PROGRAM["model"]["config"])
     configs = list(CONFIGS.items()) + _feature_configs(lora_lm[3])
+    moe_cfg = {**cfg, "dim": MOE_LM["dim"], "n_experts": MOE_LM["n_experts"]}
+    moe = ("moe", BASE, {"model": (moe_cfg, moe_lm[3]), "inline": MOE_BODIES, "http": []})
     cases = [("serve_mesh", dict(model_config=cfg, state=lm[3], mesh_axes=axes,
-                                 configs=configs, inline=INLINE, http=GREEDY))
-             for axes in MESHES.values()]
+                                 configs=configs + ([moe] if name == MOE_MESH else []),
+                                 inline=INLINE, http=GREEDY))
+             for name, axes in MESHES.items()]
     cases.append(("serve_from_run", dict(home=str(port_run[0]), run=port_run[1][:8],
                                          mesh_axes={"data": 2, "model": 2},
                                          inline=FROM_RUN, http=GREEDY[:2])))
@@ -268,13 +285,14 @@ def _world(lm, lora_lm, port_run, lora_run):
     return run_world(4, cases, timeout=400)
 
 
-def _jax_rows(lm, lora_lm):
+def _jax_rows(lm, lora_lm, moe_lm):
     """The JAX package's servers: greedy rows of INLINE's greedy bodies on
     each mesh (coalesced), their /statsz `mesh` and gauges, and the int8
     rows of the first two (the int8 paged step config); on each mesh too,
     every feature's greedy rows (and the speculative configs' accepted
     drafts) from a server of the same config, the tenants' from one
-    without the prefix cache."""
+    without the prefix cache; on MOE_MESH the MoE model's coalesced rows."""
+    from polyaxon_tpu.models import build_model as jax_build_model
     from polyaxon_tpu.models.transformer import TRANSFORMER_RULES
     from polyaxon_tpu.serving.batching import ServingConfig as JaxConfig
     from polyaxon_tpu.serving.batching import normalize_mesh_axes as jax_axes
@@ -302,6 +320,11 @@ def _jax_rows(lm, lora_lm):
                                config=JaxConfig(**kwargs, mesh_axes=jax_axes(axes)))
             out[feature] = [server.generate(b)["tokens"] for b in bodies]
             out[f"{feature}-accepted"] = server.stats()["speculation"]["accepted"]
+        if axes == MESHES[MOE_MESH]:
+            rules = jax_build_model("transformer_lm", {**MOE_LM}).sharding_rules
+            server = JaxServer(moe_lm[0], moe_lm[1], model_name="small", sharding_rules=rules,
+                               config=JaxConfig(**BASE, mesh_axes=jax_axes(axes)))
+            out["moe"] = [server.generate(b)["tokens"] for b in MOE_BODIES]
         return out
 
     # one thread a mesh (the compiles release the GIL; each thread binds its
@@ -335,6 +358,12 @@ def test_greedy_rows_equal_the_jax_server_on_the_mesh(world, jax_rows, mesh, pat
         assert got[:len(INLINE) - 1] == ref
     if which in ("http", "both"):
         assert got[len(INLINE):] == ref[:len(GREEDY)]
+
+
+def test_moe_rows_equal_the_jax_server_on_the_mesh(world, jax_rows):
+    got = _served(world, MOE_MESH)["moe"]
+    assert got["inline"] == jax_rows[MOE_MESH]["moe"]
+    assert got["sent"]["forward"] > 0 and got["stats_inline"]["mesh"]["axes"] == MESHES[MOE_MESH]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

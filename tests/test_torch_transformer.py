@@ -156,13 +156,14 @@ def test_unknown_preset_raises():
     ids=lambda f: next(iter(f)),
 )
 def test_unported_config_fields_raise(field):
-    """Scanned layers are still refused; int8 `quant` is ported: it builds
-    the int8 projections (and refuses an unknown kind), and so are
-    `adapter_slots`: each LoRA pair stacked to [slots, ...], `n_experts`:
-    each block's FFN an MoE under `moe` (int8 projections of it are
-    refused), and `pipeline_stages`: the blocks' weights stacked to
-    [stages, layers per stage, ...] under `pipeline.stages`
-    (tests/test_torch_trainer_pipeline.py runs them)."""
+    """Every field is ported now. int8 `quant` builds the int8 projections
+    (and refuses an unknown kind), `adapter_slots` stacks each LoRA pair to
+    [slots, ...], `n_experts` makes each block's FFN an MoE under `moe`
+    (with int8, its attention projections int8 and its experts not),
+    `pipeline_stages` stacks the blocks' weights to [stages, layers per
+    stage, ...] under `pipeline.stages` (tests/test_torch_trainer_pipeline.py
+    runs them) and `scan_layers` to [layers, ...] under `scan.block`
+    (tests/test_torch_scan.py runs them)."""
     if "pipeline_stages" in field:
         model = Transformer(_make_config({**SMALL, **field}), device="cpu")
         q = model.pipeline.stages.attention.q_proj.weight
@@ -174,8 +175,11 @@ def test_unported_config_fields_raise(field):
         model = Transformer(_make_config({**SMALL, **field}), device="cpu")
         assert isinstance(model.layers[0].moe, MoEFeedForward)
         assert not hasattr(model.layers[0], "mlp")
-        with pytest.raises(NotImplementedError, match="n_experts"):
-            Transformer(_make_config({**SMALL, **field, "quant": "int8"}), device="cpu")
+        from polyaxon_tpu_torch.models.quant import Int8Linear
+
+        q = Transformer(_make_config({**SMALL, **field, "quant": "int8"}), device="cpu")
+        assert isinstance(q.layers[0].attention.o_proj, Int8Linear)
+        assert q.layers[0].moe.gate_kernel.dtype == torch.float32
         return
     if "adapter_slots" in field:
         model = Transformer(_make_config({**SMALL, **field, "lora_rank": 4}), device="cpu")
@@ -190,8 +194,9 @@ def test_unported_config_fields_raise(field):
         with pytest.raises(ValueError, match="quant"):
             Transformer(_make_config({**SMALL, "quant": "int4"}), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=next(iter(field))):
-        Transformer(_make_config({**SMALL, **field}), device="cpu")
+    model = Transformer(_make_config({**SMALL, **field}), device="cpu")
+    q = model.scan.block.attention.q_proj.weight
+    assert len(model.layers) == 0 and q.shape == (SMALL["n_layers"], SMALL["dim"], SMALL["dim"])
 
 
 @pytest.mark.parametrize(
