@@ -300,7 +300,34 @@ BASELINE configurations.
                base's bf16 logits through the flash kernels (non-causal)
                against the einsum path on the same weights (relative
                Frobenius, limit BERT_FLASH_VS_XLA) and against an f32 copy
-               (as the forward phase's rule).
+               (as the forward phase's rule);
+9b. train-zoo-context — train-zoo's BERT-base program (batch 32, seq 512)
+               for ZOO_CONTEXT_STEPS steps on {context: 2}: two processes
+               of `chip_smoke.py --zoo-context-rank R` on the one card
+               under `gloo` (NCCL refuses two ranks on one device), each
+               holding 256 tokens of every sequence, self-attention on
+               the ring (2 hops a layer, K/V through the host). Losses,
+               grad norms and the loss's change against train-zoo's one-
+               device run of the same seed and stream (ZOO_CONTEXT_TOL),
+               the same on both ranks, and each rank's flash launches
+               train-zoo's BERT count a step times the 2 hops (48/24/24).
+               Logs in `build/chip_smoke/zoo_context/`;
+7f. sched    — the scheduler on a store of its own: `fleet init --chips
+               1`, a quota on the `elastic` project (`maxChips: 1`), and
+               the port's agent draining 7c's program (SCHED_PROGRAM: its
+               width and 2 layers, batch 2, vocabulary SCHED_VOCAB so one
+               checkpoint stays ~2.3 GB of the disk's budget): a
+               priority-0 run evicted at its step SCHED_EVICT_AFTER's log
+               point by a priority-5 submission (checkpoint, release,
+               requeue at priority 0, resume), its losses before and after
+               held against an uninterrupted Trainer of the same program
+               whose stream restarts at the eviction step as a resumed
+               run's does (SCHED_TOL); an elastic gang (`replicas: 2`, 2
+               chips, floor 1) granted the fleet's one chip, trained in
+               process with grad_accum 2; an interval `schedule:` registered by `run` firing twice
+               under a bounded `agent serve`; `serve --replicas 1 --route`
+               holding the card under queue `serving` until SIGTERM; and
+               the reservations file empty at the end.
 
     python3 chip_smoke.py --zoo TAG [--seeds N ...] [--lrs X ...]
 
@@ -310,11 +337,17 @@ phase 9, and prints its lines and the card's name and power limit: a
 second look at a loss curve. It builds no kernel, so a configuration
 that launches one fails there.
 
+    python3 chip_smoke.py --zoo-context-faults
+
+runs train-zoo's BERT-base on one device, then 9b sound and with each of
+ZOO_CONTEXT_FAULTS planted in its rank processes at run time, and prints
+each run's errors against ZOO_CONTEXT_TOL (which limits caught it).
+
 Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (2b's ring drive, phases 3-4, then 4b, then 4c, then each config of 4e,
 then 4d, then phases 5, 5b, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
-7d, 7e, 8 and each configuration of 9) and read just after it, so `launches` counts the main paths only (4b launches none:
+7d, 7e, 7f, 8, each configuration of 9 and each rank of 9b) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The `wall` line
 gives the seconds of each group of phases. The last lines are the kernels JSON line, the card's name
@@ -544,6 +577,25 @@ ZOO_MESH_AXES = {"data": 1, "fsdp": 1, "model": 1}
 ZOO_MESH_TOL = {"float32": 1e-5, "mixed": 2e-3}
 ZOO_MESH_STATS_TOL = 2.0 ** -7
 ZOO_REFERENCE: dict = {}  # train-zoo's losses, statistics, step time, memory
+# train-zoo-context: train-zoo's BERT-base on {context: 2}, two processes on
+# the one card under gloo, self-attention on the ring. Against train-zoo's
+# one-device run, relative (zoo_context_errors): the worst step's loss and
+# grad norm, and the loss's change over the steps (the loss itself moves
+# only ~2.6e-3 in 3 steps, so a run whose updates went wrong still sits
+# near it). Each limit lies between the sound run's reading and the
+# smallest reading of a planted fault that it must catch
+# (`--zoo-context-faults`, ZOO_CONTEXT_FAULTS; H100 80GB HBM3, 700 W):
+# loss sound 2.8e-5, faults 3.5e-4 (own chunk only) to 1.0; grad norm
+# sound 2.1e-3, faults 2.0e-2 (local positions) to 1.0; loss change sound
+# 8.5e-3, faults 0.19 to 1.05 (own chunk only reads 1.1e-2 there: the
+# loss and the grad norm catch it)
+ZOO_CONTEXT_TAG = "bert-base"
+ZOO_CONTEXT_STEPS = 3
+ZOO_CONTEXT_AXES = {"context": 2}
+ZOO_CONTEXT_TOL = {"loss": 1e-4, "grad_norm": 6e-3, "loss_change": 4e-2}
+ZOO_CONTEXT_FAULTS = ("local-positions", "local-count", "own-chunk-only",
+                      "kv-grads-dropped")
+ZOO_CONTEXT_TIMEOUT_S = 300
 # serve-batched: three server configs on the full model under one traffic,
 # two waves of 8 concurrent greedy requests of SERVE_NEW tokens, 8 of the
 # 16 prompts behind one shared SERVE_PREFIX-token system prefix
@@ -4742,6 +4794,232 @@ def phase_sweep() -> dict:
     return launches
 
 
+# 7f. sched: the scheduler and the fleet on 7c's program (SCHED_PROGRAM)
+SCHED_VOCAB = 32000  # one checkpoint of the 2-layer program: ~2.3 GB, not 4.6
+SCHED_BATCH = 2  # an elastic grant of 1 of 2 chips doubles grad_accum: 2 rows
+SCHED_STEPS = 6  # the victim's steps
+SCHED_SHORT = 3  # the preemptor's, the elastic run's and each firing's
+SCHED_EVICT_AFTER = 2  # the victim's log point at which the preemptor arrives
+# the victim's losses against an uninterrupted Trainer whose stream restarts
+# at the eviction step, relative per step: the same kernels on the same
+# inputs, the restored state bit for bit (a prior: TRAIN_MESH_TOL)
+SCHED_TOL = 1e-4
+SCHED_SERVE_READY_S = 300.0
+
+
+def sched_program(steps: int, **train) -> dict:
+    return {
+        "model": {"name": "transformer_lm", "config": {
+            "preset": PRESET, "attention": "flash", "n_layers": CLI_LAYERS,
+            "fused_lm_loss": True, "vocab_size": SCHED_VOCAB}},
+        "data": {"name": "synthetic_text", "batchSize": SCHED_BATCH,
+                 "config": {"seq_len": TRAIN_TOKENS, "vocab_size": SCHED_VOCAB}},
+        "optimizer": {"name": "adamw", "learningRate": 3.0e-4,
+                      "schedule": {"name": "cosine", "warmup_steps": 2}},
+        "train": {"steps": steps, "logEvery": 1, "precision": "mixed", "remat": True,
+                  **train},
+    }
+
+
+def sched_op(name: str, program: dict, run_extra=None, **extra) -> dict:
+    return {"version": 1.1, "kind": "operation", "name": name, **extra,
+            "component": {"kind": "component", "name": name,
+                          "termination": {"maxRetries": 0},
+                          "run": {"kind": "jaxjob", "program": program, **(run_extra or {})}}}
+
+
+def uninterrupted_losses(program: dict, restart_at: int) -> list:
+    """The losses of one Trainer of `program` that runs on without a
+    checkpoint or a restart, its data stream started again after step
+    `restart_at` as a resumed run's stream is (both packages start a fresh
+    stream on resume): the eviction's reference."""
+    from polyaxon_tpu_torch.data import build_data
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    trainer = Trainer(program)
+    steps = trainer.steps
+    trainer.steps = restart_at
+    history = list(trainer.run().history)
+    trainer.steps = steps
+    trainer.data = build_data(*trainer._data_args, seed=int(trainer.tspec.seed))
+    history += trainer.run().history
+    trainer.close()
+    return [(h["step"], h["loss"]) for h in history if "loss" in h]
+
+
+def _serve_reserved(store, uuid: str) -> dict:
+    """`serve -uid <uuid> --replicas 1 --route` as a child on the store's
+    home: its slot's reservation while it serves, one request through the
+    router, then SIGTERM; returns what was seen."""
+    import os
+    import signal
+
+    from polyaxon_tpu_torch.scheduler.fleet import Fleet
+
+    port = _free_port()
+    env = dict(os.environ, POLYAXON_HOME=str(store.home))
+    log = ARTIFACTS / "sched_serve.log"
+    argv = [sys.executable, "-m", "polyaxon_tpu_torch", "serve", "-uid", uuid[:8],
+            "--replicas", "1", "--route", "--port", str(port)]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        child = subprocess.Popen(argv, cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    seen: dict = {}
+    try:
+        while time.perf_counter() - t0 < SCHED_SERVE_READY_S:
+            check(child.poll() is None, f"the serve child exited with {child.returncode}: "
+                  f"{log.read_text()[-2000:]}")
+            try:
+                if _http(url + "/readyz").get("ready"):
+                    break
+            except Exception:  # noqa: BLE001 — not up yet
+                pass
+            time.sleep(0.5)
+        seen["ready_s"] = time.perf_counter() - t0
+        seen["reservations"] = Fleet(store).ledger.all()
+        out = _http(url + "/generate", {"tokens": [list(range(1, 65))], "maxNewTokens": 8})
+        seen["generated"] = len(out["tokens"][0])
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+            try:
+                child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait(timeout=60)
+    seen["exit"] = child.returncode
+    seen["after_stop"] = Fleet(store).ledger.all()
+    return seen
+
+
+def phase_sched() -> dict:
+    """The scheduler and the fleet (phase 7f); returns the kernel launches
+    of the runs trained in this process."""
+    import threading
+
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.scheduler import Agent
+    from polyaxon_tpu_torch.scheduler.fleet import Fleet
+    from polyaxon_tpu_torch.schemas.operation import V1Operation
+    from polyaxon_tpu_torch.store import RunStore
+    from polyaxon_tpu_torch.telemetry import get_registry
+
+    t0 = time.perf_counter()
+    line: dict = {"phase": "sched", "device": device_line()}
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    with _cli_home("sched") as root:
+        code, out = _cli(main, ["fleet", "init", "--chips", "1"])
+        check(code == 0 and out == 'fleet configured: {"chips": 1}\n', f"fleet init: {out}")
+        code, out = _cli(main, ["fleet", "quota", "set", "elastic", "--max-chips", "1"])
+        check(code == 0, f"fleet quota set: {out}")
+        store = RunStore(root / "home")
+        agent = Agent(store=store)
+        for kern in KERNELS:  # the scheduled runs start here
+            kern.launches = 0
+
+        # (1) eviction: the preemptor arrives at the victim's log point
+        victim_prog = sched_program(SCHED_STEPS, resume=True)  # a save only on eviction
+        victim = agent.submit(V1Operation.from_dict(sched_op("victim", victim_prog)))
+        log_metrics = store.log_metrics
+        arrived: dict = {}
+
+        def arrive(run_uuid, step, metrics):
+            log_metrics(run_uuid, step, metrics)
+            if run_uuid == victim and step == SCHED_EVICT_AFTER and not arrived:
+                arrived["uuid"] = agent.submit(V1Operation.from_dict(
+                    sched_op("preemptor", sched_program(SCHED_SHORT))), priority=5)
+                arrived["second_agent_ran"] = Agent(store=store).drain()  # admission: WAIT + evict
+
+        store.log_metrics = arrive
+        t1 = time.perf_counter()
+        drained = agent.drain()
+        line["evict_drain_s"] = time.perf_counter() - t1
+        store.log_metrics = log_metrics
+        check(drained == 3 and "uuid" in arrived, f"drained {drained}, preemptor {arrived}")
+        v, h = store.get_status(victim), store.get_status(arrived["uuid"])
+        check(v["status"] == h["status"] == "succeeded", f"victim {v['status']}, "
+              f"preemptor {h['status']}")
+        check(v["meta"]["preempt_restarts"] == 1 and v["meta"]["priority"] == 0,
+              f"victim meta {v['meta']}")
+        (evicted,) = [e for e in store.read_events(victim)
+                      if e["kind"] == "preempted" and e.get("scheduler")]
+        k = evicted["step"]
+        order = [(c["type"], c.get("reason")) for c in v["conditions"]]
+        check(("retrying", "evicted") in order, f"victim conditions {order}")
+        got = [(m["step"], m["loss"]) for m in store.read_metrics(victim) if "loss" in m]
+        check(any(s > k for s, _ in got) and any(s <= k for s, _ in got),
+              f"victim steps {[s for s, _ in got]} around the eviction at {k}")
+
+        # (2) an elastic gang of 2 (floor 1) on the fleet's one chip: granted
+        # 1, it trains in this process with grad_accum doubled
+        resizes = get_registry().counter("trainer.elastic_resizes")
+        before = resizes.value
+        elastic = agent.submit(V1Operation.from_dict(sched_op(
+            "elastic", sched_program(SCHED_SHORT), run_extra={"replicas": 2},
+            environment={"resources": {"chips": 2, "minChips": 1}})), project="elastic")
+        check(agent.drain() == 1, "the elastic run was not drained")
+        e = store.get_status(elastic)
+        (resize,) = [x for x in store.read_events(elastic) if x["kind"] == "elastic_resize"]
+        check(e["status"] == "succeeded" and e["meta"]["granted_chips"] == 1
+              and e["meta"]["requested_chips"] == 2 and resize["grad_accum"] == 2
+              and resizes.value == before + 1, f"elastic: {e['status']} {e['meta']} {resize}")
+        line["elastic"] = {"granted": 1, "requested": 2, "grad_accum": resize["grad_accum"],
+                           "losses": [m["loss"] for m in store.read_metrics(elastic)
+                                      if "loss" in m]}
+
+        # (3) an interval schedule registered by `run`, fired by `agent serve`
+        sched_file = root / "tick.json"
+        sched_file.write_text(json.dumps(sched_op(
+            "tick", sched_program(SCHED_SHORT),
+            schedule={"kind": "interval", "frequency": 1, "maxRuns": 2})))
+        code, out = _cli(main, ["run", "-f", str(sched_file)])
+        check(code == 0 and "registered (interval)" in out, f"run of a schedule: {out}")
+
+        def fired() -> list:
+            return [r["uuid"] for r in store.list_runs() if r["name"] == "tick"
+                    and store.get_status(r["uuid"]).get("status") == "succeeded"]
+
+        t1 = time.perf_counter()
+        agent.serve(poll_interval=0.2,
+                    stop_when=lambda: len(fired()) == 2 or time.perf_counter() - t1 > 180)
+        line["schedule_s"] = time.perf_counter() - t1
+        check(len(fired()) == 2, f"the schedule fired {len(fired())} run(s) of 2")
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        # forward and backward units: the victim's 6 steps (3, then 3 after
+        # the resume), the preemptor's 3, the elastic run's 3 x grad_accum
+        # 2, and the two firings' 3 each
+        units = SCHED_STEPS + SCHED_SHORT + 2 * SCHED_SHORT + 2 * SCHED_SHORT
+        expected = {name: PER_STEP[name] * CLI_LAYERS * units for name in PER_STEP}
+        line.update({"launches": launches, "expected_launches": expected})
+        check(launches == expected, f"sched launches {launches}, expected {expected}")
+
+        # the victim against one uninterrupted Trainer (outside the count)
+        want = dict(uninterrupted_losses(victim_prog, k))
+        rel = max(abs(loss - want[step]) / abs(want[step]) for step, loss in got)
+        line.update({"eviction_step": k, "victim_steps": [s for s, _ in got],
+                     "victim_losses": [x for _, x in got],
+                     "uninterrupted_losses": [want[s] for s, _ in got],
+                     "victim_max_rel": rel, "tol": SCHED_TOL})
+        check(rel <= SCHED_TOL, f"victim losses {got} against {want}: {rel:.3g}")
+
+        # (4) serve --replicas 1 --route holds the card under `serving`
+        served = _serve_reserved(store, victim)
+        slot = f"serve-{victim[:8]}-r0"
+        check(list(served["reservations"]) == [slot]
+              and served["reservations"][slot]["queue"] == "serving"
+              and served["reservations"][slot]["chips"] == 1,
+              f"serving reservations {served['reservations']}")
+        check(served["exit"] == 0 and served["after_stop"] == {},
+              f"serve exited {served['exit']}, reservations after it {served['after_stop']}")
+        line["serve"] = {"ready_s": served["ready_s"], "generated": served["generated"]}
+        check(Fleet(store).ledger.all() == {}, "reservations left at the end")
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    return launches
+
+
 def pipeline_polyaxonfile() -> dict:
     """The pipeline phase's `dag` operation: 7c's component with the
     learning rate as an input, swept by `search`, then `train-best`."""
@@ -5018,7 +5296,8 @@ def zoo_case(case: dict) -> dict:
     if case["tag"] == "resnet50":
         check(len(stats) == 2 * 53, f"resnet50 has {len(stats)} running buffers, not 106")
     ZOO_REFERENCE[case["tag"]] = {
-        "losses": losses, "step_s": step_s, "peak_mem_gb": line["peak_mem_gb"],
+        "losses": losses, "grad_norms": line["grad_norms"], "step_s": step_s,
+        "peak_mem_gb": line["peak_mem_gb"],
         "stats": {k: v.detach().cpu().clone() for k, v in trainer.module.named_buffers()
                   if "running" in k},
     }
@@ -5091,6 +5370,203 @@ def phase_train_zoo() -> dict:
             launches[name] = launches.get(name, 0) + n
     bert_flash_vs_xla()
     return launches
+
+
+def plant_zoo_context_fault(name: str) -> None:
+    """Break this process's context path at run time (the code on disk
+    stays as it is), for `--zoo-context-faults`:
+    local-positions  — every rank adds positions 0..chunk, not its own;
+    local-count      — the masked-LM count is this rank's alone (not
+                       summed over `context`: the loss about doubles);
+    own-chunk-only   — the ring makes no hop: each rank's queries attend
+                       its own chunk of keys alone;
+    kv-grads-dropped — the ring's backward sends no K/V cotangent back, so
+                       a rank's keys miss the other rank's queries'
+                       gradient (the reduce-scatter left out)."""
+    import torch
+
+    from polyaxon_tpu_torch.models import bert
+    from polyaxon_tpu_torch.parallel import collectives, ring
+    from polyaxon_tpu_torch.runtime.trainer import Trainer
+
+    if name == "local-positions":
+        chunk = bert.sequence_chunk
+        bert.sequence_chunk = lambda full, group: slice(0, chunk(full, group).stop
+                                                        - chunk(full, group).start)
+    elif name == "local-count":
+        Trainer._count = lambda self, out, batch: (batch["labels"] != -100).sum().float()
+    elif name == "own-chunk-only":
+        ring._ring_body_flash = lambda q, k, v, *, group, n, idx, scale, causal: (
+            ring.flash_hop(q, k, v, scale=scale, causal=causal)[0].to(q.dtype))
+    elif name == "kv-grads-dropped":
+        collectives._PPermute.backward = staticmethod(lambda ctx, *grads: (
+            None, None, *[None if g is None else torch.zeros_like(g) for g in grads]))
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+
+
+def zoo_context_rank(rank: int, port: int, out_path: str, fault: str | None = None) -> int:
+    """One rank of train-zoo-context: train-zoo's BERT-base program on
+    {context: 2} in a `gloo` world of two processes on the one card; the
+    flash counts are set to 0 just before the run and read just after.
+    Writes its losses, grad norms, launches and times to `out_path`.
+    `fault`: one of ZOO_CONTEXT_FAULTS, planted first."""
+    import torch
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    if fault:
+        plant_zoo_context_fault(fault)
+
+    case = next(c for c in ZOO_CASES if c["tag"] == ZOO_CONTEXT_TAG)
+    program = {**case["program"], "train": {**case["program"]["train"],
+                                            "steps": ZOO_CONTEXT_STEPS, "logEvery": 1}}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        stamps = []
+        t0 = time.perf_counter()
+        trainer = Trainer(program, mesh_axes=ZOO_CONTEXT_AXES,
+                          log_fn=lambda step, m: stamps.append(time.perf_counter()))
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for kern in KERNELS:  # this rank's path starts here
+            kern.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+        batch = trainer._to_device(next(trainer.data.iterator))["inputs"]
+        out = {
+            "rank": rank, "losses": [h["loss"] for h in result.history],
+            "grad_norms": [h["grad_norm"] for h in result.history],
+            "launches": launches, "build_seconds": build_s, "run_seconds": run_s,
+            "step_gaps_s": [b - a for a, b in zip(stamps, stamps[1:])],
+            "local_tokens_shape": list(batch.shape),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        trainer.close()
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def _zoo_context_ranks(fault: str | None = None) -> list:
+    """Both ranks' results of train-zoo-context (with `fault` planted),
+    two processes on the one card, ended in a `finally`."""
+    from polyaxon_tpu_torch.native import free_port
+
+    d = ARTIFACTS / "zoo_context" / (fault or "sound")
+    d.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            out = d / f"rank{rank}.json"
+            out.unlink(missing_ok=True)
+            log = open(d / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--zoo-context-rank",
+                 str(rank), "--zoo-context-port", str(port), "--zoo-context-out", str(out),
+                 *(["--zoo-context-fault", fault] if fault else [])],
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(HERE)), log, out))
+        deadline = time.perf_counter() + ZOO_CONTEXT_TIMEOUT_S
+        codes = []
+        for proc, _, _ in procs:
+            try:
+                codes.append(proc.wait(timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    tails = [Path(log.name).read_text()[-2000:] for _, log, _ in procs]
+    check(codes == [0, 0], f"train-zoo-context ranks exited {codes}: {tails}")
+    return [json.loads(out.read_text()) for _, _, out in procs]
+
+
+def zoo_context_errors(got: dict, ref: dict) -> dict:
+    """Rank 0's run against one device's over ZOO_CONTEXT_STEPS steps,
+    relative: the worst step's loss and grad norm, and the loss's change
+    from the first step to the last (what the updates did)."""
+    n = ZOO_CONTEXT_STEPS
+    base = {k: ref[k][:n] for k in ("losses", "grad_norms")}
+    rel = {key: max(abs(a - b) / abs(b) for a, b in zip(got[series], base[series]))
+           for key, series in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+    moved, want = (got["losses"][-1] - got["losses"][0],
+                   base["losses"][-1] - base["losses"][0])
+    rel["loss_change"] = abs(moved - want) / abs(want)
+    return rel
+
+
+def phase_train_zoo_context() -> dict:
+    """train-zoo-context (phase 9b); returns both ranks' flash launches."""
+    t0 = time.perf_counter()
+    ref = ZOO_REFERENCE[ZOO_CONTEXT_TAG]
+    case = next(c for c in ZOO_CASES if c["tag"] == ZOO_CONTEXT_TAG)
+    ranks = _zoo_context_ranks()
+    hops = ZOO_CONTEXT_AXES["context"]  # the ring's hops a layer
+    want = {k: case["launches"].get(k, 0) * hops * ZOO_CONTEXT_STEPS
+            for k in ranks[0]["launches"]}
+    for r in ranks:
+        check(r["losses"] == ranks[0]["losses"] and r["grad_norms"] == ranks[0]["grad_norms"],
+              f"rank {r['rank']}'s losses differ from rank 0's: {r['losses']}")
+        check(r["launches"] == want, f"rank {r['rank']} launched {r['launches']}, "
+              f"expected {want} (the ring's {hops} hops a layer)")
+    for series in ("losses", "grad_norms"):
+        got = ranks[0][series]
+        check(len(got) == ZOO_CONTEXT_STEPS and all(math.isfinite(x) for x in got),
+              f"train-zoo-context {series}: {got}")
+    rel = zoo_context_errors(ranks[0], ref)
+    for key, err in rel.items():
+        check(err <= ZOO_CONTEXT_TOL[key], f"train-zoo-context {key} {ranks[0]['losses']} "
+              f"{ranks[0]['grad_norms']} against one device's: {err:.3g} > "
+              f"{ZOO_CONTEXT_TOL[key]}")
+    emit({"phase": "train-zoo-context", "device": device_line(), "model": ZOO_CONTEXT_TAG,
+          "mesh_axes": ZOO_CONTEXT_AXES, "steps": ZOO_CONTEXT_STEPS,
+          "processes": "2 on one card, gloo",
+          "local_tokens_shape": ranks[0]["local_tokens_shape"],
+          "losses": ranks[0]["losses"], "one_device_losses": ref["losses"][:ZOO_CONTEXT_STEPS],
+          "grad_norms": ranks[0]["grad_norms"],
+          "one_device_grad_norms": ref["grad_norms"][:ZOO_CONTEXT_STEPS],
+          "max_rel": rel, "tol": ZOO_CONTEXT_TOL,
+          "launches_per_rank": [r["launches"] for r in ranks], "expected_per_rank": want,
+          "seconds_per_step": [r["run_seconds"] / ZOO_CONTEXT_STEPS for r in ranks],
+          "rank0_log_gaps_s": ranks[0]["step_gaps_s"],
+          "one_device_step_s": ref["step_s"],
+          "build_seconds": [r["build_seconds"] for r in ranks],
+          "run_seconds": [r["run_seconds"] for r in ranks],
+          "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+          "seconds": time.perf_counter() - t0})
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def zoo_context_fault_probe() -> None:
+    """`--zoo-context-faults`: train-zoo's BERT-base one-device reference,
+    then train-zoo-context sound and with each of ZOO_CONTEXT_FAULTS
+    planted; one line each of zoo_context_errors against ZOO_CONTEXT_TOL
+    (what the limits must pass and what they must catch)."""
+    case = next(c for c in ZOO_CASES if c["tag"] == ZOO_CONTEXT_TAG)
+    phase_build()
+    emit(zoo_case(case))
+    ref = ZOO_REFERENCE[ZOO_CONTEXT_TAG]
+    for fault in (None, *ZOO_CONTEXT_FAULTS):
+        ranks = _zoo_context_ranks(fault)
+        rel = zoo_context_errors(ranks[0], ref)
+        emit({"phase": "zoo-context-fault", "device": device_line(), "fault": fault or "none",
+              "losses": ranks[0]["losses"], "grad_norms": ranks[0]["grad_norms"],
+              "one_device_losses": ref["losses"][:ZOO_CONTEXT_STEPS],
+              "one_device_grad_norms": ref["grad_norms"][:ZOO_CONTEXT_STEPS],
+              "rel": rel, "tol": ZOO_CONTEXT_TOL,
+              "caught": sorted(k for k, e in rel.items() if not e <= ZOO_CONTEXT_TOL[k]),
+              "launches_per_rank": [r["launches"] for r in ranks]})
 
 
 def bn_stats_probe() -> dict:
@@ -5831,6 +6307,13 @@ def main(argv: list) -> int:
     parser.add_argument("--serve-mesh-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--serve-mesh-spec", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--serve-mesh-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--zoo-context-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--zoo-context-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--zoo-context-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--zoo-context-fault", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--zoo-context-faults", action="store_true",
+                        help="train-zoo-context sound and with each planted fault, "
+                             "against one device's BERT-base run")
     parser.add_argument("--bn-stats", action="store_true",
                         help="ResNet-50's BatchNorm statistics, mesh path against "
                              "one device's, on one step's activations")
@@ -5862,6 +6345,13 @@ def main(argv: list) -> int:
     if args.serve_mesh_rank is not None:  # a process of serve-mesh (b)
         return mesh_b_rank(args.serve_mesh_rank, args.serve_mesh_port, args.serve_mesh_spec,
                            args.serve_mesh_out)
+    if args.zoo_context_rank is not None:  # a process of train-zoo-context
+        return zoo_context_rank(args.zoo_context_rank, args.zoo_context_port,
+                                args.zoo_context_out, args.zoo_context_fault)
+    if args.zoo_context_faults:
+        zoo_context_fault_probe()
+        print(device_line(), flush=True)
+        return 0
     if args.launch_gate or args.bn_stats:
         if args.launch_gate:
             phase_build()
@@ -6008,7 +6498,9 @@ def main(argv: list) -> int:
     stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
                        (phase_sweep, "sweep"), (phase_pipeline, "pipeline"),
+                       (phase_sched, "sched"),
                        (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo"),
+                       (phase_train_zoo_context, "train-zoo-context"),
                        (phase_train_zoo_mesh, "train-zoo-mesh")):
         for name, n in phase().items():
             launches[name] += n

@@ -9,6 +9,8 @@ port runs, with their flags, output lines and exit codes.
     python -m polyaxon_tpu_torch serve -uid UID [--pools P:D] [--route] ...
     python -m polyaxon_tpu_torch config show|get|set, events, timeline,
                                  stats, trace, query, version
+    python -m polyaxon_tpu_torch agent start|drain, queues ls|set,
+                                 fleet init|show|quota set|ls|rm
 
 Runs go to the card unless `POLYAXON_TORCH_DEVICE=cpu`. An error exits 1
 with `Error: <message>` on stderr, a usage error exits 2 (as click's do).
@@ -17,9 +19,13 @@ A jaxjob over several devices runs as a gang of one worker per device
 run spec's `serving.meshAxes`): one process per device of the decode mesh,
 rank 0 binding the port. `run` resolves `joins:` first, and a `matrix:`
 runs as a sweep (`tuner/driver.py::run_sweep`, its JSON summary printed);
-a `dag` runs through the executor. What is not ported is refused with an
-error naming ROADMAP.md: a schedule, connections, a remote control plane
-(`streams_url`) and `--queue` clones.
+a `dag` runs through the executor, and a `schedule:` is registered for the
+agent (`agent start` fires it). `agent start|drain`, `queues ls|set` and
+`fleet init|show|quota` drive the scheduler (`scheduler/`), and `serve
+--replicas` places its slots through the fleet when one is configured.
+What is not ported is refused with an error naming ROADMAP.md:
+connections, a remote control plane (`streams_url`) and `agent start
+--cluster` (k8s/).
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
 it so).
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
 import sys
@@ -119,7 +126,15 @@ def cmd_run(a):
         )
     store = RunStore()
     if op.schedule is not None:
-        raise NotImplementedError(f"`schedule:` (scheduler/schedules.py) {_ROADMAP}")
+        from ..scheduler import ScheduleError, ScheduleRegistry
+
+        try:
+            sid = ScheduleRegistry(store).add(op, project=a.project)
+        except ScheduleError as e:
+            raise ClickException(str(e))
+        echo(f"schedule {sid} registered ({op.schedule.kind}); "
+             "a running agent (`polyaxon agent start`) fires it")
+        return
     if op.joins:
         from ..scheduler import JoinError, resolve_joins
 
@@ -261,8 +276,6 @@ def cmd_stats(a):
         uuid = store.resolve(a.run_ref)
     except UnknownRunError as e:
         raise _uerr(e)
-    if (store.home / "fleet" / "reservations.json").exists():
-        raise NotImplementedError(f"reading a store's fleet reservations (scheduler/fleet.py) {_ROADMAP}")
     status = store.get_status(uuid)
     echo(f"run {uuid[:8]}  status={status.get('status', '?')}")
     meta = status.get("meta") or {}
@@ -279,6 +292,20 @@ def cmd_stats(a):
             echo(f"queued on {qname!r} for {wait:.1f}s "
                  f"(priority {entry.get('priority', 0)}, "
                  f"seq {entry.get('seq', '?')}, chips {entry.get('chips', '?')})")
+    from ..scheduler.fleet import Fleet
+
+    fleet = Fleet(store)
+    if fleet.configured:
+        rec = fleet.ledger.get(uuid)
+        if rec is not None:
+            block = (" (block " + "x".join(str(b) for b in rec["block"]) + ")"
+                     if rec.get("block") else "")
+            # an elastic grant below the full ask grows back once it fits
+            elastic = (f" [elastic: {rec['requested_chips']} requested]"
+                       if rec.get("requested_chips") else "")
+            echo(f"reservation: {rec['chips']} chips{block}{elastic}")
+        elif status.get("status") in (V1Statuses.QUEUED, V1Statuses.SCHEDULED):
+            echo("reservation: none yet (waiting for admission)")
     if meta.get("preempt_restarts"):
         echo(f"scheduler preemptions: {meta['preempt_restarts']} (resumed from checkpoint)")
     folded, step = _fold_metrics(store.read_metrics(uuid))
@@ -982,7 +1009,9 @@ def _run_spec_pools(uid):
 
 def _serve_fleet(a, overrides, pools, mesh_axes=None):
     """`serve --replicas N --route` / `--pools P:D`: one-replica children
-    behind the port's router."""
+    behind the port's router, each slot holding a fleet reservation of its
+    mesh's devices when the store has a fleet (`fleet init`)."""
+    from ..scheduler.fleet import Fleet
     from ..serving.replicas import ReplicaSetManager, SubprocessReplica
     from ..serving.router import AutoscalePolicy, Router
     from ..telemetry import MetricsRegistry
@@ -1025,8 +1054,14 @@ def _serve_fleet(a, overrides, pools, mesh_axes=None):
             lambda p: _serve_child_argv(uuid, p, slot_overrides) + mesh_argv,
             env=_child_env())
 
+    chips = 1
+    if mesh_axes:
+        sizes = [int(v) for v in mesh_axes.values() if int(v) != -1]
+        chips = math.prod(sizes) if sizes else 1
+    fleet = Fleet(store)
     registry = MetricsRegistry()
-    manager = ReplicaSetManager(factory, replicas=n, name=f"serve-{uuid[:8]}",
+    manager = ReplicaSetManager(factory, replicas=n, fleet=fleet if fleet.configured else None,
+                                chips_per_replica=chips, name=f"serve-{uuid[:8]}",
                                 registry=registry)
     autoscale = None
     if a.autoscale_max is not None:
@@ -1059,6 +1094,113 @@ def _serve_fleet(a, overrides, pools, mesh_axes=None):
         echo("draining fleet...")
         router.stop()
         manager.stop()
+
+
+# ------------------------------------------------------------ scheduler
+def cmd_agent_start(a):
+    from ..scheduler import Agent
+
+    # the reference reads --namespace, --context and --kube-dry-run only
+    # with --cluster: each is refused by name, never taken and ignored
+    given = [flag for flag, on in (("--cluster", a.use_cluster),
+                                   ("--namespace", a.namespace is not None),
+                                   ("--context", a.kube_context is not None),
+                                   ("--kube-dry-run", a.kube_dry_run)) if on]
+    if given:
+        from ..scheduler.agent import CLUSTER_REFUSAL
+
+        raise NotImplementedError(f"agent start {' '.join(given)}: {CLUSTER_REFUSAL}")
+    store = RunStore()
+    which = ", ".join(a.queues) if a.queues else "all queues"
+    echo(f"agent started; polling {which} (ctrl-c to stop)")
+    stop = threading.Event()
+    prev = {sig: signal.signal(sig, lambda *_: stop.set())
+            for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        Agent(store=store, queues=a.queues or None).serve(
+            poll_interval=a.poll_interval, stop_when=stop.is_set)
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+
+
+def cmd_agent_drain(a):
+    """Process everything queued, then exit."""
+    from ..scheduler import Agent
+
+    n = Agent(store=RunStore(), queues=a.queues or None).drain()
+    echo(f"processed {n} run(s)")
+
+
+def cmd_queues_ls(a):
+    """Queues with settings, backlog and the head-of-line wait."""
+    import time as _time
+
+    from ..scheduler.queue import QueueRegistry
+
+    registry = QueueRegistry(RunStore())
+    now = _time.time()
+    for row in registry.stats():
+        entries = registry.get(row["name"]).peek_all()
+        stamps = [e["enqueued_at"] for e in entries if e.get("enqueued_at")]
+        if stamps:
+            row["oldest_wait_s"] = round(max(0.0, now - min(stamps)), 1)
+        echo(json.dumps(row))
+
+
+def cmd_queues_set(a):
+    from ..scheduler.queue import QueueRegistry
+
+    QueueRegistry(RunStore()).set_queue(a.name, concurrency=a.concurrency, priority=a.priority)
+    echo(f"queue {a.name}: concurrency={a.concurrency} priority={a.priority}")
+
+
+def cmd_fleet_init(a):
+    """Configure the fleet's capacity and enable scheduler admission."""
+    from ..scheduler.fleet import Fleet
+
+    try:
+        cfg = Fleet(RunStore()).configure(topology=a.topology, chips=a.chips)
+    except (ValueError, RuntimeError) as e:
+        raise ClickException(str(e))
+    echo(f"fleet configured: {json.dumps(cfg)}")
+
+
+def cmd_fleet_show(a):
+    """Inventory, reservations and per-project usage (the /fleetz body)."""
+    from ..scheduler.fleet import Fleet
+
+    echo(json.dumps(Fleet(RunStore()).snapshot(), indent=1))
+
+
+def cmd_fleet_quota_set(a):
+    """SCOPE is a project name, or queue:<name> for a queue-wide quota."""
+    from ..scheduler.admission import QuotaManager
+    from ..schemas.quota import V1QuotaSpec
+
+    try:
+        spec = V1QuotaSpec.from_dict({"scope": a.scope, "max_chips": a.max_chips,
+                                      "max_runs": a.max_runs, "weight": a.weight})
+    except ValueError as e:
+        raise ClickException(str(e))
+    QuotaManager(RunStore()).set(spec)
+    echo(f"quota {a.scope}: {json.dumps(spec.to_dict())}")
+
+
+def cmd_fleet_quota_ls(a):
+    from ..scheduler.admission import QuotaManager
+
+    for spec in QuotaManager(RunStore()).all():
+        echo(json.dumps(spec.to_dict()))
+
+
+def cmd_fleet_quota_rm(a):
+    from ..scheduler.admission import QuotaManager
+
+    if QuotaManager(RunStore()).remove(a.scope):
+        echo(f"quota {a.scope} removed")
+    else:
+        raise ClickException(f"no quota for scope {a.scope!r}")
 
 
 # ------------------------------------------------------------------ parser
@@ -1204,6 +1346,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--role", default=None, choices=["both", "prefill", "decode"])
     p.add_argument("--pools", default=None, metavar="PREFILL:DECODE")
     p.set_defaults(func=cmd_serve)
+
+    agent = sub.add_parser("agent", help="drains the run queues")
+    asub = agent.add_subparsers(dest="agent_command", required=True, metavar="COMMAND")
+    p = asub.add_parser("start")
+    p.add_argument("--poll-interval", type=float, default=1.0)
+    p.add_argument("--queue", dest="queues", action="append", default=[],
+                   help="only drain these queues (repeatable); default: all")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--cluster", dest="use_cluster", action="store_true", default=False)
+    g.add_argument("--local", dest="use_cluster", action="store_false")
+    p.add_argument("--namespace", default=None)  # the reference's default: polyaxon
+    p.add_argument("--context", dest="kube_context", default=None)
+    p.add_argument("--kube-dry-run", action="store_true")
+    p.set_defaults(func=cmd_agent_start)
+    p = asub.add_parser("drain")
+    p.add_argument("--queue", dest="queues", action="append", default=[])
+    p.set_defaults(func=cmd_agent_drain)
+
+    queues = sub.add_parser("queues", help="named run queues (priority + concurrency)")
+    qsub = queues.add_subparsers(dest="queues_command", required=True, metavar="COMMAND")
+    qsub.add_parser("ls").set_defaults(func=cmd_queues_ls)
+    p = qsub.add_parser("set")
+    p.add_argument("name")
+    p.add_argument("--concurrency", type=int, default=1)
+    p.add_argument("--priority", type=int, default=0)
+    p.set_defaults(func=cmd_queues_set)
+
+    fleet = sub.add_parser("fleet", help="device fleet: inventory, reservations, quotas")
+    fsub = fleet.add_subparsers(dest="fleet_command", required=True, metavar="COMMAND")
+    p = fsub.add_parser("init")
+    p.add_argument("--topology", default=None)
+    p.add_argument("--chips", type=int, default=None,
+                   help="flat pool size; omit both for this host's devices")
+    p.set_defaults(func=cmd_fleet_init)
+    fsub.add_parser("show").set_defaults(func=cmd_fleet_show)
+    quota = fsub.add_parser("quota")
+    qtsub = quota.add_subparsers(dest="quota_command", required=True, metavar="COMMAND")
+    p = qtsub.add_parser("set")
+    p.add_argument("scope")
+    p.add_argument("--max-chips", type=int, default=None)
+    p.add_argument("--max-runs", type=int, default=None)
+    p.add_argument("--weight", type=float, default=1.0)
+    p.set_defaults(func=cmd_fleet_quota_set)
+    qtsub.add_parser("ls").set_defaults(func=cmd_fleet_quota_ls)
+    p = qtsub.add_parser("rm")
+    p.add_argument("scope")
+    p.set_defaults(func=cmd_fleet_quota_rm)
     return cli
 
 

@@ -2,6 +2,7 @@
 the local transport of `polyaxon_tpu/client/run_client.py`.
 
     client = RunClient()
+    uuid = client.create(op)                # compile and queue it for an agent
     uuid = client.create(op, queue=False)   # compile and run it here
     client.logs(uuid); client.metrics(uuid); client.statuses(uuid)
     client.stop(uuid)
@@ -9,9 +10,10 @@ the local transport of `polyaxon_tpu/client/run_client.py`.
 
 `restart`, `copy` and `resume` make a new run from the source's stored
 operation (with `cloned_from`/`clone_kind` in its meta and a `lineage`
-event on the source) and run it in this process. The reference's HTTP
-transport (`base_url=`, a remote control plane) and queueing a run for an
-agent (`queue=True`) are not ported (ROADMAP.md).
+event on the source), queued for an agent (`queue=True`, the default:
+`scheduler/agent.py::Agent.submit`) or run in this process. The
+reference's HTTP transport (`base_url=`, a remote control plane) is not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -84,10 +86,16 @@ class RunClient:
 
         return Executor(self.store, device=self.device).execute(compiled)
 
+    def _agent(self):
+        from ..scheduler.agent import Agent
+
+        return Agent(store=self.store)
+
     def create(self, op: V1Operation, *, queue: bool = True) -> str:
-        """Submit an operation and run it here (`queue=False`)."""
+        """Submit an operation: queued for the agent draining this store
+        (`queue=True`), or run here to completion (`queue=False`)."""
         if queue:
-            raise NotImplementedError(f"queueing a run for an agent (scheduler/agent.py) {_ROADMAP}")
+            return self._agent().submit(op, project=self.project)
         compiled = self._submit(op)
         self._run_inline(compiled)
         return compiled.run_uuid
@@ -134,11 +142,6 @@ class RunClient:
 
     def _clone(self, uuid: str, suffix: str, *, op_patch=None, copy_outputs: bool,
                queue: bool) -> str:
-        if queue:
-            raise NotImplementedError(
-                f"`ops {suffix} --queue` (queueing the clone for an agent, "
-                f"scheduler/agent.py) {_ROADMAP}"
-            )
         src = self.store.resolve(uuid)
         if copy_outputs:
             status = self.store.get_status(src).get("status")
@@ -161,8 +164,10 @@ class RunClient:
             self.store.log_event(src, "lineage",
                                  {"child": compiled.run_uuid, "clone_kind": suffix})
 
-        compiled = self._submit(op, meta={"cloned_from": src, "clone_kind": suffix},
-                                prepare_fn=prepare)
+        meta = {"cloned_from": src, "clone_kind": suffix}
+        if queue:
+            return self._agent().submit(op, project=self.project, meta=meta, prepare_fn=prepare)
+        compiled = self._submit(op, meta=meta, prepare_fn=prepare)
         self._run_inline(compiled)
         return compiled.run_uuid
 

@@ -4,7 +4,10 @@ an embedding LayerNorm, post-LN encoder blocks (full attention: under
 `attention: flash` the flash kernels with `causal=False`), then the MLM
 head: a dense transform, tanh GELU, LayerNorm, and f32 logits against the
 tied embedding table (the reference's `embed.attend(x.astype(f32))`, so a
-bf16-valued table meets f32 features) plus the f32 `mlm_bias`."""
+bf16-valued table meets f32 features) plus the f32 `mlm_bias`. Under a
+`context` axis `tokens` is this rank's chunk of the sequence: its learned
+positions are the chunk's global ones, and attention gathers the chunks
+(`encoder.split_attention`)."""
 
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
-from .encoder import EncoderBlock
+from .encoder import EncoderBlock, sequence_chunk, sequence_group
 from .layers import numbered, Dense, LayerNorm, gelu, seeded_init
 
 PRESETS = {
@@ -48,10 +51,13 @@ class Bert(nn.Module):
             self.mlm_bias.zero_()
 
     def forward(self, tokens, *, dropout_generator=None):
-        x = self.embed(tokens) + self.pos_embed[:, : tokens.shape[1]]
+        group = sequence_group()
+        n = tokens.shape[1]
+        full = n * (1 if group is None else torch.distributed.get_world_size(group))
+        x = self.embed(tokens) + self.pos_embed[:, sequence_chunk(full, group)]
         x = self.embed_norm(x)
         for block in numbered(self, "block_"):
-            x = block(x, dropout_generator)
+            x = block(x, dropout_generator, group)
         x = self.mlm_norm(gelu(self.mlm_transform(x)))
         logits = F.linear(x.float(), self.embed.weight.float())
         return logits + self.mlm_bias

@@ -17,7 +17,16 @@ column-parallel (a rank's heads and hidden units, their biases sliced
 alike), entered through `copy_to`; `o_proj` and `fc2` are row-parallel,
 their partial products summed by `reduce_from` before the bias is added
 once. The seq2seq decoder's self- and cross-attention take the same path
-(`split_attention`)."""
+(`split_attention`).
+
+Under a `context` axis BERT and seq2seq hand their blocks the axis's group
+(`sequence_group`): each rank holds a chunk of the sequence, and
+self-attention runs on the ring over `context` (`parallel/ring.py`: each
+hop attends this rank's queries against one rank's keys, the flash
+kernels at the chunk's length). Dropout draws its mask at the whole
+sequence's shape and keeps this rank's rows, so it is one device's mask.
+ViT's batch stays whole on every `context` rank, so its blocks get no
+group and attend their whole sequence."""
 
 from __future__ import annotations
 
@@ -25,9 +34,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.attention import dot_product_attention
-from ..parallel.collectives import copy_to, reduce_from
-from ..parallel.ring import model_group as _model_group
+from ..ops.attention import dot_product_attention, whole_sequence_attention
+from ..parallel.collectives import axis_group, axis_index, copy_to, reduce_from
+from ..parallel.ring import current_mesh, model_group as _model_group
 from .layers import Dense, LayerNorm, dropout, gelu
 
 
@@ -41,12 +50,30 @@ def row_parallel(dense: Dense, h, group):
     return y + dense.bias.to(dt)
 
 
+def sequence_group():
+    """The bound mesh's `context` group (the trainer shards an mlm
+    model's token sequence over it), or None without one."""
+    return axis_group(current_mesh(), "context")
+
+
+def sequence_chunk(full: int, group) -> slice:
+    """This rank's positions of a `full`-long sequence split over `group`."""
+    if group is None:
+        return slice(0, full)
+    n = full // torch.distributed.get_world_size(group)
+    r = axis_index(current_mesh(), "context")
+    return slice(r * n, (r + 1) * n)
+
+
 def split_attention(mod: nn.Module, x, memory=None, *, causal: bool = False,
-                    backend: str = "xla"):
+                    backend: str = "xla", seq_group=None):
     """Multi-head attention through `mod`'s q/k/v/o_proj (`mod.dim`,
     `mod.n_heads`): queries from `x`, keys and values from `memory` (`x`
     when None). Under tensor parallelism the projections hold this rank's
-    heads."""
+    heads. With `seq_group` (self-attention over a sequence split over
+    the bound mesh's `context` group) `x` is this rank's chunk and
+    attention runs on the ring (causal by global position); without one
+    `x` and `memory` hold their whole sequence."""
     B, T, _ = x.shape
     hd = mod.dim // mod.n_heads
     group = _model_group(mod.q_proj.weight.shape[0], mod.dim)
@@ -56,8 +83,19 @@ def split_attention(mod: nn.Module, x, memory=None, *, causal: bool = False,
     q = mod.q_proj(x).reshape(B, T, -1, hd)
     k = mod.k_proj(kv).reshape(B, S, -1, hd)
     v = mod.v_proj(kv).reshape(B, S, -1, hd)
-    out = dot_product_attention(q, k, v, causal=causal, backend=backend)
+    attend = whole_sequence_attention if seq_group is None else dot_product_attention
+    out = attend(q, k, v, causal=causal, backend=backend)
     return row_parallel(mod.o_proj, out.reshape(B, T, -1), group)
+
+
+def block_dropout(h, rate: float, generator, seq_group=None):
+    """`layers.dropout` of a block's residual branch `h`; under `seq_group`
+    `h` is this rank's chunk of the sequence (dim 1) and the mask that of
+    the whole sequence, this rank's rows of it."""
+    if seq_group is None:
+        return dropout(h, rate, generator)
+    full = h.shape[1] * torch.distributed.get_world_size(seq_group)
+    return dropout(h, rate, generator, seq_chunk=(full, sequence_chunk(full, seq_group)))
 
 
 class MultiHeadAttention(nn.Module):
@@ -67,8 +105,8 @@ class MultiHeadAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             self.add_module(name, Dense(dim, dim, **factory))
 
-    def forward(self, x):
-        return split_attention(self, x, backend=self.backend)
+    def forward(self, x, seq_group=None):
+        return split_attention(self, x, backend=self.backend, seq_group=seq_group)
 
 
 class EncoderBlock(nn.Module):
@@ -83,10 +121,10 @@ class EncoderBlock(nn.Module):
         self.norm1 = LayerNorm(dim, eps, **factory)
         self.norm2 = LayerNorm(dim, eps, **factory)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq_group=None):
         def drop(h):
             if self.dropout_rate and self.training:
-                return dropout(h, self.dropout_rate, generator)
+                return block_dropout(h, self.dropout_rate, generator, seq_group)
             return h
 
         def mlp(h):
@@ -94,9 +132,9 @@ class EncoderBlock(nn.Module):
             return row_parallel(self.fc2, gelu(self.fc1(copy_to(h, group))), group)
 
         if self.pre_norm:
-            x = x + drop(self.attention(self.norm1(x)))
+            x = x + drop(self.attention(self.norm1(x), seq_group))
             return x + drop(mlp(self.norm2(x)))
-        x = self.norm1(x + drop(self.attention(x)))
+        x = self.norm1(x + drop(self.attention(x, seq_group)))
         return self.norm2(x + drop(mlp(x)))
 
 

@@ -265,12 +265,20 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
 
-def dropout(x, rate: float, generator=None):
+def dropout(x, rate: float, generator=None, seq_chunk=None):
     """flax nn.Dropout in training: keep each element with probability
     1 - rate and scale it by 1 / (1 - rate), the mask drawn from
-    `generator` (its draws differ from jax.random's by construction)."""
+    `generator` (its draws differ from jax.random's by construction).
+    `seq_chunk` (the whole length, this rank's slice): `x` is one rank's
+    chunk of a sequence (dim 1), and its mask is those rows of the mask
+    drawn for the whole sequence."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if seq_chunk is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        full, rows = seq_chunk
+        shape = (x.shape[0], full, *x.shape[2:])
+        keep = (torch.rand(shape, generator=generator, device=x.device) < keep_prob)[:, rows]
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -11,7 +11,16 @@ runs the flash kernels on the encoder (`causal=False`) and on the
 decoder's self-attention (`causal=True`), one query head per kv head;
 cross-attention always runs the einsum path (`xla`), as in the
 reference, since the kernels assume as many queries as keys. LayerNorms
-keep flax's epsilon 1e-6; the logits are f32 against the tied embedding."""
+keep flax's epsilon 1e-6; the logits are f32 against the tied embedding.
+
+Under a `context` axis each rank holds a chunk of the packed stream and
+of the labels. The tokens are gathered (integers: no gradient) and each
+rank takes its chunk of the source and of the target: the encoder's and
+the decoder's self-attention run on the ring over `context`
+(`split_attention`, the decoder causal by global position), the
+encoder's memory is gathered whole for cross-attention (`gather_seq`,
+its backward a reduce-scatter), and the logits are this rank's target
+chunk, aligned with its labels."""
 
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
-from ..parallel.collectives import copy_to
+from ..parallel.collectives import all_gather_cat, copy_to, gather_seq
 from ..parallel.ring import model_group as _model_group
-from .encoder import EncoderBlock, row_parallel, split_attention
-from .layers import numbered, Dense, LayerNorm, dropout, gelu, seeded_init
+from .encoder import (EncoderBlock, block_dropout, row_parallel, sequence_chunk,
+                      sequence_group, split_attention)
+from .layers import numbered, Dense, LayerNorm, gelu, seeded_init
 
 PRESETS = {
     "tiny-test": dict(
@@ -65,16 +75,17 @@ class DecoderBlock(nn.Module):
         for name in ("norm1", "norm2", "norm3"):
             self.add_module(name, LayerNorm(dim, **factory))
 
-    def _self_attn(self, h):
-        return split_attention(self, h, causal=True, backend=self.backend)
+    def _self_attn(self, h, seq_group=None):
+        return split_attention(self, h, causal=True, backend=self.backend,
+                               seq_group=seq_group)
 
-    def forward(self, x, memory, generator=None):
+    def forward(self, x, memory, generator=None, seq_group=None):
         def drop(h):
             if self.dropout_rate and self.training:
-                return dropout(h, self.dropout_rate, generator)
+                return block_dropout(h, self.dropout_rate, generator, seq_group)
             return h
 
-        x = x + drop(self._self_attn(self.norm1(x)))
+        x = x + drop(self._self_attn(self.norm1(x), seq_group))
         x = x + drop(self.cross(self.norm2(x), memory))
         h = self.norm3(x)
         group = _model_group(self.fc1.weight.shape[0], self.mlp_dim)
@@ -108,12 +119,15 @@ class Seq2Seq(nn.Module):
 
     def forward(self, tokens, *, dropout_generator=None):
         """tokens [B, src_len + tgt_len] → decoder logits [B, tgt_len, vocab]."""
+        group = sequence_group()
+        tokens = all_gather_cat(tokens, group, 1)
         src, tgt = tokens[:, : self.src_len], tokens[:, self.src_len:]
-        h = self.embed(src) + self.src_pos[:, : src.shape[1]]
+        src_at, tgt_at = sequence_chunk(src.shape[1], group), sequence_chunk(tgt.shape[1], group)
+        h = self.embed(src[:, src_at]) + self.src_pos[:, src_at]
         for block in numbered(self, "enc_"):
-            h = block(h, dropout_generator)
-        memory = self.enc_norm(h)
-        d = self.embed(tgt) + self.tgt_pos[:, : tgt.shape[1]]
+            h = block(h, dropout_generator, group)
+        memory = gather_seq(self.enc_norm(h), group, 1)
+        d = self.embed(tgt[:, tgt_at]) + self.tgt_pos[:, tgt_at]
         for block in numbered(self, "dec_"):
-            d = block(d, memory, dropout_generator)
+            d = block(d, memory, dropout_generator, group)
         return F.linear(self.dec_norm(d).float(), self.embed.weight.float())

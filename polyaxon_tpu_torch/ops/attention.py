@@ -14,7 +14,9 @@ Under a bound mesh (`parallel.ring.set_current_mesh`) q/k/v are the rank's
 local blocks: batch over the batch axes, heads over `model` (each rank runs
 the kernel on its own heads), sequence over `context`. With a context axis
 of size > 1 every backend attends through the ring, the only one of them
-that sees the whole sequence.
+that sees the whole sequence. `whole_sequence_attention` is for q/k/v
+that hold the whole sequence whatever the mesh (ViT's patches, whose batch
+stays whole over `context`, and seq2seq's gathered memory).
 """
 
 from __future__ import annotations
@@ -73,6 +75,20 @@ def dot_product_attention(
 
         fn = ulysses_attention if backend == "ulysses" else ring_attention
         return fn(q, k, v, causal=causal, block_kv=block_kv)
+    return local_attention(q, k, v, causal=causal, backend=backend, block_kv=block_kv)
+
+
+def whole_sequence_attention(q, k, v, *, causal: bool, backend: str = "xla",
+                             block_kv: int = 512):
+    """Attention over the whole sequence held here, whatever the bound
+    mesh: `auto` resolved as above, and `ring`/`ulysses` the flash kernel,
+    as they dispatch without a context axis."""
+    if backend == "auto":
+        backend = resolve_auto_backend(
+            q.shape[1], block_kv, q.shape[-1], device=q.device
+        )
+    if backend in ("ring", "ulysses"):
+        backend = "flash"
     return local_attention(q, k, v, causal=causal, backend=backend, block_kv=block_kv)
 
 

@@ -6,8 +6,9 @@ collective the forward runs is a `torch.autograd.Function` whose backward
 is the collective's transpose:
 
 - `ppermute(tensors, group, shift)`: group member i sends to i + shift and
-  receives from i - shift (`batch_isend_irecv`); the backward permutes the
-  cotangents the inverse way;
+  receives from i - shift (`batch_isend_irecv`; under `gloo` a card's
+  tensors go through the host); the backward permutes the cotangents the
+  inverse way;
 - `all_to_all(x, group, split_dim, concat_dim)`: the tiled all-to-all
   (`jax.lax.all_to_all(..., tiled=True)`); the backward is the inverse
   all-to-all;
@@ -19,9 +20,12 @@ is the collective's transpose:
 - `broadcast_from(x, group, src)`: one member's value on all of them,
   whose backward sums the cotangents onto that member (the pipeline's
   last stage);
-- `all_gather_cat(x, group, dim)`: the members' `x` concatenated along
-  `dim` in member order (not differentiable: the serving decode's
-  embedding, logits and K/V exchange).
+- `gather_seq(x, group, dim)`: the members' `x` concatenated along `dim`
+  in member order, whose backward is the reduce-scatter: the sum over the
+  group of the cotangent's slice that belongs to this member (seq2seq's
+  encoder memory, gathered over `context` for cross-attention);
+- `all_gather_cat(x, group, dim)`: the same gather, not differentiable
+  (the serving decode's embedding, logits and K/V exchange).
 
 `group=None` (no such axis on the mesh, or an axis of size 1) makes each of
 them the identity.
@@ -66,16 +70,18 @@ def _permute(tensors, group, shift: int) -> list:
     me = dist.get_rank(group)
     dst = dist.get_global_rank(group, (me + shift) % n)
     src = dist.get_global_rank(group, (me - shift) % n)
+    # gloo sends host memory only: a card's tensors travel through the host
+    host = dist.get_backend(group) == "gloo"
     out, ops = [], []
     for t in tensors:
-        t = t.contiguous()
+        t = t.contiguous().cpu() if host else t.contiguous()
         r = torch.empty_like(t)
         ops.append(dist.P2POp(dist.isend, t, dst, group))
         ops.append(dist.P2POp(dist.irecv, r, src, group))
         out.append(r)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return out
+    return [r.to(t.device) for r, t in zip(out, tensors)]
 
 
 class _PPermute(torch.autograd.Function):
@@ -207,6 +213,29 @@ def broadcast_from(x: torch.Tensor, group, src: int) -> torch.Tensor:
     """Member `src`'s `x` on every member of `group`; the backward sums the
     members' cotangents onto `src` (the others' `x` gets zeros)."""
     return x if group is None else _BroadcastFrom.apply(x, group, src)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a reduce-scatter as an all-reduce and this member's slice: gloo
+        # has no reduce-scatter, and the card's two-rank worlds run on it
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.width, ctx.width).contiguous(), None, None
+
+
+def gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The members' `x` (one shape) concatenated along `dim` in member
+    order, differentiable: the backward sums the members' cotangents of
+    this member's slice (a reduce-scatter). `x` when `group` is None."""
+    return x if group is None else _GatherSeq.apply(x, group, dim)
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -30,10 +30,21 @@ counts; the CPU (`gloo`) is used only when asked for. A mesh that resolves
 to one device runs as the single-device program: it computes the same
 thing. As the reference's, `execute` does not read `matrix:` or `joins:`:
 the CLI resolves joins (`scheduler/joins.py::resolve_joins`) and sends a
-matrix to `tuner/driver.py::run_sweep` before anything compiles. Refused
+matrix to `tuner/driver.py::run_sweep` before anything compiles; a
+`schedule:` is the agent's (`scheduler/schedules.py`), and the executor
+runs one firing like any operation.
+
+Under the fleet scheduler (`scheduler/admission.py`) an eviction flag
+(`preempt_requested` in the run's meta) rides the SIGTERM machinery: the
+trainer checkpoints at its next step boundary, and the executor releases
+the run's reservation and pushes it back on its queue at its original
+priority (`_requeue_preempted`); the next attempt resumes from the
+checkpoint. An elastic grant below the request (`granted_chips`) trains
+on that many devices, in process for one and as a smaller gang (its
+`CUDA_VISIBLE_DEVICES` the granted GPUs) for more, with `grad_accum`
+multiplied by `requested // granted` (`_apply_elastic_grant`). Refused
 with `NotImplementedError` before the run is created, each naming
-ROADMAP.md: `schedule:`, named `connections:`, an artifacts init, a
-notifier hook and an elastic grant.
+ROADMAP.md: named `connections:`, an artifacts init and a notifier hook.
 """
 
 from __future__ import annotations
@@ -102,17 +113,19 @@ def gang_size(run) -> int:
 
 
 def gang_device_error(compiled: CompiledOperation, device,
-                      devices: Optional[list] = None) -> Optional[str]:
+                      devices: Optional[list] = None,
+                      world: Optional[int] = None) -> Optional[str]:
     """Why a gang cannot get one GPU per worker here, or None (the CPU
     under `gloo` is used only when `device` asks for it). With `devices`
     (a sweep trial's group) the group's GPUs are counted, else the visible
-    ones."""
+    ones. `world`: the workers after an elastic grant (default the
+    spec's gang)."""
     import torch
 
     run = compiled.run
     if run.kind != "jaxjob" or run.program is None or torch.device(device).type != "cuda":
         return None
-    world = gang_size(run)
+    world = gang_size(run) if world is None else world
     if devices is not None:
         have = sum(torch.device(d).type == "cuda" for d in devices)
         where = "in the trial's device group"
@@ -145,8 +158,6 @@ def refusal(compiled: CompiledOperation) -> Optional[str]:
     None. A jaxjob from which no whole number of devices a replica
     follows raises ValueError (`replica_devices`), before any run exists."""
     op, run = compiled.operation, compiled.run
-    if op.schedule is not None:
-        return f"`schedule:` (scheduler/schedules.py) {_ROADMAP}"
     if getattr(run, "connections", None):
         return f"named `connections:` (connections/) {_ROADMAP}"
     for init in getattr(run, "init", None) or ():
@@ -186,7 +197,8 @@ class Executor:
             from ..device import resolve_device
 
             resolve_device(self.device)  # no card where one is asked for: raise, run nothing
-            short = gang_device_error(compiled, self.device, self.devices)
+            short = gang_device_error(compiled, self.device, self.devices,
+                                      world=self._granted_world(compiled))
             if short is not None:
                 raise RuntimeError(short)
         from ..compiler.resolver import spec_fingerprint
@@ -238,7 +250,7 @@ class Executor:
                 if kind == PREEMPTED:
                     meta = store.get_status(run_uuid).get("meta") or {}
                     if meta.get("preempt_requested"):
-                        return self._requeue_preempted(compiled, e)
+                        return self._requeue_preempted(compiled, e, restarts)
                     # the program was healthy, the machine went away:
                     # restart from the checkpoint without burning budget
                     restarts += 1
@@ -285,13 +297,72 @@ class Executor:
             if current != s and can_transition(current, s):
                 self.store.set_status(run_uuid, s)
 
-    def _requeue_preempted(self, compiled: CompiledOperation, exc: BaseException) -> str:
-        """A scheduler eviction (`preempt_requested` in the run's meta) goes
-        back to its queue in the reference; the port has no agent yet."""
-        message = f"requeueing a run the scheduler evicted (scheduler/agent.py) {_ROADMAP}"
-        self.store.set_status(compiled.run_uuid, V1Statuses.FAILED,
-                              reason="NotImplementedError", message=message)
-        raise NotImplementedError(message) from exc
+    def _requeue_preempted(self, compiled: CompiledOperation, exc: BaseException,
+                           restarts: int) -> str:
+        """A scheduler eviction: admission flagged this run to yield its
+        chips, the trainer checkpointed at the step boundary and raised
+        Preempted. Release the reservation and push the run back on its
+        queue at its original priority with its full demand; the next
+        attempt resumes (`preempt_restarts` makes it `resume=True`)."""
+        from ..scheduler.fleet import Fleet, chips_demand, min_chips_demand, topology_request
+        from ..scheduler.queue import RunQueue
+
+        store, run_uuid = self.store, compiled.run_uuid
+        meta = store.get_status(run_uuid).get("meta") or {}
+        store.set_meta(run_uuid, preempt_requested=False, preempt_restarts=restarts + 1)
+        store.log_event(run_uuid, "preempted", {
+            "step": getattr(exc, "step", None), "restart": restarts + 1, "scheduler": True,
+            # the gang this attempt ran at: the next pass may grant another rung
+            "granted_chips": meta.get("granted_chips"),
+        })
+        store.set_status(run_uuid, V1Statuses.RETRYING, reason="evicted", message=str(exc))
+        store.set_status(run_uuid, V1Statuses.QUEUED)
+        Fleet(store).release(run_uuid)  # the chips go to the preemptor
+        op = compiled.operation
+        block = topology_request(op)
+        RunQueue(store, name=meta.get("queue") or "default").push(
+            run_uuid, {"operation": op.to_dict(), "project": compiled.project},
+            priority=int(meta.get("priority", 0)), chips=chips_demand(op),
+            min_chips=min_chips_demand(op), block=list(block) if block else None,
+        )
+        return V1Statuses.QUEUED
+
+    def _granted_world(self, compiled: CompiledOperation) -> int:
+        """The workers a jaxjob trains on: its gang (`gang_size`), or the
+        chips an elastic grant gave it when that is fewer."""
+        from ..scheduler.fleet import min_chips_demand
+
+        world = gang_size(compiled.run)
+        meta = self.store.get_status(compiled.run_uuid).get("meta") or {}
+        granted = meta.get("granted_chips")
+        if granted is None or min_chips_demand(compiled.operation) is None:
+            return world
+        return min(world, int(granted))
+
+    def _apply_elastic_grant(self, compiled: CompiledOperation, program):
+        """(program, world) for the gang the scheduler granted: below the
+        spec's gang, `grad_accum` is multiplied by `requested // granted`
+        so the global batch holds, and the grant is counted and logged.
+        Untouched when the grant covers the gang (or the run is not
+        elastic)."""
+        from ..scheduler.fleet import chips_demand
+        from ..telemetry import get_registry
+
+        world, granted = gang_size(compiled.run), self._granted_world(compiled)
+        if granted >= world:
+            return program, world
+        requested = chips_demand(compiled.operation)
+        tspec = program.train
+        accum = int(tspec.grad_accum) if tspec and tspec.grad_accum else 1
+        new_accum = accum * max(1, requested // granted)
+        if tspec is not None:
+            program = program.copy(train=tspec.copy(grad_accum=new_accum))
+        get_registry().counter(
+            "trainer.elastic_resizes", help="Training attempts started at a resized gang"
+        ).inc()
+        self.store.log_event(compiled.run_uuid, "elastic_resize", {
+            "granted": granted, "requested": requested, "grad_accum": new_accum})
+        return program, granted
 
     def _stopped(self, run_uuid: str) -> bool:
         """True when a stop request landed; settles STOPPING → STOPPED."""
@@ -524,9 +595,6 @@ class Executor:
 
         run = compiled.run
         store, run_uuid = self.store, compiled.run_uuid
-        meta = store.get_status(run_uuid).get("meta") or {}
-        if meta.get("granted_chips") is not None:
-            raise NotImplementedError(f"an elastic grant (scheduler/fleet.py) {_ROADMAP}")
         ckpt_dir = local_ckpt_dir = None
         tspec = run.program.train
         if tspec and (tspec.checkpoint_every or tspec.resume):
@@ -537,7 +605,7 @@ class Executor:
         program = run.program
         if resume and tspec is not None:
             program = program.copy(train=tspec.copy(resume=True))
-        world = gang_size(run)
+        program, world = self._apply_elastic_grant(compiled, program)
         if world > 1:
             return self._run_distributed(compiled, world, program, ckpt_dir)
 
@@ -549,8 +617,8 @@ class Executor:
             data = store.get_status(run_uuid)
             if data.get("status") in (V1Statuses.STOPPING, V1Statuses.STOPPED):
                 raise StopRequested(f"stop requested at step {step}")
-            # a scheduler eviction rides the SIGTERM machinery (and is then
-            # refused by `_requeue_preempted`)
+            # a scheduler eviction rides the SIGTERM machinery: the trainer
+            # checkpoints at the next step boundary and raises Preempted
             if (data.get("meta") or {}).get("preempt_requested"):
                 preemption.trigger()
 
@@ -618,7 +686,9 @@ class Executor:
             payload["checkpointDir"] = ckpt_dir
         with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as spec_file:
             json.dump(payload, spec_file)
-        group = visible_group(self.devices)
+        # a grant below the gang trains on the first `world` devices of the
+        # group (without one, the workers take cuda:0 .. world - 1)
+        group = visible_group(self.devices[:world] if self.devices else None)
         term = compiled.component.termination
         root = str(Path(__file__).resolve().parents[2])
         path = os.environ.get("PYTHONPATH")

@@ -89,7 +89,8 @@ reference's jit with shardings does (a world of one needs no process
 group of the caller's: the trainer starts one), for every model of the
 registry. Each rank builds the same host batch and takes its slice
 (`make_global_batch`): the batch over data x fsdp, the sequence of the
-flagship's token batches over `context`. The parameters are DTensors
+token batches (the flagship's, BERT's and seq2seq's) over `context`,
+where a classifier's batch stays whole on every `context` rank. The parameters are DTensors
 placed by the model's rules (`ModelBundle.sharding_rules`), gathered for
 the forward but where it keeps them split (`ModelBundle.split`: tensor
 parallelism over `model`, the experts over `expert`, the stages over
@@ -102,9 +103,11 @@ loss. BatchNorm takes its statistics over the global batch
 (`models/layers.py`), so the running statistics are the same on every
 rank. Rank 0 alone writes metrics, events, logs, spans, the profile and
 checkpoints, which hold the full tensors in the single-device format (a
-mesh, another mesh or one device resumes from them). A `context` axis
-over a zoo model (its attention needs the whole sequence) is refused
-with NotImplementedError (see ROADMAP.md).
+mesh, another mesh or one device resumes from them). Under `context` the
+encoders' self-attention runs on the ring (`models/encoder.py`); the
+masked-LM count sums over `context` like the batch axes, so a
+classifier's `context` ranks each hold an equal share of one loss and
+their summed gradients count the batch once.
 """
 
 from __future__ import annotations
@@ -372,13 +375,12 @@ class Trainer:
                 )
 
         ctx = sizes.get("context", 1)
-        if cfg is None:  # the zoo
-            if ctx > 1:
-                raise NotImplementedError(
-                    f"a context axis over model {self.bundle.name!r} (its attention "
-                    "reads the whole sequence) is not ported to PyTorch yet "
-                    "(see ROADMAP.md)"
-                )
+        if cfg is None:  # the zoo: an mlm model's token sequence splits
+            if self.bundle.task == "mlm":
+                meta = self.data.meta
+                for key in ("seq_len", "src_len", "tgt_len"):
+                    if meta.get(key):
+                        check(ctx, int(meta[key]), f"data {key}")
             return
         model = sizes.get("model", 1)
         check(model, cfg.n_heads, "n_heads")

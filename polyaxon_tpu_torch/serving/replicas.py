@@ -19,9 +19,11 @@ handles. Two shapes are provided —
   (a command line that serves a ModelServer on port N), probed on /readyz until ready.
   The real shape — each replica owns its devices and its GIL.
 
-The reference also places each slot through a fleet reservation
-(`polyaxon_tpu/scheduler/fleet.py`); the port has no fleet yet, so
-`fleet=None` is the only placement (ROADMAP.md).
+With a configured fleet (`fleet=`, `scheduler/fleet.py`) each slot holds a
+reservation of `chips_per_replica` chips under queue `serving` (the same
+all-or-nothing placement training runs use, so serving and training never
+double-book a chip), taken before the slot starts and released when it
+is drained or stopped.
 
 Slot URLs are sticky: `endpoints()` keeps a crashed slot's last URL
 until the restart replaces it, so the router's positional slugs (r0,
@@ -156,18 +158,13 @@ class ReplicaSetManager:
         factory: Callable[[int], object],
         replicas: int = 1,
         *,
-        fleet=None,  # the reference's per-slot reservation: not ported
+        fleet=None,
         chips_per_replica: int = 1,
         name: str = "serve",
         retry: Optional[RetryPolicy] = None,
         registry: Optional[MetricsRegistry] = None,
         monitor_interval_s: float = 0.5,
     ):
-        if fleet is not None:
-            raise NotImplementedError(
-                "ReplicaSetManager(fleet=...) (fleet reservations per replica) "
-                "is not ported yet (see ROADMAP.md): pass fleet=None"
-            )
         self._factory = factory
         self.target = int(replicas)
         self.fleet = fleet
@@ -216,14 +213,27 @@ class ReplicaSetManager:
         return f"{self.name}-r{i}"
 
     def _launch(self, i: int) -> None:
-        """Run slot `i`; raises if it fails so the monitor can apply
-        backoff."""
+        """Reserve (fleet) then run slot `i`; raises if either fails so
+        the monitor can apply backoff."""
+        if self.fleet is not None and self.fleet.configured:
+            rec = self.fleet.reserve(self._reservation_uuid(i),
+                                     chips=self.chips_per_replica, queue="serving")
+            if rec is None:
+                raise RuntimeError(
+                    f"fleet: no capacity for replica {i} ({self.chips_per_replica} chips)")
         rep = self._factory(i)
         url = rep.start()
         with self._lock:
             self._replicas[i] = rep
             self._urls[i] = url
             self._launched_t[i] = _now()
+
+    def _release(self, i: int) -> None:
+        if self.fleet is not None and self.fleet.configured:
+            try:
+                self.fleet.release(self._reservation_uuid(i))
+            except Exception:  # noqa: BLE001 — a failed release never blocks a stop
+                pass
 
     def endpoints(self) -> list[str]:
         """Slot URLs in slot order — the router's endpoint provider."""
@@ -323,6 +333,7 @@ class ReplicaSetManager:
                 rep.stop(drain_grace_s=None)
             except Exception:
                 pass
+        self._release(i)
         with self._lock:
             if remove:
                 self._replicas.pop(i, None)
@@ -369,6 +380,7 @@ class ReplicaSetManager:
                         rep.kill()
                 except Exception:
                     pass
+            self._release(i)
         with self._lock:
             self._replicas.clear()
             self._urls.clear()

@@ -211,8 +211,6 @@ class RunStore:
         self, run_uuid: str, status: str, reason: str = "", message: str = ""
     ):
         self._ensure_migrated(run_uuid)
-        if is_done(V1Statuses(status)):
-            self._refuse_fleet()
 
         def _validate(doc: dict) -> None:
             current = doc.get("status")
@@ -242,18 +240,22 @@ class RunStore:
             "runs.transitions", help="Run status transitions, all statuses"
         ).inc()
         reg.counter(f"runs.transitions.{V1Statuses(status).value}").inc()
+        # chips never outlive the lifecycle: every terminal transition
+        # drops the run's gang reservation, whichever process drove it there
+        if is_done(V1Statuses(status)):
+            self._release_reservation(run_uuid)
 
-    def _refuse_fleet(self) -> None:
-        """A store with a fleet (`fleet/reservations.json`) has gang
-        reservations that a terminal transition must release; the fleet
-        is not ported yet, so such a transition is refused before it
-        commits. Stores without a fleet behave as the reference's."""
-        if (self.home / "fleet" / "reservations.json").exists():
-            raise NotImplementedError(
-                "this store has a fleet (fleet/reservations.json): releasing "
-                "a run's gang reservation (scheduler/fleet.py) is not ported "
-                "to PyTorch yet (see ROADMAP.md)"
-            )
+    def _release_reservation(self, run_uuid: str) -> None:
+        """Drop the run's fleet reservation, if any. Guarded on the ledger
+        file, so a store without a fleet pays no import and no lock."""
+        if not (self.home / "fleet" / "reservations.json").exists():
+            return
+        from ..scheduler.fleet import Fleet
+
+        try:
+            Fleet(self).release(run_uuid)
+        except Exception:  # noqa: BLE001
+            pass  # a release failure never blocks a status transition
 
     def get_status(self, run_uuid: str) -> dict:
         return _read_json(self.run_dir(run_uuid) / "status.json") or {}

@@ -73,6 +73,7 @@ class SweepDriver:
         store: Optional[RunStore] = None,
         project: Optional[str] = None,
         devices: Optional[list] = None,
+        sweep_uuid: Optional[str] = None,
         log_fn=print,
     ):
         if op.matrix is None:
@@ -82,7 +83,9 @@ class SweepDriver:
         self.store = store or RunStore()
         self.project = project
         self.devices = devices
-        self.sweep_uuid: Optional[str] = None  # set by run(), for stop hooks
+        # an existing run as the sweep's record (the agent's queued sweep);
+        # else run() creates one
+        self.sweep_uuid: Optional[str] = sweep_uuid
         self.log = log_fn
         metric = getattr(self.matrix, "metric", None)
         self.metric_name = metric.name if metric else "loss"
@@ -93,27 +96,33 @@ class SweepDriver:
         import uuid as _uuid
 
         mgr = build_manager(self.matrix)
-        sweep_uuid = self.sweep_uuid = _uuid.uuid4().hex
-        # the RAW operation wholesale, so clones (ops restart) rebuild a
-        # submittable sweep — templates, matrix, pathRef all intact
-        self.store.create_run(
-            sweep_uuid,
-            (self.op.name or "sweep") + "-sweep",
-            self.project or "default",
-            {
-                "name": self.op.name,
-                "operation": self.op.to_dict(),
-                "matrix": self.matrix.to_dict(),
-            },
-            tags=["sweep"],
-        )
+        if self.sweep_uuid is not None:
+            sweep_uuid = self.sweep_uuid  # the queued run is the sweep's record
+        else:
+            sweep_uuid = self.sweep_uuid = _uuid.uuid4().hex
+            # the RAW operation wholesale, so clones (ops restart) rebuild a
+            # submittable sweep — templates, matrix, pathRef all intact
+            self.store.create_run(
+                sweep_uuid,
+                (self.op.name or "sweep") + "-sweep",
+                self.project or "default",
+                {
+                    "name": self.op.name,
+                    "operation": self.op.to_dict(),
+                    "matrix": self.matrix.to_dict(),
+                },
+                tags=["sweep"],
+            )
         for s in (
             V1Statuses.COMPILED,
             V1Statuses.QUEUED,
             V1Statuses.SCHEDULED,
             V1Statuses.RUNNING,
         ):
-            self.store.set_status(sweep_uuid, s)
+            # a queued sweep arrives QUEUED: the earlier rungs are skipped
+            current = self.store.get_status(sweep_uuid).get("status")
+            if current != s and can_transition(V1Statuses(current), s):
+                self.store.set_status(sweep_uuid, s)
         trials: list[TrialResult] = []
         iteration = 0
         stopped = False
@@ -316,13 +325,17 @@ def run_sweep(
     store: Optional[RunStore] = None,
     project: Optional[str] = None,
     devices: Optional[list] = None,
+    sweep_uuid: Optional[str] = None,
     log_fn=print,
 ) -> dict:
-    """Run the sweep; returns a JSON-able summary (the CLI prints it)."""
+    """Run the sweep; returns a JSON-able summary (the CLI prints it).
+    `sweep_uuid`: an existing run as the sweep's record (the agent's
+    queued sweep)."""
     driver = SweepDriver(
         op,
         store=store,
         project=project,
+        sweep_uuid=sweep_uuid,
         devices=devices,
         log_fn=log_fn,
     )

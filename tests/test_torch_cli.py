@@ -210,7 +210,13 @@ def test_ops_resume_continues_from_the_newest_checkpoint(homes, tmp_path, monkey
     assert [m["step"] for m in store.read_metrics(child)] == [3, 4, 5, 6]
     assert store.get_status(child)["meta"]["cloned_from"] == src
     assert any(e["kind"] == "lineage" for e in store.read_events(src))
-    assert "--queue" in homes.ours("ops", "resume", "-uid", src, "--queue")[2]
+    # --queue: the clone waits for an agent, which drains it
+    code, out, err = homes.ours("ops", "resume", "-uid", src, "--queue")
+    assert code == 0 and re.fullmatch(r"resume of \w{8} -> run \w{8} \(queued\)\n", out), err
+    assert homes.ours("agent", "drain") == (0, "processed 1 run(s)\n", "")
+    queued = [r["uuid"] for r in store.list_runs() if r["name"] == "ckpt-resume"][-1]
+    assert store.get_status(queued)["status"] == "succeeded"
+    assert [m["step"] for m in store.read_metrics(queued)] == [3, 4, 5, 6]
 
 
 # ------------------------------------------------------------------ refusals
@@ -231,7 +237,8 @@ def _with_scan_layers(example: str) -> str:
 
 # A gang (replicas over several devices) runs, the zoo's included
 # (tests/test_torch_worker_replicas.py). A scanned config (`scan_layers`)
-# checks as the reference's does and its tiny gang runs; what is left
+# checks as the reference's does and its tiny gang runs; a schedule is
+# registered for the agent, as the reference's `run` does; what is left
 # unported is refused by name.
 @pytest.mark.parametrize("argv,what", [
     (["check", "-f", "@scan-longcontext"], None),
@@ -242,7 +249,8 @@ def _with_scan_layers(example: str) -> str:
 ])
 def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, what):
     files = {
-        "@sched": _op_file(tmp_path, "sched", "kind: operation\nschedule: {kind: cron}\n" + JOB),
+        "@sched": _op_file(tmp_path, "sched", "kind: operation\nschedule: {kind: interval, "
+                                              "frequency: 3600}\n" + JOB),
         "@conn": _op_file(tmp_path, "conn", "kind: operation\n" + JOB.replace(
             "kind: job,", "kind: job, connections: [s3],")),
         "@scan-longcontext": _op_file(tmp_path, "scan-lc", _with_scan_layers("longcontext.yaml")),
@@ -257,6 +265,13 @@ def test_refusals_are_clean_errors_naming_the_roadmap(homes, tmp_path, argv, wha
     }
     argv = [files.get(a, a) for a in argv]
     code, out, err = homes.ours(*argv)
+    if what == "schedule":
+        rcode, rout, _ = homes.ref(*argv)
+        sid = re.compile(r"^schedule \w{12} ")
+        assert code == rcode == 0 and sid.sub("", out) == sid.sub("", rout), (out, rout, err)
+        assert re.fullmatch(r"schedule \w{12} registered \(interval\); a running agent "
+                            r"\(`polyaxon agent start`\) fires it\n", out)
+        return
     if what is not None:
         assert code == 1 and out == ""
         assert err.startswith("Error: ") and what in err and "ROADMAP.md" in err, err
@@ -372,6 +387,60 @@ def test_a_sweep_without_a_card_is_a_clean_error(homes, tmp_path, monkeypatch):
         code = main(["run", "-f", sweep])
     assert code == 1 and out.getvalue() == "" and "torch.cuda.is_available()" in err.getvalue()
     assert RunStore(home).list_runs() == []
+
+
+def test_scheduler_commands_print_the_reference_lines(tmp_path):
+    """queues, fleet (init, show, quota) and agent drain on a fresh home of
+    each package: the same lines, JSON and exit codes."""
+    homes = Homes(tmp_path)
+    for argv in (["fleet", "init", "--chips", "4"], ["fleet", "init", "--topology", "2x4"],
+                 ["fleet", "init", "--topology", "bad"],
+                 ["fleet", "quota", "set", "team-a", "--max-chips", "2", "--weight", "2"],
+                 ["fleet", "quota", "set", "queue:bulk", "--max-runs", "1"],
+                 ["fleet", "quota", "set", "x", "--weight", "0"],
+                 ["fleet", "quota", "ls"], ["fleet", "quota", "rm", "team-a"],
+                 ["fleet", "quota", "rm", "team-a"], ["fleet", "show"],
+                 ["queues", "set", "bulk", "--concurrency", "2", "--priority", "3"],
+                 ["queues", "ls"], ["agent", "drain"], ["agent", "drain", "--queue", "bulk"]):
+        code, out, err = homes.ours(*argv)
+        rcode, rout, _ = homes.ref(*argv)
+        assert code == rcode, (argv, err)
+        assert out == rout, argv
+        if code:
+            assert err.startswith("Error: "), argv
+    for flags in (["--cluster"], ["--namespace", "ns"], ["--context", "kind"],
+                  ["--kube-dry-run"]):
+        code, _, err = homes.ours("agent", "start", *flags)
+        assert code == 1 and flags[0] in err and "k8s/" in err and "ROADMAP.md" in err
+
+
+def test_agent_start_fires_a_schedule_and_stats_shows_the_fleet(tmp_path):
+    homes = Homes(tmp_path)
+    assert homes.ours("fleet", "init", "--chips", "1")[0] == 0
+    spec = _op_file(tmp_path, "tick", "kind: operation\nname: tick\nschedule: {kind: interval, "
+                    "frequency: 1, maxRuns: 1}\n" + JOB)
+    assert homes.ours("run", "-f", spec)[0] == 0
+    store = RunStore(homes.ours_home)
+    done = threading.Event()
+
+    def stop_when_fired():
+        deadline = time.time() + 30
+        while time.time() < deadline and not done.is_set():
+            runs = store.list_runs()
+            if runs and store.get_status(runs[0]["uuid"]).get("status") == "succeeded":
+                break
+            time.sleep(0.1)
+        os.kill(os.getpid(), signal.SIGINT)
+
+    threading.Thread(target=stop_when_fired, daemon=True).start()
+    code, out, err = homes.ours("agent", "start", "--poll-interval", "0.1")
+    done.set()
+    assert code == 0 and out == "agent started; polling all queues (ctrl-c to stop)\n", err
+    (run,) = store.list_runs()
+    assert store.get_status(run["uuid"])["status"] == "succeeded"
+    code, out, _ = homes.ours("stats", run["uuid"][:8])
+    assert code == 0 and out.startswith(f"run {run['uuid'][:8]}  status=succeeded\n")
+    assert "reservation" not in out  # released on the terminal transition
 
 
 def test_remote_control_plane_is_refused(homes):

@@ -304,6 +304,12 @@ SCAN_LM = {**LM, "config": {**LM["config"], "scan_layers": True}}
 ])
 def test_refusals_name_the_roadmap(stores, doc, what):
     compiled = compile_operation(V1Operation.from_dict(doc), run_uuid=UUID)
+    if what == "schedule":  # the agent fires a schedule; a firing runs as any op
+        from polyaxon_tpu_torch.runtime.executor import refusal
+
+        assert refusal(compiled) is None
+        assert Executor(stores[0], device="cpu").execute(compiled) == "succeeded"
+        return
     if what is None:
         from polyaxon_tpu_torch.models import build_model
         from polyaxon_tpu_torch.runtime.executor import gang_size, refusal
@@ -343,8 +349,13 @@ def test_a_mesh_on_one_device_runs_the_single_device_program(stores):
 
 
 def test_scheduler_eviction_and_elastic_grant_are_refused_at_run_time(stores):
-    """Nothing in the port sets them yet (no agent, no fleet), but a run
-    whose meta carries them fails by name instead of half-handling them."""
+    """A scheduler eviction (`preempt_requested` set at a log point)
+    checkpoints at the step boundary, releases the run's reservation and
+    requeues it at its original priority; a grant in the meta of a run
+    that is not elastic changes nothing."""
+    from polyaxon_tpu_torch.scheduler.fleet import Fleet
+    from polyaxon_tpu_torch.scheduler.queue import RunQueue
+
     store = stores[0]
     log_metrics = store.log_metrics
 
@@ -354,18 +365,28 @@ def test_scheduler_eviction_and_elastic_grant_are_refused_at_run_time(stores):
             store.set_meta(run_uuid, preempt_requested=True)
 
     store.log_metrics = evict_at_step_1
-    compiled = compile_operation(V1Operation.from_dict(op(program(MLP, MNIST, 4))),
-                                 run_uuid=UUID)
-    with pytest.raises(NotImplementedError, match=r"evicted.*ROADMAP\.md"):
-        Executor(store, device="cpu").execute(compiled)
-    assert conditions(store, UUID)[-1] == ("failed", "NotImplementedError")
+    doc = op(program(MLP, MNIST, 4))
+    doc["component"]["run"]["program"]["train"]["checkpointEvery"] = 2
+    compiled = compile_operation(V1Operation.from_dict(doc), run_uuid=UUID)
+    Fleet(store).configure(chips=1)
+    store.create_run(UUID, "t", "default", compiled.to_dict(),
+                     meta={"queue": "bulk", "priority": 3})
+    assert Fleet(store).reserve(UUID, chips=1) is not None
+    assert Executor(store, device="cpu").execute(compiled) == "queued"
+    assert conditions(store, UUID)[-2:] == [("retrying", "evicted"), ("queued", "")]
     assert not preemption.requested()
+    (entry,) = RunQueue(store, name="bulk").peek_all()
+    assert (entry["uuid"], entry["priority"], entry["chips"]) == (UUID, 3, 1)
+    assert Fleet(store).ledger.get(UUID) is None
+    meta = store.get_status(UUID)["meta"]
+    assert meta["preempt_restarts"] == 1 and meta["preempt_requested"] is False
+    (evicted,) = [e for e in store.read_events(UUID) if e.get("scheduler")]
+    assert evicted["kind"] == "preempted" and evicted["step"] == 2  # the boundary's checkpoint
 
     store.log_metrics = log_metrics
     uid = "d" * 32
     compiled = compile_operation(V1Operation.from_dict(op(program(MLP, MNIST, 2))),
                                  run_uuid=uid)
     store.create_run(uid, "t", "default", compiled.to_dict(), meta={"granted_chips": 2})
-    assert Executor(store, device="cpu").execute(compiled) == "failed"
-    status = store.get_status(uid)["conditions"][-1]
-    assert status["reason"] == "NotImplementedError" and "ROADMAP.md" in status["message"]
+    assert Executor(store, device="cpu").execute(compiled) == "succeeded"
+    assert not [e for e in store.read_events(uid) if e["kind"] == "elastic_resize"]

@@ -347,9 +347,44 @@ def test_federated_metricsz_statsz_and_stitched_tracez(fleet):
     assert any(s["attrs"].get("remote") for s in t["spans"])
 
 
-def test_fleet_placement_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplicaSetManager(lambda i: None, fleet=object())
+def test_fleet_placement_is_refused_by_name(tmp_path):
+    """`fleet=`: each slot holds a reservation of `chips_per_replica` chips
+    under queue `serving` while it runs, as the reference's slots do, and
+    gives it back when it is drained or stopped."""
+    from polyaxon_tpu.scheduler.fleet import Fleet as JaxFleet
+    from polyaxon_tpu.store.local import RunStore as JaxRunStore
+    from polyaxon_tpu_torch.scheduler.fleet import Fleet
+    from polyaxon_tpu_torch.store import RunStore
+
+    class Stub:
+        def __init__(self, i):
+            self.i, self.up = i, False
+
+        def start(self):
+            self.up = True
+            return f"http://stub-{self.i}"
+
+        def alive(self):
+            return self.up
+
+        def stop(self, drain_grace_s=None):
+            self.up = False
+
+    fleet = Fleet(RunStore(tmp_path))
+    fleet.configure(chips=4)
+    mgr = ReplicaSetManager(Stub, replicas=2, fleet=fleet, chips_per_replica=2, name="svc")
+    mgr.start()
+    try:
+        recs = JaxFleet(JaxRunStore(tmp_path)).ledger.all()  # the reference reads them
+        assert {u: (r["chips"], r["queue"]) for u, r in recs.items()} == {
+            "svc-r0": (2, "serving"), "svc-r1": (2, "serving")}
+        with pytest.raises(RuntimeError, match="no capacity for replica 2"):
+            mgr._launch(2)
+        mgr.scale_to(1)  # the drained slot gives its chips back
+        assert list(fleet.ledger.all()) == ["svc-r0"]
+    finally:
+        mgr.stop()
+    assert fleet.reserved_chips() == 0
 
 
 # ----------------------------------------- affinity in adapter namespaces

@@ -234,14 +234,31 @@ def test_racing_terminal_transitions_commit_once(tmp_path):
 
 
 def test_a_fleet_store_refuses_terminal_transitions_by_name(tmp_path):
+    """A store with a fleet releases a run's gang reservation on each
+    terminal transition (succeeded, failed, stopped) and not before, as the
+    reference's does; the ledger reads the same in both packages."""
+    from polyaxon_tpu.scheduler.fleet import Fleet as JaxFleet
+    from polyaxon_tpu_torch.scheduler.fleet import Fleet
+
     store = RunStore(tmp_path)
-    _first_half(store)
-    (tmp_path / "fleet").mkdir()
-    (tmp_path / "fleet" / "reservations.json").write_text("{}")
-    store.set_status(UUID, "running")  # not terminal: as the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        store.set_status(UUID, "succeeded")
-    assert store.get_status(UUID)["status"] == "running"  # nothing committed
+    fleet = Fleet(store)
+    fleet.configure(chips=3)
+    fleet.reserve("other", chips=1)
+    for end in ("succeeded", "failed", "stopped"):
+        uid = f"run-{end}"
+        store.create_run(uid, uid, "p", {})
+        fleet.reserve(uid, chips=2)
+        for status in ("compiled", "queued", "scheduled", "starting", "running"):
+            store.set_status(uid, status)  # not terminal: the chips stay held
+        if end == "stopped":
+            store.set_status(uid, "stopping")
+        assert fleet.ledger.get(uid)["chips"] == 2
+        assert JaxFleet(JaxRunStore(tmp_path)).reserved_chips() == 3
+        store.set_status(uid, end)
+        assert store.get_status(uid)["status"] == end
+        assert fleet.ledger.get(uid) is None, f"leaked on {end}"
+        assert JaxFleet(JaxRunStore(tmp_path)).reserved_chips() == 1
+    assert fleet.ledger.get("other") is not None  # another run's stays
 
 
 def test_delete_run_removes_queue_entries(tmp_path):

@@ -24,14 +24,30 @@ shard of one parameter of each rule, after loading, equals the
 addressable shard of the JAX array on the device whose id is that rank.
 A checkpoint of ResNet on {fsdp: 2} restores on one process, running
 statistics included.
+
+BERT, seq2seq and the MLP also train on {context: 2}, each against its
+JAX Trainer on {context: 2}, which shards the token sequence over
+`context` (its positions those of the global sequence): the port's
+encoders run their self-attention on the ring, seq2seq gathers its
+encoder's memory for cross-attention, and the MLP's batch stays whole on
+both ranks. BERT with dropout trains on {context: 2} as the port does on
+one process: each rank's mask is its rows of the whole sequence's. The
+gather (`parallel.collectives.gather_seq`) is held on a 2-rank world of
+its own: its forward concatenates the ranks' chunks, its backward sums
+the cotangents of each rank's slice (a reduce-scatter).
 """
 
+import json
+import os
 import re
+import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from polyaxon_tpu.models.registry import build_model as jax_build_model
 from polyaxon_tpu.parallel.mesh import build_mesh as jax_build_mesh
@@ -41,7 +57,7 @@ from polyaxon_tpu.schemas.run_kinds import V1Program as JaxProgram
 from polyaxon_tpu_torch.models import build_model
 from polyaxon_tpu_torch.models.convert import params_from_jax, zoo_layout
 from polyaxon_tpu_torch.runtime import Trainer
-from torch_mesh_workers import run_world
+from torch_mesh_workers import REPO, free_port, run_world
 
 STEPS = 3
 ADAMW = {"name": "adamw", "learningRate": 3e-3,
@@ -78,6 +94,12 @@ MESHES = {"data2": {"data": 2}, "fsdp2": {"fsdp": 2}, "model2": {"model": 2}}
 CASES = {f"{fam}-{mesh}": (fam, axes) for fam in FAMILIES for mesh, axes in MESHES.items()}
 CASES["resnet-data4"] = ("resnet", {"data": 4})
 REFERENCE_MESH = {"data": 2}
+CONTEXT_MESH = {"context": 2}
+CONTEXT_FAMILIES = ("mlp", "bert", "seq2seq")
+CASES.update({f"{fam}-context2": (fam, CONTEXT_MESH) for fam in CONTEXT_FAMILIES})
+# BERT with dropout on {context: 2}, against the port on one process
+DROPOUT_BERT = {**FAMILIES["bert"], "model": {"name": "bert", "config": {
+    **FAMILIES["bert"]["model"]["config"], "dropout_rate": 0.3}}}
 
 
 def _world(axes):
@@ -102,13 +124,20 @@ def _orient(a, how):
     return np.transpose(a, how) if how else a
 
 
-def _jax_family(fam):
-    """The family's JAX Trainer on {data: 2}, with its initial params and
-    extra state. GSPMD computes the same function on every mesh, so its
-    numbers hold each of the port's meshes (within the f32 order of the
-    ranks' sums)."""
-    jt = JaxTrainer(JaxProgram.from_dict(FAMILIES[fam]), mesh_axes=REFERENCE_MESH,
-                    devices=jax.devices()[:_world(REFERENCE_MESH)])
+def _reference(name):
+    """The JAX Trainer a case is held against, (family, mesh name): the
+    family's on {context: 2} for a context case, else on {data: 2}."""
+    fam, axes = CASES[name]
+    return fam, "context2" if "context" in axes else "data2"
+
+
+def _jax_family(fam, axes):
+    """The family's JAX Trainer on `axes`, with its initial params and
+    extra state. GSPMD computes the same function on every mesh, so the
+    {data: 2} numbers hold each of the port's batch and model meshes
+    (within the f32 order of the ranks' sums)."""
+    jt = JaxTrainer(JaxProgram.from_dict(FAMILIES[fam]), mesh_axes=axes,
+                    devices=jax.devices()[:_world(axes)])
     return (jt, jax.tree.map(lambda a: np.array(a, copy=True), jt.state.params),
             jax.tree.map(lambda a: np.array(a, copy=True), jt.state.extra))
 
@@ -141,6 +170,14 @@ def _jax_shards(name, init):
     return shards
 
 
+def _one_process(program, state):
+    """`program`'s history on the port's Trainer in this process, from
+    `state`."""
+    one = Trainer(program, device="cpu")
+    one.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return one.run().history
+
+
 def _state(params, extra):
     return {k: v.numpy() for k, v in params_from_jax(
         params, None, extra.get("batch_stats")).items()}
@@ -149,34 +186,45 @@ def _state(params, extra):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """name → (the JAX case, the port's results on every rank); the JAX
-    references train beside the port's two worlds (processes)."""
+    references train beside the port's two worlds (processes). Every case
+    starts from its family's {data: 2} initial state (the seed's, on any
+    mesh), so the {context: 2} references are built once the worlds run."""
     ckpt = str(tmp_path_factory.mktemp("zoo-mesh-ckpt"))
-    trainers = {fam: _jax_family(fam) for fam in FAMILIES}
+    trainers = {(fam, "data2"): _jax_family(fam, REFERENCE_MESH) for fam in FAMILIES}
+
+    def trainer(name):
+        return trainers[_reference(name)]
+
     by_world: dict = {2: [], 4: []}
     for name, (fam, axes) in CASES.items():
-        _, init, extra = trainers[fam]
+        _, init, extra = trainers[fam, "data2"]
         by_world[_world(axes)].append((name, ("trainer_run", dict(
             program=FAMILIES[fam], mesh_axes=axes, state=_state(init, extra),
             shards=rule_params(fam)))))
     by_world[2].append(("save-resnet-fsdp2", ("trainer_run", dict(
         program={**FAMILIES["resnet"], "train": {**FAMILIES["resnet"]["train"], "steps": 2,
                                                   "checkpointEvery": 2}},
-        mesh_axes={"fsdp": 2}, state=_state(*trainers["resnet"][1:]), checkpoint_dir=ckpt))))
-    by_world[2].append(("context-bert", ("trainer_error", dict(
-        program=FAMILIES["bert"], mesh_axes={"context": 2}))))
+        mesh_axes={"fsdp": 2}, state=_state(*trainer("resnet-fsdp2")[1:]),
+        checkpoint_dir=ckpt))))
+    bert_state = _state(*trainers["bert", "data2"][1:])
+    by_world[2].append(("dropout-bert-context2", ("trainer_run", dict(
+        program=DROPOUT_BERT, mesh_axes=CONTEXT_MESH, state=bert_state))))
     with ThreadPoolExecutor(1) as pool:  # the worlds, one after the other
         worlds = pool.submit(lambda: {n: run_world(n, [case for _, case in work])
                                       for n, work in by_world.items()})
-        ran = {fam: _jax_run(trainers[fam][0]) for fam in FAMILIES}
+        dropout_one = pool.submit(_one_process, DROPOUT_BERT, bert_state)
+        trainers.update({(fam, "context2"): _jax_family(fam, CONTEXT_MESH)
+                         for fam in CONTEXT_FAMILIES})
+        ran = {key: _jax_run(t[0]) for key, t in trainers.items()}
         per_world = worlds.result()
-    port = {}
+    port = {"dropout-bert-one": dropout_one.result()}
     for n, work in by_world.items():
         for i, (name, _) in enumerate(work):
             port[name] = [rank[i] for rank in per_world[n]]
     # name → (initial params, initial extra, shards, history, final
     # params, final extra)
-    jax_out = {name: (*trainers[fam][1:], _jax_shards(name, trainers[fam][1]), *ran[fam])
-               for name, (fam, _) in CASES.items()}
+    jax_out = {name: (*trainer(name)[1:], _jax_shards(name, trainer(name)[1]),
+                      *ran[_reference(name)]) for name in CASES}
     return jax_out, port, ckpt
 
 
@@ -258,8 +306,76 @@ def test_zoo_checkpoint_restores_on_one_process(runs):
 
 
 def test_zoo_context_axis_is_refused(runs):
-    """A context axis over an encoder would split the sequence its
-    attention reads whole: refused by name (ROADMAP.md) on every rank."""
-    for err in runs[1]["context-bert"]:
-        assert err[0] == "NotImplementedError"
-        assert re.search(r"context axis over model 'bert'.*ROADMAP\.md", err[1]), err
+    """A context axis over the zoo trains: BERT, seq2seq and the MLP on
+    {context: 2} give every rank the JAX Trainer's numbers on {context:
+    2}, whose encoders see the sequence sharded over `context`."""
+    jax_out, port, _ = runs
+    for fam in CONTEXT_FAMILIES:
+        name = f"{fam}-context2"
+        # the reference started where the port did: the {data: 2} state
+        for ours, started in ((jax_out[name][0], jax_out[f"{fam}-data2"][0]),
+                              (jax_out[name][1], jax_out[f"{fam}-data2"][1])):
+            assert jax.tree.all(jax.tree.map(np.array_equal, ours, started)), name
+        want = _rows(jax_out[name][3])
+        assert len(port[name]) == 2
+        for rank in port[name]:
+            ours = _rows(rank["history"])
+            assert [h["step"] for h in ours] == list(range(1, STEPS + 1)), name
+            for a, b in zip(ours, want):
+                np.testing.assert_allclose(a["loss"], b["loss"], rtol=5e-5, err_msg=name)
+                np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=5e-5,
+                                           err_msg=name)
+
+
+def test_context_dropout_masks_are_one_devices(runs):
+    """BERT with dropout 0.3 on {context: 2} trains as the port does on
+    one process from the same weights: each rank's mask is its rows of
+    the whole sequence's (chunks drawing one mask alike would not)."""
+    jax_out, port, _ = runs
+    want = _rows(port["dropout-bert-one"])
+    plain = _rows(jax_out["bert-context2"][3])
+    assert abs(want[0]["loss"] - plain[0]["loss"]) > 1e-3  # the dropout is live
+    for rank in port["dropout-bert-context2"]:
+        ours = _rows(rank["history"])
+        assert len(ours) == len(want) == STEPS
+        for a, b in zip(ours, want):
+            np.testing.assert_allclose(a["loss"], b["loss"], rtol=5e-5)
+            np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=5e-5)
+
+
+_GATHER_RANK = """
+import json, os, sys, torch, torch.distributed as dist
+from polyaxon_tpu_torch.parallel.collectives import gather_seq
+rank = int(os.environ["RANK"])
+dist.init_process_group("gloo", rank=rank, world_size=2)
+g = dist.new_group([0, 1])
+x = (torch.arange(2 * 3 * 4, dtype=torch.float64).reshape(2, 3, 4) + 100 * rank)
+x.requires_grad_(True)
+y = gather_seq(x, g, 1)
+w = torch.arange(y.numel(), dtype=torch.float64).reshape(y.shape) * (rank + 1)
+(y * w).sum().backward()
+print(json.dumps({"y": y.tolist(), "grad": x.grad.tolist()}))
+dist.destroy_process_group()
+"""
+
+
+def test_gather_seq_forward_and_reduce_scatter_backward():
+    """Rank r's chunk x_r: every rank gets [x_0 | x_1] along dim 1, and
+    the gradient of sum_r <y, w_r> with respect to x_r is the sum over
+    ranks of w_r's slice r."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, "-c", _GATHER_RANK], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1][-2000:] for o in outs]
+    got = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+    xs = [np.arange(24, dtype=np.float64).reshape(2, 3, 4) + 100 * r for r in range(2)]
+    full = np.concatenate(xs, axis=1)
+    w = np.arange(full.size, dtype=np.float64).reshape(full.shape)
+    for r in range(2):
+        np.testing.assert_array_equal(np.array(got[r]["y"]), full)
+        want = sum((k + 1) * w for k in range(2))[:, 3 * r: 3 * (r + 1)]
+        np.testing.assert_array_equal(np.array(got[r]["grad"]), want)
