@@ -327,7 +327,31 @@ BASELINE configurations.
                process with grad_accum 2; an interval `schedule:` registered by `run` firing twice
                under a bounded `agent serve`; `serve --replicas 1 --route`
                holding the card under queue `serving` until SIGTERM; and
-               the reservations file empty at the end.
+               the reservations file empty at the end;
+7g. remote   — the remote control plane on a store of its own: `python
+               -m polyaxon_tpu_torch streams start` as a child process
+               and the port's agent serving that store in a thread here
+               on the card. With POLYAXON_STREAMS_URL set, `main(["run",
+               "-f", cli-lm.yaml, "-P", "steps=6", "--watch"])` POSTs
+               7c's program (the preset's width, 2 layers), the agent
+               trains it, exactly 24/12/12 flash launches; `ops
+               ls|get|metrics|statuses|logs` over HTTP print what they
+               print from the store itself, and `GET /runs?watch=` from
+               the cursor before the POST returns the run's transitions
+               in order through `succeeded`; 50 GETs each of the run's
+               `/metrics` and `/status` (p50, p95) and a watcher's lag
+               behind each event's commit. A second run of 200 steps is
+               POSTed and stopped by `ops stop` after its first logged
+               step: `stopped`, fewer steps. A container job (a script
+               written by the phase) attaches through
+               `tracking.init()`, runs `flash_attention` forward and
+               backward on the card at the preset's head shape against
+               the plain version (TOL, BWD_TOL), and logs the errors and
+               milliseconds with `log_metrics` and a file with
+               `log_artifact`, read back over HTTP by
+               `RunClient(base_url=)`. `top --once` names the two runs
+               active in its frame; `project create|ls|get` and `store
+               recover`. The children are ended in a `finally`.
 
     python3 chip_smoke.py --zoo TAG [--seeds N ...] [--lrs X ...]
 
@@ -347,7 +371,7 @@ Every phase prints JSON lines; any failed check raises and the script exits
 non-zero. The kernel counters are zeroed just before each main path
 (2b's ring drive, phases 3-4, then 4b, then 4c, then each config of 4e,
 then 4d, then phases 5, 5b, 7 (7b zeroes and reads its own, then puts 7's back), 7c's run,
-7d, 7e, 7f, 8, each configuration of 9 and each rank of 9b) and read just after it, so `launches` counts the main paths only (4b launches none:
+7d, 7e, 7f, 7g's first run, 8, each configuration of 9 and each rank of 9b) and read just after it, so `launches` counts the main paths only (4b launches none:
 decode attends by einsum, as the reference's does; 4c, 4d and 7b launch
 int8_matmul for every projection of their int8 configs). The `wall` line
 gives the seconds of each group of phases. The last lines are the kernels JSON line, the card's name
@@ -5020,6 +5044,277 @@ def phase_sched() -> dict:
     return launches
 
 
+# 7g. remote: the control plane. REMOTE_LONG_STEPS for the run that is
+# stopped after its first logged step, REMOTE_GETS timed GETs of each read
+# route, the tracked job's attention at the preset's head shape over
+# REMOTE_JOB_TOKENS tokens (the kernels' own tolerances, TOL and BWD_TOL)
+REMOTE_LONG_STEPS, REMOTE_GETS, REMOTE_JOB_TOKENS = 200, 50, 2048
+REMOTE_READY_S, REMOTE_RUN_S = 120.0, 600.0
+REMOTE_JOB = """\
+import json, sys, tempfile
+sys.path.insert(0, {here!r})
+import torch
+import chip_smoke
+from polyaxon_tpu_torch import tracking
+from polyaxon_tpu_torch.models.transformer import PRESETS
+from polyaxon_tpu_torch.ops import flash_attention as fa
+
+run = tracking.init()
+cfg = PRESETS[{preset!r}]
+B, S, H, KV = 1, {tokens}, cfg["n_heads"], cfg["n_kv_heads"]
+D = cfg["dim"] // H
+gen = torch.Generator(device="cuda").manual_seed(5)
+q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+         for _ in range(2))
+k, v = (torch.randn((B, S, KV, D), generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(2))
+q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+def kernel():
+    o = fa.flash_attention(q, k, v, causal=True)
+    return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+def plain():  # the kernels phase's plain forward and backward
+    with torch.no_grad():
+        o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return (o, *fa.flash_attention_bwd_reference(q, k, v, o, lse, do, delta, causal=True))
+
+for kern in fa.KERNELS:
+    kern.launches = 0
+got = kernel()
+launches = {{kern.name: kern.launches for kern in fa.KERNELS}}
+want = plain()
+err = {{name: chip_smoke.row_rel_err(a, b) for name, a, b in zip(("o", "dq", "dk", "dv"), got, want)}}
+tol = {{"o": chip_smoke.TOL["bfloat16"][0], "dq": chip_smoke.BWD_TOL["bfloat16"],
+        "dk": chip_smoke.BWD_TOL["bfloat16"], "dv": chip_smoke.BWD_TOL["bfloat16"]}}
+out = {{**{{f"{{k}}_row_rel_err": e for k, e in err.items()}},
+        "ms": chip_smoke.cuda_ms(kernel, reps=10), "plain_ms": chip_smoke.cuda_ms(plain, reps=3),
+        **{{f"launches_{{k}}": n for k, n in launches.items()}}}}
+run.log_metrics(step=0, **out)
+with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+    json.dump({{**out, "tol": tol, "shape": [B, S, H, KV, D]}}, f)
+run.log_artifact(f.name, name="flash_check.json")
+bad = {{k: e for k, e in err.items() if not e <= tol[k]}}
+print(json.dumps({{"tracked": out, "bad": bad}}), flush=True)
+sys.exit(1 if bad or launches != {{"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}} else 0)
+"""
+
+
+def _percentiles(xs: list) -> dict:
+    from polyaxon_tpu_torch.telemetry import quantile
+
+    return {"p50": quantile(xs, 0.5), "p95": quantile(xs, 0.95)}
+
+
+def _timed_gets(url: str, n: int) -> dict:
+    """p50 and p95 ms of `n` GETs of `url`."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            resp.read()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return _percentiles(ms)
+
+
+def _until(pred, timeout: float, what: str, poll: float = 0.1):
+    """Poll `pred()` until it returns something truthy; that value."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        got = pred()
+        if got:
+            return got
+        time.sleep(poll)
+    raise SmokeFailure(f"{what}: not within {timeout} s")
+
+
+def phase_remote() -> dict:
+    """The remote control plane (phase 7g); returns the kernel launches of
+    the run POSTed with `run --watch`."""
+    import os
+    import threading
+
+    from polyaxon_tpu_torch.cli.main import main
+    from polyaxon_tpu_torch.client import RunClient
+    from polyaxon_tpu_torch.ops.flash_attention import KERNELS
+    from polyaxon_tpu_torch.scheduler import Agent
+    from polyaxon_tpu_torch.schemas.lifecycle import DONE_STATUSES
+    from polyaxon_tpu_torch.schemas.operation import V1Operation
+    from polyaxon_tpu_torch.store import RunStore
+
+    t0 = time.perf_counter()
+    line: dict = {"phase": "remote", "device": device_line()}
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    with _cli_home("remote") as root:
+        home = root / "home"
+        store = RunStore(home)
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        log = ARTIFACTS / "streams_child.log"
+        with open(log, "w") as f:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "polyaxon_tpu_torch", "streams", "start", "--port",
+                 str(port)], cwd=HERE, env=dict(os.environ), stdout=f,
+                stderr=subprocess.STDOUT)
+        stop = threading.Event()
+        agent = threading.Thread(target=Agent(store=store).serve,
+                                 kwargs={"poll_interval": 0.2, "stop_when": stop.is_set})
+        lags: list = []
+        watching = threading.Event()
+
+        def watch(cursor):  # a client long-polling the event log as it commits
+            while not watching.is_set():
+                with urllib.request.urlopen(f"{url}/runs?watch={cursor}&timeout=2",
+                                            timeout=30) as resp:
+                    got = json.loads(resp.read())
+                now = time.time()
+                lags.extend(now - e["ts"] for e in got["events"])
+                cursor = got["cursor"]
+
+        watcher = None
+        try:
+            def ready():
+                check(child.poll() is None, f"the streams child exited: {log.read_text()}")
+                try:
+                    return _http(url + "/readyz").get("ready")
+                except Exception:  # noqa: BLE001 — not up yet
+                    return False
+
+            _until(ready, REMOTE_READY_S, "the streams child")
+            line["server_ready_s"] = time.perf_counter() - t0
+            agent.start()
+            os.environ["POLYAXON_STREAMS_URL"] = url
+            spec = root / "cli-lm.yaml"
+            spec.write_text(CLI_POLYAXONFILE.format(preset=PRESET, layers=CLI_LAYERS,
+                                                    tokens=TRAIN_TOKENS))
+            cursor = store.head_cursor()
+            watcher = threading.Thread(target=watch, args=(cursor,), daemon=True)
+            watcher.start()
+            for kern in KERNELS:  # the run POSTed over HTTP starts here
+                kern.launches = 0
+            t1 = time.perf_counter()
+            code, out = _cli(main, ["run", "-f", str(spec), "-P", f"steps={CLI_STEPS}",
+                                    "--name", "remote-lm", "--watch"])
+            line["run_watch_s"] = time.perf_counter() - t1
+            launches = {kern.name: kern.launches for kern in KERNELS}  # ... and ends here
+            check(code == 0 and f"created on {url}" in out and "finished: succeeded" in out,
+                  f"remote run --watch exited {code}: {out[-2000:]}")
+            expected = {k: PER_STEP[k] * CLI_LAYERS * CLI_STEPS for k in PER_STEP}
+            line.update({"launches": launches, "expected_launches": expected})
+            check(launches == expected, f"remote run launches {launches}, expected {expected}")
+            (run,) = store.list_runs()
+            uuid = run["uuid"]
+            conds = {c["type"]: c["ts"] for c in store.get_status(uuid)["conditions"]}
+            summary = next(e for e in store.read_events(uuid) if e["kind"] == "run_summary")
+            line.update({"post_to_running_s": conds["running"] - conds["created"],
+                         "steps_per_sec": summary["steps_per_sec"]})
+            steps = [m["step"] for m in store.read_metrics(uuid) if "loss" in m]
+            check(steps == list(range(1, CLI_STEPS + 1)), f"remote run steps {steps}")
+
+            # the ops verbs over HTTP print what they print from the store
+            for argv in (["ops", "ls"], ["ops", "metrics", "-uid", uuid[:8]],
+                         ["ops", "statuses", "-uid", uuid[:8]],
+                         ["ops", "logs", "-uid", uuid[:8]]):
+                remote = _cli(main, argv)
+                os.environ.pop("POLYAXON_STREAMS_URL")
+                local = _cli(main, argv)
+                os.environ["POLYAXON_STREAMS_URL"] = url
+                check(remote == local and remote[0] == 0,
+                      f"{' '.join(argv)} over HTTP {remote} against the store's {local}")
+            code, out = _cli(main, ["ops", "get", "-uid", uuid[:8]])
+            got = json.loads(out)
+            check(code == 0 and got["status"] == json.loads(json.dumps(
+                store.get_status(uuid), default=str))
+                  and got["metrics_tail"] == store.read_metrics(uuid)[-5:],
+                  f"ops get over HTTP: {out[:1000]}")
+
+            # the watch from the cursor before the POST: the transitions
+            events = _http(f"{url}/runs?watch={cursor}&timeout=0")["events"]
+            seen = [e["status"] if e["kind"] == "status" else e["kind"]
+                    for e in events if e.get("r") == uuid and e["kind"] in ("create", "status")]
+            want = ["create", *[c["type"] for c in store.get_status(uuid)["conditions"][1:]]]
+            check(seen == want and seen[-1] == "succeeded",
+                  f"watch transitions {seen}, the store's {want}")
+            line["watch_transitions"] = seen
+            line["get_metrics_ms"] = _timed_gets(f"{url}/runs/{uuid}/metrics", REMOTE_GETS)
+            line["get_status_ms"] = _timed_gets(f"{url}/runs/{uuid}/status", REMOTE_GETS)
+
+            # a long run stopped over HTTP after its first logged step, and a
+            # tracked container job queued behind it
+            client = RunClient(base_url=url)
+            code, out = _cli(main, ["run", "-f", str(spec), "-P", f"steps={REMOTE_LONG_STEPS}",
+                                    "--name", "remote-long"])
+            check(code == 0 and f"created on {url}" in out, f"remote run: {out}")
+            long_run = out.split()[1]
+            job = root / "tracked_job.py"
+            job.write_text(REMOTE_JOB.format(here=str(HERE), preset=PRESET,
+                                             tokens=REMOTE_JOB_TOKENS))
+            tracked = client.create(V1Operation.from_dict({
+                "version": 1.1, "kind": "operation", "name": "tracked-flash",
+                "component": {"kind": "component", "name": "tracked-flash",
+                              "termination": {"maxRetries": 0},
+                              "run": {"kind": "job", "container": {
+                                  "command": [sys.executable, str(job)]}}}}))
+            _until(lambda: [m for m in client.metrics(long_run) if "loss" in m],
+                   REMOTE_RUN_S, "the long run's first step")
+            code, frame = _cli(main, ["top", "--url", url, "--once"])
+            check(code == 0 and "remote-long" in frame and "tracked-flash" in frame
+                  and "\x1b" not in frame, f"top --once: {frame}")
+            line["top_frame"] = frame.splitlines()
+            t1 = time.perf_counter()
+            code, out = _cli(main, ["ops", "stop", "-uid", long_run])
+            check(code == 0, f"ops stop: {out}")
+            status = _until(lambda: client.get(long_run)["status"] in DONE_STATUSES
+                            and client.get(long_run)["status"], REMOTE_RUN_S, "the stop")
+            line["stop_s"] = time.perf_counter() - t1
+            done = [m["step"] for m in client.metrics(long_run) if "loss" in m]
+            check(status == "stopped" and 0 < len(done) < REMOTE_LONG_STEPS,
+                  f"the long run ended {status} after steps {done}")
+            line["stopped_after_steps"] = len(done)
+
+            status = client.wait(tracked, timeout=REMOTE_RUN_S, poll=0.2)
+            check(status == "succeeded",
+                  f"the tracked job ended {status}: {client.logs(tracked)[-3000:]}")
+            (metrics,) = client.metrics(tracked)
+            dest = root / "flash_check.json"
+            check("flash_check.json" in client.artifacts(tracked), "no artifact over HTTP")
+            saved = json.loads(Path(client.download_artifact(
+                tracked, "flash_check.json", dest)).read_text())
+            check(all(saved[k] == metrics[k] for k in saved if k in metrics)
+                  and all(saved[f"{k}_row_rel_err"] <= t for k, t in saved["tol"].items()),
+                  f"the tracked job's metrics {metrics} and artifact {saved}")
+            line["tracked"] = {k: metrics[k] for k in metrics if k not in ("ts", "step")}
+            line["tracked_tol"] = saved["tol"]
+
+            # projects, the store's recovery
+            for argv, want_out in ((["project", "create", "remote", "--description", "7g"],
+                                    "project remote created\n"),
+                                   (["store", "recover"], f"recovered {len(store.list_runs())} "
+                                                         "run(s)\n")):
+                code, out = _cli(main, argv)
+                check(code == 0 and out == want_out, f"{argv}: {out}")
+            code, out = _cli(main, ["project", "ls"])
+            check(code == 0 and out.splitlines()[0].split()[:2] == ["default", "3"]
+                  and out.splitlines()[1].startswith("remote"), f"project ls: {out}")
+            code, out = _cli(main, ["project", "get", "remote"])
+            check(code == 0 and json.loads(out)["description"] == "7g", f"project get: {out}")
+        finally:
+            watching.set()
+            stop.set()
+            os.environ.pop("POLYAXON_STREAMS_URL", None)
+            if agent.is_alive():
+                agent.join(timeout=REMOTE_READY_S)
+            if watcher is not None:
+                watcher.join(timeout=30)
+            _stop_child(child)
+        check(bool(lags), "the watcher saw no event")
+        line["watch_lag_s"] = {"n": len(lags), "max": max(lags), **_percentiles(lags)}
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    return launches
+
+
 def pipeline_polyaxonfile() -> dict:
     """The pipeline phase's `dag` operation: 7c's component with the
     learning rate as an input, swept by `search`, then `train-best`."""
@@ -6498,7 +6793,7 @@ def main(argv: list) -> int:
     stamp("train-vs-einsum")
     for phase, tag in ((phase_train_resume, "train-resume"), (phase_cli, "cli"),
                        (phase_sweep, "sweep"), (phase_pipeline, "pipeline"),
-                       (phase_sched, "sched"),
+                       (phase_sched, "sched"), (phase_remote, "remote"),
                        (phase_train_rules, "train-rules"), (phase_train_zoo, "train-zoo"),
                        (phase_train_zoo_context, "train-zoo-context"),
                        (phase_train_zoo_mesh, "train-zoo-mesh")):

@@ -11,6 +11,10 @@ port runs, with their flags, output lines and exit codes.
                                  stats, trace, query, version
     python -m polyaxon_tpu_torch agent start|drain, queues ls|set,
                                  fleet init|show|quota set|ls|rm
+    python -m polyaxon_tpu_torch streams start [--host H] [--port P]
+                                 [--federate SLUG=URL]...
+    python -m polyaxon_tpu_torch project create|ls|get, top [--url U]
+                                 [--interval S] [--once], store migrate|recover
 
 Runs go to the card unless `POLYAXON_TORCH_DEVICE=cpu`. An error exits 1
 with `Error: <message>` on stderr, a usage error exits 2 (as click's do).
@@ -23,9 +27,14 @@ a `dag` runs through the executor, and a `schedule:` is registered for the
 agent (`agent start` fires it). `agent start|drain`, `queues ls|set` and
 `fleet init|show|quota` drive the scheduler (`scheduler/`), and `serve
 --replicas` places its slots through the fleet when one is configured.
-What is not ported is refused with an error naming ROADMAP.md:
-connections, a remote control plane (`streams_url`) and `agent start
---cluster` (k8s/).
+
+With a remote control plane (`config set streams_url http://host:8585` or
+`POLYAXON_STREAMS_URL`), `run` POSTs the operation to that streams server
+(`streams/server.py`, started by `streams start`) for the agent draining
+its store, and every `ops` verb goes over HTTP (`RunClient(base_url=)`);
+a schedule or a sweep is refused there, and `restart|resume|copy` clone
+through the local store, as the reference's do. What is not ported is refused with an error naming
+ROADMAP.md: connections and `agent start --cluster` (k8s/).
 
 `main(argv) -> int` runs in-process (the tests and `chip_smoke.py` drive
 it so).
@@ -50,8 +59,6 @@ from ..polyaxonfile.reader import PolyaxonfileError, read_polyaxonfile
 from ..schemas.lifecycle import V1Statuses
 from ..store import RunStore
 from ..store.local import UnknownRunError
-
-_ROADMAP = "is not ported to PyTorch yet (see ROADMAP.md)"
 
 
 class ClickException(Exception):
@@ -119,11 +126,9 @@ def cmd_run(a):
         raise ClickException(str(e))
     if a.name:
         op = op.copy(name=a.name)
-    if settings.get("streams_url"):
-        raise NotImplementedError(
-            f"submitting to a remote control plane (streams_url; client/'s HTTP "
-            f"transport, streams/) {_ROADMAP}; unset streams_url to execute locally"
-        )
+    remote_url = settings.get("streams_url")
+    if remote_url:
+        return _run_remote(a, op, str(remote_url))
     store = RunStore()
     if op.schedule is not None:
         from ..scheduler import ScheduleError, ScheduleRegistry
@@ -179,6 +184,33 @@ def cmd_run(a):
         return 1
     if a.watch:
         echo(store.read_logs(compiled.run_uuid))
+
+
+def _run_remote(a, op, url: str):
+    """POST the operation to the control plane at `url`, whose agent runs
+    it; with --watch wait for it and print its logs (exit 1 on failed)."""
+    from ..client import RunClient
+
+    if op.schedule is not None or op.matrix is not None:
+        # registering them here would target this host's store, not the
+        # one the remote agent drains
+        raise ClickException(
+            "schedules and sweeps can't be submitted to a remote control "
+            "plane from the CLI yet; run them on the server host, or "
+            "unset streams_url to execute locally"
+        )
+    client = RunClient(base_url=url, project=a.project)
+    try:
+        uuid = client.create(op)
+        echo(f"run {uuid[:8]} created on {url}")
+        if a.watch:
+            status = client.wait(uuid, timeout=86400)
+            echo(f"run {uuid[:8]} finished: {status}")
+            echo(client.logs(uuid))
+            if status == V1Statuses.FAILED:
+                return 1
+    except (ClientError, TimeoutError) as e:
+        raise ClickException(str(e))
 
 
 def cmd_check(a):
@@ -394,11 +426,8 @@ def _run_client():
     from .. import settings
     from ..client import RunClient
 
-    if settings.get("streams_url"):
-        raise NotImplementedError(
-            f"a remote control plane (streams_url; client/'s HTTP transport) {_ROADMAP}"
-        )
-    return RunClient()
+    url = settings.get("streams_url")
+    return RunClient(base_url=str(url)) if url else RunClient()
 
 
 def cmd_ops_ls(a):
@@ -426,13 +455,17 @@ def cmd_ops_get(a):
     out = {
         "status": client.get(a.uid),
         "metrics_tail": client.metrics(a.uid)[-5:],
-        "spec": client.store.read_spec(client.store.resolve(a.uid)),
     }
+    if client._http is None:  # the spec only from the store itself
+        out["spec"] = client.store.read_spec(client.store.resolve(a.uid))
     echo(json.dumps(out, indent=1, default=str))
 
 
 def cmd_ops_logs(a):
-    _run_client()
+    client = _run_client()
+    if client._http is not None:
+        _remote_logs(client, a.uid, a.follow)
+        return
     store = RunStore()
     uid = store.resolve(a.uid)
     if a.follow:
@@ -440,6 +473,27 @@ def cmd_ops_logs(a):
             echo(chunk, nl=False)
     else:
         echo(store.read_logs(uid), nl=False)
+
+
+def _remote_logs(client, uid: str, follow: bool) -> None:
+    """The logs over HTTP; with `follow` polled by offset until the run
+    ends."""
+    import time
+
+    from ..schemas.lifecycle import DONE_STATUSES
+
+    if not follow:
+        echo(client.logs(uid), nl=False)
+        return
+    offset = 0
+    while True:
+        chunk = client.logs(uid, offset=offset)
+        if chunk:
+            echo(chunk, nl=False)
+            offset += len(chunk)
+        if client.get(uid).get("status") in DONE_STATUSES:
+            return
+        time.sleep(1.0)
 
 
 def cmd_ops_statuses(a):
@@ -520,7 +574,9 @@ def cmd_ops_delete(a):
 
 
 def _clone_cmd(a, kind):
-    client = _run_client()
+    from ..client import RunClient
+
+    client = RunClient()  # a clone copies outputs and lineage: the local store
     try:
         new_uuid = getattr(client, kind)(a.uid, queue=not a.eager)
     except CompilationError as e:
@@ -1204,6 +1260,67 @@ def cmd_fleet_quota_rm(a):
 
 
 # ------------------------------------------------------------------ parser
+def cmd_streams_start(a):
+    """Serve the run store over HTTP (runs, logs, metrics, events,
+    artifacts; POST /runs for the agent on this store)."""
+    from ..streams import serve
+
+    sources: dict[str, str] = {}
+    for spec in a.federate_specs:
+        slug, sep, src_url = spec.partition("=")
+        if not sep or not slug or not src_url:
+            raise ClickException(f"--federate takes SLUG=URL, got {spec!r}")
+        sources[slug] = src_url
+    serve(RunStore(), host=a.host, port=a.port, federate=sources or None)
+
+
+def cmd_project_create(a):
+    from ..client import ProjectClient
+
+    p = ProjectClient(RunStore()).create(a.name, a.description)
+    echo(f"project {p['name']} created")
+
+
+def cmd_project_ls(a):
+    from ..client import ProjectClient
+
+    for p in ProjectClient(RunStore()).list():
+        echo(f"{p['name']:<24} {p.get('runs', 0):>5} runs  {p.get('description', '')}")
+
+
+def cmd_project_get(a):
+    from ..client import ProjectClient
+
+    echo(json.dumps(ProjectClient(RunStore()).get(a.name), indent=1))
+
+
+def cmd_top(a):
+    """The live dashboard: fleet, the router's replicas, SLO burn, runs."""
+    from .top import run_top
+
+    run_top(RunStore(), a.url.rstrip("/"), interval=a.interval, once=a.once)
+
+
+def cmd_store_migrate(a):
+    """Import legacy per-run JSON directories into the event log and stamp
+    the layout version (idempotent)."""
+    store = RunStore()
+    before = store.store_format()
+    n = store.migrate()
+    echo(f"migrated {n} run(s); store format {before} -> {store.store_format()}")
+
+
+def cmd_store_recover(a):
+    """Heal interrupted appends, truncate torn tails, quarantine corrupt
+    segments and refresh the status views, of one run or the store."""
+    store = RunStore()
+    if a.uid is not None:
+        store.recover(store.resolve(a.uid))
+        echo(f"recovered {a.uid}")
+        return
+    echo(f"recovered {store.recover()} run(s)")
+
+
 def _uid(p, **kw):
     p.add_argument("-uid", "--uid", dest="uid", required=True, **kw)
 
@@ -1393,6 +1510,40 @@ def build_parser() -> argparse.ArgumentParser:
     p = qtsub.add_parser("rm")
     p.add_argument("scope")
     p.set_defaults(func=cmd_fleet_quota_rm)
+
+    streams = sub.add_parser("streams", help="the HTTP service over the run store")
+    ssub = streams.add_subparsers(dest="streams_command", required=True, metavar="COMMAND")
+    p = ssub.add_parser("start")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8585)
+    p.add_argument("--federate", dest="federate_specs", action="append", default=[],
+                   metavar="SLUG=URL", help="a sibling registry to federate on /metricsz")
+    p.set_defaults(func=cmd_streams_start)
+
+    project = sub.add_parser("project", help="the project registry")
+    psub = project.add_subparsers(dest="project_command", required=True, metavar="COMMAND")
+    p = psub.add_parser("create")
+    p.add_argument("name")
+    p.add_argument("--description", default="")
+    p.set_defaults(func=cmd_project_create)
+    psub.add_parser("ls").set_defaults(func=cmd_project_ls)
+    p = psub.add_parser("get")
+    p.add_argument("name")
+    p.set_defaults(func=cmd_project_get)
+
+    p = sub.add_parser("top", help="live dashboard: fleet, router replicas, SLO burn, runs")
+    p.add_argument("--url", default="http://127.0.0.1:8080", help="router base URL")
+    p.add_argument("--interval", type=float, default=2.0, help="refresh interval (seconds)")
+    p.add_argument("--once", action="store_true", help="print one frame and exit")
+    p.set_defaults(func=cmd_top)
+
+    store = sub.add_parser("store", help="run-store maintenance")
+    stsub = store.add_subparsers(dest="store_command", required=True, metavar="COMMAND")
+    stsub.add_parser("migrate").set_defaults(func=cmd_store_migrate)
+    p = stsub.add_parser("recover")
+    p.add_argument("-uid", "--uid", dest="uid", default=None,
+                   help="one run only (default: the whole store)")
+    p.set_defaults(func=cmd_store_recover)
     return cli
 
 

@@ -1,5 +1,6 @@
-"""The run client over the local store (`run_client.py`)."""
+"""The run and project clients, over the local store or HTTP
+(`run_client.py`)."""
 
-from .run_client import ClientError, RunClient
+from .run_client import ClientError, ProjectClient, RunClient
 
-__all__ = ["ClientError", "RunClient"]
+__all__ = ["ClientError", "ProjectClient", "RunClient"]

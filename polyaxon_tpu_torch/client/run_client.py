@@ -1,9 +1,15 @@
-"""`RunClient`, the SDK surface over the local run store: an own copy of
-the local transport of `polyaxon_tpu/client/run_client.py`.
+"""`RunClient` and `ProjectClient`, the SDK surface: an own copy of
+`polyaxon_tpu/client/run_client.py`. Two transports behind one API:
 
-    client = RunClient()
+- local (the default): the file-backed run store itself;
+- HTTP (`base_url=`): the streams and control service
+  (`streams/server.py`): create and stop over POST, delete over DELETE,
+  status, logs, metrics, events, spec and artifacts over GET.
+
+    client = RunClient()                             # local
+    client = RunClient(base_url="http://host:8585")  # remote
     uuid = client.create(op)                # compile and queue it for an agent
-    uuid = client.create(op, queue=False)   # compile and run it here
+    uuid = client.create(op, queue=False)   # compile and run it here (local)
     client.logs(uuid); client.metrics(uuid); client.statuses(uuid)
     client.stop(uuid)
     client.resume(uuid, queue=False)        # a new run from the newest checkpoint
@@ -11,43 +17,76 @@ the local transport of `polyaxon_tpu/client/run_client.py`.
 `restart`, `copy` and `resume` make a new run from the source's stored
 operation (with `cloned_from`/`clone_kind` in its meta and a `lineage`
 event on the source), queued for an agent (`queue=True`, the default:
-`scheduler/agent.py::Agent.submit`) or run in this process. The
-reference's HTTP transport (`base_url=`, a remote control plane) is not
-ported (ROADMAP.md).
+`scheduler/agent.py::Agent.submit`) or run in this process. They need
+the store: over HTTP alone (no `store=`) they raise `ClientError`.
 """
 
 from __future__ import annotations
 
+import json
 import shutil
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from ..schemas.lifecycle import DONE_STATUSES, V1Statuses
 from ..schemas.operation import V1Operation
 from ..store import RunStore
-
-_ROADMAP = "is not ported to PyTorch yet (see ROADMAP.md)"
 
 
 class ClientError(Exception):
     pass
 
 
+class _HttpTransport:
+    """JSON over HTTP to the streams service; an error status raises
+    `ClientError` with the server's `error` detail."""
+
+    def __init__(self, base_url: str):
+        self.base_url = base_url.rstrip("/")
+
+    def get(self, path: str) -> Any:
+        return self.request("GET", path)
+
+    def post(self, path: str, body: Optional[dict] = None) -> Any:
+        return self.request("POST", path, body or {})
+
+    def request(self, method: str, path: str, body: Optional[dict] = None) -> Any:
+        return json.loads(self.fetch(method, path, body))
+
+    def fetch(self, method: str, path: str, body: Optional[dict] = None) -> bytes:
+        """The raw response body of `method path`."""
+        data = None if body is None and method == "GET" else json.dumps(body or {}).encode()
+        req = urllib.request.Request(self.base_url + path, data=data, method=method,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req) as r:
+                return r.read()
+        except urllib.error.HTTPError as e:
+            detail = ""
+            try:
+                detail = ": " + json.loads(e.read()).get("error", "")
+            except Exception:  # noqa: BLE001 — the detail is best-effort
+                pass
+            raise ClientError(f"{method} {path}: HTTP {e.code}{detail}") from e
+        except urllib.error.URLError as e:
+            raise ClientError(f"{method} {path}: {e.reason}") from e
+
+
 class RunClient:
     def __init__(self, base_url: Optional[str] = None, store: Optional[RunStore] = None,
                  project: str = "default", device=None):
-        if base_url:
-            raise NotImplementedError(
-                f"a remote control plane (base_url, client/'s HTTP transport) {_ROADMAP}"
-            )
         self.project = project
         self.device = device
-        self._store = store if store is not None else RunStore()
-        self._http = None  # the local transport only
+        self._http = _HttpTransport(base_url) if base_url else None
+        self._store = store if store is not None else (None if base_url else RunStore())
 
     @property
     def store(self) -> RunStore:
+        if self._store is None:
+            raise ClientError("mutating operations need a local store (no base_url mode)")
         return self._store
 
     # ---------------------------------------------------------------- write
@@ -94,6 +133,9 @@ class RunClient:
     def create(self, op: V1Operation, *, queue: bool = True) -> str:
         """Submit an operation: queued for the agent draining this store
         (`queue=True`), or run here to completion (`queue=False`)."""
+        if self._http:  # the service queues it for the agent draining its store
+            return self._http.post("/runs", {"operation": op.to_dict(),
+                                             "project": self.project})["uuid"]
         if queue:
             return self._agent().submit(op, project=self.project)
         compiled = self._submit(op)
@@ -101,11 +143,17 @@ class RunClient:
         return compiled.run_uuid
 
     def stop(self, uuid: str):
+        if self._http:
+            self._http.post(f"/runs/{uuid}/stop")
+            return
         self.store.request_stop(self.store.resolve(uuid))
 
     def delete(self, uuid: str, *, cascade: bool = False):
         """Permanently delete a finished run's data (`cascade` for a sweep's
         trials)."""
+        if self._http:
+            self._http.request("DELETE", f"/runs/{uuid}" + ("?cascade=true" if cascade else ""))
+            return
         self.store.delete_run(self.store.resolve(uuid), cascade=cascade)
 
     # ------------------------------------------------- restart/resume/copy
@@ -195,38 +243,64 @@ class RunClient:
 
     # ---------------------------------------------------------------- read
     def _resolve(self, uuid: str) -> str:
+        if self._http:
+            return uuid  # the server resolves short uuids
         return self.store.resolve(uuid)
 
     def list(self, project: Optional[str] = None) -> list[dict]:
+        if self._http:
+            return self._http.get("/runs" + (f"?project={project}" if project else ""))
         return self.store.list_runs(project)
 
     def get(self, uuid: str) -> dict:
-        return self.store.get_status(self._resolve(uuid))
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/status")
+        return self.store.get_status(uuid)
 
     def statuses(self, uuid: str) -> list[dict]:
         return self.get(uuid).get("conditions", [])
 
     def logs(self, uuid: str, offset: int = 0) -> str:
-        return self.store.read_logs(self._resolve(uuid))[offset:]
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/logs?offset={offset}")["logs"]
+        return self.store.read_logs(uuid)[offset:]
 
     def metrics(self, uuid: str) -> list[dict]:
-        return self.store.read_metrics(self._resolve(uuid))
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/metrics")
+        return self.store.read_metrics(uuid)
 
     def events(self, uuid: str) -> list[dict]:
-        return self.store.read_events(self._resolve(uuid))
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/events")
+        return self.store.read_events(uuid)
 
     def spec(self, uuid: str) -> dict:
-        return self.store.read_spec(self._resolve(uuid)) or {}
+        """The run's compiled spec (remotely GET /runs/<uuid>/spec)."""
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/spec") or {}
+        return self.store.read_spec(uuid) or {}
 
     def artifacts(self, uuid: str) -> list[str]:
-        root = self.store.outputs_dir(self._resolve(uuid))
+        uuid = self._resolve(uuid)
+        if self._http:
+            return self._http.get(f"/runs/{uuid}/artifacts")["files"]
+        root = self.store.outputs_dir(uuid)
         return [str(p.relative_to(root)) for p in sorted(root.rglob("*")) if p.is_file()]
 
     def download_artifact(self, uuid: str, path: str, dest) -> str:
-        """Copy one output artifact to `dest` (a local file path)."""
+        """Fetch one output artifact to `dest` (a local file path)."""
         uuid = self._resolve(uuid)
         dest = Path(dest)
         dest.parent.mkdir(parents=True, exist_ok=True)
+        if self._http:
+            dest.write_bytes(self._http.fetch("GET", f"/runs/{uuid}/artifacts/{path}"))
+            return str(dest)
         root = self.store.outputs_dir(uuid)
         src = (root / path).resolve()
         root_resolved = root.resolve()
@@ -244,3 +318,50 @@ class RunClient:
                 return status
             time.sleep(poll)
         raise TimeoutError(f"run {uuid} not done after {timeout}s")
+
+
+class ProjectClient:
+    """The project registry: `projects.json` under the store's home, plus
+    the implicit projects the index's runs name."""
+
+    def __init__(self, store: Optional[RunStore] = None):
+        self.store = store or RunStore()
+        self.path = self.store.home / "projects.json"
+
+    def _read(self) -> dict:
+        if self.path.exists():
+            return json.loads(self.path.read_text())
+        return {}
+
+    def _write(self, data: dict):
+        self.path.write_text(json.dumps(data, indent=1))
+
+    def create(self, name: str, description: str = "") -> dict:
+        projects = self._read()
+        if name in projects:
+            raise ClientError(f"project {name!r} already exists")
+        projects[name] = {"name": name, "description": description, "created_at": time.time()}
+        self._write(projects)
+        return projects[name]
+
+    def get(self, name: str) -> dict:
+        projects = self._read()
+        if name not in projects:
+            # an implicit project exists once a run names it
+            runs = self.store.list_runs(name)
+            if runs:
+                return {"name": name, "description": "(implicit)", "runs": len(runs)}
+            raise ClientError(f"unknown project {name!r}")
+        return {**projects[name], "runs": len(self.store.list_runs(name))}
+
+    def list(self) -> list[dict]:
+        projects = dict(self._read())
+        for rec in self.store.list_runs():
+            projects.setdefault(rec["project"], {"name": rec["project"],
+                                                 "description": "(implicit)"})
+        return [self.get(n) for n in sorted(projects)]
+
+    def delete(self, name: str):
+        projects = self._read()
+        projects.pop(name, None)
+        self._write(projects)

@@ -37,7 +37,7 @@ from torch.nn import functional as F
 from ..ops.attention import dot_product_attention, whole_sequence_attention
 from ..parallel.collectives import axis_group, axis_index, copy_to, reduce_from
 from ..parallel.ring import current_mesh, model_group as _model_group
-from .layers import Dense, LayerNorm, dropout, gelu
+from .layers import Dense, LayerNorm, dropout, gelu, rank_block
 
 
 def row_parallel(dense: Dense, h, group):
@@ -89,13 +89,10 @@ def split_attention(mod: nn.Module, x, memory=None, *, causal: bool = False,
 
 
 def block_dropout(h, rate: float, generator, seq_group=None):
-    """`layers.dropout` of a block's residual branch `h`; under `seq_group`
-    `h` is this rank's chunk of the sequence (dim 1) and the mask that of
-    the whole sequence, this rank's rows of it."""
-    if seq_group is None:
-        return dropout(h, rate, generator)
-    full = h.shape[1] * torch.distributed.get_world_size(seq_group)
-    return dropout(h, rate, generator, seq_chunk=(full, sequence_chunk(full, seq_group)))
+    """`layers.dropout` of a block's residual branch `h`: this rank's
+    rows of the batch, and under `seq_group` its chunk of the sequence
+    (dim 1), of the mask drawn for the global batch and sequence."""
+    return dropout(h, rate, generator, block=rank_block(h, seq=seq_group is not None))
 
 
 class MultiHeadAttention(nn.Module):

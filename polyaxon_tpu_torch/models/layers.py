@@ -265,21 +265,57 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
 
-def dropout(x, rate: float, generator=None, seq_chunk=None):
+def dropout(x, rate: float, generator=None, block=None):
     """flax nn.Dropout in training: keep each element with probability
     1 - rate and scale it by 1 / (1 - rate), the mask drawn from
     `generator` (its draws differ from jax.random's by construction).
-    `seq_chunk` (the whole length, this rank's slice): `x` is one rank's
-    chunk of a sequence (dim 1), and its mask is those rows of the mask
-    drawn for the whole sequence."""
+    `block` (`rank_block`): `x` is one rank's block of a tensor split over
+    a mesh, one (global size, this rank's slice) per leading dim, and its
+    mask is that block of the mask drawn at the global shape, so every
+    rank draws what one device would and keeps its own part: k times its
+    own share in time and transient memory, k the number of blocks."""
     keep_prob = 1.0 - rate
-    if seq_chunk is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    else:
-        full, rows = seq_chunk
-        shape = (x.shape[0], full, *x.shape[2:])
-        keep = (torch.rand(shape, generator=generator, device=x.device) < keep_prob)[:, rows]
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    u = draw_block(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                   x.shape, block)
+    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def draw_block(sample, shape, block=None):
+    """`sample(shape)` where `block` is None, else `sample` of the global
+    shape `block` describes (`rank_block`), cut to this rank's block."""
+    if block is None:
+        return sample(shape)
+    full = sample((*(n for n, _ in block), *shape[len(block):]))
+    return full[tuple(rows for _, rows in block)]
+
+
+def rank_block(x, seq: bool = False):
+    """`dropout`'s `block` for `x` on the bound mesh: dim 0 holds this
+    rank's rows of the batch split over the batch axes (`batch`, `data`,
+    `fsdp` in mesh order, as `parallel.sharding.batch_sharding` splits
+    it; a gang's replicas are rows of `data`), and with `seq` dim 1 its
+    chunk of the sequence split over `context`. None off a mesh or where
+    neither is split. The ranks of `model`, `expert` and `pipeline` hold
+    the same tokens and get the same block."""
+    from ..parallel.collectives import axis_index
+    from ..parallel.mesh import BATCH_AXES, axis_sizes
+    from ..parallel.ring import current_mesh
+
+    mesh = current_mesh()
+    sizes = axis_sizes(mesh)
+    shards, index = 1, 0
+    for ax in sizes:
+        if ax in BATCH_AXES:
+            shards, index = shards * sizes[ax], index * sizes[ax] + axis_index(mesh, ax)
+    ctx = sizes.get("context", 1) if seq else 1
+    if shards == 1 and ctx == 1:
+        return None
+    B = x.shape[0]
+    block = [(B * shards, slice(index * B, (index + 1) * B))]
+    if ctx > 1:
+        S, c = x.shape[1], axis_index(mesh, "context")
+        block.append((S * ctx, slice(c * S, (c + 1) * S)))
+    return tuple(block)
 
 
 def seeded_init(root: nn.Module, seed: int, normal_002: tuple = ()) -> None:

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import Dense, dropout, seeded_init
+from .layers import Dense, dropout, rank_block, seeded_init
 
 
 class MLP(nn.Module):
@@ -37,5 +37,5 @@ class MLP(nn.Module):
         for i in range(self.n_hidden):
             x = torch.relu(getattr(self, f"dense_{i}")(x))
             if self.dropout_rate and self.training:
-                x = dropout(x, self.dropout_rate, dropout_generator)
+                x = dropout(x, self.dropout_rate, dropout_generator, block=rank_block(x))
         return self.head(x)

@@ -59,7 +59,7 @@ from ..parallel.collectives import (
 from ..parallel.mesh import BATCH_AXES, axis_sizes
 from ..parallel.ring import current_mesh
 from ..parallel.ring import model_group as _model_group
-from .layers import Dense, lecun_normal_, sow_loss, sowing
+from .layers import Dense, draw_block, lecun_normal_, rank_block, sow_loss, sowing
 
 
 class MoEFeedForward(nn.Module):
@@ -109,7 +109,10 @@ class MoEFeedForward(nn.Module):
         E, C = self.n_experts, self.capacity(S * axis_sizes(mesh).get("context", 1))
         logits = self.router(x).float()  # [B, S, E]
         if self.training and self.router_noise > 0:
-            noise = torch.randn(logits.shape, generator=generator, device=x.device)
+            # this rank's block of the global batch and sequence's noise
+            noise = draw_block(
+                lambda shape: torch.randn(shape, generator=generator, device=x.device),
+                logits.shape, rank_block(logits, seq=True))
             logits = logits + self.router_noise * noise
         probs = torch.softmax(logits, dim=-1)
         onehot = F.one_hot(probs.argmax(-1), E).float()  # [B, S, E]

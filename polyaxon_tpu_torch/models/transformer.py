@@ -108,7 +108,7 @@ from ..parallel.mesh import axis_sizes, batch_rows, is_decode_mesh
 from ..parallel.ring import current_mesh
 from ..parallel.ring import model_group as _model_group
 from ..parallel.sharding import constrain
-from .layers import dropout
+from .layers import dropout, rank_block
 from .lora import lora_delta, run_proj
 from .moe import MoEFeedForward
 from .quant import Int8Linear, Int8LoRALinear, dequantize_kv, project, quantize_kv
@@ -478,14 +478,14 @@ class Block(nn.Module):
         h = self.attention(self.attention_norm(x), cos, sin, cache=cache, plan=plan,
                            adapter_ix=adapter_ix)
         if rate:
-            h = dropout(h, rate, generator)
+            h = dropout(h, rate, generator, block=rank_block(h, seq=True))
         x = x + h
         if self.cfg.n_experts > 0:
             h = self.moe(self.mlp_norm(x), generator)
         else:
             h = self.mlp(self.mlp_norm(x), adapter_ix)
         if rate:
-            h = dropout(h, rate, generator)
+            h = dropout(h, rate, generator, block=rank_block(h, seq=True))
         return x + h
 
 

@@ -12,6 +12,13 @@
   their losses, and `ops delete` of the sweep needs `--cascade`;
 - each refusal is a clean `Error:` naming ROADMAP.md, exit 1, and a usage
   error exits 2;
+- with `POLYAXON_STREAMS_URL` set, `run --watch` and the `ops` verbs go
+  over HTTP to the port's streams server, an agent thread running the
+  job, and print the reference's lines against the reference's server
+  and agent; a remote sweep or schedule is refused as there;
+- `project create|ls|get` and `store migrate|recover` print the
+  reference's lines, and `top --once` its frame on one store with a stub
+  router;
 - `serve -uid` answers `/generate` with the greedy tokens of
   `ModelServer.from_run` on the same run, and `serve --pools 1:1` starts
   two CPU child processes (`python -m polyaxon_tpu_torch serve`) behind
@@ -443,10 +450,208 @@ def test_agent_start_fires_a_schedule_and_stats_shows_the_fleet(tmp_path):
     assert "reservation" not in out  # released on the terminal transition
 
 
-def test_remote_control_plane_is_refused(homes):
+def test_remote_control_plane_is_refused(homes, tmp_path):
+    """With streams_url set, `run` goes over HTTP: a server that does not
+    answer is a clean error, and a sweep or a schedule is refused before
+    any request, with the reference's message."""
     with _env(POLYAXON_STREAMS_URL="http://127.0.0.1:9"):
-        code, _, err = homes.ours("run", "-f", MNIST)
-    assert code == 1 and "streams_url" in err and "ROADMAP.md" in err
+        code, out, err = homes.ours("run", "-f", MNIST)
+        assert code == 1 and out == "" and err.startswith("Error: POST /runs: "), err
+        for name, body in (("remote-sweep", SWEEP), ("remote-sched", (
+                "kind: operation\nschedule: {kind: interval, frequency: 1}\n" + JOB))):
+            spec = _op_file(tmp_path, name, body)
+            (code, out, err), (rcode, rout, rerr) = (homes.ours("run", "-f", spec),
+                                                     homes.ref("run", "-f", spec))
+            assert code == rcode == 1 and out == rout == "", err
+            assert err == rerr and "remote control plane" in err
+
+
+REMOTE_JOB = ("kind: operation\nname: remote-job\ncomponent:\n  kind: component\n  run: "
+              "{kind: job, container: {command: ['sh', '-c', 'echo out-line']}}\n")
+
+
+def _remote(homes, home, server, agent, cli, argv_list):
+    """Each command of `argv_list` through `cli` with POLYAXON_STREAMS_URL
+    at `server` over `home`, an `agent` thread draining that store until
+    its first run ends → [(exit code, stdout, stderr)]."""
+    store = agent.store
+    done = threading.Event()
+
+    def finished():
+        runs = store.list_runs()
+        return done.is_set() or bool(runs and runs[0]["status"] in ("succeeded", "failed"))
+
+    with server as srv:
+        url = f"http://127.0.0.1:{srv.port}"
+        t = threading.Thread(target=agent.serve, kwargs=dict(poll_interval=0.1, stop_when=finished))
+        t.start()
+        try:
+            with _env(POLYAXON_STREAMS_URL=url, POLYAXON_HOME=str(home)):
+                return url, [cli(*argv) for argv in argv_list]
+        finally:
+            done.set()
+            t.join(timeout=30)
+
+
+def test_remote_run_watch_and_ops_over_http_like_the_reference(homes, tmp_path):
+    """`run --watch` POSTs the operation to the streams server, whose
+    agent thread runs it, then prints its logs; every `ops` verb rides
+    the same server. The port's server and agent against the reference's,
+    lines masked. `restart` with streams_url set clones through the local
+    store, as the reference's does."""
+    from polyaxon_tpu.scheduler import Agent as JaxAgent
+    from polyaxon_tpu.store.local import RunStore as JaxRunStore
+    from polyaxon_tpu.streams import BackgroundServer as JaxServer
+    from polyaxon_tpu_torch.scheduler import Agent
+    from polyaxon_tpu_torch.streams import BackgroundServer
+
+    spec = _op_file(tmp_path, "remote", REMOTE_JOB)
+    argv = [("run", "-f", spec, "--watch"), ("ops", "ls"), ("ops", "statuses", "-uid", "remote-job"),
+            ("ops", "metrics", "-uid", "remote-job"), ("ops", "logs", "-uid", "remote-job"),
+            ("ops", "get", "-uid", "remote-job"), ("ops", "stop", "-uid", "remote-job"),
+            ("ops", "artifacts", "-uid", "remote-job"),
+            ("ops", "delete", "-uid", "remote-job", "--yes"), ("ops", "ls")]
+    ours_home, ref_home = tmp_path / "remote-torch", tmp_path / "remote-jax"
+    store = RunStore(ours_home)
+    url, ours = _remote(homes, ours_home, BackgroundServer(store),
+                        Agent(store=store, devices=["cpu"]), homes.ours, argv)
+    jstore = JaxRunStore(ref_home)
+    rurl, ref = _remote(homes, ref_home, JaxServer(jstore), JaxAgent(store=jstore),
+                        lambda *a: homes.ref(*a), argv)
+    for args, (code, out, err), (rcode, rout, _) in zip(argv, ours, ref):
+        assert code == rcode == 0, (args, err)
+        assert _mask(out.replace(url, "URL")) == _mask(rout.replace(rurl, "URL")), args
+    code, out, _ = ours[0]
+    assert "created on http://127.0.0.1" in out and "finished: succeeded" in out
+    assert "out-line" in out and "out-line" in ours[4][1]
+    assert "succeeded" in ours[1][1] and "succeeded" in ours[2][1]
+    assert ours[-1][1] == "no runs\n"
+    with BackgroundServer(store) as srv, _env(POLYAXON_STREAMS_URL=f"http://127.0.0.1:{srv.port}"):
+        code, _, err = homes.ours("ops", "get", "-uid", "nosuchrun")
+        assert code == 1 and err.startswith("Error: GET /runs/nosuchrun/status: HTTP 404")
+    local = Homes(tmp_path / "clones")
+    assert local.ours("run", "-f", spec)[0] == local.ref("run", "-f", spec)[0] == 0
+    clones = []
+    for cli, server in ((local.ours, BackgroundServer(RunStore(local.ours_home))),
+                        (local.ref, JaxServer(JaxRunStore(local.ref_home)))):
+        with server as srv, _env(POLYAXON_STREAMS_URL=f"http://127.0.0.1:{srv.port}"):
+            clones.append([cli("ops", "restart", "-uid", "remote-job"), cli("ops", "ls")])
+    for (code, out, err), (rcode, rout, _) in zip(*clones):
+        assert code == rcode == 0, err
+        assert _mask(out) == _mask(rout)
+    assert "restart of" in clones[0][0][1] and "(succeeded)" in clones[0][0][1]
+    assert clones[0][1][1].count("succeeded") == 2
+
+
+def test_project_commands_print_the_reference_lines(tmp_path):
+    homes = Homes(tmp_path)
+    for argv in (["project", "ls"], ["project", "create", "vision", "--description", "cnn work"],
+                 ["project", "create", "vision"], ["project", "get", "vision"],
+                 ["project", "get", "nosuch"], ["run", "-f", _op_file(tmp_path, "p", "kind: operation\n" + JOB),
+                                                "--project", "implicit"],
+                 ["project", "ls"], ["project", "get", "implicit"]):
+        (code, out, err), (rcode, rout, rerr) = homes.ours(*argv), homes.ref(*argv)
+        assert code == rcode, (argv, err)
+        assert _mask(out) == _mask(rout), argv
+        assert err == rerr, argv
+
+
+class _StubRouter:
+    """A router's read surfaces with canned bodies: /statsz, /sloz and
+    /queryz (one series with points)."""
+
+    STATS = {"requests": 12, "retries": 1, "upstream_shed": 0, "errors": 2,
+             "latency_ms": {"p95": 41.5}, "routable": 1,
+             "cluster": {"queue_depth": 3.0, "inflight": 2, "queue_wait_ms_max": 7.25,
+                         "serving_requests": 11.0, "serving_shed": 0.0},
+             "replicas": [{"slug": "r0", "healthy": True, "queue_depth": 1, "queue_wait_ms": 2.5,
+                           "inflight": 1, "requests": 7},
+                          {"slug": "r1", "draining": True, "queue_depth": 0,
+                           "queue_wait_ms": 0.0, "inflight": 0, "requests": 5}]}
+    SLO = {"slos": [{"name": "ttft", "burn_rate": 0.5}, {"name": "errors", "burn_rate": 3.25,
+                                                         "breached": True}]}
+
+    def __enter__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):  # noqa: N802
+                path = self.path.split("?")[0]
+                body = {"/statsz": stub.STATS, "/sloz": stub.SLO}.get(path)
+                if path == "/queryz":
+                    body = ({"points": [[0, 1.0], [1, None], [2, 3.0], [3, 2.0]]}
+                            if "router.requests" in self.path else {"points": []})
+                data = json.dumps(body).encode()
+                self.send_response(200 if body is not None else 404)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def test_top_once_prints_the_reference_frame(tmp_path):
+    """`top --once` over one store and a stub router prints the frame of
+    the reference's `render_frame`, time masked; both packages' frames
+    name the runs."""
+    from polyaxon_tpu.cli import top as jax_top
+    from polyaxon_tpu.store.local import RunStore as JaxRunStore
+    from polyaxon_tpu_torch.cli import top
+
+    homes = Homes(tmp_path)
+    assert homes.ours("run", "-f", _op_file(tmp_path, "t", "kind: operation\n" + JOB), "--name", "done-run")[0] == 0
+    assert homes.ours("fleet", "init", "--chips", "2")[0] == 0
+    from polyaxon_tpu_torch.client import RunClient
+    from polyaxon_tpu_torch.schemas.operation import V1Operation
+
+    store = RunStore(homes.ours_home)
+    op = V1Operation.from_dict({"kind": "operation", "name": "waiting", "component": {
+        "kind": "component", "run": {"kind": "job", "container": {"command": ["true"]}}}})
+    RunClient(store=store, project="q").create(op)
+    with _StubRouter() as router:
+        homes.ref_home = homes.ours_home  # one store for both
+        (code, out, err), (rcode, rout, _) = (homes.ours("top", "--url", router.url, "--once"),
+                                              homes.ref("top", "--url", router.url, "--once"))
+        assert code == rcode == 0, err
+        assert _TIME.sub("T", out) == _TIME.sub("T", rout)
+        assert "\x1b" not in out and "waiting" in out and "r1" in out and "BREACHED" in out
+        assert "history  req/s" in out
+        # the frame from the reference's renderer, on the port's run table
+        runs, jruns = top._RunTable(), jax_top._RunTable()
+        runs.apply(store.read_events_since(None)[0])
+        jruns.apply(JaxRunStore(homes.ours_home).read_events_since(None)[0])
+        kw = dict(url=router.url, fleet=None, stats=router.STATS, slo=router.SLO, when="T",
+                  sparks=[("req/s", [1.0, None, 3.0])])
+        assert top.render_frame(runs=runs, **kw) == jax_top.render_frame(runs=jruns, **kw)
+    assert top.sparkline([1, 2, None, 8]) == jax_top.sparkline([1, 2, None, 8])
+    assert homes.ours("top", "--url", "http://127.0.0.1:9", "--once")[1].count("unreachable") == 1
+
+
+def test_store_migrate_and_recover_print_the_reference_lines(tmp_path):
+    import shutil
+
+    homes = Homes(tmp_path)
+    assert homes.ours("run", "-f", _op_file(tmp_path, "s", "kind: operation\n" + JOB), "--name", "kept")[0] == 0
+    shutil.copytree(homes.ours_home, homes.ref_home)
+    uid = _uid(homes, "ours", "kept")
+    for argv in (["store", "migrate"], ["store", "migrate"], ["store", "recover"],
+                 ["store", "recover", "-uid", uid[:8]], ["store", "recover", "-uid", "nosuch"]):
+        (code, out, err), (rcode, rout, rerr) = homes.ours(*argv), homes.ref(*argv)
+        assert code == rcode, (argv, err)
+        assert out == rout and err == rerr, argv
+    assert RunStore(homes.ours_home).get_status(uid)["status"] == "succeeded"
 
 
 def test_usage_errors_exit_2_like_the_reference(homes):

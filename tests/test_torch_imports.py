@@ -294,3 +294,18 @@ def test_cli_run_needs_the_card_unless_told_otherwise(monkeypatch, tmp_path, cap
     monkeypatch.setenv("POLYAXON_TORCH_DEVICE", "tpu")
     assert main(["version"]) == 1
     assert "POLYAXON_TORCH_DEVICE='tpu'" in capsys.readouterr().err
+
+
+CONTROL_PLANE = ("streams/__init__.py", "streams/server.py", "streams/openapi.py",
+                 "streams/ui.py", "tracking/run.py", "tracking/callbacks.py", "cli/top.py")
+
+
+@pytest.mark.parametrize("rel", CONTROL_PLANE)
+def test_control_plane_copies_stand_alone(rel):
+    """The streams server, the in-job tracking client, its callbacks and
+    `top` are own copies of JAX-free reference modules: nothing of the
+    reference, no torch and no transformers (the HF callback duck-types
+    `TrainerCallback`)."""
+    roots = _imported_roots(REPO / "polyaxon_tpu_torch" / rel)
+    assert not roots & set(FORBIDDEN), rel
+    assert not roots & {"torch", "transformers", "pydantic"}, rel

@@ -31,7 +31,12 @@ JAX Trainer on {context: 2}, which shards the token sequence over
 encoders run their self-attention on the ring, seq2seq gathers its
 encoder's memory for cross-attention, and the MLP's batch stays whole on
 both ranks. BERT with dropout trains on {context: 2} as the port does on
-one process: each rank's mask is its rows of the whole sequence's. The
+one process: each rank's mask is its rows of the whole sequence's. So do
+the flagship on {data: 2}, {fsdp: 2} and {context: 2}, BERT and the MLP
+on {data: 2}, at dropout 0.3 (each rank's mask its block of the global
+batch's and sequence's), the two ranks of {data: 2} given the same rows
+draw different masks, and the MoE router's noise on {data: 2} and
+{fsdp: 2} is each rank's rows of one process's. The
 gather (`parallel.collectives.gather_seq`) is held on a 2-rank world of
 its own: its forward concatenates the ranks' chunks, its backward sums
 the cotangents of each rank's slice (a reduce-scatter).
@@ -57,7 +62,7 @@ from polyaxon_tpu.schemas.run_kinds import V1Program as JaxProgram
 from polyaxon_tpu_torch.models import build_model
 from polyaxon_tpu_torch.models.convert import params_from_jax, zoo_layout
 from polyaxon_tpu_torch.runtime import Trainer
-from torch_mesh_workers import REPO, free_port, run_world
+from torch_mesh_workers import MOE_NOISE_SHAPE, REPO, free_port, run_world
 
 STEPS = 3
 ADAMW = {"name": "adamw", "learningRate": 3e-3,
@@ -100,6 +105,30 @@ CASES.update({f"{fam}-context2": (fam, CONTEXT_MESH) for fam in CONTEXT_FAMILIES
 # BERT with dropout on {context: 2}, against the port on one process
 DROPOUT_BERT = {**FAMILIES["bert"], "model": {"name": "bert", "config": {
     **FAMILIES["bert"]["model"]["config"], "dropout_rate": 0.3}}}
+# dropout 0.3 on every batch axis and `context`, each against the port on
+# one process from the same weights: family -> program
+DROPOUT = {
+    "bert": DROPOUT_BERT,
+    "mlp": {**FAMILIES["mlp"], "model": {"name": "mlp", "config": {
+        **FAMILIES["mlp"]["model"]["config"], "dropout_rate": 0.3}}},
+    "lm": program({"name": "transformer_lm", "config": dict(
+        dim=64, n_layers=1, n_heads=4, n_kv_heads=2, vocab_size=256, seq_len=64,
+        dropout_rate=0.3)},
+        {"name": "synthetic_text", "batchSize": 4, "config": {"seq_len": 64, "vocab_size": 256}}),
+}
+# name -> (family, mesh)
+DROPOUT_CASES = {
+    "dropout-bert-context2": ("bert", CONTEXT_MESH),
+    "dropout-bert-data2": ("bert", {"data": 2}),
+    "dropout-mlp-data2": ("mlp", {"data": 2}),
+    "dropout-lm-data2": ("lm", {"data": 2}),
+    "dropout-lm-context2": ("lm", CONTEXT_MESH),
+    "dropout-lm-fsdp2": ("lm", {"fsdp": 2}),
+}
+# the MoE router's noise on each batch axis: a module on 4 rows of 8
+# tokens, its weights from a seed
+MOE_NOISE_MESHES = {"data2": {"data": 2}, "fsdp2": {"fsdp": 2}}
+MOE_INPUTS = np.random.default_rng(4).normal(size=(4, 8, MOE_NOISE_SHAPE[0])).astype(np.float32)
 
 
 def _world(axes):
@@ -178,6 +207,42 @@ def _one_process(program, state):
     return one.run().history
 
 
+# the MLP's mask probe: both ranks of {data: 2} get these rows
+MASK_INPUTS = np.random.default_rng(3).normal(size=(4, 28, 28, 1)).astype(np.float32)
+MASK_SEED = 11
+
+
+def _one_forward(program, state, inputs):
+    """The training-mode output of `program`'s forward on one process, on
+    `inputs`, with the dropout seed `MASK_SEED`."""
+    one = Trainer(program, device="cpu")
+    one.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    one.module.train()
+    with torch.no_grad():
+        out, _, _ = one._apply(one._compute_params(), torch.from_numpy(inputs), MASK_SEED)
+    return out.numpy().copy()
+
+
+def _moe_noise_state():
+    from polyaxon_tpu_torch.models.moe import MoEFeedForward
+
+    rng = np.random.default_rng(6)
+    moe = MoEFeedForward(*MOE_NOISE_SHAPE)
+    return {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32)
+            for k, v in moe.state_dict().items()}
+
+
+def _moe_noise_one(state, inputs):
+    """The noisy MoE's training-mode output on one process, all rows."""
+    from polyaxon_tpu_torch.models.moe import MoEFeedForward
+
+    moe = MoEFeedForward(*MOE_NOISE_SHAPE, router_noise=1.0)
+    moe.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    moe.train()
+    with torch.no_grad():
+        return moe(torch.from_numpy(inputs), torch.Generator().manual_seed(MASK_SEED)).numpy()
+
+
 def _state(params, extra):
     return {k: v.numpy() for k, v in params_from_jax(
         params, None, extra.get("batch_stats")).items()}
@@ -206,18 +271,33 @@ def runs(tmp_path_factory):
                                                   "checkpointEvery": 2}},
         mesh_axes={"fsdp": 2}, state=_state(*trainer("resnet-fsdp2")[1:]),
         checkpoint_dir=ckpt))))
-    bert_state = _state(*trainers["bert", "data2"][1:])
-    by_world[2].append(("dropout-bert-context2", ("trainer_run", dict(
-        program=DROPOUT_BERT, mesh_axes=CONTEXT_MESH, state=bert_state))))
+    states = {fam: _state(*trainers[fam, "data2"][1:]) for fam in ("bert", "mlp")}
+    states["lm"] = {k: v.numpy() for k, v in build_model(
+        "transformer_lm", DROPOUT["lm"]["model"]["config"], device="cpu",
+        seed=0).module.state_dict().items()}
+    for name, (fam, axes) in DROPOUT_CASES.items():
+        by_world[2].append((name, ("trainer_run", dict(
+            program=DROPOUT[fam], mesh_axes=axes, state=states[fam]))))
+    by_world[2].append(("dropout-masks-mlp-data2", ("dropout_forward", dict(
+        program=DROPOUT["mlp"], mesh_axes={"data": 2}, state=states["mlp"],
+        inputs=MASK_INPUTS, seed=MASK_SEED))))
+    moe_state = _moe_noise_state()
+    for mesh, axes in MOE_NOISE_MESHES.items():
+        by_world[2].append((f"moe-noise-{mesh}", ("moe_noise_forward", dict(
+            mesh_axes=axes, state=moe_state, inputs=MOE_INPUTS, seed=MASK_SEED))))
     with ThreadPoolExecutor(1) as pool:  # the worlds, one after the other
         worlds = pool.submit(lambda: {n: run_world(n, [case for _, case in work])
                                       for n, work in by_world.items()})
-        dropout_one = pool.submit(_one_process, DROPOUT_BERT, bert_state)
+        one = {f"dropout-{fam}-one": pool.submit(_one_process, DROPOUT[fam], states[fam])
+               for fam in DROPOUT}
+        one["dropout-masks-one"] = pool.submit(_one_forward, DROPOUT["mlp"], states["mlp"],
+                                               np.concatenate([MASK_INPUTS] * 2))
         trainers.update({(fam, "context2"): _jax_family(fam, CONTEXT_MESH)
                          for fam in CONTEXT_FAMILIES})
         ran = {key: _jax_run(t[0]) for key, t in trainers.items()}
         per_world = worlds.result()
-    port = {"dropout-bert-one": dropout_one.result()}
+    port = {name: f.result() for name, f in one.items()}
+    port["moe-noise-one"] = _moe_noise_one(moe_state, MOE_INPUTS)
     for n, work in by_world.items():
         for i, (name, _) in enumerate(work):
             port[name] = [rank[i] for rank in per_world[n]]
@@ -341,6 +421,48 @@ def test_context_dropout_masks_are_one_devices(runs):
         for a, b in zip(ours, want):
             np.testing.assert_allclose(a["loss"], b["loss"], rtol=5e-5)
             np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=5e-5)
+
+
+@pytest.mark.parametrize("name", [n for n in DROPOUT_CASES if n != "dropout-bert-context2"])
+def test_dropout_masks_are_one_devices(runs, name):
+    """With dropout 0.3 on {data: 2} (the flagship, BERT, the MLP),
+    {fsdp: 2} and {context: 2} (the flagship), every rank trains as the port does on
+    one process from the same weights: each rank's mask is its block of
+    the mask drawn at the global batch and sequence."""
+    _, port, _ = runs
+    fam, _ = DROPOUT_CASES[name]
+    want = _rows(port[f"dropout-{fam}-one"])
+    assert len(want) == STEPS
+    for rank in port[name]:
+        ours = _rows(rank["history"])
+        assert len(ours) == len(want)
+        for a, b in zip(ours, want):
+            np.testing.assert_allclose(a["loss"], b["loss"], rtol=5e-5, err_msg=name)
+            np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=5e-5,
+                                       err_msg=name)
+
+
+def test_data_ranks_draw_different_masks(runs):
+    """Both ranks of {data: 2} forward the same rows with one seed: their
+    masks differ (each is its rows of the global batch's mask), and side
+    by side they are one process's forward of both ranks' rows."""
+    _, port, _ = runs
+    r0, r1 = port["dropout-masks-mlp-data2"]
+    assert r0.shape == r1.shape == (len(MASK_INPUTS), 10)
+    assert not np.allclose(r0, r1)
+    np.testing.assert_allclose(np.concatenate([r0, r1]), port["dropout-masks-one"],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", list(MOE_NOISE_MESHES))
+def test_moe_router_noise_is_one_devices(runs, mesh):
+    """The MoE router's noise on {data: 2} and {fsdp: 2}: each rank's is
+    its rows of the noise drawn for the global batch, so the ranks' outputs
+    side by side are one process's on all the rows."""
+    _, port, _ = runs
+    ranks = port[f"moe-noise-{mesh}"]
+    np.testing.assert_allclose(np.concatenate(ranks), port["moe-noise-one"],
+                               rtol=1e-5, atol=1e-6)
 
 
 _GATHER_RANK = """

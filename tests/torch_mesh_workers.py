@@ -166,6 +166,51 @@ def forward_grads(program, mesh_axes, state, tokens):
     return {"logits": _np(logits), "grads": grads}
 
 
+def dropout_forward(program, mesh_axes, state, inputs, seed):
+    """The training-mode output of the Trainer's forward on the mesh, on
+    `inputs` (this rank's rows) with the dropout seed `seed`."""
+    import torch
+
+    from polyaxon_tpu_torch.runtime import Trainer
+
+    trainer = Trainer(program, device="cpu", mesh_axes=mesh_axes)
+    trainer.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    trainer.module.train()
+    with torch.no_grad():
+        out, _, _ = trainer._apply(trainer._compute_params(), torch.from_numpy(inputs), seed)
+    trainer.close()
+    return _np(out)
+
+
+def moe_noise_forward(mesh_axes, state, inputs, seed):
+    """The training-mode output of a `MoEFeedForward` with router noise on
+    the bound mesh, on this rank's rows of `inputs` (world rank r holds
+    the r-th equal share), the noise drawn from a generator seeded
+    `seed`."""
+    import torch
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.models.moe import MoEFeedForward
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
+    from polyaxon_tpu_torch.parallel.ring import set_current_mesh
+
+    moe = MoEFeedForward(*MOE_NOISE_SHAPE, router_noise=1.0)
+    moe.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    moe.train()
+    rows = len(inputs) // dist.get_world_size()
+    mine = torch.from_numpy(inputs[dist.get_rank() * rows:][:rows])
+    set_current_mesh(build_mesh(mesh_axes))
+    try:
+        with torch.no_grad():
+            return _np(moe(mine, torch.Generator().manual_seed(seed)))
+    finally:
+        set_current_mesh(None)
+
+
+# (dim, ffn_dim, n_experts) of `moe_noise_forward`'s module
+MOE_NOISE_SHAPE = (16, 24, 4)
+
+
 def trainer_error(program, mesh_axes):
     """(type name, message) of what building a Trainer on the mesh
     raises, or None."""
